@@ -23,3 +23,9 @@ def _clear_jax_caches_per_module():
     would not have been hits anyway."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skipped "
+                   "on hosts without one")

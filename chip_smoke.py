@@ -10,23 +10,34 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
 2. Kernels vs their plain versions, on the card, at full TinyLlama-1.1B
    shapes in bf16 with B = 8 slots at mixed widths {0.25, 0.5, 1.0}:
    ``morph_matmul`` over the seven projections of one decoder layer plus a
-   width that is not tile-aligned; ``fused_decode_step`` on a 1024-row
-   cache at mixed positions, plain and int8-KV. Each is timed on the card
-   (device time of its kernels from ``torch.profiler``, L2 flushed before
-   every call; the CUDA-event time of the whole call, host launch gaps
-   included, is printed beside it) together with its plain version, a
+   width that is not tile-aligned, and again at the verify pass's shapes
+   (B = 8 x S = 5 rows); ``fused_decode_step`` on a 1024-row cache at mixed
+   positions, plain and int8-KV; ``fused_verify`` on a 512-row cache at
+   mixed committed counts, a bf16 cache with the linear mask (S = 5) and an
+   int8 cache with a (2, 2) token-tree mask (S = 7). Each is timed on the
+   card (device time of its kernels from ``torch.profiler``, L2 flushed
+   before every call; the CUDA-event time of the whole call, host launch
+   gaps included, is printed beside it) together with its plain version, a
    library yardstick where one PyTorch call computes the same function,
    and its bound from the H100 data sheet.
 3. End to end: full-width ``tinyllama-1.1b`` with seeded random weights
    through the port's ``ServingEngine`` (8 slots, a 24-request Poisson
-   trace, cache 512, prefill threshold 8, width and depth switches), once
-   unfused and once with ``fused=True``. Launch counters are zeroed just
-   before each drive and read just after it, and each path must show its
-   exact counts (unfused: 7 ``morph_matmul`` per decoder-layer step and no
-   ``fused_decode``; fused: 3 ``morph_matmul`` and 1 ``fused_decode``).
-   Also: the decode step at all-0.25 vs all-1.0 width, fused vs unfused token
-   agreement, and the smoke model on the card against the plain versions
-   on the CPU (a small-input reference).
+   trace, cache 512, prefill threshold 8, width and depth switches through
+   all 9 modes), five times: plain decode unfused and ``fused=True``, then
+   linear self-speculation (``SpecConfig(ks=(4,), min_accept_rate=0.0)``)
+   unfused greedy, fused greedy and fused at temperature 0.8 with top-k
+   50. Launch counters are zeroed just before each drive and read just
+   after it, and each path must show its exact counts, worked out from the
+   engine's own counters (plain steps, draft steps at the draft depth,
+   verify steps): unfused, 7 ``morph_matmul`` per decoder-layer step;
+   fused, 3 ``morph_matmul`` per layer-step, 1 ``fused_decode`` per decode
+   or draft layer-step and 1 ``fused_verify`` per verify layer-step.
+   Speculative drives report acceptance, tokens per verify launch per
+   slot, tick p50/p95 and the device time of the draft's scratch copy.
+   Also: the decode step at all-0.25 vs all-1.0 width, token agreement of
+   fused vs unfused and of speculative vs plain greedy, and the smoke model
+   on the card against the plain versions on the CPU (decode, prefill and
+   verify; a small-input reference).
 4. A ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -309,6 +320,184 @@ def check_fused_decode(torch, cfg, timer):
                 plain_ms=t_p, bound_ms=bound, bound_by=by, library_ms=None)
 
 
+def check_morph_matmul_verify(torch, cfg, timer, S=5):
+    """``morph_matmul`` at the unfused verify pass's shapes: B = 8 slots of
+    S = K+1 = 5 rows each, 40 rows per launch (five 8-row groups of the
+    kernel), for each projection of one decoder layer."""
+    from repro_torch.core import elastic
+    from repro_torch.kernels import morph_matmul as MM
+
+    B, dm, ff, qd, kvd = 8, cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = [
+        ("wq", dm, qd, act["q_dim"], None, 1),
+        ("wk/wv", dm, kvd, act["kv_dim"], None, 2),
+        ("attn wo", qd, dm, None, act["q_dim"], 1),
+        ("wi/wg", dm, ff, act["d_ff"], None, 2),
+        ("mlp wo", ff, dm, None, act["d_ff"], 1),
+    ]
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    max_err = 0.0
+    for name, K, N, an, ak, per_layer in cases:
+        x = torch.randn(B, S, K, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
+        got = MM.morph_matmul(x, w, an, ak)
+        want = MM.morph_matmul_plain(x, w, an, ak)
+        torch.cuda.synchronize()
+        ok, err = close(torch, got, want)
+        if not ok:
+            fail(f"morph_matmul verify shape {name} ({B}, {S}, {K}) x {N}: "
+                 f"max |err| {err:.3e}")
+        max_err = max(max_err, err)
+        t_k = timer.ms(lambda: MM.morph_matmul(x, w, an, ak))
+        t_p = timer.ms(lambda: MM.morph_matmul_plain(x, w, an, ak))
+        wb, x2 = w.to(torch.bfloat16), x.view(B * S, K)
+        t_l = timer.ms(lambda: torch.matmul(x2, wb))
+        an_h = [N] * B if an is None else an.tolist()
+        ak_h = [K] * B if ak is None else ak.tolist()
+        live_w = max(min(a, K) for a in ak_h) * max(min(a, N) for a in an_h)
+        nbytes = live_w * 4 + B * S * (K + N) * 2
+        ops = S * sum(2 * min(a, K) * min(n, N) for a, n in zip(ak_h, an_h))
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_BF16) * 1e3
+        log(f"  morph_matmul verify {name:7s} ({B}, {S}, {K:4d}) x {N:4d} "
+            f"max|err| {err:.3e}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
+            f"torch.matmul(bf16) {t_l:.4f} ms  bound {bound:.4f} ms (bytes)")
+        for k_, v_ in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound),
+                       ("library_ms", t_l)):
+            tot[k_] += v_ * per_layer
+    log(f"  morph_matmul at verify shape, one decoder layer (7 projections, "
+        f"{B * S} rows): kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms")
+    return dict(max_abs_err=max_err, **tot)
+
+
+def tree_np(branching):
+    """(node depths, additive ancestor mask) of a token tree with the given
+    branching per level in BFS order (node 0 the root): 0 where column j is
+    an ancestor-or-self of row i, -1e9 elsewhere. Built here in numpy, as
+    the reference's ``TreeTopology`` builds it."""
+    import numpy as np
+
+    parents, depths, frontier = [-1], [0], [0]
+    for lvl, b in enumerate(branching):
+        nxt = []
+        for node in frontier:
+            for _ in range(b):
+                nxt.append(len(parents))
+                parents.append(node)
+                depths.append(lvl + 1)
+        frontier = nxt
+    n = len(parents)
+    bias = np.full((n, n), -1e9, np.float32)
+    for i in range(n):
+        j = i
+        while j >= 0:
+            bias[i, j] = 0.0
+            j = parents[j]
+    return np.asarray(depths, np.int32), bias
+
+
+def check_fused_verify(torch, cfg, timer):
+    """The verify kernels vs ``fused_verify_plain`` at full TinyLlama shapes:
+    B = 8 slots, cache 512 with mixed committed counts, mixed widths; a bf16
+    cache with the linear mask (S = 5) and an int8 cache with a (2, 2)
+    token tree (S = 7). The main-path variant (bf16, linear) is timed."""
+    import dataclasses
+
+    from repro_torch.core import elastic
+    from repro_torch.kernels import fused_decode as FD
+    from repro_torch.models import layers as L
+
+    B, Sc = 8, 512
+    dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    params = {
+        "wq": torch.randn(dm, H * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wk": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wv": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wo": torch.randn(H * hd, dm, generator=gen, device="cuda") / math.sqrt(H * hd),
+    }
+    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 505], dtype=torch.int32,
+                       device="cuda")
+    depths, bias = tree_np((2, 2))
+    errs = {}
+    main = None
+    for variant, qcfg, nd, tb, S in (
+            ("bf16 linear", cfg, None, None, 5),
+            ("int8 tree(2,2)", dataclasses.replace(cfg, kv_quant=True),
+             depths, bias, len(depths))):
+        k = torch.randn(B, Sc, KV, hd, generator=gen, device="cuda")
+        v = torch.randn(B, Sc, KV, hd, generator=gen, device="cuda")
+        if qcfg.kv_quant:
+            kq, ks = L.quantize_kv(k)
+            vq, vs = L.quantize_kv(v)
+            cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        else:
+            cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        before = {n: t.clone() for n, t in cache.items()}
+        x = torch.randn(B, S, dm, generator=gen, device="cuda").to(torch.bfloat16)
+        o_k, kv_k = FD.fused_verify(params, x, cache, pos, qcfg, active=act,
+                                    node_depth=nd, tree_bias=tb)
+        o_p, kv_p = FD.fused_verify_plain(params, x, cache, pos, qcfg,
+                                          act["q_dim"], act["kv_dim"], nd, tb)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, got, want in (("out", o_k, o_p), ("k", kv_k["k"], kv_p["k"]),
+                                ("v", kv_k["v"], kv_p["v"])):
+            ok, e = close(torch, got, want)
+            if not ok:
+                fail(f"fused_verify {variant} {name}: max |err| {e:.3e} beyond "
+                     f"rtol {RTOL_BF16:.2e} + atol {ATOL_BF16:.0e}")
+            err = max(err, e)
+        for n in cache:
+            if not torch.equal(cache[n], before[n]):
+                fail(f"fused_verify {variant} wrote the cache ({n})")
+        errs[variant] = err
+        t_v = timer.ms(lambda: FD.fused_verify(params, x, cache, pos, qcfg,
+                                               active=act, node_depth=nd,
+                                               tree_bias=tb))
+        log(f"  fused_verify {variant} (B={B}, S={S}, cache {Sc}): out/k/v "
+            f"max|err| {err:.3e} (rtol {RTOL_BF16:.2e} + atol "
+            f"{ATOL_BF16:.0e}); cache untouched; kernels {t_v:.4f} ms")
+        if main is None:
+            main = (x, cache, S)
+    x, cache, S = main
+
+    def run():
+        return FD.fused_verify(params, x, cache, pos, cfg, active=act)
+
+    t_k = timer.ms(run)
+    for name, t in sorted(timer.last.items(), key=lambda kv: -kv[1]):
+        log(f"    {t:.4f} ms  {name[:100]}")
+    t_kw = timer.wall_ms(run)
+    t_p = timer.ms(lambda: FD.fused_verify_plain(params, x, cache, pos, cfg,
+                                                 act["q_dim"], act["kv_dim"]))
+    aq, akv = act["q_dim"].tolist(), act["kv_dim"].tolist()
+    lens = [min(p, Sc) for p in pos.tolist()]
+    nbytes = ((dm * (max(aq) + 2 * max(akv)) + max(aq) * dm) * 4
+              + sum(lens) * KV * hd * 2 * 2 + 2 * B * S * dm * 2
+              + 2 * B * S * KV * hd * 2)
+    ops = sum(S * (2 * dm * (q + 2 * kv) + 2 * q * dm) + 4 * q * S * (n + S)
+              for q, kv, n in zip(aq, akv, lens))
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_F32) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_F32 else "operations"
+    full_bytes = ((dm * (H + 2 * KV) * hd + H * hd * dm) * 4
+                  + B * Sc * KV * hd * 2 * 2)
+    log(f"  fused_verify bf16 linear (B={B}, S={S}, one layer): kernels "
+        f"{t_k:.4f} ms (call, event-timed {t_kw:.4f} ms)  plain {t_p:.4f} ms"
+        f"  bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} GFLOP f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s); at full "
+        f"width with every slot at 512 rows: {full_bytes / 1e6:.1f} MB -> "
+        f"{full_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return dict(max_abs_err=max(errs.values()), ms=t_k, plain_ms=t_p,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -364,30 +553,94 @@ def step_width_ms(torch, engine, width: float, iters: int = 10):
     return host, sum(per.values()) / iters / 1e3
 
 
+def spec_tick_ms(torch, engine, iters: int = 5):
+    """One speculative tick at full depth (K-token draft at the exit depth,
+    then verify + accept + commit), every slot at width 1.0, greedy: (host
+    ms per tick, device kernel ms per tick or None on the CPU)."""
+    from repro_torch.runtime.speculative import (draft_compile_key,
+                                                 verify_compile_key)
+
+    ctrl, cfg = engine.ctrl, engine.cfg
+    d = cfg.n_groups
+    plan = engine._spec_plan[d]
+    draft = ctrl.aux_step(draft_compile_key(plan.draft_depth, SPEC_K))
+    verify = ctrl.aux_step(verify_compile_key(d, SPEC_K))
+    active = engine._active_for([1.0] * engine.batch_size)
+    cache = engine.executor.init_cache()
+    keys = engine.groups[d].keys
+    tok = torch.ones((engine.batch_size, 1), dtype=torch.int64,
+                     device=engine.device)
+
+    def tick():
+        dt, dl = draft(engine.params, cache, tok, active, keys, 0.0, 0)
+        verify(engine.params, cache, torch.cat([tok, dt], dim=1), dl, active,
+               keys, 0.0, 0)
+
+    tick()
+    sync(torch, engine.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tick()
+    sync(torch, engine.device)
+    host = (time.perf_counter() - t0) / iters * 1e3
+    if torch.device(engine.device).type != "cuda":
+        return host, None
+    per = kernel_us(torch, tick, iters)
+    return host, sum(per.values()) / iters / 1e3
+
+
 def sync(torch, device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
 
 
-def expected_launches(torch, layer_steps: int, fused: bool, device):
-    """Launch counts one drive must show: every decoder layer of every
-    decode step runs the 7 gated projections through ``morph_matmul``
-    unfused; fused, its attention is one ``fused_decode_step`` (whose output
-    projection is not a ``morph_matmul`` count) and its MLP 3 projections.
-    On the CPU the wrappers run their plain versions and count nothing."""
+def layer_steps(engine, steps0, cfg):
+    """Decoder-layer steps of one drive, from the engine's own counters:
+    plain decode steps (controller telemetry, one entry per step at the
+    mode it was attributed to) and, per speculative path (depth, draft
+    depth, K), its verify launches L: L * depth verify layer-steps and
+    L * K * draft depth draft layer-steps."""
+    plain = sum((engine.ctrl.telemetry[m.name].steps - steps0[m.name])
+                * m.depth * cfg.period for m in engine.ctrl.modes)
+    verify = draft = 0
+    for (d, dd, k), t in engine.spec_telemetry.items():
+        verify += t.launches * d * cfg.period
+        draft += t.launches * k * dd * cfg.period
+    return plain, draft, verify
+
+
+def expected_launches(torch, steps, fused: bool, device):
+    """Launch counts one drive must show. Unfused, every decoder layer of
+    every decode, draft and verify step runs its 7 gated projections
+    through ``morph_matmul``. Fused, attention is one ``fused_decode``
+    (decode and draft steps) or one ``fused_verify`` (verify steps), whose
+    output projections are not ``morph_matmul`` counts, and the MLP is 3
+    ``morph_matmul``. On the CPU the wrappers count nothing."""
+    plain, draft, verify = steps
     if torch.device(device).type != "cuda":
-        return {"morph_matmul": 0, "fused_decode": 0}
+        return {"morph_matmul": 0, "fused_decode": 0, "fused_verify": 0}
     if fused:
-        return {"morph_matmul": 3 * layer_steps, "fused_decode": layer_steps}
-    return {"morph_matmul": 7 * layer_steps, "fused_decode": 0}
+        return {"morph_matmul": 3 * (plain + draft + verify),
+                "fused_decode": plain + draft, "fused_verify": verify}
+    return {"morph_matmul": 7 * (plain + draft + verify), "fused_decode": 0,
+            "fused_verify": 0}
 
 
-def end_to_end(torch, cfg, device="cuda", n_requests=24,
+# path name -> (fused, speculative, temperature, top_k)
+PATHS = (("unfused", False, False, 0.0, 0), ("fused", True, False, 0.0, 0),
+         ("spec_unfused", False, True, 0.0, 0),
+         ("spec_fused", True, True, 0.0, 0),
+         ("spec_fused_t0.8_k50", True, True, 0.8, 50))
+SPEC_K = 4
+
+
+def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
                prompt_len=(16, 256), new_tokens=(32, 64), capacity=512):
     from repro_torch.kernels import fused_decode as FD
     from repro_torch.kernels import morph_matmul as MM
     from repro_torch.models.model import init_params
     from repro_torch.runtime.serving import ServingEngine, poisson_trace
+    from repro_torch.runtime.speculative import SpecConfig, draft_compile_key
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=device)
@@ -399,69 +652,121 @@ def end_to_end(torch, cfg, device="cuda", n_requests=24,
                           new_tokens=new_tokens, vocab=cfg.vocab_size)
     results = {}
     launches = {}  # path -> kernel -> launches in that path's drive
-    for fused in (False, True):
-        engine = ServingEngine(params, cfg, batch_size=8,
-                               cache_capacity=capacity, prefill_threshold=8,
-                               fused=fused, device=device)
+    counters = {"morph_matmul": (MM.launch_count, MM.reset_launch_count),
+                "fused_decode": (FD.launch_count, FD.reset_launch_count),
+                "fused_verify": (FD.verify_launch_count,
+                                 FD.reset_verify_launch_count)}
+    for tag, fused, spec, temp, top_k in PATHS:
+        # min_accept_rate 0: with random weights acceptance may be low, and
+        # the collapse fallback must not switch the path off
+        engine = ServingEngine(
+            params, cfg, batch_size=8, cache_capacity=capacity,
+            prefill_threshold=8, fused=fused, temperature=temp, top_k=top_k,
+            speculative=(SpecConfig(ks=(SPEC_K,), min_accept_rate=0.0)
+                         if spec else None), device=device)
         engine.warmup()
-        tag = "fused" if fused else "unfused"
         steps0 = {n: t.steps for n, t in engine.ctrl.telemetry.items()}
         # each path's counts cover exactly its own drive: zeroed just
         # before it, read just after
-        MM.reset_launch_count()
-        FD.reset_launch_count()
+        for _, reset in counters.values():
+            reset()
         wall, streams = drive(engine, trace, switch_every=12)
-        run_launches = {"morph_matmul": MM.launch_count(),
-                        "fused_decode": FD.launch_count()}
+        run_launches = {n: count() for n, (count, _) in counters.items()}
         launches[tag] = run_launches
-        # decoder layers run by the drive's decode steps (telemetry records
-        # one entry per step, at the mode it was attributed to)
-        layer_steps = sum(
-            (engine.ctrl.telemetry[m.name].steps - steps0[m.name])
-            * m.depth * cfg.period for m in engine.ctrl.modes)
-        want = expected_launches(torch, layer_steps, fused, device)
+        steps = layer_steps(engine, steps0, cfg)
+        want = expected_launches(torch, steps, fused, device)
         if run_launches != want:
             fail(f"{tag} path: launches {run_launches}, expected {want} for "
-                 f"{layer_steps} decoder-layer steps")
+                 f"(plain, draft, verify) decoder-layer steps {steps}")
+        if spec and not engine.spec_verify_launches:
+            fail(f"{tag} path: no speculative tick ran")
         gen = sum(len(s) for s in streams.values())
         if len(engine.completed) != len(trace):
-            fail(f"fused={fused}: {len(engine.completed)} of {len(trace)} done")
+            fail(f"{tag}: {len(engine.completed)} of {len(trace)} done")
         for r in trace:
             s = streams[r.rid]
             if len(s) != r.max_new_tokens or not all(0 <= t < cfg.vocab_size
                                                      for t in s):
-                fail(f"fused={fused}: request {r.rid} stream is malformed")
+                fail(f"{tag}: request {r.rid} stream is malformed")
         if engine.ctrl.stats["compiles"] != engine.compiles_after_warmup:
-            fail("a width/depth switch rebuilt a step")
+            fail(f"{tag}: a width/depth switch rebuilt a step")
         log(f"  e2e {tag}: {gen} tokens, {len(engine.completed)} requests in "
             f"{wall:.2f} s wall -> {gen / wall:.1f} tokens/s; "
-            f"{engine.decode_launches} decode steps, {engine.prefills} "
-            f"prefills, admission switches {len(engine.admission_switch_log)}")
+            f"{engine.decode_launches} decode steps, "
+            f"{engine.spec_verify_launches} speculative ticks, "
+            f"{engine.prefills} prefills, admission switches "
+            f"{len(engine.admission_switch_log)}")
         for name, t in sorted(engine.ctrl.telemetry_summary().items()):
             log(f"    mode {name:8s} steps {t['steps']:4d}  p50 "
                 f"{t['p50_ms']:8.3f} ms  p95 {t['p95_ms']:8.3f} ms")
-        log(f"    launches in this drive: morph_matmul "
-            f"{run_launches['morph_matmul']}, fused_decode "
-            f"{run_launches['fused_decode']} ({layer_steps} decoder-layer "
-            f"steps; as expected)")
-        narrow = min(cfg.elastic.width_fractions)
-        (h_n, d_n), (h_f, d_f) = (step_width_ms(torch, engine, narrow),
-                                  step_width_ms(torch, engine, 1.0))
-        dev_note = ("" if d_n is None else
-                    f"; device kernel time {d_n:.3f} ms vs {d_f:.3f} ms "
-                    f"(ratio {d_n / d_f:.3f}, idle share at w1.0 "
-                    f"{1 - d_f / h_f:.3f})")
-        log(f"    decode step at full depth, all slots w{narrow}: host "
-            f"{h_n:.3f} ms, all w1.0: {h_f:.3f} ms{dev_note}")
-        results[tag] = dict(streams=streams, tokens_per_s=gen / wall)
+        log(f"    launches in this drive: " + ", ".join(
+            f"{n} {c}" for n, c in run_launches.items())
+            + f" ((plain, draft, verify) decoder-layer steps {steps}; as "
+            f"expected)")
+        res = dict(streams=streams, tokens_per_s=gen / wall)
+        if spec:
+            tels = engine.spec_telemetry
+            drafted = sum(t.drafted for t in tels.values())
+            acc = sum(t.accepted for t in tels.values())
+            emitted = sum(t.emitted for t in tels.values())
+            slot_l = sum(t.slot_launches for t in tels.values())
+            h = engine._h_spec
+            res.update(accept_rate=acc / drafted,
+                       tokens_per_slot_launch=emitted / slot_l,
+                       tick_p50_ms=h.p50, tick_p95_ms=h.p95)
+            for path, t in engine.spec_telemetry_summary().items():
+                log(f"    spec {path}: launches {t['launches']}, accept "
+                    f"{t['accept_rate']:.4f}, tokens/launch/slot "
+                    f"{t['tokens_per_slot_launch']:.3f}")
+            scratch = ""
+            if timer is not None:
+                g = engine.groups[cfg.n_groups]
+                dd = engine._spec_plan[cfg.n_groups].draft_depth
+                draft = engine.ctrl.aux_step(draft_compile_key(dd, SPEC_K))
+                t_copy = timer.ms(lambda: draft.load_scratch(g.cache))
+                nbytes = sum(t.numel() * t.element_size()
+                             for layer in draft.scratch["stack"].values()
+                             for t in layer.values())
+                res["scratch_ms"] = t_copy
+                scratch = (f"; draft scratch copy (depth {dd}, "
+                           f"{nbytes / 1e6:.1f} MB) {t_copy:.4f} ms device")
+            log(f"    speculative: accept rate {res['accept_rate']:.4f}, "
+                f"tokens per verify launch per slot "
+                f"{res['tokens_per_slot_launch']:.3f}, tick p50 "
+                f"{h.p50:.3f} ms p95 {h.p95:.3f} ms{scratch}")
+            if temp == 0.0:
+                h_t, d_t = spec_tick_ms(torch, engine)
+                dev_note = ("" if d_t is None else
+                            f"; device kernel time {d_t:.3f} ms (idle share "
+                            f"{1 - d_t / h_t:.3f})")
+                log(f"    speculative tick at depth {cfg.n_groups} (K = "
+                    f"{SPEC_K} drafts + verify), all slots w1.0: host "
+                    f"{h_t:.3f} ms{dev_note}")
+        if not spec:
+            narrow = min(cfg.elastic.width_fractions)
+            (h_n, d_n), (h_f, d_f) = (step_width_ms(torch, engine, narrow),
+                                      step_width_ms(torch, engine, 1.0))
+            dev_note = ("" if d_n is None else
+                        f"; device kernel time {d_n:.3f} ms vs {d_f:.3f} ms "
+                        f"(ratio {d_n / d_f:.3f}, idle share at w1.0 "
+                        f"{1 - d_f / h_f:.3f})")
+            log(f"    decode step at full depth, all slots w{narrow}: host "
+                f"{h_n:.3f} ms, all w1.0: {h_f:.3f} ms{dev_note}")
+        results[tag] = res
         del engine
-    a, b = results["unfused"]["streams"], results["fused"]["streams"]
-    same = sum(x == y for r in a for x, y in zip(a[r], b[r]))
-    total = sum(len(a[r]) for r in a)
-    whole = sum(a[r] == b[r] for r in a)
-    log(f"  fused vs unfused: {same}/{total} tokens agree position-wise, "
-        f"{whole}/{len(a)} streams identical (f32 fused projections vs bf16 "
-        f"unfused weights; reported, not asserted)")
+
+    def agree(x, y, what):
+        a, b = results[x]["streams"], results[y]["streams"]
+        same = sum(u == w for r in a for u, w in zip(a[r], b[r]))
+        total = sum(len(a[r]) for r in a)
+        whole = sum(a[r] == b[r] for r in a)
+        log(f"  {x} vs {y}: {same}/{total} tokens agree position-wise, "
+            f"{whole}/{len(a)} streams identical ({what}; reported, not "
+            f"asserted)")
+
+    agree("unfused", "fused", "f32 fused projections vs bf16 unfused weights")
+    agree("spec_unfused", "unfused", "bf16 verify pass vs bf16 decode steps")
+    agree("spec_fused", "fused", "bf16 verify kernel vs bf16 decode kernel")
     return launches, results
 
 
@@ -478,7 +783,7 @@ def smoke_reference(torch):
     from repro_torch.configs import smoke_config
     from repro_torch.core import elastic
     from repro_torch.models.model import (decode_step, init_decode_cache,
-                                          init_params, prefill)
+                                          init_params, prefill, verify_step)
 
     cfg = smoke_config("tinyllama-1.1b")
     p_cpu = init_params(cfg, seed=3, device="cpu")
@@ -498,18 +803,57 @@ def smoke_reference(torch):
             pl, _ = prefill(p, {"tokens": toks[:1]}, cfg, cache_extra=4,
                             per_slot=True, slot=1, n_slots=2)
             lg.append(pl.float().cpu())
+            vl, pend = verify_step(p, cache, toks, cfg, active=act,
+                                   fused=fused)
+            lg += [vl.float().cpu(), pend["stack"]["pos0"]["k"].float().cpu()]
             outs.append(torch.cat([x.reshape(-1) for x in lg]))
         err = float((outs[0] - outs[1]).abs().max())
         if not math.isfinite(err) or err > ATOL_SMOKE:
             fail(f"smoke model fused={fused}: card vs CPU max |err| {err:.3e}")
         worst = max(worst, err)
-    log(f"  smoke model (f32) on the card vs plain versions on the CPU: "
-        f"max |logit err| {worst:.3e} (atol {ATOL_SMOKE:.0e})")
+    log(f"  smoke model (f32) on the card vs plain versions on the CPU "
+        f"(decode, prefill, verify): max |logit err| {worst:.3e} (atol "
+        f"{ATOL_SMOKE:.0e})")
 
 
 def _move(tree, dev):
     return {k: _move(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
+
+
+def unported_bounds():
+    """Least time on the card (H100 data sheet) of the TPU kernels still to
+    port, at the shapes ``benchmarks/kernel_bench.py`` runs them (flash
+    decode has no caller: ``tests/test_flash_decode.py``'s largest case).
+    f32 operands: bytes at 3.35 TB/s, operations at 67 TFLOP/s."""
+    out = {}
+
+    def put(name, nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
+        out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o
+                     else "operations", nbytes, ops)
+
+    # ssd_scan_bshn: x (2, 256, 4, 32), dt (2, 256, 4), B/C (2, 256, 1, 16),
+    # chunk 64; y and the final state (2, 4, 32, 16) out
+    b, sq, h, p, g, n, q = 2, 256, 4, 32, 1, 16, 64
+    nbytes = 4 * (2 * b * sq * h * p + b * sq * h + h + 2 * b * sq * g * n
+                  + b * h * p * n)
+    per_chunk = 2 * q * q * n + 2 * q * q * p + 4 * q * n * p + 2 * n * p
+    put("ssd_scan", nbytes, b * h * (sq // q) * per_chunk)
+    # flash_decode: BKV 2, group 4, S = kv_len = 128, hd 32
+    bkv, grp, sk, hd = 2, 4, 128, 32
+    put("flash_decode", 4 * (2 * bkv * grp * hd + 2 * bkv * sk * hd),
+        4 * hd * sk * bkv * grp)
+    # flash_attention_bshd: q (2, 256, 4, 64), k/v (2, 256, 2, 64), causal
+    b, sq, H, KV, hd = 2, 256, 4, 2, 64
+    nbytes = 4 * (2 * b * sq * H * hd + 2 * b * sq * KV * hd)
+    for window in (0, 64):
+        pairs = sum(min(i + 1, window or sq) for i in range(sq))
+        put(f"flash_attention win{window}", nbytes, 4 * hd * pairs * b * H)
+    for name, (ms, by, nbytes, ops) in out.items():
+        log(f"  bound {name}: {ms:.5f} ms ({by}; {nbytes / 1e6:.3f} MB, "
+            f"{ops / 1e6:.1f} MFLOP)")
+    return out
 
 
 def main(argv=None) -> int:
@@ -550,22 +894,24 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     log("[phase 2] kernels vs plain versions (full TinyLlama shapes, bf16)")
     mm = check_morph_matmul(torch, cfg, timer)
+    mmv = check_morph_matmul_verify(torch, cfg, timer)
     fd = check_fused_decode(torch, cfg, timer)
-    del timer
+    fv = check_fused_verify(torch, cfg, timer)
     torch.cuda.empty_cache()
 
-    launches = {"unfused": {"morph_matmul": None, "fused_decode": None},
-                "fused": {"morph_matmul": None, "fused_decode": None}}
+    names = ("morph_matmul", "fused_decode", "fused_verify")
+    launches = {p[0]: dict.fromkeys(names) for p in PATHS}
     if not args.skip_e2e:
         log("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
-        launches, _ = end_to_end(torch, cfg)
+        launches, _ = end_to_end(torch, cfg, timer)
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
     # the count from the path the kernel carries (morph_matmul: the default
-    # unfused engine; fused_decode: ``fused=True``); ``launches_by_path``
-    # gives every path's own count.
+    # unfused engine; fused_decode: ``fused=True``; fused_verify: greedy
+    # speculative ``fused=True``); ``launches_by_path`` gives every path's
+    # own count.
     status = "ok" if not args.skip_e2e else "ok (kernel checks only)"
     kernels = [
         dict(name="morph_matmul", route="cuda", status=status,
@@ -574,9 +920,11 @@ def main(argv=None) -> int:
              launches=launches["unfused"]["morph_matmul"],
              launches_by_path={p: c["morph_matmul"]
                                for p, c in launches.items()},
-             max_abs_err=mm["max_abs_err"], ms=mm["ms"],
-             plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
-             bound_by="bytes", library_ms=mm["library_ms"]),
+             max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"]),
+             ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
+             bound_by="bytes", library_ms=mm["library_ms"],
+             verify_shape={k: mmv[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")}),
         dict(name="fused_decode", route="cuda", status=status,
              source="src/repro_torch/csrc/fused_decode.cu",
              replaces="src/repro/kernels/fused_decode.py:377",
@@ -586,8 +934,20 @@ def main(argv=None) -> int:
              max_abs_err=fd["max_abs_err"], ms=fd["ms"],
              plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
              bound_by=fd["bound_by"], library_ms=None),
+        dict(name="fused_verify", route="cuda", status=status,
+             source="src/repro_torch/csrc/fused_verify.cu",
+             replaces="src/repro/kernels/fused_decode.py:621",
+             launches=launches["spec_fused"]["fused_verify"],
+             launches_by_path={p: c["fused_verify"]
+                               for p, c in launches.items()},
+             max_abs_err=fv["max_abs_err"], ms=fv["ms"],
+             plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
+             bound_by=fv["bound_by"], library_ms=None),
     ]
     log("[phase 4] summary")
+    log("  bounds of the TPU kernels still to port, at the reference's "
+        "benchmark shapes:")
+    unported_bounds()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ activate a subnetwork; nothing is reprogrammed. Here:
   width churn builds nothing new.
 
 ``MorphController`` records switch telemetry (build count, dispatch count,
-per-mode latency percentiles).
+per-mode latency percentiles) and keeps the auxiliary speculative steps
+(``register_aux`` / ``aux_step``).
 """
 from __future__ import annotations
 
@@ -120,6 +121,9 @@ class MorphController:
         self._factory = step_factory
         self._compile_key = compile_key
         self._compiled: Dict[Hashable, Callable] = {}
+        # auxiliary steps (speculative draft / verify), keyed by tuples
+        # disjoint from the per-depth decode keys
+        self._aux_factories: Dict[Hashable, Callable[[], Callable]] = {}
         self.stats = {"compiles": 0, "dispatches": 0, "switches": 0}
         self.telemetry: Dict[str, ModeTelemetry] = {m.name: ModeTelemetry()
                                                    for m in self.modes}
@@ -163,11 +167,36 @@ class MorphController:
             self.stats["compiles"] += 1
         return fn
 
+    def register_aux(self, key: Hashable, factory: Callable[[], Callable]) -> None:
+        """Register an auxiliary step (built at warmup or first use): one
+        draft per (draft_depth, K) and one verify per (depth, K). Keys name
+        steps, not variants: registering one twice is an error."""
+        if key in self._aux_factories or key in self._compiled:
+            raise KeyError(f"aux executable {key!r} already registered")
+        self._aux_factories[key] = factory
+
+    def aux_step(self, key: Hashable) -> Callable:
+        """The auxiliary step for ``key``, built on first use and counted in
+        ``stats['compiles']`` like any mode step."""
+        fn = self._compiled.get(key)
+        if fn is None:
+            fn = self._aux_factories[key]()
+            self._compiled[key] = fn
+            self.stats["compiles"] += 1
+        return fn
+
+    def aux_keys(self) -> Tuple[Hashable, ...]:
+        """Registered auxiliary keys."""
+        return tuple(self._aux_factories)
+
     def warmup(self) -> None:
-        """Pre-compile every distinct executable (the deploy-time 'single
-        bitstream'); modes sharing a compile key share one compile."""
+        """Build every distinct step (the deploy-time 'single bitstream'):
+        modes sharing a compile key share one build, then every registered
+        auxiliary step."""
         for m in self.modes:
             self._get(m)
+        for key in self._aux_factories:
+            self.aux_step(key)
 
     def __call__(self, *args, **kw):
         self.stats["dispatches"] += 1
@@ -217,17 +246,19 @@ def make_serve_controller(params, cfg: ModelConfig,
     one launch may mix widths across slots. ``ctrl.trace_counter["n"]``
     advances only when a step is built — the zero-rebuild invariant.
 
-    ``fused=True`` routes every attention decode through the fused decode
-    kernels; it is a closure flag, so compile keys are unchanged. Mesh
-    executors, speculative decoding and paged caches arrive with later
-    slices of the port and raise here.
+    ``speculative`` (a ``SpecConfig``) adds, through ``register_aux``, one
+    draft step per (draft_depth, K) and one verify step per (depth, K) of
+    ``ctrl.spec_plan``; they are built at warmup and advance
+    ``trace_counter`` once each.
+
+    ``fused=True`` routes every attention decode and verify through the
+    fused kernels; it is a closure flag, so compile keys are unchanged. Mesh
+    executors and paged caches arrive with later slices of the port and
+    raise here.
     """
     if mesh is not None:
         raise NotImplementedError("mesh serving arrives with the multi-device "
                                   "slice of the port")
-    if speculative is not None:
-        raise NotImplementedError("speculative serving arrives with the "
-                                  "speculative slice of the port")
     if paged_page_size:
         raise NotImplementedError("paged KV serving arrives with the paged "
                                   "slice of the port")
@@ -245,6 +276,38 @@ def make_serve_controller(params, cfg: ModelConfig,
 
     ctrl = MorphController(cfg, factory, modes, compile_key=lambda m: m.depth)
     ctrl.trace_counter = trace_counter
+    ctrl.spec_plan = {}
+    if speculative is not None:
+        # local import: the speculative module imports the model, and the
+        # serving runtime imports this module
+        from repro_torch.runtime import speculative as _spec
+
+        plan = _spec.spec_plan([m.depth for m in ctrl.modes], speculative)
+        ctrl.spec_plan = plan
+        top_k = speculative.top_k
+
+        def draft_factory(draft_depth: int, k: int):
+            def build():
+                trace_counter["n"] += 1
+                return _spec.make_draft_step(cfg, draft_depth, k, top_k,
+                                             fused=fused)
+            return build
+
+        def verify_factory(depth: int, k: int):
+            def build():
+                trace_counter["n"] += 1
+                return _spec.make_verify_step(cfg, depth, k, top_k,
+                                              fused=fused)
+            return build
+
+        for dd, k in sorted({(e.draft_depth, k) for e in plan.values()
+                             for k in e.ks}):
+            ctrl.register_aux(_spec.draft_compile_key(dd, k),
+                              draft_factory(dd, k))
+        for e in plan.values():
+            for k in e.ks:
+                ctrl.register_aux(_spec.verify_compile_key(e.depth, k),
+                                  verify_factory(e.depth, k))
     return ctrl
 
 

@@ -21,6 +21,12 @@ the output projection with ``active_k = a_q``. ``launch_count()`` counts
 fused_decode_step calls that launched them. Dense caches enter the attention
 kernel as a pool of one page per slot (page = slot, table = arange(B)), so
 any capacity works; paged caches arrive with the paged slice.
+
+``fused_verify`` is the same layer over S positions per slot (speculative
+verify, linear or token tree), with the contract of ``layers.mha_verify``:
+the cache is read only and the new K/V come back raw as candidates. On a
+CPU tensor it runs ``fused_verify_plain``; on CUDA tensors the three
+launches of ``csrc/fused_verify.cu``, counted by ``verify_launch_count()``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import morph_matmul as _mm
+from repro_torch.models.layers import _cache_kpos
 
 KERNEL_NEG_INF = -1e30  # running-max init (flash_decode convention)
 
@@ -180,11 +187,12 @@ def _lib():
     return qkv, attn
 
 
-def _attn_plan(heads: int, S: int):
+def _attn_plan(heads: int, S: int, max_splits: int = 1 << 30):
     """(splits, rows per split) of the cache rows for ``heads`` (slot, KV
-    head) pairs: enough blocks to fill the card, whole 64-row chunks."""
+    head) pairs: enough blocks to fill the card (at most ``max_splits`` per
+    pair), whole 64-row chunks."""
     chunks = max(1, -(-S // _CHUNK))
-    s = max(1, min(chunks, -(-_mm._TARGET_BLOCKS // heads)))
+    s = max(1, min(chunks, -(-_mm._TARGET_BLOCKS // heads), max_splits))
     per = -(-chunks // s)
     return -(-chunks // per), per * _CHUNK
 
@@ -287,8 +295,249 @@ def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
     return out
 
 
-def fused_verify(*args, **kwargs):
-    """Multi-position verify superkernel: arrives with the speculative slice
-    (``repro.kernels.fused_decode.fused_verify`` is its reference)."""
-    raise NotImplementedError("fused_verify arrives with the speculative "
-                              "slice of the port")
+# ---------------------------------------------------------------------------
+# verify: S positions per slot, read-only cache, raw K/V candidates out
+# ---------------------------------------------------------------------------
+
+_VERIFY_LAUNCHES = {"n": 0}
+_VERIFY_OPERANDS: Dict[tuple, tuple] = {}
+
+
+def verify_launch_count() -> int:
+    """fused_verify calls that launched the verify kernels (3 launches
+    each: QKV, attention, output projection)."""
+    return _VERIFY_LAUNCHES["n"]
+
+
+def reset_verify_launch_count() -> None:
+    _VERIFY_LAUNCHES["n"] = 0
+
+
+def ext_mask_np(offs: np.ndarray, window: int,
+                tree_bias: Optional[np.ndarray]) -> np.ndarray:
+    """(S, S) bool: may row s attend to new-KV column c? A linear window is
+    causal in offset; a tree uses its ancestor mask (``tree_bias == 0``).
+    Both honor the sliding window. Port of ``_ext_mask_np``."""
+    if tree_bias is None:
+        ok = offs[None, :] <= offs[:, None]
+    else:
+        ok = np.asarray(tree_bias) == 0.0
+    if window:
+        ok = ok & (offs[None, :] > offs[:, None] - window)
+    return np.ascontiguousarray(ok)
+
+
+def verify_operands(S: int, node_depth, tree_bias, window: int, device):
+    """(offs (S,) int32, ext_ok (S, S) int8) on ``device``: built once per
+    topology and cached, so a tree shares the kernel with linear verify."""
+    offs = (np.arange(S, dtype=np.int32) if node_depth is None
+            else np.array(node_depth, np.int32))  # a private, writable copy
+    tb = None if tree_bias is None else np.asarray(tree_bias, np.float32)
+    key = (offs.tobytes(), None if tb is None else tb.tobytes(), int(window),
+           str(device))
+    ops = _VERIFY_OPERANDS.get(key)
+    if ops is None:
+        ok = ext_mask_np(offs, window, tb)
+        ops = (torch.from_numpy(offs).to(device),
+               torch.from_numpy(ok.astype(np.int8)).to(device))
+        _VERIFY_OPERANDS[key] = ops
+    return ops
+
+
+def fused_verify_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None,
+                       node_depth=None, tree_bias=None):
+    """Plain PyTorch mirror of the verify kernels (f32 math, one softmax
+    over [cache, extension]): returns (out (B, S, d) in x's dtype,
+    {"k", "v"} raw candidates (B, S, KV, hd) in x's dtype). The cache is
+    read only. Non-quantized extension keys are attended in f32; with an
+    int8 cache through the absmax round trip (bf16 scale), as the TPU
+    kernel does (``fused_decode.py:660-673``)."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    dev = x.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
+    offs_t, ok_t = verify_operands(S, node_depth, tree_bias,
+                                   cfg.sliding_window, dev)
+    xf = x.float()
+
+    def proj(w, a):
+        y = xf @ w.float()
+        if a is not None:
+            cols = torch.arange(y.shape[-1], device=dev)[None, None, :]
+            y = torch.where(cols < a[:, None, None], y,
+                            torch.zeros((), device=dev))
+        return y
+
+    qpos = pos.long()[:, None] + offs_t.long()[None, :]  # (B, S)
+    q = proj(params["wq"], a_q).view(B, S, H, hd)
+    kn = proj(params["wk"], a_kv).view(B, S, KV, hd)
+    vn = proj(params["wv"], a_kv).view(B, S, KV, hd)
+    if cfg.use_rope:
+        q = _rope_rows(q.view(B * S, H, hd), qpos.reshape(-1),
+                       cfg.rope_theta).view(B, S, H, hd)
+        kn = _rope_rows(kn.view(B * S, KV, hd), qpos.reshape(-1),
+                        cfg.rope_theta).view(B, S, KV, hd)
+    quant = bool(cfg.kv_quant)
+    if quant:
+        def trip(t):
+            sc = t.abs().amax(-1, keepdim=True) / 127.0
+            return (torch.round(t / torch.clamp(sc, min=1e-8))
+                    * sc.to(torch.bfloat16).float())
+        ke, ve = trip(kn), trip(vn)
+        kc = cache["k"].float() * cache["k_scale"].float()
+        vc = cache["v"].float() * cache["v_scale"].float()
+    else:
+        ke, ve = kn, vn
+        kc, vc = cache["k"].float(), cache["v"].float()
+    Sc = kc.shape[1]
+    window = cfg.sliding_window
+    kpos = _cache_kpos(pos, Sc, window)  # (B, Sc)
+    qp = qpos[:, :, None]  # (B, S, 1)
+    valid = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qp)
+    if window:
+        valid = valid & (kpos[:, None, :] > qp - window)
+    scale = 1.0 / math.sqrt(hd)
+    neg = torch.full((), KERNEL_NEG_INF, device=dev)
+    qg = q.view(B, S, KV, G, hd)
+    s_c = torch.einsum("bskgd,bckd->bkgsc", qg, kc) * scale
+    vmask = valid[:, None, None]  # (B, 1, 1, S, Sc)
+    s_c = torch.where(vmask, s_c, neg)
+    s_e = torch.einsum("bskgd,bckd->bkgsc", qg, ke) * scale
+    emask = ok_t.bool()[None, None, None]  # (1, 1, 1, S, S)
+    s_e = torch.where(emask, s_e, neg)
+    m = torch.maximum(s_c.amax(-1, keepdim=True), s_e.amax(-1, keepdim=True))
+    p_c = torch.where(vmask, torch.exp(s_c - m), torch.zeros((), device=dev))
+    p_e = torch.where(emask, torch.exp(s_e - m), torch.zeros((), device=dev))
+    l = p_c.sum(-1, keepdim=True) + p_e.sum(-1, keepdim=True)
+    o = (torch.einsum("bkgsc,bckd->bskgd", p_c, vc)
+         + torch.einsum("bkgsc,bckd->bskgd", p_e, ve))
+    o = o / torch.clamp(l, min=1e-20).permute(0, 3, 1, 2, 4)
+    o = o.reshape(B, S, H * hd)
+    if a_q is not None:
+        cols = torch.arange(H * hd, device=dev)[None, None, :]
+        o = torch.where(cols < a_q[:, None, None], o,
+                        torch.zeros((), device=dev))
+    out = (o @ params["wo"].float()).to(dt)
+    return out, {"k": kn.to(dt), "v": vn.to(dt)}
+
+
+def _verify_lib():
+    lib = _build.load("fused_verify")
+    fn = lib.verify_attn_launch
+    if fn.argtypes is None:
+        lib.verify_qkv_launch.argtypes = (
+            [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 8 + [_P] * 3)
+        lib.verify_qkv_launch.restype = _I
+        fn.argtypes = ([_P] * 7 + [_I] + [_P] * 9 + [_I] * 12
+                       + [_F, _F, _P])
+        fn.restype = _I
+    return lib.verify_qkv_launch, fn
+
+
+def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
+                       tree_bias):
+    dev = x.device
+    B, S, dm = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
+    for name, t in (("x", x), ("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+        _mm._check(t, name, dev)
+    if not (wq.dtype == wk.dtype == wv.dtype):
+        raise TypeError("wq, wk and wv must share one dtype")
+    kc, vc = cache["k"], cache["v"]
+    Sc = kc.shape[1]
+    if tuple(kc.shape) != (B, Sc, KV, hd) or kc.shape != vc.shape:
+        raise ValueError(f"dense cache must be (B, S, KV, hd) = "
+                         f"{(B, Sc, KV, hd)}, got {tuple(kc.shape)}")
+    quant = bool(cfg.kv_quant)
+    for name, t in (("k", kc), ("v", vc)):
+        _mm._check(t, f"cache {name}", dev, tuple(_CACHE_CODE))
+    if (kc.dtype == torch.int8) != quant or vc.dtype != kc.dtype:
+        raise TypeError(f"cache dtype {kc.dtype} does not match "
+                        f"kv_quant={quant}")
+    if quant:
+        ks, vs = cache["k_scale"], cache["v_scale"]
+        for name, t in (("k_scale", ks), ("v_scale", vs)):
+            _mm._check(t, name, dev, (torch.bfloat16,))
+        ks_p, vs_p = ks.data_ptr(), vs.data_ptr()
+    else:
+        ks_p = vs_p = None
+    pos = pos.expand(B).contiguous() if pos.dim() == 0 else pos.contiguous()
+    _mm._check(pos, "pos", dev, (torch.int32,))
+    if not 0 < S <= _CHUNK:
+        raise ValueError(f"the verify kernel scores 1..{_CHUNK} positions "
+                         f"per slot, got S={S}")
+    offs, ext_ok = verify_operands(S, node_depth, tree_bias,
+                                   cfg.sliding_window, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    qkv_fn, attn_fn = _verify_lib()
+    qd, kvd = H * hd, KV * hd
+    R = B * S
+    q = torch.empty((R, qd), dtype=torch.float32, device=dev)
+    k = torch.empty((R, kvd), dtype=torch.float32, device=dev)
+    v = torch.empty((R, kvd), dtype=torch.float32, device=dev)
+    align = 16 if wq.dtype == torch.float32 else 8
+    vec = (qd % 4 == 0 and kvd % 4 == 0
+           and all(w.data_ptr() % align == 0 for w in (wq, wk, wv)))
+    splits, kps, ws, tickets = _mm.plan([qd, kvd, kvd], dm, R, dev)
+    err = qkv_fn(x.data_ptr(), _mm._DTYPE_CODE[x.dtype], wq.data_ptr(),
+                 wk.data_ptr(), wv.data_ptr(), _mm._DTYPE_CODE[wq.dtype],
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 _mm._gate_ptr(a_q, B, dev), _mm._gate_ptr(a_kv, B, dev),
+                 B, S, dm, qd, kvd, int(vec), splits, kps, _mm._ptr(ws),
+                 _mm._ptr(tickets), stream)
+    if err != 0:
+        raise RuntimeError(f"verify QKV kernel launch failed: CUDA error {err}")
+    att = torch.empty((R, qd), dtype=torch.float32, device=dev)
+    k_new = torch.empty((B, S, KV, hd), dtype=x.dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    rope_coef = float(np.float32(math.log(cfg.rope_theta) / (hd // 2)))
+    # the merge keeps one rescale per (split, query row) in a (G*S, hd)
+    # buffer: at most hd splits
+    splits, rows = _attn_plan(B * KV, Sc, max_splits=hd)
+    G = H // KV
+    ws_a = torch.empty(B * KV * splits * (2 * G * S + G * S * hd),
+                       dtype=torch.float32, device=dev)
+    err = attn_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kc.data_ptr(),
+                  vc.data_ptr(), ks_p, vs_p, _CACHE_CODE[kc.dtype],
+                  _identity_table(B, dev).data_ptr(), pos.data_ptr(),
+                  offs.data_ptr(), ext_ok.data_ptr(), att.data_ptr(),
+                  k_new.data_ptr(), v_new.data_ptr(), ws_a.data_ptr(),
+                  _mm._tickets(B * KV, dev).data_ptr(),
+                  _mm._DTYPE_CODE[x.dtype], B, H, KV, hd, S, 1, Sc,
+                  int(cfg.sliding_window), int(bool(cfg.use_rope)), splits,
+                  rows, rope_coef, 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        raise RuntimeError(f"verify attention kernel launch failed: "
+                           f"CUDA error {err}")
+    out = torch.empty((B, S, wo.shape[1]), dtype=x.dtype, device=dev)
+    _mm.launch(att.view(B, S, qd), wo, out, None, a_q, round_w=False)
+    return out, {"k": k_new, "v": v_new}
+
+
+def fused_verify(params, x, cache, pos, cfg, *, active=None, node_depth=None,
+                 tree_bias=None, pages=None, page_size=0):
+    """Fused verify of one attention layer over S positions per slot: same
+    contract as ``layers.mha_verify`` — returns (out (B, S, d), {"k", "v"}
+    raw candidates (B, S, KV, hd)); the cache is read, never written.
+    ``node_depth`` (S,) / ``tree_bias`` (S, S) select a token tree's
+    positions and ancestor mask (numpy); both default to the linear window.
+
+    On CPU tensors it runs ``fused_verify_plain``; on CUDA tensors the
+    three launches of ``csrc/fused_verify.cu`` (QKV, attention, output
+    projection through the morph_matmul kernel), or it raises."""
+    if pages is not None:
+        raise NotImplementedError("paged KV caches arrive with the paged "
+                                  "slice of the port")
+    B = x.shape[0]
+    a_q, a_kv = _gates(active, B, x.device)
+    if x.device.type == "cpu":
+        return fused_verify_plain(params, x, cache, pos, cfg, a_q, a_kv,
+                                  node_depth, tree_bias)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    out = _fused_verify_cuda(params, x.contiguous(), cache, pos, cfg, a_q,
+                             a_kv, node_depth, tree_bias)
+    _VERIFY_LAUNCHES["n"] += 1
+    return out

@@ -14,9 +14,13 @@ Two traffic shapes:
   * ``--budget-ms``: SLO-driven — the admission mode is chosen each tick as
     the widest mode whose predicted step latency fits the budget.
 
-``--trace-out trace.json`` writes Chrome trace-event JSON of every launch
-and request; ``--metrics-dump`` prints the metrics registry. Runs on the
-card (``--device cuda``, the default) unless ``--device cpu`` is given.
+``--spec-k K`` turns on linear self-speculative decoding (shallow exits
+draft K tokens, one full-depth pass verifies K+1 positions) and prints the
+acceptance telemetry; ``--temperature`` / ``--top-k`` sample instead of
+taking the argmax. ``--trace-out trace.json`` writes Chrome trace-event JSON
+of every launch and request; ``--metrics-dump`` prints the metrics
+registry. Runs on the card (``--device cuda``, the default) unless
+``--device cpu`` is given.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
@@ -33,6 +37,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.runtime.observability import Observability
 from repro_torch.runtime.serving import Request, ServingEngine, SLOPolicy
+from repro_torch.runtime.speculative import SpecConfig
 
 
 def main(argv=None):
@@ -51,7 +56,23 @@ def main(argv=None):
                          "prefill instead of token-by-token")
     ap.add_argument("--fused", action="store_true",
                     help="route attention layers through the fused decode "
-                         "kernels")
+                         "and verify kernels")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax); per-slot "
+                         "keys keep sampled streams reproducible under slot "
+                         "churn")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k sampling truncation (0 = full vocab)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding draft length K (0 = off): "
+                         "shallow exits draft K tokens, one full-depth pass "
+                         "verifies K+1 positions")
+    ap.add_argument("--spec-draft-depth", type=int, default=0,
+                    help="draft exit depth in layer groups (0 = deepest "
+                         "exit shallower than each serving depth)")
+    ap.add_argument("--spec-tree", default="",
+                    help="token-tree speculative decoding: arrives with the "
+                         "tree slice of the port")
     ap.add_argument("--trace-out", default="",
                     help="write Chrome trace-event JSON to this path")
     ap.add_argument("--metrics-dump", action="store_true",
@@ -65,21 +86,33 @@ def main(argv=None):
 
     if args.batch < 1:
         ap.error(f"--batch must be >= 1, got {args.batch}")
+    if args.spec_tree:
+        raise NotImplementedError("--spec-tree: token trees arrive with the "
+                                  "tree slice of the port")
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = init_params(cfg, seed=args.seed, device=device)
     modes = cfg.elastic.modes(cfg.n_groups)
     per_req = max(4, args.tokens // (2 * args.batch))
     n_requests = max(args.batch, (args.tokens + per_req - 1) // per_req)
-    capacity = per_req + 8
+    capacity = per_req + 8 + args.spec_k  # drafted-window headroom
+    speculative = None
+    if args.spec_k > 0:
+        speculative = SpecConfig(ks=(args.spec_k,),
+                                 draft_depth=args.spec_draft_depth or None,
+                                 top_k=args.top_k)
     obs = Observability(trace=bool(args.trace_out))
     engine = ServingEngine(params, cfg, batch_size=args.batch,
                            cache_capacity=capacity, modes=modes,
                            prefill_threshold=args.prefill_threshold,
+                           speculative=speculative,
+                           temperature=args.temperature, top_k=args.top_k,
                            fused=args.fused, observability=obs, device=device)
     print(f"[serve] {cfg.name} on {device}: modes = {[m.name for m in modes]} "
           f"requests={n_requests} x {per_req} tokens, batch={args.batch}"
-          f"{' fused' if args.fused else ''}")
+          f"{' fused' if args.fused else ''}"
+          f"{f' spec_k={args.spec_k}' if args.spec_k else ''}"
+          f"{f' temperature={args.temperature}' if args.temperature else ''}")
     engine.warmup()
     for i in range(n_requests):
         engine.submit(Request(rid=i, prompt=(1 + i % (cfg.vocab_size - 1),),
@@ -106,16 +139,26 @@ def main(argv=None):
           f"generated={generated} switches={ctrl.stats['switches']} "
           f"admission_switches={len(engine.admission_switch_log)} "
           f"recompiles_after_warmup=0 dispatches={ctrl.stats['dispatches']} "
-          f"executables={ctrl.stats['compiles']} (per depth) "
+          f"executables={ctrl.stats['compiles']} (per depth, plus draft "
+          f"and verify steps) "
           f"decode_launches={engine.decode_launches} "
           f"(per-mode baseline {engine.per_mode_launch_equiv}) "
           f"prefills={engine.prefills} "
+          f"spec_verify_launches={engine.spec_verify_launches} "
           f"tokens/s={generated / busy if busy else 0.0:.1f}")
     for name, t in ctrl.telemetry_summary().items():
         mode = ctrl.mode_by_name[name]
         frac = elastic.flops_fraction(cfg, mode)
         print(f"  mode {name:8s} p50 {t['p50_ms']:8.2f} ms  p95 {t['p95_ms']:8.2f} ms  "
               f"{t['tokens_per_s']:8.1f} tok/s  active-FLOPs {frac * 100:5.1f}%")
+    for path, t in engine.spec_telemetry_summary().items():
+        print(f"  spec {path:10s} accept {t['accept_rate'] * 100:5.1f}%  "
+              f"accepted/launch {t['accepted_per_launch']:.2f}  "
+              f"tokens/launch {t['tokens_per_launch']:.2f} "
+              f"(per-slot {t['tokens_per_slot_launch']:.2f})  "
+              f"launches {t['launches']}")
+    if engine.spec_fallback_log:
+        print(f"  spec fallbacks: {list(engine.spec_fallback_log)}")
     if args.trace_out:
         obs.recorder.write(args.trace_out)
         print(f"[serve] wrote {len(obs.recorder.events)} trace events to "

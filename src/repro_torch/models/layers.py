@@ -397,3 +397,91 @@ def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
     out = attention_full(q, k, v, cfg, qpos, kpos, causal=True)
     out = morph_proj(out.reshape(B, 1, cfg.q_dim), params["wo"], active_k=a_q)
     return out, cache
+
+
+# --- speculative verify (read-only cache) -----------------------------------
+
+
+def _cache_kpos(pos, n_slots: int, window: int):
+    """Absolute position of every cache slot given ``pos`` (B,) committed
+    tokens (the cache holds positions < pos only): (B, n_slots), with
+    unwritten / stale / rolled-over slots at -1e9 (masked)."""
+    idx = torch.arange(n_slots, device=pos.device)[None, :]
+    p = pos.long()[:, None]
+    if window:
+        last = p - 1  # newest committed absolute position (-1: none)
+        wraps = torch.where(idx <= torch.remainder(last, n_slots), 0, 1)
+        kpos = (torch.div(last, n_slots, rounding_mode="floor") - wraps) \
+            * n_slots + idx
+        return torch.where(kpos < 0, -10**9, kpos)
+    return torch.where(idx < p, idx, -10**9)
+
+
+def mha_verify(params, x, cache, pos, cfg: ModelConfig, *, active=None,
+               node_depth=None, tree_bias=None, pages=None, page_size=0,
+               fused=False):
+    """Speculative verify attention: score S positions in one pass.
+
+    x: (B, S, d) — the last committed token followed by S-1 draft tokens at
+    absolute positions ``pos + offs`` (``pos`` the (B,) committed counts,
+    ``offs = arange(S)`` or the tree's ``node_depth``). The cache is READ,
+    never written: the new K/V come back raw as candidates for
+    ``model.commit_verify``. Attention runs over [cache, new K/V] with
+    absolute-position masking (what sequential ``mha_decode`` would see,
+    rolling windows included); with an int8 cache the new entries are
+    attended through the quantize round trip that a cache read-back gives.
+    ``tree_bias`` (S, S) is the additive ancestor mask (0 / -inf) over the
+    new-KV block of a token tree.
+
+    Returns (out (B, S, d), {"k": k_new, "v": v_new} (B, S, KV, hd)).
+    ``fused=True`` routes through ``kernels.fused_decode.fused_verify``.
+    """
+    if pages is not None:
+        raise NotImplementedError("paged KV caches arrive with the paged "
+                                  "slice of the port")
+    if fused:
+        from repro_torch.kernels.fused_decode import fused_verify
+        return fused_verify(params, x, cache, pos, cfg, active=active,
+                            node_depth=node_depth, tree_bias=tree_bias)
+    dt = x.dtype
+    B, S, _ = x.shape
+    a_q = active.get("q_dim") if active else None
+    a_kv = active.get("kv_dim") if active else None
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    offs = (torch.arange(S, device=x.device) if node_depth is None
+            else torch.as_tensor(node_depth, dtype=torch.int64,
+                                 device=x.device))
+    qpos = pos.long()[:, None] + offs[None, :]  # (B, S)
+    q = _split_heads(morph_proj(x, params["wq"], active_n=a_q),
+                     cfg.n_heads, cfg.head_dim)
+    k_new = _split_heads(morph_proj(x, params["wk"], active_n=a_kv),
+                         cfg.n_kv_heads, cfg.head_dim)
+    v_new = _split_heads(morph_proj(x, params["wv"], active_n=a_kv),
+                         cfg.n_kv_heads, cfg.head_dim)
+    if cfg.use_rope:
+        q = rope(q, qpos, cfg.rope_theta)
+        k_new = rope(k_new, qpos, cfg.rope_theta)
+    quant = cfg.kv_quant and "k_scale" in cache
+    if quant:
+        kc = dequantize_kv(cache["k"], cache["k_scale"], dt)
+        vc = dequantize_kv(cache["v"], cache["v_scale"], dt)
+        # candidates stay raw; commit re-quantizes them to these same values
+        kq, ks_ = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        k_att, v_att = dequantize_kv(kq, ks_, dt), dequantize_kv(vq, vs, dt)
+    else:
+        kc, vc = cache["k"].to(dt), cache["v"].to(dt)
+        k_att, v_att = k_new, v_new
+    Sc = kc.shape[1]
+    kpos = torch.cat([_cache_kpos(pos, Sc, cfg.sliding_window), qpos], dim=1)
+    bias = None
+    if tree_bias is not None:
+        # cache columns stay position-masked only; the new-KV block gets the
+        # ancestor mask (siblings at one depth cannot see each other)
+        tb = torch.as_tensor(tree_bias, dtype=torch.float32, device=x.device)
+        bias = torch.cat([torch.zeros((S, Sc), device=x.device), tb], dim=1)
+    out = attention_full(q, torch.cat([kc, k_att], dim=1),
+                         torch.cat([vc, v_att], dim=1), cfg, qpos, kpos,
+                         causal=True, bias=bias)
+    out = morph_proj(out.reshape(B, S, cfg.q_dim), params["wo"], active_k=a_q)
+    return out, {"k": k_new, "v": v_new}

@@ -7,9 +7,11 @@ stacked on a leading ``n_groups`` axis. The ``lax.scan`` over groups
 becomes a Python loop over per-group views; the cache is updated in place
 through those views (JAX donates the cache buffer for the same effect).
 
-SSM, MoE, encoder-decoder and frontend families, paged caches, and the
-speculative verify / tree paths raise ``NotImplementedError`` naming the
-slice of the port they arrive with.
+Linear speculative decoding has ``verify_step`` (read-only scoring of K+1
+positions) and ``commit_verify`` (in-place masked commit). SSM, MoE,
+encoder-decoder and frontend families, paged caches, and the token-tree
+paths raise ``NotImplementedError`` naming the slice of the port they
+arrive with.
 """
 from __future__ import annotations
 
@@ -264,6 +266,134 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *,
     logits = _logits(params, h, cfg, _exit_norm(params, cfg, depth))
     pos.add_(1)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verify / commit
+# ---------------------------------------------------------------------------
+
+
+def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
+                  active=None, fused=False):
+    """One period of layers over S speculative positions (read-only cache).
+    Returns (h, per-layer K/V candidates for ``commit_verify``)."""
+    cand = {}
+    for p in range(cfg.period):
+        lp = group_params[f"pos{p}"]
+        hn = L.apply_norm(lp["norm1"], h, cfg)
+        mix, cand[f"pos{p}"] = L.mha_verify(lp["attn"], hn,
+                                            group_cache[f"pos{p}"], pos, cfg,
+                                            active=active, fused=fused)
+        h = h + mix
+        if cfg.d_ff:
+            hn = L.apply_norm(lp["norm2"], h, cfg)
+            h = h + L.apply_mlp(lp["mlp"], hn, cfg,
+                                active_ff=active.get("d_ff") if active else None)
+    return h, cand
+
+
+def verify_step(params, cache, tokens, cfg: ModelConfig, *,
+                depth: Optional[int] = None, active=None, pages=None,
+                page_size=0, fused=False):
+    """Speculative verifier: score S = K+1 positions in one pass.
+
+    ``tokens`` (B, S) is each slot's last committed token followed by its K
+    drafts. The per-slot cache (``pos`` (B,)) is read, never written.
+    Returns ``(logits (B, S, Vp), pending)``: ``logits[:, j]`` is the
+    next-token distribution after ``tokens[:, :j+1]`` (what j+1 chained
+    ``decode_step`` calls give), and ``pending = {"stack": {"pos0": {"k":
+    (d, B, S, KV, hd), "v": ...}}}`` the raw K/V candidates of the first
+    ``depth`` groups, for ``commit_verify``."""
+    if pages is not None:
+        raise NotImplementedError("paged KV caches arrive with the paged "
+                                  "slice of the port")
+    depth = depth if depth is not None else cfg.n_groups
+    pos = cache["pos"]
+    if pos.dim() != 1:
+        raise ValueError("verify_step needs a per-slot cache (pos of shape (B,))")
+    B, S = tokens.shape
+    if cfg.sliding_window and S > cfg.sliding_window:
+        # commit_verify's rolling scatter would map two window positions to
+        # one buffer slot — bound K at the window
+        raise ValueError(f"verify window of {S} positions exceeds the "
+                         f"sliding window ({cfg.sliding_window}); use a "
+                         f"draft length K <= window - 1")
+    h = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    cands = []
+    for g in range(depth):
+        h, c = _group_verify(_tree_index(params["stack"], g),
+                             _tree_index(cache["stack"], g), h, pos, cfg,
+                             active=active, fused=fused)
+        cands.append(c)
+    pend = {pn: {k: torch.stack([c[pn][k] for c in cands]) for k in cands[0][pn]}
+            for pn in cands[0]}
+    logits = _logits(params, h, cfg, _exit_norm(params, cfg, depth))
+    return logits, {"stack": pend}
+
+
+def verify_tree(*args, **kwargs):
+    """Token-tree verifier: arrives with the tree slice of the port
+    (``repro.models.model.verify_tree`` is its reference)."""
+    raise NotImplementedError("verify_tree arrives with the tree slice of "
+                              "the port")
+
+
+def draft_tree_level(*args, **kwargs):
+    """One level of the KV-carrying tree draft: arrives with the tree slice
+    of the port (``repro.models.model.draft_tree_level``)."""
+    raise NotImplementedError("draft_tree_level arrives with the tree slice "
+                              "of the port")
+
+
+def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
+                  path_nodes=None, pages=None, page_size=0) -> Cache:
+    """Advance each slot by ``n_accepted + 1`` tokens from a verify pass.
+
+    MUTATES ``cache`` in place and returns it. ``n_accepted`` is a (B,)
+    device tensor in [0, S-1]; it never leaves the device. Candidate j of
+    slot b is written at position ``pos[b] + j`` (rolling under a sliding
+    window) where ``j <= n_accepted[b]``; rejected positions keep the old
+    buffer contents, which the advanced position counter then masks. int8
+    caches re-quantize the raw candidates. Groups past the verify depth are
+    untouched; ``pos += n_accepted + 1``."""
+    if path_nodes is not None:
+        raise NotImplementedError("token-tree commits (path_nodes) arrive "
+                                  "with the tree slice of the port")
+    if pages is not None:
+        raise NotImplementedError("paged KV caches arrive with the paged "
+                                  "slice of the port")
+    pos = cache["pos"]
+    n_acc = torch.as_tensor(n_accepted, device=pos.device).long()
+    pend = pending["stack"]
+    first = next(iter(next(iter(pend.values())).values()))
+    d, B, S = first.shape[:3]
+    j = torch.arange(S, device=pos.device)
+    acc = j[None, :] <= n_acc[:, None]  # (B, S)
+    tgt = pos.long()[:, None] + j[None, :]
+    bix = torch.arange(B, device=pos.device)[:, None]
+
+    def scatter(full, new):
+        Sc = full.shape[2]
+        slot = (torch.remainder(tgt, Sc) if cfg.sliding_window
+                else torch.clamp(tgt, max=Sc - 1))
+        sub = full[:d]
+        old = sub[:, bix, slot]  # (d, B, S, ...)
+        m = acc.reshape((1, B, S) + (1,) * (new.dim() - 3))
+        sub[:, bix, slot] = torch.where(m, new.to(full.dtype), old)
+
+    for pn, layer in cache["stack"].items():
+        pc = pend[pn]
+        if "k_scale" in layer:
+            kq, ks_ = L.quantize_kv(pc["k"])
+            vq, vs = L.quantize_kv(pc["v"])
+            for key, new in (("k", kq), ("v", vq), ("k_scale", ks_),
+                             ("v_scale", vs)):
+                scatter(layer[key], new)
+        else:
+            scatter(layer["k"], pc["k"])
+            scatter(layer["v"], pc["v"])
+    pos.add_((n_acc + 1).to(pos.dtype))
+    return cache
 
 
 def prefill(params, batch, cfg: ModelConfig, *, cache_extra: int = 0,

@@ -1,9 +1,9 @@
 """Continuous-batching NeuroMorph serving engine.
 
-Port of ``repro.runtime.serving`` for the slice the port covers: a dense
-per-slot KV cache, greedy one-token decode, prefill admission, per-depth
-slot groups with mixed per-slot widths, SLO-driven admission and
-observability.
+Port of ``repro.runtime.serving`` for the slices the port covers: a dense
+per-slot KV cache, one-token decode (greedy or sampled), linear
+self-speculative decoding, prefill admission, per-depth slot groups with
+mixed per-slot widths, SLO-driven admission and observability.
 
 * **Request queue + slot admission.** Requests wait in a two-level queue
   (``interactive`` before ``batch``) and are admitted into free slots every
@@ -22,16 +22,27 @@ observability.
   the port's hardware spec (H100 data-sheet peaks), corrected online by
   measured per-mode telemetry.
 
-``fused=True`` routes every attention layer through the fused decode
-kernels (a closure flag on the step callables). Paged caches, speculative
-decoding, sampling (``temperature > 0``), snapshot/restore and mesh
-executors arrive with later slices of the port and raise here.
+* **Self-speculative decoding (linear K).** With
+  ``speculative=SpecConfig(...)`` each depth group that has a shallower
+  exit drafts K tokens there and verifies K+1 positions in one full-depth
+  pass per tick (``runtime.speculative``); the commit happens on the
+  device and the host reads ``(out_tokens, n_accepted)`` once per tick.
+  Acceptance telemetry feeds ``SLOPolicy.choose_spec_k``; an acceptance
+  collapse falls back to plain stepping for a cooloff
+  (``spec_fallback_log``).
+* **Sampling.** ``temperature > 0`` (and ``top_k``) sample from per-slot
+  keys folded with the tick count (``runtime.sampling``).
+
+``fused=True`` routes every attention layer through the fused decode and
+verify kernels (a closure flag on the step callables). Paged caches,
+token trees, snapshot/restore and mesh executors arrive with later slices
+of the port and raise here.
 """
 from __future__ import annotations
 
 import statistics
 from collections import deque
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,7 +58,13 @@ from repro_torch.core.neuroforge.space import DesignPoint
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (adopt_cache_slot, init_decode_cache,
                                       prefill, reset_cache_slots)
+from repro_torch.runtime import sampling
 from repro_torch.runtime.observability import Observability, _TupleView
+from repro_torch.runtime.speculative import (SpecConfig, SpecTelemetry,
+                                             draft_compile_key,
+                                             expected_tokens_per_launch,
+                                             per_candidate_accept_rate,
+                                             verify_compile_key)
 
 SLO_CLASSES = ("interactive", "batch")
 
@@ -210,6 +227,24 @@ class SLOPolicy:
         }
         return mode
 
+    def choose_spec_k(self, ks: Sequence[int], accept_rate: float,
+                      queue_depths: Optional[Dict[str, int]] = None) -> int:
+        """Pick the draft length K from the built table: rank each K by
+        expected tokens per verify launch at the measured acceptance rate,
+        keeping a longer K only while its marginal gain beats the
+        queue-pressure-scaled cost of drafting (a deep queue biases toward
+        smaller K)."""
+        ks = sorted(set(ks))
+        pressure = self._queue_pressure(queue_depths)
+        cut = self.queue_gamma * pressure / (1.0 + self.queue_gamma * pressure)
+        best = ks[0]
+        for k in ks:
+            gain = expected_tokens_per_launch(accept_rate, k)
+            prev = expected_tokens_per_launch(accept_rate, best)
+            if gain - prev > cut * (k - best) / max(max(ks), 1):
+                best = k
+        return best
+
 
 # ---------------------------------------------------------------------------
 # executor seam — where device placement and step building live
@@ -223,7 +258,8 @@ class LocalExecutor:
     placement, per-depth controller building, cache allocation, and the
     cache-side ops (batched slot reset, prefill, prefill adoption).
     ``launch_hook`` is the one seam every launch boundary announces itself
-    through ("decode", "prefill"), shared by tracing and failure injection.
+    through ("decode", "verify", "prefill"), shared by tracing and failure
+    injection.
     """
 
     mesh = None
@@ -305,6 +341,12 @@ class _DepthGroup:
     cache: Dict
     slots: List[Optional[Request]]
     widths: List[float]  # admission width per slot (stale for free slots)
+    keys: Optional[torch.Tensor] = None  # (B,) per-slot sample keys
+    # speculative state (spec_k 0: this depth has no shallower exit, or
+    # speculation is off engine-wide)
+    spec_k: int = 0
+    spec_off_until: int = -1  # tick until which speculation cools off
+    accept_window: Optional[Deque[float]] = None
 
     @property
     def n_active(self) -> int:
@@ -319,9 +361,11 @@ class ServingEngine:
 
     One tick = admit queued requests into the admission mode's depth group
     (interactive first; long prompts via one prefill, short ones via one
-    batched slot reset), then ONE decode step per depth group with active
-    slots — slots of different widths ride the same step via per-slot
-    width tensors. The host reads back one argmax per slot per tick.
+    batched slot reset), then per depth group with active slots either ONE
+    decode step or, when it speculates, one K-token draft plus one verify
+    pass — slots of different widths ride the same step via per-slot width
+    tensors. The host reads back one token per slot per decode tick, or
+    ``(out_tokens, n_accepted)`` in one transfer per speculative tick.
     """
 
     _COUNTER_METRICS = {
@@ -331,6 +375,9 @@ class ServingEngine:
         "decode_launches": "engine_decode_launches",
         "per_mode_launch_equiv": "engine_per_mode_launch_equiv",
         "ticks_with_work": "engine_ticks_with_work",
+        "spec_draft_launches": "engine_spec_draft_launches",
+        "spec_verify_launches": "engine_spec_verify_launches",
+        "spec_generated_tokens": "engine_spec_generated_tokens",
     }
 
     def __init__(self, params, cfg: ModelConfig, *, batch_size: int = 4,
@@ -339,19 +386,31 @@ class ServingEngine:
                  controller: Optional[MorphController] = None,
                  executor: Optional[LocalExecutor] = None,
                  prefill_threshold: int = 8,
-                 speculative=None,
-                 temperature: float = 0.0,
+                 speculative: Optional[SpecConfig] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 sample_seed: int = 0,
                  paged=None,
                  fused: bool = False,
                  observability: Optional[Observability] = None,
                  device=None):
-        if speculative is not None:
-            raise NotImplementedError("speculative serving arrives with the "
-                                      "speculative slice of the port")
-        if temperature > 0:
-            raise NotImplementedError("sampled serving (temperature > 0) "
-                                      "arrives with the speculative slice of "
-                                      "the port")
+        if speculative is not None and cfg.sliding_window:
+            # the verify commit's rolling scatter would alias buffer slots
+            k_max = max(speculative.ks, default=0)
+            if k_max + 1 > cfg.sliding_window:
+                raise ValueError(
+                    f"speculative K={k_max} needs K+1 <= sliding_window "
+                    f"({cfg.sliding_window}): the verify commit's rolling "
+                    f"scatter would alias buffer slots")
+        if (speculative is not None and top_k and speculative.top_k
+                and speculative.top_k != top_k):
+            raise ValueError(
+                f"engine top_k={top_k} conflicts with SpecConfig.top_k="
+                f"{speculative.top_k}: fallback plain stepping and the "
+                f"speculative acceptance rule would sample different "
+                f"distributions")
+        if speculative is not None and top_k and not speculative.top_k:
+            # one truncation everywhere: draft, acceptance and plain steps
+            speculative = replace(speculative, top_k=top_k)
         if paged is not None:
             raise NotImplementedError("paged KV serving arrives with the paged "
                                       "slice of the port")
@@ -361,8 +420,12 @@ class ServingEngine:
         self.cfg = cfg
         self.batch_size = batch_size
         self.cache_capacity = cache_capacity
-        # route every attention decode through the fused decode kernels — a
-        # closure flag on the step callables: same compile keys
+        self.speculative = speculative
+        self.temperature = float(temperature)
+        self.top_k = top_k or (speculative.top_k if speculative else 0)
+        self.sample_seed = sample_seed
+        # route every attention decode and verify through the fused kernels
+        # — a closure flag on the step callables: same compile keys
         self.fused = bool(fused)
         self.obs = observability or Observability()
         self.metrics = self.obs.registry
@@ -372,19 +435,35 @@ class ServingEngine:
                               for m in self._COUNTER_METRICS.values()}
         self._h_prefill = self.metrics.histogram("engine_prefill_ms")
         self._h_decode = self.metrics.histogram("engine_decode_step_ms")
+        self._h_spec = self.metrics.histogram("engine_spec_tick_ms")
         self.executor = (executor or LocalExecutor(device)).bind(
             cfg, batch_size, cache_capacity, fused=self.fused)
         self.device = self.executor.device
         self.params = self.executor.place_params(params)
         self.ctrl = controller or self.executor.make_controller(
-            self.params, cfg, modes)
+            self.params, cfg, modes, speculative=speculative)
         self._mode_by_dw = {(m.depth, m.width): m for m in self.ctrl.modes}
+        self._spec_plan = getattr(self.ctrl, "spec_plan", {})
         self.groups: Dict[int, _DepthGroup] = {}
+        base_keys = sampling.make_slot_keys(sample_seed, batch_size,
+                                            device=self.device)
         for d in sorted({m.depth for m in self.ctrl.modes}):
-            self.groups[d] = _DepthGroup(d, self.executor.init_cache(),
-                                         [None] * batch_size,
-                                         [1.0] * batch_size)
+            # per-(group, slot) keys: slot i of two depth groups must not
+            # share a sample stream
+            g = _DepthGroup(d, self.executor.init_cache(),
+                            [None] * batch_size, [1.0] * batch_size,
+                            keys=sampling.fold_in(base_keys, d))
+            plan = self._spec_plan.get(d)
+            if plan is not None:
+                g.spec_k = max(plan.ks)
+                g.accept_window = deque(maxlen=speculative.window)
+            self.groups[d] = g
+        # acceptance telemetry per (depth, draft_depth, K): feeds the SLO
+        # policy's K choice and the fallback decision
+        self.spec_telemetry: Dict[Tuple[int, int, int], SpecTelemetry] = {}
         reg = self.metrics
+        self._ev_spec_fallback = reg.events(
+            "engine_spec_fallback", ("step", "depth", "rate", "off_until"))
         self._ev_admission_switch = reg.events(
             "engine_admission_switch",
             ("step", "from_mode", "to_mode", "queued_interactive",
@@ -413,6 +492,9 @@ class ServingEngine:
         self.decode_launches = 0
         self.per_mode_launch_equiv = 0
         self.ticks_with_work = 0
+        self.spec_draft_launches = 0
+        self.spec_verify_launches = 0
+        self.spec_generated_tokens = 0
         # per-slot width tensors memoized by widths tuple: widths only change
         # on admission, so a steady tick makes no host-to-device copy for them
         self._active_cache: Dict[Tuple[float, ...], Dict] = {}
@@ -428,7 +510,25 @@ class ServingEngine:
             self._active_cache[key] = active
         return active
 
+    def _sample(self, logits: torch.Tensor, keys: torch.Tensor) -> np.ndarray:
+        """Next token per row of ``logits`` (B, Vp) on the host: argmax at
+        temperature 0, else a draw from each slot's key folded with this
+        tick's count."""
+        if self.temperature > 0:
+            nxt = sampling.sample_tokens(
+                logits, sampling.fold_step(keys, self.step_count),
+                self.temperature, self.cfg.vocab_size, self.top_k)
+        else:
+            nxt = torch.argmax(logits[:, : self.cfg.vocab_size], dim=-1)
+        return nxt.cpu().numpy()
+
     # -- observability ------------------------------------------------------
+
+    @property
+    def spec_fallback_log(self):
+        """(step, depth, rate, off_until) tuples of the
+        ``engine_spec_fallback`` event stream."""
+        return _TupleView(self._ev_spec_fallback)
 
     @property
     def admission_switch_log(self):
@@ -457,6 +557,9 @@ class ServingEngine:
                 out[f"mode_{name}_p50_ms"] = t.p50_s * 1e3
                 out[f"mode_{name}_p95_ms"] = t.p95_s * 1e3
                 out[f"mode_{name}_p99_ms"] = t.p99_s * 1e3
+        for (d, dd, k), t in self.spec_telemetry.items():
+            if t.launches:
+                out.update(t.metric_values(f"spec_d{d}_k{k}"))
         return out
 
     def export_metrics(self, events: bool = False) -> Dict:
@@ -468,17 +571,33 @@ class ServingEngine:
     # -- lifecycle ----------------------------------------------------------
 
     def warmup(self) -> None:
-        """Build every depth's step and run it once, then rewind.
+        """Build every depth's step (and, when speculating, every draft and
+        verify step) and run each once, then rewind.
 
         After this, ``self.ctrl.stats['compiles']`` is frozen at
-        ``len(depths)``: width and depth churn re-dispatches these steps."""
+        ``len(depths)`` plus one draft per (draft_depth, K) and one verify
+        per (depth, K): width and depth churn, K switches and the fallback
+        to plain stepping re-dispatch these steps. The first draft call also
+        allocates the draft's scratch cache."""
         self.ctrl.warmup()
         tok = self.executor.put(np.zeros((self.batch_size, 1), np.int64))
         active = self._active_for([1.0] * self.batch_size)
         mask = self.executor.put(np.ones((self.batch_size,), bool))
         for d, g in self.groups.items():
             step = self.ctrl.step_for(self._any_mode_at(d))
-            _, cache = step(self.params, g.cache, tok, active)
+            logits, cache = step(self.params, g.cache, tok, active)
+            if self.temperature > 0:
+                self._sample(logits[:, 0], g.keys)
+            plan = self._spec_plan.get(d)
+            for k in (plan.ks if plan is not None else ()):
+                draft = self.ctrl.aux_step(draft_compile_key(plan.draft_depth,
+                                                             k))
+                verify = self.ctrl.aux_step(verify_compile_key(d, k))
+                dtoks, dlg = draft(self.params, cache, tok, active, g.keys,
+                                   self.temperature, 0)
+                _, _, cache = verify(self.params, cache,
+                                     torch.cat([tok, dtoks], dim=1), dlg,
+                                     active, g.keys, self.temperature, 0)
             cache = self._reset(cache, mask)
             _block_until_ready(cache)
             g.cache = self.executor.init_cache()  # warmup wrote pos 0
@@ -611,8 +730,9 @@ class ServingEngine:
         t0 = self._clock()
         logits = self._prefill_launch(g, slot, req.prompt)
         req.prefilled = True
-        # the prefill's last-position logits yield the first generated token
-        nxt = int(torch.argmax(logits[0, 0, : self.cfg.vocab_size]).item())
+        # the prefill's last-position logits yield the first generated token,
+        # from the slot's own sample stream when sampling
+        nxt = int(self._sample(logits[:, 0], g.keys[slot:slot + 1])[0])
         _block_until_ready(g.cache)
         t1 = self._clock()
         self.prefill_s += t1 - t0
@@ -631,6 +751,102 @@ class ServingEngine:
         if req.done:
             self._complete(g, slot, req, now_s)
 
+    def _spec_select(self, g: _DepthGroup) -> int:
+        """The draft length K to speculate with this tick, or 0 (plain
+        step). A group speculates only when the depth has a shallower exit,
+        speculation is not cooling off after an acceptance collapse, and
+        every active slot has fed its prompt up to the last token and has
+        K + 1 cache positions of headroom."""
+        if self.speculative is None or g.depth not in self._spec_plan:
+            return 0
+        if self.step_count < g.spec_off_until or g.spec_k <= 0:
+            return 0
+        for r in g.slots:
+            if r is None:
+                continue
+            if r.fed < len(r.prompt) - 1:
+                return 0
+            if r.fed + g.spec_k + 1 > self.cache_capacity:
+                return 0
+        return g.spec_k
+
+    def _spec_tick(self, g: _DepthGroup, k: int, active_ix: List[int],
+                   now_s: float) -> float:
+        """One speculative step for a depth group: draft K tokens at the
+        shallow exit, verify all K+1 positions in one full-depth pass and
+        commit the accepted prefix on the device. ONE host transfer brings
+        back (out_tokens, n_accepted) for the slot bookkeeping."""
+        plan = self._spec_plan[g.depth]
+        self.executor.launch("verify")
+        draft = self.ctrl.aux_step(draft_compile_key(plan.draft_depth, k))
+        verify = self.ctrl.aux_step(verify_compile_key(g.depth, k))
+        toks = np.zeros((self.batch_size, 1), np.int64)
+        for i in active_ix:
+            toks[i, 0] = g.slots[i].next_input()
+        active = self._active_for(g.widths)
+        tok_op = self.executor.put(toks)
+        t0 = self._clock()
+        dtoks, dlg = draft(self.params, g.cache, tok_op, active, g.keys,
+                           self.temperature, self.step_count)
+        out, n_acc, g.cache = verify(self.params, g.cache,
+                                     torch.cat([tok_op, dtoks], dim=1), dlg,
+                                     active, g.keys, self.temperature,
+                                     self.step_count)
+        both = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
+        out_h, n_acc_h = both[:, :-1], both[:, -1]
+        _block_until_ready(g.cache)
+        dt = self._clock() - t0
+        self.ctrl.stats["dispatches"] += 2
+        self.ctrl.last_step_s = dt
+        self.spec_draft_launches += 1
+        self.spec_verify_launches += 1
+
+        rec_on = self._rec.enabled
+        rids = [g.slots[i].rid for i in active_ix] if rec_on else None
+        produced = 0
+        for i in active_ix:
+            req = g.slots[i]
+            for j in range(int(n_acc_h[i]) + 1):
+                if req.done:
+                    break
+                req.fed += 1
+                if req.fed >= len(req.prompt):
+                    req.generated.append(int(out_h[i, j]))
+                    produced += 1
+                    if rec_on and len(req.generated) == 1:
+                        self._rec.request_event(req.rid, "first_token")
+            if req.done:
+                self._complete(g, i, req, now_s)
+        self.spec_generated_tokens += produced
+        self._h_spec.observe(dt * 1e3)
+        if rec_on:
+            self._rec.launch(
+                "verify", t0, t0 + dt, depth=g.depth, rids=rids,
+                occupancy=len(active_ix), tokens=produced,
+                widths=[g.widths[i] for i in active_ix],
+                key=list(verify_compile_key(g.depth, k)))
+
+        # speculative tick time lives in the SPEC telemetry only: the
+        # controller's per-mode p50 is the SLO policy's per-decode-step
+        # estimate, which a multi-token tick would inflate
+        tel = self.spec_telemetry.setdefault(
+            (g.depth, plan.draft_depth, k), SpecTelemetry(k=k))
+        tel.record([int(n_acc_h[i]) for i in active_ix], len(active_ix), dt)
+        g.accept_window.append(per_candidate_accept_rate(
+            float(np.mean([n_acc_h[i] for i in active_ix])) / k))
+        spec = self.speculative
+        if (len(g.accept_window) == g.accept_window.maxlen
+                and float(np.mean(g.accept_window)) < spec.min_accept_rate):
+            # acceptance collapsed: drafts cost launches without yielding
+            # tokens — plain stepping until the cooloff ends
+            g.spec_off_until = self.step_count + spec.cooloff_ticks
+            self._ev_spec_fallback.emit(
+                step=self.step_count, depth=g.depth,
+                rate=float(np.mean(g.accept_window)),
+                off_until=g.spec_off_until)
+            g.accept_window.clear()
+        return dt
+
     def step(self, now_s: float = 0.0) -> float:
         """One engine tick. Returns device wall-time spent (seconds)."""
         self._admit(now_s)
@@ -641,6 +857,10 @@ class ServingEngine:
             if not active_ix:
                 continue
             ticked = True
+            k = self._spec_select(g)
+            if k:
+                spent += self._spec_tick(g, k, active_ix, now_s)
+                continue
             self.executor.launch("decode")
             toks = np.zeros((self.batch_size, 1), np.int64)
             for i in active_ix:
@@ -661,8 +881,7 @@ class ServingEngine:
             self.decode_launches += 1
             self.per_mode_launch_equiv += len(
                 {(g.depth, g.widths[i]) for i in active_ix})
-            nxt = torch.argmax(logits[:, 0, : self.cfg.vocab_size],
-                               dim=-1).cpu().numpy()
+            nxt = self._sample(logits[:, 0], g.keys)
             produced = 0
             for i in active_ix:
                 req = g.slots[i]
@@ -723,6 +942,8 @@ class ServingEngine:
         prefills0 = self.prefills
         prefill_s0 = self.prefill_s
         prefill_toks0 = self.prefill_prompt_tokens
+        spec_v0 = self.spec_verify_launches
+        spec_tok0 = self.spec_generated_tokens
         expired0 = len(self.expired)
         while (pending or self.queue or self.n_active) \
                 and self.step_count - steps0 < max_steps:
@@ -738,6 +959,8 @@ class ServingEngine:
                     self.admission_decision_log.append(
                         dict(step=self.step_count, **policy.last_decision))
                 self.set_admission_mode(mode)
+                if self.speculative is not None:
+                    self._retune_spec(policy, qd)
             dt = self.step(now_s=clock)
             busy += dt
             clock += dt
@@ -746,6 +969,8 @@ class ServingEngine:
         ticks = self.ticks_with_work - ticks0
         prefill_s = self.prefill_s - prefill_s0
         prefill_toks = self.prefill_prompt_tokens - prefill_toks0
+        spec_v = self.spec_verify_launches - spec_v0
+        spec_tok = self.spec_generated_tokens - spec_tok0
         return {
             "completed": len(self.completed) - completed0,
             "generated_tokens": total_generated,
@@ -762,8 +987,39 @@ class ServingEngine:
             "prefill_prompt_tokens": prefill_toks,
             "prompt_consume_ms_per_token":
                 prefill_s / prefill_toks * 1e3 if prefill_toks else 0.0,
+            # speculative decoding: verify launches and the tokens they
+            # emitted (tokens/launch > 1 is the decode-launch reduction)
+            "spec_verify_launches": spec_v,
+            "spec_generated_tokens": spec_tok,
+            "spec_tokens_per_launch": spec_tok / spec_v if spec_v else 0.0,
+            "spec_fallbacks": len(self.spec_fallback_log),
             "expired": len(self.expired) - expired0,
         }
+
+    def _retune_spec(self, policy: SLOPolicy,
+                     queue_depths: Dict[str, int]) -> None:
+        """Let the SLO policy re-pick each group's draft length from the
+        built table, at the measured acceptance (rolling window first,
+        lifetime telemetry second, an optimistic 0.75 before any data)."""
+        for g in self.groups.values():
+            plan = self._spec_plan.get(g.depth)
+            if plan is None:
+                continue
+            if g.accept_window:
+                rate = float(np.mean(g.accept_window))
+            else:
+                tels = [t for (d, _, _), t in self.spec_telemetry.items()
+                        if d == g.depth and t.drafted]
+                rate = (sum(per_candidate_accept_rate(t.accepted / t.drafted)
+                            * t.slot_launches for t in tels)
+                        / sum(t.slot_launches for t in tels)) if tels else 0.75
+            g.spec_k = policy.choose_spec_k(plan.ks, rate, queue_depths)
+
+    def spec_telemetry_summary(self) -> Dict[str, Dict[str, float]]:
+        """Acceptance telemetry per (depth, draft_depth, K) path."""
+        return {f"d{d}<-d{dd}k{k}": t.summary()
+                for (d, dd, k), t in self.spec_telemetry.items()
+                if t.launches}
 
 
 def _counter_property(metric: str) -> property:

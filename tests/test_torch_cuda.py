@@ -9,7 +9,8 @@ installed and ``tests/conftest.py`` cannot load:
 
 Tolerances: f32 inputs agree to 1e-4 (summation order only); bf16 outputs
 to one bf16 rounding step (rtol 2^-7) plus atol 1e-3; int8 cache values
-exactly.
+exactly. The morph_matmul shapes with 9 and 40 rows (B*M) are the verify
+pass's: several row groups of the kernel, the last one partial.
 """
 import dataclasses
 
@@ -42,7 +43,8 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(3, 1, 64, 96), (3, 5, 70, 45),
-                                   (16, 1, 600, 2051), (2, 3, 4097, 40)])
+                                   (16, 1, 600, 2051), (2, 3, 4097, 40),
+                                   (3, 3, 600, 2051), (8, 5, 2048, 256)])
 def test_morph_matmul_kernel_matches_plain(cuda, dtype, shape):
     B, M, K, N = shape
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -120,5 +122,102 @@ def test_engine_on_card_fused_equals_unfused(cuda):
                               new_tokens=(3, 9), vocab=cfg.vocab_size)
         out = eng.run(trace, budget_fn=None, policy=None)
         assert out["completed"] == 6
+        streams.append({r.rid: r.generated for r in eng.completed})
+    assert streams[0] == streams[1]
+
+
+def tree_np(branching):
+    """(node depths, additive ancestor mask) of a token tree with the given
+    branching per level, BFS order (node 0 the root): 0 where column j is
+    an ancestor-or-self of row i, -1e9 elsewhere."""
+    parents, depths, frontier = [-1], [0], [0]
+    for lvl, b in enumerate(branching):
+        nxt = []
+        for node in frontier:
+            for _ in range(b):
+                nxt.append(len(parents))
+                parents.append(node)
+                depths.append(lvl + 1)
+        frontier = nxt
+    n = len(parents)
+    bias = np.full((n, n), -1e9, np.float32)
+    for i in range(n):
+        j = i
+        while j >= 0:
+            bias[i, j] = 0.0
+            j = parents[j]
+    return np.asarray(depths, np.int32), bias
+
+
+@pytest.mark.parametrize("variant", ["linear_f32", "linear_bf16",
+                                     "tree_int8", "linear_swa"])
+def test_fused_verify_kernel_matches_plain(cuda, variant):
+    kw = {"linear_f32": {}, "linear_bf16": {"dtype": "bfloat16"},
+          "tree_int8": {"kv_quant": True},
+          "linear_swa": {"sliding_window": 6}}[variant]
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dm, H, KV, hd, B = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 3
+    params = {n: torch.randn(*s, generator=g, device=cuda) / np.sqrt(s[0])
+              for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
+                           ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
+    nd = tb = None
+    S = 5
+    if variant.startswith("tree"):
+        nd, tb = tree_np((2, 2))
+        S = len(nd)
+    Sc = 6 if cfg.sliding_window else 130
+    shape = (B, Sc, KV, hd)
+    if cfg.kv_quant:
+        cache = {"k": torch.randint(-127, 128, shape, generator=g, device=cuda,
+                                    dtype=torch.int8),
+                 "v": torch.randint(-127, 128, shape, generator=g, device=cuda,
+                                    dtype=torch.int8),
+                 "k_scale": torch.rand(shape[:-1] + (1,), generator=g,
+                                       device=cuda).to(torch.bfloat16) / 50,
+                 "v_scale": torch.rand(shape[:-1] + (1,), generator=g,
+                                       device=cuda).to(torch.bfloat16) / 50}
+    else:
+        cache = {"k": torch.randn(shape, generator=g, device=cuda).to(dt),
+                 "v": torch.randn(shape, generator=g, device=cuda).to(dt)}
+    x = torch.randn(B, S, dm, generator=g, device=cuda).to(dt)
+    pos = torch.tensor([0, 4, Sc + 70], dtype=torch.int32, device=cuda)
+    act = {"q_dim": torch.tensor([32, 64, 24], dtype=torch.int32, device=cuda),
+           "kv_dim": torch.tensor([16, 32, 24], dtype=torch.int32, device=cuda)}
+    before = {n: t.clone() for n, t in cache.items()}
+    n0 = FD.verify_launch_count()
+    o_k, kv_k = FD.fused_verify(params, x, cache, pos, cfg, active=act,
+                                node_depth=nd, tree_bias=tb)
+    assert FD.verify_launch_count() == n0 + 1
+    o_p, kv_p = FD.fused_verify_plain(params, x, cache, pos, cfg,
+                                      act["q_dim"], act["kv_dim"], nd, tb)
+    torch.cuda.synchronize()
+    _close(o_k, o_p, dt)
+    for n in ("k", "v"):
+        _close(kv_k[n], kv_p[n], dt)
+    for n in cache:  # the cache is read only
+        assert torch.equal(cache[n], before[n]), n
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_engine_on_card_greedy_spec_equals_plain(cuda, fused):
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serving import ServingEngine, poisson_trace
+    from repro_torch.runtime.speculative import SpecConfig
+
+    cfg = smoke_config("tinyllama-1.1b")
+    params = init_params(cfg, seed=0, device=cuda)
+    streams = []
+    for spec in (None, SpecConfig(ks=(3,), min_accept_rate=0.0)):
+        eng = ServingEngine(params, cfg, batch_size=3, cache_capacity=32,
+                            prefill_threshold=3, fused=fused,
+                            speculative=spec, device=cuda)
+        eng.warmup()
+        trace = poisson_trace(6, 100.0, seed=2, prompt_len=(1, 6),
+                              new_tokens=(3, 12), vocab=cfg.vocab_size)
+        out = eng.run(trace, budget_fn=None, policy=None)
+        assert out["completed"] == 6
+        assert (out["spec_verify_launches"] > 0) == (spec is not None)
         streams.append({r.rid: r.generated for r in eng.completed})
     assert streams[0] == streams[1]

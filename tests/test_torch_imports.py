@@ -29,8 +29,19 @@ def test_importing_every_module_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, check=True)
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15, out.stdout
+    assert int(n) >= 17, out.stdout
     assert bad == "[]", out.stdout
+
+
+def test_speculative_modules_are_in_the_probe():
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.runtime.sampling", "repro_torch.runtime.speculative",
+            "repro_torch.kernels.fused_decode"} <= names
 
 
 def test_cuda_without_a_card_raises_instead_of_falling_back():
@@ -78,3 +89,16 @@ def test_serve_cli_on_cpu(capsys):
                  "--fused"]) == 0
     out = capsys.readouterr().out
     assert "recompiles_after_warmup=0" in out and "completed=" in out
+
+
+def test_serve_cli_speculative_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    assert main(["--arch", "tinyllama-1.1b", "--smoke", "--batch", "2",
+                 "--tokens", "16", "--device", "cpu", "--spec-k", "2",
+                 "--temperature", "0.8", "--top-k", "5"]) == 0
+    out = capsys.readouterr().out
+    assert "recompiles_after_warmup=0" in out and "spec d3<-d1k2" in out
+    with pytest.raises(NotImplementedError, match="tree slice"):
+        main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
+              "--spec-tree", "2x2"])

@@ -13,6 +13,9 @@ inputs, in f32:
   mixed widths on a dense cache, at the JAX test's own tolerance
   (atol 2e-5, rtol 1e-4, ``tests/test_fused_decode.py``); the output and the
   new K/V and scales written into the cache match, int8 values exactly.
+* ``fused_verify``: linear and token-tree masks, f32 / bf16 / int8 caches,
+  a sliding window, mixed widths, against the Pallas verify kernel and the
+  unfused reference (f32 atol 1e-5; bf16 within one bf16 step).
 """
 import dataclasses
 
@@ -154,6 +157,110 @@ def test_fused_decode_plain_matches_pallas(variant):
     assert FD.launch_count() == 0
 
 
+# fused_verify: linear and token-tree masks (the tree is JAX's own (2, 2)
+# topology: S = 7 nodes, depths and ancestor mask), f32 / bf16 activations
+# with a cache of the same dtype, and int8 caches; mixed widths.
+FV_VARIANTS = {
+    "linear_f32": ({}, False),
+    "tree_f32": ({}, True),
+    "linear_int8": ({"kv_quant": True}, False),
+    "tree_int8": ({"kv_quant": True}, True),
+    "linear_swa": ({"sliding_window": 6}, False),
+    "linear_bf16": ({"dtype": "bfloat16"}, False),
+}
+
+
+def _fv_operands(variant, seed=3, B=3, Sc=16):
+    from repro.runtime.speculative import tree_topology
+
+    kw, tree = FV_VARIANTS[variant]
+    jcfg = dataclasses.replace(jax_smoke_config("tinyllama-1.1b"), **kw)
+    tcfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
+    _, _, params, _, cache, _, a_q, a_kv = _fd_operands(
+        "kv_quant" if jcfg.kv_quant else "full", seed, B=B, S=Sc)
+    if jcfg.sliding_window:
+        cache = {k: v[:, :jcfg.sliding_window] for k, v in cache.items()}
+        Sc = jcfg.sliding_window
+    if tree:
+        topo = tree_topology((2, 2))
+        nd, tb = topo.depths, topo.ancestor_bias
+    else:
+        nd = tb = None
+    S = 7 if tree else 5
+    rng = np.random.default_rng(seed + 10)
+    x = rng.standard_normal((B, S, jcfg.d_model)).astype(np.float32)
+    # committed counts: empty, mid-cache, and a full (or wrapped) cache
+    pos = np.array([0, 6, Sc + 2 if jcfg.sliding_window else Sc - S],
+                   np.int32)[:B]
+    return jcfg, tcfg, params, x, cache, pos, a_q, a_kv, nd, tb
+
+
+@pytest.mark.parametrize("variant", sorted(FV_VARIANTS))
+def test_fused_verify_plain_matches_pallas_and_ref(variant):
+    """``fused_verify_plain`` vs the Pallas verify kernel in interpret mode
+    and (f32) vs the unfused reference ``impl="ref"``: f32 atol 1e-5 (rtol
+    1e-5), bf16 activations within one bf16 step (rtol 2^-7, atol 1e-3)."""
+    jcfg, tcfg, params, x, cache, pos, a_q, a_kv, nd, tb = _fv_operands(variant)
+    bf16 = jcfg.dtype == "bfloat16"
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    jc = _jax_cache(cache)
+    if bf16:
+        jc = {k: v.astype(jnp.bfloat16) for k, v in jc.items()}
+    jargs = ({k: jnp.asarray(v) for k, v in params.items()},
+             jnp.asarray(x, jdt), jc, jnp.asarray(pos),
+             {"q_dim": jnp.asarray(a_q), "kv_dim": jnp.asarray(a_kv)})
+    tc = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
+        torch.bfloat16) if k.endswith("scale") else torch.from_numpy(
+        np.asarray(v).copy()) for k, v in cache.items()}
+    if bf16:
+        tc = {k: v.to(torch.bfloat16) for k, v in tc.items()}
+    tc0 = {k: v.clone() for k, v in tc.items()}
+    o_t, kv_t = FD.fused_verify(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(x).to(tdt), tc, torch.from_numpy(pos), tcfg,
+        active={"q_dim": torch.from_numpy(a_q),
+                "kv_dim": torch.from_numpy(a_kv)}, node_depth=nd,
+        tree_bias=tb)
+    for k in tc:  # read only
+        assert torch.equal(tc[k], tc0[k]), k
+    impls = ("pallas",) if bf16 else ("pallas", "ref")
+    tol = dict(atol=1e-3, rtol=2.0 ** -7) if bf16 else dict(atol=1e-5,
+                                                            rtol=1e-5)
+    for impl in impls:
+        kw = dict(interpret=True) if impl == "pallas" else {}
+        # jitted: one compile instead of op-by-op dispatch (the topology is
+        # static, closed over as numpy)
+        o_j, kv_j = jax.jit(lambda p, x_, c, pos_, act, impl=impl, kw=kw:
+                            JFD.fused_verify(p, x_, c, pos_, jcfg,
+                                             active=act, node_depth=nd,
+                                             tree_bias=tb, impl=impl,
+                                             **kw))(*jargs)
+        np.testing.assert_allclose(o_t.float().numpy(),
+                                   np.asarray(o_j, np.float32), **tol,
+                                   err_msg=f"{variant} {impl} out")
+        for k in ("k", "v"):
+            np.testing.assert_allclose(kv_t[k].float().numpy(),
+                                       np.asarray(kv_j[k], np.float32), **tol,
+                                       err_msg=f"{variant} {impl} {k}")
+    assert FD.verify_launch_count() == 0
+
+
 def test_fused_verify_raises_until_its_slice():
-    with pytest.raises(NotImplementedError, match="speculative"):
-        FD.fused_verify(None, None, None, None, None)
+    """Paged caches are not in this slice: fused_verify names the paged
+    slice instead of falling back."""
+    with pytest.raises(NotImplementedError, match="paged"):
+        FD.fused_verify(None, torch.zeros(1, 2, 4), None, None, None,
+                        pages=torch.zeros(1, 1, dtype=torch.int32),
+                        page_size=4)
+
+
+def test_ext_mask_matches_jax():
+    from repro.runtime.speculative import tree_topology
+
+    topo = tree_topology((2, 2))
+    for offs, tb, window in ((np.arange(5), None, 0), (np.arange(5), None, 3),
+                             (topo.depths, topo.ancestor_bias, 0),
+                             (topo.depths, topo.ancestor_bias, 2)):
+        np.testing.assert_array_equal(FD.ext_mask_np(offs, window, tb),
+                                      JFD._ext_mask_np(offs, window, tb))

@@ -121,9 +121,18 @@ def test_slo_policy_run_and_metrics():
 
 
 def test_unported_options_raise():
+    """Paged caches and mesh executors are later slices and raise; token
+    trees raise naming the tree slice. (Sampling and linear speculation
+    arrived with the speculative slice: ``test_torch_speculative.py``.)"""
+    from repro_torch.runtime.speculative import SpecConfig
+
     cfg = smoke_config("tinyllama-1.1b")
-    for kw, what in ((dict(temperature=0.7), "sampled"),
-                     (dict(speculative=object()), "speculative"),
-                     (dict(paged=object()), "paged")):
-        with pytest.raises(NotImplementedError, match=what):
-            TS.ServingEngine({}, cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="paged"):
+        TS.ServingEngine({}, cfg, device="cpu", paged=object())
+    mesh_exec = TS.LocalExecutor("cpu")
+    mesh_exec.mesh = object()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TS.ServingEngine({}, cfg, device="cpu", executor=mesh_exec)
+    with pytest.raises(NotImplementedError, match="tree slice"):
+        TS.ServingEngine({}, cfg, device="cpu",
+                         speculative=SpecConfig(trees=((2, 2),)))

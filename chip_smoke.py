@@ -14,30 +14,41 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    (B = 8 x S = 5 rows); ``fused_decode_step`` on a 1024-row cache at mixed
    positions, plain and int8-KV; ``fused_verify`` on a 512-row cache at
    mixed committed counts, a bf16 cache with the linear mask (S = 5) and an
-   int8 cache with a (2, 2) token-tree mask (S = 7). Each is timed on the
-   card (device time of its kernels from ``torch.profiler``, L2 flushed
-   before every call; the CUDA-event time of the whole call, host launch
-   gaps included, is printed beside it) together with its plain version, a
+   int8 cache with a (2, 2) token-tree mask (S = 7). Then at full
+   Mamba2-370M shapes: ``morph_matmul`` over the four gated projections of
+   one SSM layer (B = 8, widths {0.5, 1.0}), and ``ssd_scan`` at the
+   full-width prompt pass (1 x 256 tokens, 32 heads of 64, n = 128, chunk
+   256; and 200 tokens, a ragged tile, through ``ops.ssd_scan_bshn``) and
+   at the reference's ``kernel_bench`` shape. Each is timed on the card
+   (device time of its kernels from ``torch.profiler``, L2 flushed before
+   every call; the CUDA-event time of the whole call, host launch gaps
+   included, is printed beside it) together with its plain version, a
    library yardstick where one PyTorch call computes the same function,
    and its bound from the H100 data sheet.
-3. End to end: full-width ``tinyllama-1.1b`` with seeded random weights
-   through the port's ``ServingEngine`` (8 slots, a 24-request Poisson
-   trace, cache 512, prefill threshold 8, width and depth switches through
-   all 9 modes), five times: plain decode unfused and ``fused=True``, then
-   linear self-speculation (``SpecConfig(ks=(4,), min_accept_rate=0.0)``)
-   unfused greedy, fused greedy and fused at temperature 0.8 with top-k
-   50. Launch counters are zeroed just before each drive and read just
-   after it, and each path must show its exact counts, worked out from the
+3. End to end, one card, seeded random weights, the port's
+   ``ServingEngine`` (8 slots, a Poisson trace with prompts of 16-256 and
+   32-64 new tokens, cache 512, prefill threshold 8, the admission mode
+   moved every 12 ticks along a schedule of every (depth, width) mode):
+   full-width ``tinyllama-1.1b`` (12 requests) five times: plain decode
+   unfused and ``fused=True``, then linear self-speculation
+   (``SpecConfig(ks=(4,), min_accept_rate=0.0)``) unfused greedy, fused
+   greedy and fused at temperature 0.8 with top-k 50; then full-width,
+   full-depth ``mamba2-370m`` (24 requests) twice: plain greedy and
+   speculative greedy (depth 48 drafts at exit 36, depth 36 at exit 24).
+   Launch counters are zeroed just before each drive and read just after
+   it, and each path must show its exact counts, worked out from the
    engine's own counters (plain steps, draft steps at the draft depth,
-   verify steps): unfused, 7 ``morph_matmul`` per decoder-layer step;
-   fused, 3 ``morph_matmul`` per layer-step, 1 ``fused_decode`` per decode
-   or draft layer-step and 1 ``fused_verify`` per verify layer-step.
-   Speculative drives report acceptance, tokens per verify launch per
-   slot, tick p50/p95 and the device time of the draft's scratch copy.
-   Also: the decode step at all-0.25 vs all-1.0 width, token agreement of
-   fused vs unfused and of speculative vs plain greedy, and the smoke model
-   on the card against the plain versions on the CPU (decode, prefill and
-   verify; a small-input reference).
+   verify steps, prefills and the depth each ran to): TinyLlama unfused, 7 ``morph_matmul`` per
+   decoder-layer step; fused, 3 ``morph_matmul`` per layer-step, 1
+   ``fused_decode`` per decode or draft layer-step and 1 ``fused_verify``
+   per verify layer-step; Mamba2, 4 ``morph_matmul`` per SSM layer-step
+   and 1 ``ssd_scan`` per SSM layer of every prefill. Speculative drives
+   report acceptance, tokens per verify launch per slot, tick p50/p95 and
+   the device time of the draft's scratch copy. Also: the decode step at
+   the narrowest vs full width with its device idle share, token
+   agreement of fused vs unfused and of speculative vs plain greedy, and
+   each smoke model on the card against the plain versions on the CPU
+   (decode, prefill and verify; a small-input reference).
 4. A ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -69,10 +80,22 @@ RTOL_BF16 = 2.0 ** -7
 ATOL_BF16 = 1e-3
 # smoke model (f32) on the card vs the plain versions on the CPU
 ATOL_SMOKE = 1e-3
+# ssd_scan vs its plain versions on the card, f32: the kernel restarts the
+# decay sum every 64 steps, the plain version every chunk (256 steps at
+# full width), so the two round exp(cs_q - cs_s) differently
+RTOL_SCAN = 1e-3
+ATOL_SCAN = 1e-3
+
+
+START = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(msg: str) -> None:
+    log(f"{msg} (at {time.perf_counter() - START:.1f} s)")
 
 
 def fail(msg: str) -> None:
@@ -107,7 +130,7 @@ class Timer:
     ``ms`` sums the durations of the GPU kernels the call launched, from
     ``torch.profiler``, leaving out the L2 flush's own kernel (found by name
     in a flush-only profile); a call the profiler sees no device time for
-    fails the run. ``wall_ms`` is the CUDA-event time of the whole call,
+    in three profiles fails the run. ``wall_ms`` is the CUDA-event time of the whole call,
     host launch gaps included."""
 
     def __init__(self, torch):
@@ -143,13 +166,17 @@ class Timer:
             self._flush()
             fn()
 
-        per = {k: v / iters / 1e3 for k, v in kernel_us(self.torch, call,
-                                                       iters).items()
-               if k not in self.flush_names}
-        self.last = per
-        if sum(per.values()) <= 0.0:
-            fail("torch.profiler recorded no device time for a timed call")
-        return sum(per.values())
+        # a profile now and then comes back without its device events;
+        # profile again (up to three times in all) before failing the run
+        for _ in range(3):
+            per = {k: v / iters / 1e3 for k, v in kernel_us(self.torch, call,
+                                                           iters).items()
+                   if k not in self.flush_names}
+            if sum(per.values()) > 0.0:
+                self.last = per
+                return sum(per.values())
+            log("  (torch.profiler recorded no device time; profiling again)")
+        fail("torch.profiler recorded no device time for a timed call")
 
 
 def close(torch, got, want, rtol=RTOL_BF16, atol=ATOL_BF16):
@@ -164,76 +191,88 @@ def close(torch, got, want, rtol=RTOL_BF16, atol=ATOL_BF16):
 # ---------------------------------------------------------------------------
 
 
-def check_morph_matmul(torch, cfg, timer):
-    from repro_torch.core import elastic
+def mm_cases(torch, timer, gen, cases, S: int, title: str):
+    """Check and time ``morph_matmul`` against its plain version over
+    ``cases`` (name, K, N, active_n, active_k, calls per layer), B = 8
+    slots of S rows each, bf16 activations and f32 weights. Logs each case
+    and the per-layer sum (cases weighted by their calls per layer)."""
     from repro_torch.kernels import morph_matmul as MM
 
-    B, dm, ff = 8, cfg.d_model, cfg.d_ff
-    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
-    act = elastic.active_widths_batch(cfg, widths, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(1)
-
-    def w_(k, n):
-        return torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
-
-    qd, kvd = cfg.q_dim, cfg.kv_dim
-    odd_n = torch.tensor([1000, 2048, 37, 512, 1999, 64, 2048, 1],
-                         dtype=torch.int32, device="cuda")
-    odd_k = torch.tensor([1500, 2048, 2047, 33, 700, 2048, 1, 96],
-                         dtype=torch.int32, device="cuda")
-    # name, K, N, active_n, active_k, calls per decoder layer
-    cases = [
-        ("wq", dm, qd, act["q_dim"], None, 1),
-        ("wk/wv", dm, kvd, act["kv_dim"], None, 2),
-        ("attn wo", qd, dm, None, act["q_dim"], 1),
-        ("wi/wg", dm, ff, act["d_ff"], None, 2),
-        ("mlp wo", ff, dm, None, act["d_ff"], 1),
-        ("unaligned", dm, dm, odd_n, odd_k, 0),
-    ]
+    B = 8
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     max_err = 0.0
     for name, K, N, an, ak, per_layer in cases:
-        x = torch.randn(B, 1, K, generator=gen, device="cuda").to(torch.bfloat16)
-        w = w_(K, N)
+        x = torch.randn(B, S, K, generator=gen, device="cuda").to(torch.bfloat16)
+        w = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
         got = MM.morph_matmul(x, w, an, ak)
         want = MM.morph_matmul_plain(x, w, an, ak)
         torch.cuda.synchronize()
         ok, err = close(torch, got, want)
         if an is not None:
             cols = torch.arange(N, device="cuda")[None, None, :]
-            dead = cols >= an[:, None, None]
+            dead = (cols >= an[:, None, None]).expand(B, S, N)
             if bool((got[dead] != 0).any()):
                 fail(f"morph_matmul {name}: columns past active_n not zero")
         if not ok:
-            fail(f"morph_matmul {name} {K}x{N}: max |err| {err:.3e} beyond "
-                 f"rtol {RTOL_BF16:.2e} + atol {ATOL_BF16:.0e}")
+            fail(f"morph_matmul {name} ({B}, {S}, {K}) x {N}: max |err| "
+                 f"{err:.3e} beyond rtol {RTOL_BF16:.2e} + atol "
+                 f"{ATOL_BF16:.0e}")
         max_err = max(max_err, err)
         t_k = timer.ms(lambda: MM.morph_matmul(x, w, an, ak))
         t_kw = timer.wall_ms(lambda: MM.morph_matmul(x, w, an, ak))
         t_p = timer.ms(lambda: MM.morph_matmul_plain(x, w, an, ak))
-        wb = w.to(torch.bfloat16)
-        x2 = x[:, 0]
+        wb, x2 = w.to(torch.bfloat16), x.view(B * S, K)
         t_l = timer.ms(lambda: torch.matmul(x2, wb))
         # bound: the live weight block (widest slot) read once as f32, x
         # read once, out written once; ops = 2 * live rows * live cols
         an_h = [N] * B if an is None else an.tolist()
         ak_h = [K] * B if ak is None else ak.tolist()
         live_w = max(min(a, K) for a in ak_h) * max(min(a, N) for a in an_h)
-        nbytes = live_w * 4 + B * K * 2 + B * N * 2
-        ops = sum(2 * min(a, K) * min(n, N) for a, n in zip(ak_h, an_h))
+        nbytes = live_w * 4 + B * S * (K + N) * 2
+        ops = S * sum(2 * min(a, K) * min(n, N) for a, n in zip(ak_h, an_h))
         bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_BF16) * 1e3
-        log(f"  morph_matmul {name:9s} K={K:5d} N={N:5d} max|err| {err:.3e}"
-            f"  kernel {t_k:.4f} ms (call, event-timed {t_kw:.4f} ms)  plain "
-            f"{t_p:.4f} ms  torch.matmul(bf16, full width) {t_l:.4f} ms  "
-            f"bound {bound:.4f} ms (bytes)")
+        log(f"  morph_matmul {name:9s} ({B}, {S}, {K:5d}) x {N:5d} max|err| "
+            f"{err:.3e}  kernel {t_k:.4f} ms (call, event-timed {t_kw:.4f} "
+            f"ms)  plain {t_p:.4f} ms  torch.matmul(bf16, full width) "
+            f"{t_l:.4f} ms  bound {bound:.4f} ms (bytes)")
         for k_, v_ in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound),
                        ("library_ms", t_l)):
             tot[k_] += v_ * per_layer
-    log(f"  morph_matmul, one decoder layer (7 projections, B=8, mixed "
-        f"widths): kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
-        f"library {tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; "
-        f"tolerance rtol {RTOL_BF16:.2e} + atol {ATOL_BF16:.0e}")
+    log(f"  morph_matmul, {title}: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms; tolerance rtol {RTOL_BF16:.2e} + "
+        f"atol {ATOL_BF16:.0e}")
     return dict(max_abs_err=max_err, **tot)
+
+
+def _tinyllama_cases(cfg, act):
+    dm, ff, qd, kvd = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    # name, K, N, active_n, active_k, calls per decoder layer
+    return [("wq", dm, qd, act["q_dim"], None, 1),
+            ("wk/wv", dm, kvd, act["kv_dim"], None, 2),
+            ("attn wo", qd, dm, None, act["q_dim"], 1),
+            ("wi/wg", dm, ff, act["d_ff"], None, 2),
+            ("mlp wo", ff, dm, None, act["d_ff"], 1)]
+
+
+def check_morph_matmul(torch, cfg, timer):
+    """``morph_matmul`` over the seven projections of one TinyLlama decoder
+    layer, B = 8 decode rows at mixed widths {0.25, 0.5, 1.0}, plus a width
+    that is not tile-aligned."""
+    from repro_torch.core import elastic
+
+    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dm = cfg.d_model
+    odd_n = torch.tensor([1000, 2048, 37, 512, 1999, 64, 2048, 1],
+                         dtype=torch.int32, device="cuda")
+    odd_k = torch.tensor([1500, 2048, 2047, 33, 700, 2048, 1, 96],
+                         dtype=torch.int32, device="cuda")
+    cases = _tinyllama_cases(cfg, act) + [
+        ("unaligned", dm, dm, odd_n, odd_k, 0)]
+    return mm_cases(torch, timer, gen, cases, 1,
+                    "one decoder layer (7 projections, B=8, mixed widths)")
 
 
 def check_fused_decode(torch, cfg, timer):
@@ -325,53 +364,13 @@ def check_morph_matmul_verify(torch, cfg, timer, S=5):
     S = K+1 = 5 rows each, 40 rows per launch (five 8-row groups of the
     kernel), for each projection of one decoder layer."""
     from repro_torch.core import elastic
-    from repro_torch.kernels import morph_matmul as MM
 
-    B, dm, ff, qd, kvd = 8, cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
     widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
     act = elastic.active_widths_batch(cfg, widths, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    cases = [
-        ("wq", dm, qd, act["q_dim"], None, 1),
-        ("wk/wv", dm, kvd, act["kv_dim"], None, 2),
-        ("attn wo", qd, dm, None, act["q_dim"], 1),
-        ("wi/wg", dm, ff, act["d_ff"], None, 2),
-        ("mlp wo", ff, dm, None, act["d_ff"], 1),
-    ]
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
-    max_err = 0.0
-    for name, K, N, an, ak, per_layer in cases:
-        x = torch.randn(B, S, K, generator=gen, device="cuda").to(torch.bfloat16)
-        w = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
-        got = MM.morph_matmul(x, w, an, ak)
-        want = MM.morph_matmul_plain(x, w, an, ak)
-        torch.cuda.synchronize()
-        ok, err = close(torch, got, want)
-        if not ok:
-            fail(f"morph_matmul verify shape {name} ({B}, {S}, {K}) x {N}: "
-                 f"max |err| {err:.3e}")
-        max_err = max(max_err, err)
-        t_k = timer.ms(lambda: MM.morph_matmul(x, w, an, ak))
-        t_p = timer.ms(lambda: MM.morph_matmul_plain(x, w, an, ak))
-        wb, x2 = w.to(torch.bfloat16), x.view(B * S, K)
-        t_l = timer.ms(lambda: torch.matmul(x2, wb))
-        an_h = [N] * B if an is None else an.tolist()
-        ak_h = [K] * B if ak is None else ak.tolist()
-        live_w = max(min(a, K) for a in ak_h) * max(min(a, N) for a in an_h)
-        nbytes = live_w * 4 + B * S * (K + N) * 2
-        ops = S * sum(2 * min(a, K) * min(n, N) for a, n in zip(ak_h, an_h))
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / PEAK_BF16) * 1e3
-        log(f"  morph_matmul verify {name:7s} ({B}, {S}, {K:4d}) x {N:4d} "
-            f"max|err| {err:.3e}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms  "
-            f"torch.matmul(bf16) {t_l:.4f} ms  bound {bound:.4f} ms (bytes)")
-        for k_, v_ in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound),
-                       ("library_ms", t_l)):
-            tot[k_] += v_ * per_layer
-    log(f"  morph_matmul at verify shape, one decoder layer (7 projections, "
-        f"{B * S} rows): kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms")
-    return dict(max_abs_err=max_err, **tot)
+    return mm_cases(torch, timer, gen, _tinyllama_cases(cfg, act), S,
+                    f"at verify shape, one decoder layer (7 projections, "
+                    f"{8 * S} rows)")
 
 
 def tree_np(branching):
@@ -498,6 +497,118 @@ def check_fused_verify(torch, cfg, timer):
                 bound_ms=bound, bound_by=by, library_ms=None)
 
 
+def check_morph_matmul_ssm(torch, cfg, timer):
+    """``morph_matmul`` at the four gated projections of one Mamba2 layer
+    (``w_x``, ``w_z``: d_model x d_inner gated at ``d_inner``; ``w_dt``:
+    d_model x 32 heads gated at ``ssm_heads``; ``out_proj``: d_inner x
+    d_model, contraction gated at ``d_inner``), B = 8 decode rows at mixed
+    widths {0.5, 1.0}."""
+    from repro_torch.core import elastic
+
+    dm, di, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_nheads
+    widths = [0.5, 1.0, 1.0, 0.5, 0.5, 1.0, 0.5, 1.0]
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    cases = [("w_x/w_z", dm, di, act["d_inner"], None, 2),
+             ("w_dt", dm, nh, act["ssm_heads"], None, 1),
+             ("out_proj", di, dm, None, act["d_inner"], 1)]
+    return mm_cases(torch, timer, gen, cases, 1,
+                    "one Mamba2 layer (4 gated projections, B=8, widths "
+                    "{0.5, 1.0})")
+
+
+def scan_bound(b, s, h, p, g, n, chunk):
+    """(ms, bound_by, bytes, ops) of one scan at the card's peaks: the
+    chunked algorithm's f32 products (per chunk of q steps 2q^2 n + 2q^2 p
+    + 4 q n p per head, the ragged last chunk at its own length) and each
+    input read once, y and the final state written once."""
+    ops = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        ops += b * h * (2 * q * q * n + 2 * q * q * p + 4 * q * n * p)
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
+                  + b * h * p * n)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, ops)
+
+
+def scan_inputs(torch, gen, b, s, h, p, g, n):
+    """Scan inputs as the model's prompt pass makes them: x and B, C
+    silu-activated, dt in the init's [1e-3, 1e-1] range, A in -[1, 16)."""
+    silu = torch.nn.functional.silu
+    x = silu(torch.randn(b, s, h, p, generator=gen, device="cuda"))
+    u = torch.rand(b, s, h, generator=gen, device="cuda")
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    A = -(1.0 + 15.0 * torch.rand(h, generator=gen, device="cuda"))
+    B = silu(torch.randn(b, s, g, n, generator=gen, device="cuda"))
+    C = silu(torch.randn(b, s, g, n, generator=gen, device="cuda"))
+    return x, dt, A, B, C
+
+
+def check_ssd_scan(torch, cfg, timer):
+    """The scan kernel against its plain versions on the card: at the
+    full-width prompt pass (b = 1, 32 heads of 64, one group, n = 128,
+    chunk 256) through ``ssd_scan`` at S = 256 and through
+    ``ops.ssd_scan_bshn`` at S = 200 (a ragged tile), and at the
+    reference's ``kernel_bench`` shape (b = 2, S = 256, 4 heads of 32,
+    n = 16, chunk 64). f32 throughout."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.ssm import ssd_chunked
+
+    h, p, g, n, q = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                     cfg.ssm_state, cfg.ssm_chunk)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    res = {}
+    for tag, (b, s, hh, pp, gg, nn, qq), flat in (
+            ("prompt S=256", (1, 256, h, p, g, n, q), True),
+            ("prompt S=200", (1, 200, h, p, g, n, q), False),
+            ("kernel_bench", (2, 256, 4, 32, 1, 16, 64), False)):
+        x, dt, A, B, C = scan_inputs(torch, gen, b, s, hh, pp, gg, nn)
+        if flat:  # the kernel's own layout: one head per row
+            args = (x.transpose(1, 2).reshape(b * hh, s, pp).contiguous(),
+                    dt.transpose(1, 2).reshape(b * hh, s).contiguous(),
+                    A.expand(b, hh).reshape(-1).contiguous(),
+                    *(t.repeat_interleave(hh // gg, dim=2).transpose(1, 2)
+                      .reshape(b * hh, s, nn).contiguous() for t in (B, C)))
+
+            def kern():
+                return SSD.ssd_scan(*args, chunk=qq)
+
+            def plain():
+                return SSD.ssd_scan_plain(*args, chunk=qq)
+        else:
+            def kern():
+                return ops.ssd_scan_bshn(x, dt, A, B, C, chunk=qq)
+
+            def plain():
+                return ssd_chunked(x, dt, A, B, C, qq)
+        (yk, sk), (yp, sp) = kern(), plain()
+        torch.cuda.synchronize()
+        err = 0.0
+        for what, got, want in (("y", yk, yp), ("state", sk, sp)):
+            ok, e = close(torch, got, want, rtol=RTOL_SCAN, atol=ATOL_SCAN)
+            if not ok or not bool(torch.isfinite(got).all()):
+                fail(f"ssd_scan {tag} {what}: max |err| {e:.3e} beyond rtol "
+                     f"{RTOL_SCAN:.0e} + atol {ATOL_SCAN:.0e}")
+            err = max(err, e)
+        t_k = timer.ms(kern)
+        t_kw = timer.wall_ms(kern)
+        t_p = timer.ms(plain)
+        bound, by, nbytes, nops = scan_bound(b, s, hh, pp, gg, nn, qq)
+        log(f"  ssd_scan {tag} (b={b}, h={hh}, p={pp}, g={gg}, n={nn}, chunk "
+            f"{qq}{', flat layout' if flat else ', model layout'}): max|err| "
+            f"{err:.3e} (y scale {float(yp.abs().max()):.2f}; rtol "
+            f"{RTOL_SCAN:.0e} + atol {ATOL_SCAN:.0e})  kernel {t_k:.4f} ms "
+            f"(call, event-timed {t_kw:.4f} ms)  plain {t_p:.4f} ms  bound "
+            f"{bound:.4f} ms ({by}; {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
+            f"GFLOP f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s)")
+        res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                        bound_by=by)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -532,7 +643,8 @@ def drive(engine, trace, switch_every: int):
 
 def step_width_ms(torch, engine, width: float, iters: int = 10):
     """Decode step at full depth with every slot at ``width``: (host ms per
-    step, device kernel ms per step or None on the CPU)."""
+    step, device kernel ms per step or None on the CPU). Logs the step's
+    heaviest kernels and its kernel count."""
     ctrl = engine.ctrl
     step = ctrl.step_for(ctrl.modes[-1])
     active = engine._active_for([width] * engine.batch_size)
@@ -550,7 +662,29 @@ def step_width_ms(torch, engine, width: float, iters: int = 10):
         return host, None
     per = kernel_us(torch, lambda: step(engine.params, cache, tok, active),
                     iters)
-    return host, sum(per.values()) / iters / 1e3
+    total = sum(per.values()) / iters / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    log(f"    w{width} step: {len(per)} distinct kernels; heaviest: " + "; ".join(
+        f"{v / iters / 1e3:.3f} ms {k[:60]}" for k, v in top))
+    return host, total
+
+
+def step_bytes(engine) -> int:
+    """Bytes a full-depth decode step at full width must move: every
+    parameter read once (the embedding only where it is the tied
+    unembedding; an untied one is a row gather), and every SSM layer's
+    recurrent state read and written. K/V reads are left out: the step is
+    timed on a fresh cache."""
+    cfg = engine.cfg
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    if not cfg.tie_embeddings:
+        emb = engine.params["embed"]
+        nbytes -= emb.numel() * emb.element_size()
+    cache = engine.groups[cfg.n_groups].cache
+    return nbytes + sum(2 * t.numel() * t.element_size()
+                        for layer in cache["stack"].values()
+                        for k, t in layer.items()
+                        if k in ("conv_x", "conv_bc", "state"))
 
 
 def spec_tick_ms(torch, engine, iters: int = 5):
@@ -609,35 +743,70 @@ def layer_steps(engine, steps0, cfg):
     return plain, draft, verify
 
 
-def expected_launches(torch, steps, fused: bool, device):
-    """Launch counts one drive must show. Unfused, every decoder layer of
-    every decode, draft and verify step runs its 7 gated projections
-    through ``morph_matmul``. Fused, attention is one ``fused_decode``
-    (decode and draft steps) or one ``fused_verify`` (verify steps), whose
-    output projections are not ``morph_matmul`` counts, and the MLP is 3
-    ``morph_matmul``. On the CPU the wrappers count nothing."""
-    plain, draft, verify = steps
+def expected_launches(torch, engine, steps0, fused: bool, device):
+    """Launch counts one TinyLlama drive must show. Unfused, every decoder
+    layer of every decode, draft and verify step runs its 7 gated
+    projections through ``morph_matmul``. Fused, attention is one
+    ``fused_decode`` (decode and draft steps) or one ``fused_verify``
+    (verify steps), whose output projections are not ``morph_matmul``
+    counts, and the MLP is 3 ``morph_matmul``. No scan runs. On the CPU the
+    wrappers count nothing."""
+    plain, draft, verify = steps = layer_steps(engine, steps0, engine.cfg)
+    zero = dict.fromkeys(KERNEL_NAMES, 0)
     if torch.device(device).type != "cuda":
-        return {"morph_matmul": 0, "fused_decode": 0, "fused_verify": 0}
+        return zero, steps
     if fused:
-        return {"morph_matmul": 3 * (plain + draft + verify),
-                "fused_decode": plain + draft, "fused_verify": verify}
-    return {"morph_matmul": 7 * (plain + draft + verify), "fused_decode": 0,
-            "fused_verify": 0}
+        return dict(zero, morph_matmul=3 * (plain + draft + verify),
+                    fused_decode=plain + draft, fused_verify=verify), steps
+    return dict(zero, morph_matmul=7 * (plain + draft + verify)), steps
 
 
+def expected_launches_ssm(torch, engine, steps0, fused: bool, device):
+    """Launch counts one Mamba2 drive must show: 4 ``morph_matmul`` per SSM
+    layer of every decode, draft and verify step (x, z and dt projections
+    gated at each slot's width, the output projection's contraction; the
+    B/C projection is never gated), and one ``ssd_scan`` per SSM layer of
+    every prefill, which runs to the depth of the mode its request was
+    admitted at. ``fused`` reaches attention layers only."""
+    plain, draft, verify = steps = layer_steps(engine, steps0, engine.cfg)
+    modes = engine.ctrl.mode_by_name
+    pre = [r for r in engine.completed if r.prefilled]
+    if len(pre) != engine.prefills:
+        fail(f"{len(pre)} prefilled requests, engine counted "
+             f"{engine.prefills} prefills")
+    scans = sum(modes[r.mode_name].depth for r in pre) * engine.cfg.period
+    zero = dict.fromkeys(KERNEL_NAMES, 0)
+    if torch.device(device).type != "cuda":
+        return zero, steps + (scans,)
+    return (dict(zero, morph_matmul=4 * (plain + draft + verify),
+                 ssd_scan=scans), steps + (scans,))
+
+
+KERNEL_NAMES = ("morph_matmul", "fused_decode", "fused_verify", "ssd_scan")
 # path name -> (fused, speculative, temperature, top_k)
 PATHS = (("unfused", False, False, 0.0, 0), ("fused", True, False, 0.0, 0),
          ("spec_unfused", False, True, 0.0, 0),
          ("spec_fused", True, True, 0.0, 0),
          ("spec_fused_t0.8_k50", True, True, 0.8, 50))
+AGREE = (("unfused", "fused", "f32 fused projections vs bf16 unfused weights"),
+         ("spec_unfused", "unfused", "bf16 verify pass vs bf16 decode steps"),
+         ("spec_fused", "fused", "bf16 verify kernel vs bf16 decode kernel"))
+SSM_PATHS = (("mamba2_plain", False, False, 0.0, 0),
+             ("mamba2_spec", False, True, 0.0, 0))
+SSM_AGREE = (("mamba2_spec", "mamba2_plain",
+              "verify pass vs decode steps, bf16 activations"),)
 SPEC_K = 4
 
 
 def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
-               prompt_len=(16, 256), new_tokens=(32, 64), capacity=512):
+               prompt_len=(16, 256), new_tokens=(32, 64), capacity=512,
+               paths=PATHS, expect=expected_launches, agreements=AGREE):
+    """Serve ``cfg`` through each of ``paths`` on one trace; ``expect``
+    gives the exact launch counts each drive must show. Returns (launches
+    per path, results per path)."""
     from repro_torch.kernels import fused_decode as FD
     from repro_torch.kernels import morph_matmul as MM
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models.model import init_params
     from repro_torch.runtime.serving import ServingEngine, poisson_trace
     from repro_torch.runtime.speculative import SpecConfig, draft_compile_key
@@ -655,8 +824,9 @@ def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
     counters = {"morph_matmul": (MM.launch_count, MM.reset_launch_count),
                 "fused_decode": (FD.launch_count, FD.reset_launch_count),
                 "fused_verify": (FD.verify_launch_count,
-                                 FD.reset_verify_launch_count)}
-    for tag, fused, spec, temp, top_k in PATHS:
+                                 FD.reset_verify_launch_count),
+                "ssd_scan": (SSD.launch_count, SSD.reset_launch_count)}
+    for tag, fused, spec, temp, top_k in paths:
         # min_accept_rate 0: with random weights acceptance may be low, and
         # the collapse fallback must not switch the path off
         engine = ServingEngine(
@@ -673,11 +843,11 @@ def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
         wall, streams = drive(engine, trace, switch_every=12)
         run_launches = {n: count() for n, (count, _) in counters.items()}
         launches[tag] = run_launches
-        steps = layer_steps(engine, steps0, cfg)
-        want = expected_launches(torch, steps, fused, device)
+        want, steps = expect(torch, engine, steps0, fused, device)
         if run_launches != want:
             fail(f"{tag} path: launches {run_launches}, expected {want} for "
-                 f"(plain, draft, verify) decoder-layer steps {steps}")
+                 f"(plain, draft, verify) layer steps (, prefill layers) "
+                 f"{steps}")
         if spec and not engine.spec_verify_launches:
             fail(f"{tag} path: no speculative tick ran")
         gen = sum(len(s) for s in streams.values())
@@ -701,8 +871,8 @@ def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
                 f"{t['p50_ms']:8.3f} ms  p95 {t['p95_ms']:8.3f} ms")
         log(f"    launches in this drive: " + ", ".join(
             f"{n} {c}" for n, c in run_launches.items())
-            + f" ((plain, draft, verify) decoder-layer steps {steps}; as "
-            f"expected)")
+            + f" ((plain, draft, verify) layer steps (, prefill layers) "
+            f"{steps}; as expected)")
         res = dict(streams=streams, tokens_per_s=gen / wall)
         if spec:
             tels = engine.spec_telemetry
@@ -750,8 +920,11 @@ def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
                         f"; device kernel time {d_n:.3f} ms vs {d_f:.3f} ms "
                         f"(ratio {d_n / d_f:.3f}, idle share at w1.0 "
                         f"{1 - d_f / h_f:.3f})")
+            nbytes = step_bytes(engine)
             log(f"    decode step at full depth, all slots w{narrow}: host "
-                f"{h_n:.3f} ms, all w1.0: {h_f:.3f} ms{dev_note}")
+                f"{h_n:.3f} ms, all w1.0: {h_f:.3f} ms{dev_note}; bound at "
+                f"w1.0 {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes: "
+                f"{nbytes / 1e9:.3f} GB)")
         results[tag] = res
         del engine
 
@@ -764,9 +937,8 @@ def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
             f"{whole}/{len(a)} streams identical ({what}; reported, not "
             f"asserted)")
 
-    agree("unfused", "fused", "f32 fused projections vs bf16 unfused weights")
-    agree("spec_unfused", "unfused", "bf16 verify pass vs bf16 decode steps")
-    agree("spec_fused", "fused", "bf16 verify kernel vs bf16 decode kernel")
+    for x, y, what in agreements:
+        agree(x, y, what)
     return launches, results
 
 
@@ -778,18 +950,23 @@ def _leaves(tree):
             yield v
 
 
-def smoke_reference(torch):
-    """The smoke model on the card (kernels) vs the CPU (plain versions)."""
+def smoke_reference(torch, arch="tinyllama-1.1b"):
+    """The smoke model of ``arch`` (f32) on the card (kernels) vs the CPU
+    (plain versions): decode at mixed widths, a slot prefill (for the SSM
+    model a prompt of three chunks, through the scan kernel) and a verify
+    pass with its candidates."""
     from repro_torch.configs import smoke_config
     from repro_torch.core import elastic
     from repro_torch.models.model import (decode_step, init_decode_cache,
                                           init_params, prefill, verify_step)
 
-    cfg = smoke_config("tinyllama-1.1b")
+    cfg = smoke_config(arch)
+    ssm = "ssm" in cfg.layer_pattern
     p_cpu = init_params(cfg, seed=3, device="cpu")
     p_gpu = {k: v for k, v in _move(p_cpu, "cuda").items()}
     worst = 0.0
-    for fused in (False, True):
+    # fused reaches attention layers only
+    for fused in ((False,) if ssm else (False, True)):
         outs = []
         for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
             act = elastic.active_widths_batch(cfg, [0.5, 1.0], device=dev)
@@ -800,19 +977,23 @@ def smoke_reference(torch):
                 logits, cache = decode_step(p, cache, toks[:, t:t + 1], cfg,
                                             active=act, fused=fused)
                 lg.append(logits.float().cpu())
-            pl, _ = prefill(p, {"tokens": toks[:1]}, cfg, cache_extra=4,
+            prompt = (torch.arange(1, 3 * cfg.ssm_chunk - 5, device=dev)[None]
+                      if ssm else toks[:1])
+            pl, _ = prefill(p, {"tokens": prompt}, cfg, cache_extra=4,
                             per_slot=True, slot=1, n_slots=2)
             lg.append(pl.float().cpu())
             vl, pend = verify_step(p, cache, toks, cfg, active=act,
                                    fused=fused)
-            lg += [vl.float().cpu(), pend["stack"]["pos0"]["k"].float().cpu()]
+            lg += [vl.float().cpu()] + [
+                a.float().cpu() for a in pend["stack"]["pos0"].values()]
             outs.append(torch.cat([x.reshape(-1) for x in lg]))
         err = float((outs[0] - outs[1]).abs().max())
         if not math.isfinite(err) or err > ATOL_SMOKE:
-            fail(f"smoke model fused={fused}: card vs CPU max |err| {err:.3e}")
+            fail(f"{arch} smoke model fused={fused}: card vs CPU max |err| "
+                 f"{err:.3e}")
         worst = max(worst, err)
-    log(f"  smoke model (f32) on the card vs plain versions on the CPU "
-        f"(decode, prefill, verify): max |logit err| {worst:.3e} (atol "
+    log(f"  {arch} smoke model (f32) on the card vs plain versions on the "
+        f"CPU (decode, prefill, verify): max |err| {worst:.3e} (atol "
         f"{ATOL_SMOKE:.0e})")
 
 
@@ -833,13 +1014,6 @@ def unported_bounds():
         out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o
                      else "operations", nbytes, ops)
 
-    # ssd_scan_bshn: x (2, 256, 4, 32), dt (2, 256, 4), B/C (2, 256, 1, 16),
-    # chunk 64; y and the final state (2, 4, 32, 16) out
-    b, sq, h, p, g, n, q = 2, 256, 4, 32, 1, 16, 64
-    nbytes = 4 * (2 * b * sq * h * p + b * sq * h + h + 2 * b * sq * g * n
-                  + b * h * p * n)
-    per_chunk = 2 * q * q * n + 2 * q * q * p + 4 * q * n * p + 2 * n * p
-    put("ssd_scan", nbytes, b * h * (sq // q) * per_chunk)
     # flash_decode: BKV 2, group 4, S = kv_len = 128, hd 32
     bkv, grp, sk, hd = 2, 4, 128, 32
     put("flash_decode", 4 * (2 * bkv * grp * hd + 2 * bkv * sk * hd),
@@ -877,7 +1051,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
 
-    log("[phase 1] device and build")
+    phase("[phase 1] device and build")
     card = card_line()
     log(f"  card: {card}")
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -891,46 +1065,64 @@ def main(argv=None) -> int:
             log(f"    {name}: {ln}")
 
     cfg = get_config("tinyllama-1.1b")
+    mcfg = get_config("mamba2-370m")
     timer = Timer(torch)
-    log("[phase 2] kernels vs plain versions (full TinyLlama shapes, bf16)")
+    phase("[phase 2] kernels vs plain versions (full TinyLlama shapes, bf16)")
     mm = check_morph_matmul(torch, cfg, timer)
     mmv = check_morph_matmul_verify(torch, cfg, timer)
     fd = check_fused_decode(torch, cfg, timer)
     fv = check_fused_verify(torch, cfg, timer)
+    phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
+    mms = check_morph_matmul_ssm(torch, mcfg, timer)
+    ssd = check_ssd_scan(torch, mcfg, timer)
     torch.cuda.empty_cache()
 
-    names = ("morph_matmul", "fused_decode", "fused_verify")
-    launches = {p[0]: dict.fromkeys(names) for p in PATHS}
+    launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
+                for p in PATHS + SSM_PATHS}
     if not args.skip_e2e:
-        log("[phase 3] end to end: tinyllama-1.1b, full width, one card")
+        phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
-        launches, _ = end_to_end(torch, cfg, timer)
+        # 12 requests: the Mamba2 drives below share the run's time
+        launches, _ = end_to_end(torch, cfg, timer, n_requests=12)
+        torch.cuda.empty_cache()
+        phase("[phase 3] end to end: mamba2-370m, full width, one card")
+        smoke_reference(torch, "mamba2-370m")
+        ssm_launches, _ = end_to_end(torch, mcfg, timer, paths=SSM_PATHS,
+                                     expect=expected_launches_ssm,
+                                     agreements=SSM_AGREE)
+        launches.update(ssm_launches)
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
     # the count from the path the kernel carries (morph_matmul: the default
-    # unfused engine; fused_decode: ``fused=True``; fused_verify: greedy
-    # speculative ``fused=True``); ``launches_by_path`` gives every path's
-    # own count.
+    # unfused TinyLlama engine; fused_decode: ``fused=True``; fused_verify:
+    # greedy speculative ``fused=True``; ssd_scan: the plain Mamba2 engine's
+    # prefills); ``launches_by_path`` gives every path's own count.
     status = "ok" if not args.skip_e2e else "ok (kernel checks only)"
+
+    def by_path(name):
+        return {p: c[name] for p, c in launches.items()}
+
+    prompt = ssd["prompt S=256"]
     kernels = [
         dict(name="morph_matmul", route="cuda", status=status,
              source="src/repro_torch/csrc/morph_matmul.cu",
              replaces="src/repro/kernels/morph_matmul.py:68",
              launches=launches["unfused"]["morph_matmul"],
-             launches_by_path={p: c["morph_matmul"]
-                               for p, c in launches.items()},
-             max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"]),
+             launches_by_path=by_path("morph_matmul"),
+             max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
+                             mms["max_abs_err"]),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
              bound_by="bytes", library_ms=mm["library_ms"],
              verify_shape={k: mmv[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")},
+             mamba2_layer={k: mms[k] for k in ("ms", "plain_ms", "bound_ms",
                                                "library_ms")}),
         dict(name="fused_decode", route="cuda", status=status,
              source="src/repro_torch/csrc/fused_decode.cu",
              replaces="src/repro/kernels/fused_decode.py:377",
              launches=launches["fused"]["fused_decode"],
-             launches_by_path={p: c["fused_decode"]
-                               for p, c in launches.items()},
+             launches_by_path=by_path("fused_decode"),
              max_abs_err=fd["max_abs_err"], ms=fd["ms"],
              plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
              bound_by=fd["bound_by"], library_ms=None),
@@ -938,13 +1130,24 @@ def main(argv=None) -> int:
              source="src/repro_torch/csrc/fused_verify.cu",
              replaces="src/repro/kernels/fused_decode.py:621",
              launches=launches["spec_fused"]["fused_verify"],
-             launches_by_path={p: c["fused_verify"]
-                               for p, c in launches.items()},
+             launches_by_path=by_path("fused_verify"),
              max_abs_err=fv["max_abs_err"], ms=fv["ms"],
              plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
              bound_by=fv["bound_by"], library_ms=None),
+        dict(name="ssd_scan", route="cuda", status=status,
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:27",
+             launches=launches["mamba2_plain"]["ssd_scan"],
+             launches_by_path=by_path("ssd_scan"),
+             max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
+             ms=prompt["ms"], plain_ms=prompt["plain_ms"],
+             bound_ms=prompt["bound_ms"], bound_by=prompt["bound_by"],
+             library_ms=None,
+             other_shapes={k: {m: r[m] for m in ("ms", "plain_ms",
+                                                  "bound_ms")}
+                           for k, r in ssd.items() if r is not prompt}),
     ]
-    log("[phase 4] summary")
+    phase("[phase 4] summary")
     log("  bounds of the TPU kernels still to port, at the reference's "
         "benchmark shapes:")
     unported_bounds()

@@ -39,7 +39,8 @@ def params_from_jax(tree: Dict, device=None) -> Dict:
 
 def cache_from_jax(tree: Dict, device=None) -> Dict:
     """Nested dict of numpy arrays (a JAX decode cache) -> same tree of
-    tensors: ``{"pos": (B,), "stack": {"pos0": {"k": (G,B,S,KV,hd), ...}}}``.
+    tensors: ``{"pos": (B,), "stack": {"pos0": {"k": (G,B,S,KV,hd), ...}}}``
+    (SSM layers: ``conv_x``, ``conv_bc``, ``state``).
     Position counters become int32 tensors, as the port's caches hold them."""
     out = _convert(tree, resolve_device(device))
     if "pos" in out:

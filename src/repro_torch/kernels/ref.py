@@ -1,7 +1,7 @@
 """Plain PyTorch oracles for the kernels of this slice.
 
-Port of ``repro.kernels.ref``. ``flash_attention_ref`` and ``ssd_scan_ref``
-arrive with the slices that port their kernels.
+Port of ``repro.kernels.ref``. ``flash_attention_ref`` arrives with the
+slice that ports its kernel.
 """
 from __future__ import annotations
 
@@ -33,3 +33,21 @@ def morph_matmul_ref(x, w, active_n=None, active_k=None):
                      w[:ak, :an].float())
     y = torch.nn.functional.pad(y, (0, N - an))
     return y.to(x.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C):
+    """Sequential SSD oracle. x: (BH, S, hp); dt: (BH, S); A: (BH,);
+    B, C: (BH, S, n). Returns (y in x's dtype, final state (BH, hp, n)
+    f32)."""
+    BH, S, hp = x.shape
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    a = A.float()
+    state = torch.zeros((BH, hp, B.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * a)  # (BH,)
+        state = (state * decay[:, None, None]
+                 + (xf[:, t] * dtf[:, t, None])[:, :, None] * Bf[:, t, None, :])
+        ys.append(torch.einsum("bpn,bn->bp", state, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -22,9 +22,11 @@ of every launch and request; ``--metrics-dump`` prints the metrics
 registry. Runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 8 --tokens 256 --switch-every 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --batch 8 --tokens 256 --spec-k 4
 """
 from __future__ import annotations
 
@@ -56,7 +58,8 @@ def main(argv=None):
                          "prefill instead of token-by-token")
     ap.add_argument("--fused", action="store_true",
                     help="route attention layers through the fused decode "
-                         "and verify kernels")
+                         "and verify kernels (no effect on SSM layers, "
+                         "which have no fused path)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy argmax); per-slot "
                          "keys keep sampled streams reproducible under slot "

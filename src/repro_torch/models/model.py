@@ -1,17 +1,21 @@
-"""Dense decoder: init / prefill / decode over a per-slot KV cache.
+"""Decoder models: init / prefill / decode over a per-slot cache.
 
-Port of ``repro.models.model`` for the dense family (token-only decoders
-whose layers are attention + MLP). Layer stacks keep the JAX layout: one
-group = one period of the layer pattern, group parameters and caches
-stacked on a leading ``n_groups`` axis. The ``lax.scan`` over groups
+Port of ``repro.models.model`` for the dense family (attention + MLP) and
+the SSM family (mamba2 blocks, ``models.ssm``). Layer stacks keep the JAX
+layout: one group = one period of the layer pattern, group parameters and
+caches stacked on a leading ``n_groups`` axis. The ``lax.scan`` over groups
 becomes a Python loop over per-group views; the cache is updated in place
 through those views (JAX donates the cache buffer for the same effect).
+Attention layers cache K/V; SSM layers cache the recurrent state (conv
+tails ``conv_x`` / ``conv_bc`` and the SSD ``state``), which slot resets
+zero.
 
 Linear speculative decoding has ``verify_step`` (read-only scoring of K+1
-positions) and ``commit_verify`` (in-place masked commit). SSM, MoE,
-encoder-decoder and frontend families, paged caches, and the token-tree
-paths raise ``NotImplementedError`` naming the slice of the port they
-arrive with.
+positions) and ``commit_verify`` (in-place masked commit of K/V, a
+gather of each SSM layer's candidate at ``n_accepted``). MoE, encoder-decoder and frontend
+families, absolute-position models, paged caches, and the token-tree paths
+raise ``NotImplementedError`` naming the slice of the port they arrive
+with.
 """
 from __future__ import annotations
 
@@ -22,19 +26,28 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 Params = Dict
 Cache = Dict
 
 
+_RECURRENT_CACHE_KEYS = ("conv_x", "conv_bc", "state")
+
+
+def pos_kind(cfg: ModelConfig) -> str:
+    if cfg.use_rope:
+        return "rope"
+    if cfg.family in ("ssm", "hybrid"):
+        return "none"
+    return "sinusoidal"
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if any(k != "attn" for k in cfg.layer_pattern):
-        raise NotImplementedError(f"{cfg.name}: SSM layers arrive with the "
-                                  f"SSM slice of the port")
     if cfg.n_experts:
         raise NotImplementedError(f"{cfg.name}: MoE layers arrive with the "
                                   f"MoE slice of the port")
-    if cfg.is_encdec or cfg.frontend or not cfg.use_rope:
+    if cfg.is_encdec or cfg.frontend or pos_kind(cfg) == "sinusoidal":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder, frontend and "
                                   f"absolute-position models arrive with a "
                                   f"later slice")
@@ -77,8 +90,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     }
     stack = {}
     for p in range(cfg.period):
-        layer = {"norm1": L.init_norm(cfg, lead=lead, device=dev),
-                 "attn": L.init_attention(gen, cfg, lead=lead, device=dev)}
+        layer = {"norm1": L.init_norm(cfg, lead=lead, device=dev)}
+        if cfg.layer_kind(p) == "attn":
+            layer["attn"] = L.init_attention(gen, cfg, lead=lead, device=dev)
+        else:
+            layer["ssm"] = SSM.init_ssm(gen, cfg, lead=lead, device=dev)
         if cfg.d_ff:
             layer["norm2"] = L.init_norm(cfg, lead=lead, device=dev)
             layer["mlp"] = L.init_mlp(gen, cfg, lead=lead, device=dev)
@@ -105,9 +121,18 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, causal=True,
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
         hn = L.apply_norm(lp["norm1"], h, cfg)
-        mix, (k_, v_) = L.mha(lp["attn"], hn, cfg, positions, causal=causal)
-        if want_cache:
-            caches[f"pos{p}"] = _pack_kv_cache(k_, v_, cfg, cache_extra)
+        if cfg.layer_kind(p) == "attn":
+            mix, (k_, v_) = L.mha(lp["attn"], hn, cfg, positions,
+                                  causal=causal)
+            if want_cache:
+                caches[f"pos{p}"] = _pack_kv_cache(k_, v_, cfg, cache_extra)
+        else:
+            mix, st = SSM.ssm_forward(lp["ssm"], hn, cfg,
+                                      return_state=want_cache)
+            if want_cache:
+                (x_tail, bc_tail), state = st
+                caches[f"pos{p}"] = {"conv_x": x_tail, "conv_bc": bc_tail,
+                                     "state": state}
         h = h + mix
         if cfg.d_ff:
             hn = L.apply_norm(lp["norm2"], h, cfg)
@@ -186,12 +211,18 @@ def _exit_norm(params, cfg: ModelConfig, depth: int):
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
                       per_slot: bool = False, device=None) -> Cache:
     """Zeroed cache with room for ``capacity`` tokens:
-    ``{"pos": () or (B,), "stack": {"pos0": {"k": (G,B,S,KV,hd), ...}}}``."""
+    ``{"pos": () or (B,), "stack": {"pos0": {"k": (G,B,S,KV,hd), ...}}}``;
+    SSM layers hold ``conv_x`` / ``conv_bc`` (G,B,K-1,C) in ``cfg.dtype``
+    and ``state`` (G,B,nh,hp,n) in f32 instead, whatever the capacity."""
     _check_family(cfg)
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
-    stack = {f"pos{p}": L.init_kv_cache(cfg, batch, capacity, dt,
-                                        lead=(cfg.n_groups,), device=dev)
+    lead = (cfg.n_groups,)
+    stack = {f"pos{p}": (L.init_kv_cache(cfg, batch, capacity, dt, lead=lead,
+                                         device=dev)
+                         if cfg.layer_kind(p) == "attn" else
+                         SSM.init_ssm_cache(cfg, batch, dtype=dt, lead=lead,
+                                            device=dev))
              for p in range(cfg.period)}
     pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                       device=dev)
@@ -201,11 +232,17 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
 def reset_cache_slots(cache: Cache, mask) -> Cache:
     """Rewind every slot where ``mask`` (n_slots,) is True, in place.
 
-    Position counters go to 0; attention KV is left as it is (position
-    masking hides the previous occupant's keys). Dense decoders have no
-    recurrent state to zero."""
+    Position counters go to 0 and the recurrent state of SSM layers (conv
+    tails and SSD state, which carry across tokens unconditionally) is
+    zeroed; attention KV is left as it is (position masking hides the
+    previous occupant's keys). One masked fill per leaf, on the device."""
     mask = torch.as_tensor(mask, dtype=torch.bool, device=cache["pos"].device)
     cache["pos"].masked_fill_(mask, 0)
+    for layer in cache["stack"].values():
+        for k, a in layer.items():
+            if k in _RECURRENT_CACHE_KEYS:
+                m = mask.reshape((1, mask.shape[0]) + (1,) * (a.dim() - 2))
+                a.masked_fill_(m, 0)
     return cache
 
 
@@ -232,8 +269,12 @@ def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
         lp = group_params[f"pos{p}"]
         cp = group_cache[f"pos{p}"]
         hn = L.apply_norm(lp["norm1"], h, cfg)
-        mix, _ = L.mha_decode(lp["attn"], hn, cp, pos, cfg, active=active,
-                              fused=fused)
+        if cfg.layer_kind(p) == "attn":
+            mix, _ = L.mha_decode(lp["attn"], hn, cp, pos, cfg, active=active,
+                                  fused=fused)
+        else:  # no fused path: ``fused`` reaches attention layers only
+            mix, _ = SSM.ssm_decode_step(lp["ssm"], hn, cp, cfg,
+                                         active=active)
         h = h + mix
         if cfg.d_ff:
             hn = L.apply_norm(lp["norm2"], h, cfg)
@@ -281,9 +322,13 @@ def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
         hn = L.apply_norm(lp["norm1"], h, cfg)
-        mix, cand[f"pos{p}"] = L.mha_verify(lp["attn"], hn,
-                                            group_cache[f"pos{p}"], pos, cfg,
-                                            active=active, fused=fused)
+        if cfg.layer_kind(p) == "attn":
+            mix, cand[f"pos{p}"] = L.mha_verify(
+                lp["attn"], hn, group_cache[f"pos{p}"], pos, cfg,
+                active=active, fused=fused)
+        else:
+            mix, cand[f"pos{p}"] = SSM.ssm_verify_step(
+                lp["ssm"], hn, group_cache[f"pos{p}"], cfg, active=active)
         h = h + mix
         if cfg.d_ff:
             hn = L.apply_norm(lp["norm2"], h, cfg)
@@ -303,7 +348,9 @@ def verify_step(params, cache, tokens, cfg: ModelConfig, *,
     next-token distribution after ``tokens[:, :j+1]`` (what j+1 chained
     ``decode_step`` calls give), and ``pending = {"stack": {"pos0": {"k":
     (d, B, S, KV, hd), "v": ...}}}`` the raw K/V candidates of the first
-    ``depth`` groups, for ``commit_verify``."""
+    ``depth`` groups, for ``commit_verify``; SSM layers give per-step
+    ``conv_x`` / ``conv_bc`` (d, B, S, K-1, C) and ``state``
+    (d, B, S, nh, hp, n), entry j the value after consuming token j."""
     if pages is not None:
         raise NotImplementedError("paged KV caches arrive with the paged "
                                   "slice of the port")
@@ -354,8 +401,9 @@ def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
     slot b is written at position ``pos[b] + j`` (rolling under a sliding
     window) where ``j <= n_accepted[b]``; rejected positions keep the old
     buffer contents, which the advanced position counter then masks. int8
-    caches re-quantize the raw candidates. Groups past the verify depth are
-    untouched; ``pos += n_accepted + 1``."""
+    caches re-quantize the raw candidates. SSM layers take the per-step
+    candidate at index ``n_accepted`` (an exact gather on the device).
+    Groups past the verify depth are untouched; ``pos += n_accepted + 1``."""
     if path_nodes is not None:
         raise NotImplementedError("token-tree commits (path_nodes) arrive "
                                   "with the tree slice of the port")
@@ -381,9 +429,18 @@ def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
         m = acc.reshape((1, B, S) + (1,) * (new.dim() - 3))
         sub[:, bix, slot] = torch.where(m, new.to(full.dtype), old)
 
+    def select_step(full, new):
+        """full (G, B, ...) <- candidate n_accepted of new (d, B, S, ...)."""
+        ix = n_acc.reshape((1, B, 1) + (1,) * (new.dim() - 3))
+        ix = ix.expand((d, B, 1) + tuple(new.shape[3:]))
+        full[:d].copy_(torch.gather(new, 2, ix)[:, :, 0])
+
     for pn, layer in cache["stack"].items():
         pc = pend[pn]
-        if "k_scale" in layer:
+        if "k" not in pc:  # ssm: per-step recurrent candidates
+            for key in _RECURRENT_CACHE_KEYS:
+                select_step(layer[key], pc[key])
+        elif "k_scale" in layer:
             kq, ks_ = L.quantize_kv(pc["k"])
             vq, vs = L.quantize_kv(pc["v"])
             for key, new in (("k", kq), ("v", vq), ("k_scale", ks_),

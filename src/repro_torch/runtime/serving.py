@@ -1,9 +1,10 @@
 """Continuous-batching NeuroMorph serving engine.
 
 Port of ``repro.runtime.serving`` for the slices the port covers: a dense
-per-slot KV cache, one-token decode (greedy or sampled), linear
-self-speculative decoding, prefill admission, per-depth slot groups with
-mixed per-slot widths, SLO-driven admission and observability.
+per-slot KV cache or SSM recurrent state, one-token decode (greedy or
+sampled), linear self-speculative decoding, prefill admission, per-depth
+slot groups with mixed per-slot widths, SLO-driven admission and
+observability.
 
 * **Request queue + slot admission.** Requests wait in a two-level queue
   (``interactive`` before ``batch``) and are admitted into free slots every
@@ -34,7 +35,8 @@ mixed per-slot widths, SLO-driven admission and observability.
   keys folded with the tick count (``runtime.sampling``).
 
 ``fused=True`` routes every attention layer through the fused decode and
-verify kernels (a closure flag on the step callables). Paged caches,
+verify kernels (a closure flag on the step callables; SSM layers have no
+fused path and ignore it). Paged caches,
 token trees, snapshot/restore and mesh executors arrive with later slices
 of the port and raise here.
 """

@@ -178,8 +178,9 @@ class DraftStep:
 
     ``draft(params, cache, tok0, active, keys, temperature, step) ->
     (draft_tokens (B, K), draft_logits (B, K, Vp))``. ``load_scratch``
-    copies the first ``draft_depth`` groups' K/V and ``pos`` of ``cache``
-    into the scratch (allocated at the first call) and returns it."""
+    copies the first ``draft_depth`` groups of every cache leaf (K/V, or
+    an SSM layer's conv tails and state) and ``pos`` of ``cache`` into the
+    scratch (allocated at the first call) and returns it."""
 
     def __init__(self, cfg: ModelConfig, draft_depth: int, k: int,
                  top_k: int = 0, fused: bool = False):

@@ -221,3 +221,99 @@ def test_engine_on_card_greedy_spec_equals_plain(cuda, fused):
         assert (out["spec_verify_launches"] > 0) == (spec is not None)
         streams.append({r.rid: r.generated for r in eng.completed})
     assert streams[0] == streams[1]
+
+
+def _ssd_inputs(g, shape, dtype):
+    """Model-layout scan inputs: x (b, s, h, p), softplus dt, A < 0, B and C
+    with G groups."""
+    b, s, h, p, G, n = shape
+    x = torch.randn(b, s, h, p, generator=g, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=g, device="cuda") - 2.0)
+    A = -torch.exp(torch.rand(h, generator=g, device="cuda") * 2.7)
+    B = torch.randn(b, s, G, n, generator=g, device="cuda")
+    C = torch.randn(b, s, G, n, generator=g, device="cuda")
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 128, 4, 16, 1, 16),
+                                   (1, 100, 6, 24, 2, 128),
+                                   (2, 37, 3, 8, 3, 40)])
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
+    """The scan kernel against ``ssd_chunked`` (chunk 16) in the model layout
+    (B and C per group, a ragged last tile at s = 100 and 37, hp not a
+    multiple of the kernel's 16 columns at 24 and 8) and against
+    ``ssd_scan_plain`` in the kernel's own layout. f32 y and states agree
+    to 1e-3 (the kernel restarts the decay sum every 64 steps, the plain
+    version every chunk: rounding only); a bf16 y to one bf16 step."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.ssm import ssd_chunked
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, dt, A, B, C = _ssd_inputs(g, shape, dtype)
+    n0 = SSD.launch_count()
+    y, st = ops.ssd_scan_bshn(x, dt, A, B, C, chunk=16)
+    assert SSD.launch_count() == n0 + 1
+    yp, stp = ssd_chunked(x.float(), dt, A, B, C, 16)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape
+    tol = dict(atol=1e-3, rtol=1e-3) if dtype == torch.float32 else \
+        dict(atol=1e-2, rtol=2.0 ** -7)
+    torch.testing.assert_close(y.float(), yp.to(dtype).float(), **tol)
+    torch.testing.assert_close(st, stp, atol=1e-3, rtol=1e-3)
+    # the kernel's own layout: one head per row, B and C repeated
+    b, s, h, p, G, n = shape
+    rep = h // G
+    xf = x.transpose(1, 2).reshape(b * h, s, p).contiguous()
+    dtf = dt.transpose(1, 2).reshape(b * h, s).contiguous()
+    Af = A.expand(b, h).reshape(b * h).contiguous()
+    Bf, Cf = (t.repeat_interleave(rep, dim=2).transpose(1, 2)
+              .reshape(b * h, s, n).contiguous() for t in (B, C))
+    yk, sk = SSD.ssd_scan(xf, dtf, Af, Bf, Cf, chunk=16)
+    yq, sq = SSD.ssd_scan_plain(xf, dtf, Af, Bf, Cf, chunk=16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(yk.float(), yq.float(), **tol)
+    torch.testing.assert_close(sk, sq, atol=1e-3, rtol=1e-3)
+
+
+def test_mamba2_smoke_model_on_card_matches_cpu(cuda):
+    """The mamba2 smoke model (f32) on the card (ssd_scan and morph_matmul
+    kernels) against the plain versions on the CPU: prefill of a
+    multi-chunk prompt, decode at mixed widths and a verify pass, logits
+    and every cache leaf to 1e-3."""
+    from repro_torch.core import elastic
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.model import (decode_step, init_params, prefill,
+                                          verify_step)
+
+    cfg = smoke_config("mamba2-370m")
+    p_cpu = init_params(cfg, seed=3, device="cpu")
+
+    def move(t, dev):
+        return ({k: move(v, dev) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(dev))
+
+    outs = []
+    for dev, p in (("cpu", p_cpu), (cuda, move(p_cpu, cuda))):
+        act = elastic.active_widths_batch(cfg, [0.5, 1.0], device=dev)
+        prompt = torch.arange(1, 40, device=dev)[None] % cfg.vocab_size
+        n0 = SSD.launch_count()
+        lg, cache = prefill(p, {"tokens": prompt}, cfg, per_slot=True,
+                            slot=1, n_slots=2)
+        if dev != "cpu":
+            assert SSD.launch_count() == n0 + cfg.n_groups
+        got = [lg]
+        toks = torch.tensor([[5, 9, 3], [2, 4, 6]], device=dev)
+        for t in range(toks.shape[1]):
+            lg, cache = decode_step(p, cache, toks[:, t:t + 1], cfg,
+                                    active=act)
+            got.append(lg)
+        vl, pend = verify_step(p, cache, toks, cfg, active=act)
+        got += [vl] + [a for a in pend["stack"]["pos0"].values()]
+        got += [a for a in cache["stack"]["pos0"].values()]
+        outs.append([t.float().cpu() for t in got])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)

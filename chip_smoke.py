@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    mixed committed counts, a bf16 cache with the linear mask (S = 5) and an
    int8 cache with a (2, 2) token-tree mask (S = 7). Then at full
    Mamba2-370M shapes: ``morph_matmul`` over the four gated projections of
-   one SSM layer (B = 8, widths {0.5, 1.0}), and ``ssd_scan`` at the
+   one SSM layer (B = 8, widths {0.5, 1.0}, at decode shape and at the
+   verify pass's S = 5), and ``ssd_scan`` at the
    full-width prompt pass (1 x 256 tokens, 32 heads of 64, n = 128, chunk
    256; and 200 tokens, a ragged tile, through ``ops.ssd_scan_bshn``) and
    at the reference's ``kernel_bench`` shape. Each is timed on the card
@@ -501,8 +502,10 @@ def check_morph_matmul_ssm(torch, cfg, timer):
     """``morph_matmul`` at the four gated projections of one Mamba2 layer
     (``w_x``, ``w_z``: d_model x d_inner gated at ``d_inner``; ``w_dt``:
     d_model x 32 heads gated at ``ssm_heads``; ``out_proj``: d_inner x
-    d_model, contraction gated at ``d_inner``), B = 8 decode rows at mixed
-    widths {0.5, 1.0}."""
+    d_model, contraction gated at ``d_inner``), B = 8 slots at mixed widths
+    {0.5, 1.0}: once at decode shape (1 row per slot) and once at the
+    speculative verify shape (K + 1 = 5 rows per slot, 40 rows). Returns
+    (decode, verify) sums per layer."""
     from repro_torch.core import elastic
 
     dm, di, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_nheads
@@ -512,25 +515,37 @@ def check_morph_matmul_ssm(torch, cfg, timer):
     cases = [("w_x/w_z", dm, di, act["d_inner"], None, 2),
              ("w_dt", dm, nh, act["ssm_heads"], None, 1),
              ("out_proj", di, dm, None, act["d_inner"], 1)]
-    return mm_cases(torch, timer, gen, cases, 1,
-                    "one Mamba2 layer (4 gated projections, B=8, widths "
-                    "{0.5, 1.0})")
+    return tuple(
+        mm_cases(torch, timer, gen, cases, S,
+                 f"one Mamba2 layer (4 gated projections, B=8, S={S}, "
+                 f"widths {{0.5, 1.0}})") for S in (1, 5))
 
 
-def scan_bound(b, s, h, p, g, n, chunk):
-    """(ms, bound_by, bytes, ops) of one scan at the card's peaks: the
-    chunked algorithm's f32 products (per chunk of q steps 2q^2 n + 2q^2 p
-    + 4 q n p per head, the ragged last chunk at its own length) and each
-    input read once, y and the final state written once."""
+def scan_ops(s, h, p, n, tile):
+    """f32 operations of one batch row's scan carried every ``tile`` steps:
+    per tile of q steps and head, the lower triangle of C.B^T (q(q+1)n),
+    its decayed product with dt.x (q(q+1)p), the carried-state term and the
+    state update (2qnp each) and the state's decay (pn). ``tile`` = 1 is
+    the sequential recurrence, ~5pn per step and head."""
     ops = 0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        ops += b * h * (2 * q * q * n + 2 * q * q * p + 4 * q * n * p)
+    for c0 in range(0, s, tile):
+        q = min(tile, s - c0)
+        ops += h * (q * (q + 1) * (n + p) + 4 * q * n * p + p * n)
+    return ops
+
+
+def scan_bound(b, s, h, p, g, n):
+    """(ms, bound_by, bytes, ops, tile) of one scan at the card's peaks:
+    the least f32 work of the function over every tile length (the same
+    function at any tile up to rounding, so the cheapest counts) and each
+    input read once, y and the final state written once."""
+    tile = min(range(1, s + 1), key=lambda q: scan_ops(s, h, p, n, q))
+    ops = b * scan_ops(s, h, p, n, tile)
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
                   + b * h * p * n)
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            nbytes, ops)
+            nbytes, ops, tile)
 
 
 def scan_inputs(torch, gen, b, s, h, p, g, n):
@@ -555,7 +570,6 @@ def check_ssd_scan(torch, cfg, timer):
     n = 16, chunk 64). f32 throughout."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.models.ssm import ssd_chunked
 
     h, p, g, n, q = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
                      cfg.ssm_state, cfg.ssm_chunk)
@@ -583,7 +597,7 @@ def check_ssd_scan(torch, cfg, timer):
                 return ops.ssd_scan_bshn(x, dt, A, B, C, chunk=qq)
 
             def plain():
-                return ssd_chunked(x, dt, A, B, C, qq)
+                return SSD.ssd_chunked(x, dt, A, B, C, qq)
         (yk, sk), (yp, sp) = kern(), plain()
         torch.cuda.synchronize()
         err = 0.0
@@ -596,14 +610,15 @@ def check_ssd_scan(torch, cfg, timer):
         t_k = timer.ms(kern)
         t_kw = timer.wall_ms(kern)
         t_p = timer.ms(plain)
-        bound, by, nbytes, nops = scan_bound(b, s, hh, pp, gg, nn, qq)
+        bound, by, nbytes, nops, tile = scan_bound(b, s, hh, pp, gg, nn)
         log(f"  ssd_scan {tag} (b={b}, h={hh}, p={pp}, g={gg}, n={nn}, chunk "
             f"{qq}{', flat layout' if flat else ', model layout'}): max|err| "
             f"{err:.3e} (y scale {float(yp.abs().max()):.2f}; rtol "
             f"{RTOL_SCAN:.0e} + atol {ATOL_SCAN:.0e})  kernel {t_k:.4f} ms "
             f"(call, event-timed {t_kw:.4f} ms)  plain {t_p:.4f} ms  bound "
             f"{bound:.4f} ms ({by}; {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
-            f"GFLOP f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s)")
+            f"GFLOP f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s, carried every "
+            f"{tile} steps)")
         res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
                         bound_by=by)
     return res
@@ -1073,7 +1088,7 @@ def main(argv=None) -> int:
     fd = check_fused_decode(torch, cfg, timer)
     fv = check_fused_verify(torch, cfg, timer)
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
-    mms = check_morph_matmul_ssm(torch, mcfg, timer)
+    mms, mmsv = check_morph_matmul_ssm(torch, mcfg, timer)
     ssd = check_ssd_scan(torch, mcfg, timer)
     torch.cuda.empty_cache()
 
@@ -1111,13 +1126,16 @@ def main(argv=None) -> int:
              launches=launches["unfused"]["morph_matmul"],
              launches_by_path=by_path("morph_matmul"),
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
-                             mms["max_abs_err"]),
+                             mms["max_abs_err"], mmsv["max_abs_err"]),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
              bound_by="bytes", library_ms=mm["library_ms"],
              verify_shape={k: mmv[k] for k in ("ms", "plain_ms", "bound_ms",
                                                "library_ms")},
              mamba2_layer={k: mms[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "library_ms")}),
+                                               "library_ms")},
+             mamba2_verify_shape={k: mmsv[k] for k in ("ms", "plain_ms",
+                                                       "bound_ms",
+                                                       "library_ms")}),
         dict(name="fused_decode", route="cuda", status=status,
              source="src/repro_torch/csrc/fused_decode.cu",
              replaces="src/repro/kernels/fused_decode.py:377",

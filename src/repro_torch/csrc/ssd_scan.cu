@@ -250,14 +250,12 @@ int launch_typed(const void* x, const float* dt, const float* A,
                  cudaStream_t st) {
   auto kern = ssd_scan_kernel<TX, KPT>;
   const size_t smem = (size_t)smem_floats(N) * sizeof(float);
-  static bool attr_set = false;  // raised once to the largest n (kMaxN)
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(smem_floats(16 * KPT) * sizeof(float)));
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  // The limit is per device, so it is raised on every launch (a cheap
+  // call) to the largest n of this instantiation.
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(smem_floats(16 * KPT) * sizeof(float)));
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((P + kPB - 1) / kPB, batch * H);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const TX*>(x), dt, A, B, C, static_cast<TX*>(y), state, S,

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles for the kernels of this slice.
 
-Port of ``repro.kernels.ref``. ``flash_attention_ref`` arrives with the
-slice that ports its kernel.
+Port of ``repro.kernels.ref``, plus ``ssd_reference``, the model-layout
+sequential scan of ``repro.models.ssm``. ``flash_attention_ref`` arrives
+with the slice that ports its kernel.
 """
 from __future__ import annotations
 
@@ -51,3 +52,22 @@ def ssd_scan_ref(x, dt, A, B, C):
                  + (xf[:, t] * dtf[:, t, None])[:, :, None] * Bf[:, t, None, :])
         ys.append(torch.einsum("bpn,bn->bp", state, Cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_reference(x, dt, A, B_, C_):
+    """O(s) sequential reference. Same signature and returns as
+    ``ssd_chunked``."""
+    b, s, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    rep = h // g
+    Bh = B_.repeat_interleave(rep, dim=2)
+    Ch = C_.repeat_interleave(rep, dim=2)
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dt[:, t] * A)  # (b,h)
+        upd = torch.einsum("bhp,bhn->bhpn", x[:, t] * dt[:, t, :, None],
+                           Bh[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    return torch.stack(ys, dim=1), state

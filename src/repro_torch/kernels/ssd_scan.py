@@ -6,11 +6,14 @@ x (BH, S, hp), dt (BH, S) post-softplus, A (BH,) negative, B and C
 (BH, hp, n) in f32. ``ops.ssd_scan_bshn`` reaches the same kernel in the
 model layout, with B and C read per group instead of repeated per head.
 
-On a CPU tensor ``ssd_scan`` runs ``ssd_scan_plain`` (``models.ssm.
-ssd_chunked`` on a one-head view). On CUDA tensors it launches the
-hand-written kernel in ``csrc/ssd_scan.cu`` or raises; the kernel carries
-the state every 64 steps whatever ``chunk`` is (every chunk size gives the
-same function up to rounding) and masks a ragged last tile.
+``ssd_chunked`` (a port of ``repro.models.ssm.ssd_chunked``) is the
+chunked algorithm in plain PyTorch in the model layout; on a CPU tensor
+``ssd_scan`` runs ``ssd_scan_plain``, that function on a one-head view. On
+CUDA tensors it launches the hand-written kernel in ``csrc/ssd_scan.cu``
+or raises. The kernel carries the state every 64 steps and masks a ragged
+last tile; no argument changes its tiling. Every chunk size gives the same
+function up to rounding, so ``chunk`` selects only the plain version's
+chunking, and is kept for the reference's signature.
 ``launch_count()`` counts the kernel's launches, from either entry point.
 """
 from __future__ import annotations
@@ -19,9 +22,9 @@ import ctypes
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.models.ssm import ssd_chunked
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"n": 0}
@@ -37,6 +40,64 @@ def launch_count() -> int:
 
 def reset_launch_count() -> None:
     _LAUNCHES["n"] = 0
+
+
+def ssd_chunked(x, dt, A, B_, C_, chunk: int):
+    """Chunked SSD scan.
+
+    x: (b, s, h, p) f32; dt: (b, s, h) f32 (post-softplus); A: (h,) f32
+    (< 0), or (b, h) for a per-row rate; B_, C_: (b, s, g, n) f32 with g
+    dividing h. Returns (y (b, s, h, p), final_state (b, h, p, n)). A
+    length that is not a multiple of ``chunk`` is zero-padded: a padded
+    step has dt = 0, so it decays by 1 and adds nothing."""
+    b, s, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    rep = h // g
+    if s % chunk:
+        pad = chunk - s % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, 0, 0, pad))
+        C_ = F.pad(C_, (0, 0, 0, 0, 0, pad))
+    S = x.shape[1]
+    nc = S // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bh = B_.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+    Ch = C_.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
+
+    dA = dtc * (A[:, None, None, :] if A.dim() == 2 else A)  # (b,nc,Q,h)
+    dA_cs = torch.cumsum(dA, dim=2)  # inclusive
+
+    # intra-chunk: y_q += C_q . sum_{s<=q} exp(dA_cs[q]-dA_cs[s]) dt_s B_s x_s
+    CB = torch.einsum("bcqhn,bcshn->bchqs", Ch, Bh)
+    t = dA_cs.permute(0, 1, 3, 2)  # (b,nc,h,Q)
+    Lm = torch.exp(t[..., :, None] - t[..., None, :])  # (b,nc,h,Q,Q)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    Lm = torch.where(tri, Lm, torch.zeros((), device=x.device))
+    u = xc * dtc[..., None]  # (b,nc,Q,h,p)
+    y_diag = torch.einsum("bchqs,bcshp->bcqhp", CB * Lm, u)
+
+    # end-of-chunk states: sum_s exp(dA_cs[-1]-dA_cs[s]) dt_s B_s x_s
+    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (b,nc,Q,h)
+    states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bh, decay_states * dtc,
+                          xc)
+
+    # inter-chunk recurrence over nc, emitting the state before each chunk
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (b,nc,h)
+    h_prev = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(h_prev)
+        h_prev = h_prev * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (b,nc,h,p,n)
+
+    # contribution of carried state: y_q += exp(dA_cs[q]) C_q . state_prev
+    y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch, prev_states,
+                         torch.exp(dA_cs))
+    y = (y_diag + y_off).reshape(b, S, h, p)[:, :s]
+    return y, h_prev
 
 
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
@@ -109,7 +170,9 @@ def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (BH, S, hp); dt: (BH, S); A: (BH,); B, C: (BH, S, n)."""
+    """x: (BH, S, hp); dt: (BH, S); A: (BH,); B, C: (BH, S, n).
+    ``chunk`` selects the plain version's chunking on the CPU (rounding
+    only); the kernel ignores it."""
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     if x.device.type == "cpu":

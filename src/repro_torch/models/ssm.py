@@ -2,8 +2,10 @@
 
 Port of ``repro.models.ssm``. The chunked SSD algorithm (arXiv:2405.21060)
 splits the linear recurrence into an intra-chunk dense term and an
-inter-chunk state recurrence; ``ssd_chunked`` is that algorithm in plain
-PyTorch and the plain version of the ``ssd_scan`` kernel.
+inter-chunk state recurrence. That algorithm in plain PyTorch,
+``ssd_chunked``, lives beside its kernel in ``kernels.ssd_scan`` (and the
+sequential ``ssd_reference`` in ``kernels.ref``); both names are imported
+here, where the reference has them.
 
 ``ssm_forward`` (the prompt pass) reaches the scan through
 ``kernels.ops.ssd_scan_bshn``: the hand-written CUDA kernel
@@ -32,6 +34,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_reference  # noqa: F401 (re-export)
+from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: F401 (re-export)
 from repro_torch.models.layers import (apply_norm, apply_norm_masked,
                                        dense_init, matmul, morph_proj)
 
@@ -92,83 +97,6 @@ def _causal_conv(u, w, b, tail: Optional[torch.Tensor] = None):
     return y, xt[:, -(K - 1):, :]
 
 
-def ssd_chunked(x, dt, A, B_, C_, chunk: int):
-    """Chunked SSD scan.
-
-    x: (b, s, h, p) f32; dt: (b, s, h) f32 (post-softplus); A: (h,) f32
-    (< 0), or (b, h) for a per-row rate; B_, C_: (b, s, g, n) f32 with g
-    dividing h. Returns (y (b, s, h, p), final_state (b, h, p, n)). A
-    length that is not a multiple of ``chunk`` is zero-padded: a padded
-    step has dt = 0, so it decays by 1 and adds nothing."""
-    b, s, h, p = x.shape
-    g, n = B_.shape[2], B_.shape[3]
-    rep = h // g
-    if s % chunk:
-        pad = chunk - s % chunk
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B_ = F.pad(B_, (0, 0, 0, 0, 0, pad))
-        C_ = F.pad(C_, (0, 0, 0, 0, 0, pad))
-    S = x.shape[1]
-    nc = S // chunk
-    xc = x.reshape(b, nc, chunk, h, p)
-    dtc = dt.reshape(b, nc, chunk, h)
-    Bh = B_.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
-    Ch = C_.reshape(b, nc, chunk, g, n).repeat_interleave(rep, dim=3)
-
-    dA = dtc * (A[:, None, None, :] if A.dim() == 2 else A)  # (b,nc,Q,h)
-    dA_cs = torch.cumsum(dA, dim=2)  # inclusive
-
-    # intra-chunk: y_q += C_q . sum_{s<=q} exp(dA_cs[q]-dA_cs[s]) dt_s B_s x_s
-    CB = torch.einsum("bcqhn,bcshn->bchqs", Ch, Bh)
-    t = dA_cs.permute(0, 1, 3, 2)  # (b,nc,h,Q)
-    Lm = torch.exp(t[..., :, None] - t[..., None, :])  # (b,nc,h,Q,Q)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
-    Lm = torch.where(tri, Lm, torch.zeros((), device=x.device))
-    u = xc * dtc[..., None]  # (b,nc,Q,h,p)
-    y_diag = torch.einsum("bchqs,bcshp->bcqhp", CB * Lm, u)
-
-    # end-of-chunk states: sum_s exp(dA_cs[-1]-dA_cs[s]) dt_s B_s x_s
-    decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)  # (b,nc,Q,h)
-    states = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bh, decay_states * dtc,
-                          xc)
-
-    # inter-chunk recurrence over nc, emitting the state before each chunk
-    chunk_decay = torch.exp(dA_cs[:, :, -1, :])  # (b,nc,h)
-    h_prev = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    prev = []
-    for c in range(nc):
-        prev.append(h_prev)
-        h_prev = h_prev * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)  # (b,nc,h,p,n)
-
-    # contribution of carried state: y_q += exp(dA_cs[q]) C_q . state_prev
-    y_off = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Ch, prev_states,
-                         torch.exp(dA_cs))
-    y = (y_diag + y_off).reshape(b, S, h, p)[:, :s]
-    return y, h_prev
-
-
-def ssd_reference(x, dt, A, B_, C_):
-    """O(s) sequential reference. Same signature and returns as
-    ``ssd_chunked``."""
-    b, s, h, p = x.shape
-    g, n = B_.shape[2], B_.shape[3]
-    rep = h // g
-    Bh = B_.repeat_interleave(rep, dim=2)
-    Ch = C_.repeat_interleave(rep, dim=2)
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for t in range(s):
-        decay = torch.exp(dt[:, t] * A)  # (b,h)
-        upd = torch.einsum("bhp,bhn->bhpn", x[:, t] * dt[:, t, :, None],
-                           Bh[:, t])
-        state = state * decay[..., None, None] + upd
-        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
-    return torch.stack(ys, dim=1), state
-
-
 def _split_bc(bc, g: int, n: int):
     """(…, 2gn) conv output -> B_, C_ (…, g, n)."""
     lead = tuple(bc.shape[:-1])
@@ -193,8 +121,6 @@ def _gated_out(params, y, z, cfg: ModelConfig, dt_, a_in):
 def ssm_forward(params, x, cfg: ModelConfig, *, return_state: bool = False):
     """Full-sequence mamba2 block from a zero state. x: (B, S, d). Returns
     (y, (conv_tails, state)) with ``return_state``, else (y, None)."""
-    from repro_torch.kernels import ops
-
     dt_ = x.dtype
     nh = params["A_log"].shape[0]
     hp = cfg.ssm_head_dim

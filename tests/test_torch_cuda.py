@@ -250,7 +250,7 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
     version every chunk: rounding only); a bf16 y to one bf16 step."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.models.ssm import ssd_chunked
+    from repro_torch.kernels.ssd_scan import ssd_chunked
 
     g = torch.Generator(device=cuda).manual_seed(7)
     x, dt, A, B, C = _ssd_inputs(g, shape, dtype)

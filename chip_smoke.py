@@ -3,8 +3,8 @@
 
 Phases (any failure exits non-zero; nothing is caught into a pass):
 
-1. Device and build: print the card's name and power limit, build every
-   CUDA kernel of the serving path from ``src/repro_torch/csrc`` for sm_90a
+1. Device and build: print the card's name and power limit, build all six
+   CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
    (one nvcc per source, started together) and print the build seconds and
    ptxas register/spill lines.
 2. Kernels vs their plain versions, on the card, at full TinyLlama-1.1B
@@ -14,7 +14,13 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    (B = 8 x S = 5 rows); ``fused_decode_step`` on a 1024-row cache at mixed
    positions, plain and int8-KV; ``fused_verify`` on a 512-row cache at
    mixed committed counts, a bf16 cache with the linear mask (S = 5) and an
-   int8 cache with a (2, 2) token-tree mask (S = 7). Then at full
+   int8 cache with a (2, 2) token-tree mask (S = 7); ``flash_attention`` at
+   the full-width prompt pass (1 x 256 tokens, 32 / 4 heads of 64, causal,
+   bf16), at a ragged S = 200 and at the reference's ``kernel_bench`` shape
+   (f32, window 0 and 64); ``flash_decode`` at the serving cache's shape
+   (8 slots x 32 heads over 8 x 4 KV rows of 512, group 8) with a bf16 and
+   an int8 cache at kv_len 1, 300 and 512, and at
+   ``tests/test_flash_decode.py``'s largest case. Then at full
    Mamba2-370M shapes: ``morph_matmul`` over the four gated projections of
    one SSM layer (B = 8, widths {0.5, 1.0}, at decode shape and at the
    verify pass's S = 5), and ``ssd_scan`` at the
@@ -24,14 +30,17 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    (device time of its kernels from ``torch.profiler``, L2 flushed before
    every call; the CUDA-event time of the whole call, host launch gaps
    included, is printed beside it) together with its plain version, a
-   library yardstick where one PyTorch call computes the same function,
-   and its bound from the H100 data sheet.
+   library yardstick where one PyTorch call computes the same function
+   (``scaled_dot_product_attention`` for the flash kernels), and its bound
+   from the H100 data sheet.
 3. End to end, one card, seeded random weights, the port's
    ``ServingEngine`` (8 slots, a Poisson trace with prompts of 16-256 and
    32-64 new tokens, cache 512, prefill threshold 8, the admission mode
    moved every 12 ticks along a schedule of every (depth, width) mode):
-   full-width ``tinyllama-1.1b`` (12 requests) five times: plain decode
-   unfused and ``fused=True``, then linear self-speculation
+   full-width ``tinyllama-1.1b`` (12 requests) six times: plain decode
+   unfused, ``fused=True``, and ``fused=True`` with
+   ``attn_impl="chunked"`` (every prompt pass through ``flash_attention``),
+   then linear self-speculation
    (``SpecConfig(ks=(4,), min_accept_rate=0.0)``) unfused greedy, fused
    greedy and fused at temperature 0.8 with top-k 50; then full-width,
    full-depth ``mamba2-370m`` (24 requests) twice: plain greedy and
@@ -43,13 +52,20 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    decoder-layer step; fused, 3 ``morph_matmul`` per layer-step, 1
    ``fused_decode`` per decode or draft layer-step and 1 ``fused_verify``
    per verify layer-step; Mamba2, 4 ``morph_matmul`` per SSM layer-step
-   and 1 ``ssd_scan`` per SSM layer of every prefill. Speculative drives
+   and 1 ``ssd_scan`` per SSM layer of every prefill; under
+   ``attn_impl="chunked"``, 1 ``flash_attention`` per attention layer of
+   every prefill, and none on any other drive. Then one full-depth
+   256-token prompt pass under the einsum and under the chunked attention
+   (host and device ms), and the ``flash_decode`` entry point (which no
+   model path calls, as in the reference) driven once per TinyLlama layer
+   at the serving cache's shape. Speculative drives
    report acceptance, tokens per verify launch per slot, tick p50/p95 and
    the device time of the draft's scratch copy. Also: the decode step at
    the narrowest vs full width with its device idle share, token
    agreement of fused vs unfused and of speculative vs plain greedy, and
    each smoke model on the card against the plain versions on the CPU
-   (decode, prefill and verify; a small-input reference).
+   (decode, prefill and verify, and for TinyLlama a chunked prefill
+   through the flash kernel; a small-input reference).
 4. A ``{"kernels": [...]}`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +102,11 @@ ATOL_SMOKE = 1e-3
 # full width), so the two round exp(cs_q - cs_s) differently
 RTOL_SCAN = 1e-3
 ATOL_SCAN = 1e-3
+# flash kernels vs their plain versions on the card, f32: the same f32
+# arithmetic summed in another order and over other tiles (64 in the
+# kernels, 128 in the plain versions); outputs are averages of O(1) values
+RTOL_F32 = 1e-4
+ATOL_F32 = 1e-4
 
 
 START = time.perf_counter()
@@ -624,6 +645,205 @@ def check_ssd_scan(torch, cfg, timer):
     return res
 
 
+def attn_pairs(sq, sk, causal, window):
+    """Live (row, column) pairs of one head's attention: the products a
+    kernel that skips every masked column must do."""
+    n = 0
+    for i in range(sq):
+        hi = min(i + 1, sk) if causal else sk
+        lo = max(0, i - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def dense_bound(nbytes, ops, peak):
+    """(ms, bound_by) of work of ``nbytes`` and ``ops`` at the card's peaks."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / peak
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def sdpa_backend(names):
+    """Which SDPA backend ran, read from its kernels' names."""
+    joined = " ".join(names).lower()
+    for key, name in (("flash", "flash"), ("cutlassf", "efficient"),
+                      ("fmha", "efficient"), ("cudnn", "cudnn")):
+        if key in joined:
+            return name
+    return "math (unfused kernels)"
+
+
+def check_flash_attention(torch, cfg, timer):
+    """The flash attention kernel against its plain version on the card: at
+    the full-width TinyLlama prompt pass (1 x 256 tokens, 32 / 4 heads of
+    64, causal, bf16) and at a ragged S = 200, through
+    ``ops.flash_attention_bshd`` in the model layout as the prompt pass
+    calls it; and at the reference's ``kernel_bench`` shape (q (2, 256, 4,
+    64), k / v (2, 256, 2, 64), f32) with window 0 and 64. Library
+    yardstick: ``scaled_dot_product_attention`` with ``enable_gqa``
+    (``is_causal`` without a window, a boolean mask with one)."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    F = torch.nn.functional
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    res = {}
+    for tag, (b, s, h, kv, d, window, dt) in (
+            ("prompt S=256", (1, 256, H, KV, hd, 0, torch.bfloat16)),
+            ("prompt S=200", (1, 200, H, KV, hd, 0, torch.bfloat16)),
+            ("kernel_bench win0", (2, 256, 4, 2, 64, 0, torch.float32)),
+            ("kernel_bench win64", (2, 256, 4, 2, 64, 64, torch.float32))):
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+        k = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dt)
+        v = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dt)
+        flat = [t.transpose(1, 2).reshape(-1, s, d).contiguous()
+                for t in (q, k, v)]
+
+        def kern():
+            return ops.flash_attention_bshd(q, k, v, causal=True,
+                                            window=window)
+
+        def plain():
+            return FA.flash_attention_plain(*flat, group=h // kv, causal=True,
+                                            window=window)
+
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            r = torch.arange(s, device="cuda")
+            allow = (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None] - window)
+
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=allow,
+                                                      enable_gqa=True)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True,
+                                                      enable_gqa=True)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got_f = got.transpose(1, 2).reshape(-1, s, d)
+        rtol, atol = ((RTOL_BF16, ATOL_BF16) if dt == torch.bfloat16
+                      else (RTOL_F32, ATOL_F32))
+        ok, err = close(torch, got_f, want, rtol=rtol, atol=atol)
+        if not ok or not bool(torch.isfinite(got.float()).all()):
+            fail(f"flash_attention {tag}: max |err| {err:.3e} beyond rtol "
+                 f"{rtol:.2e} + atol {atol:.0e}")
+        _, lib_err = close(torch, lib().reshape(-1, s, d), want)
+        t_k = timer.ms(kern)
+        t_kw = timer.wall_ms(kern)
+        t_p = timer.ms(plain)
+        t_l = timer.ms(lib)
+        backend = sdpa_backend(timer.last)
+        size = torch.finfo(dt).bits // 8
+        nbytes = size * (2 * b * s * h * d + 2 * b * s * kv * d)
+        ops_n = 4 * d * attn_pairs(s, s, True, window) * b * h
+        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+        bound, by = dense_bound(nbytes, ops_n, peak)
+        log(f"  flash_attention {tag} (b={b}, h={h}/{kv}, hd={d}, window "
+            f"{window}, {str(dt)[6:]}): max|err| {err:.3e} (rtol {rtol:.2e} "
+            f"+ atol {atol:.0e}; SDPA vs plain {lib_err:.3e})  kernel "
+            f"{t_k:.4f} ms (call, event-timed {t_kw:.4f} ms)  plain "
+            f"{t_p:.4f} ms  SDPA ({backend}) {t_l:.4f} ms  bound "
+            f"{bound:.5f} ms ({by}; {nbytes / 1e6:.3f} MB, {ops_n / 1e6:.1f} "
+            f"MFLOP at {peak / 1e12:.0f} TFLOP/s)")
+        res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                        bound_by=by, library_ms=t_l, library=f"sdpa {backend}")
+    return res
+
+
+def decode_cache(torch, gen, bkv, S, hd, quant):
+    """A (BKV, S, hd) cache for ``flash_decode``: bf16, or int8 with bf16
+    per-row scales from ``layers.quantize_kv``."""
+    from repro_torch.models import layers as L
+
+    k = torch.randn(bkv, S, hd, generator=gen, device="cuda")
+    v = torch.randn(bkv, S, hd, generator=gen, device="cuda")
+    if quant:
+        (kq, ks), (vq, vs) = L.quantize_kv(k), L.quantize_kv(v)
+        return kq, vq, ks, vs
+    return k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+
+
+def check_flash_decode(torch, cfg, timer):
+    """The flash decode kernel against its plain version on the card at the
+    TinyLlama serving cache's shape (8 slots x 32 query heads of 64 over
+    8 x 4 KV rows of 512 positions, group 8, bf16 queries), with a bf16
+    cache and an int8 cache with bf16 scales, at kv_len 1, 300 and 512
+    (a device scalar); and at ``tests/test_flash_decode.py``'s largest
+    case (2 KV rows of 128, hd 32, group 4, f32, kv_len 128). Library
+    yardstick: SDPA over the bf16 cache with the kv_len mask."""
+    from repro_torch.kernels import flash_decode as FDK
+
+    F = torch.nn.functional
+    slots, S = 8, 512
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    res = {}
+    cases = [(f"serving {c} kv_len={n}", slots * KV, H // KV, S, hd, n,
+              c == "int8", torch.bfloat16)
+             for c in ("bf16", "int8") for n in (1, 300, 512)]
+    cases.append(("test largest f32 kv_len=128", 2, 4, 128, 32, 128, False,
+                  torch.float32))
+    caches = {}
+    for tag, bkv, g, s, d, n, quant, qdt in cases:
+        key = (bkv, s, d, quant, qdt)
+        if key not in caches:
+            kc, vc, ks, vs = decode_cache(torch, gen, bkv, s, d, quant)
+            if qdt == torch.float32:
+                kc, vc = kc.float(), vc.float()
+            caches[key] = (kc, vc, ks, vs)
+        kc, vc, ks, vs = caches[key]
+        q = torch.randn(bkv * g, d, generator=gen, device="cuda").to(qdt)
+        n_dev = torch.tensor([n], dtype=torch.int32, device="cuda")
+
+        def kern():
+            return FDK.flash_decode(q, kc, vc, n_dev, ks, vs, group=g)
+
+        def plain():
+            return FDK.flash_decode_plain(q, kc, vc, n, ks, vs, group=g)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        rtol, atol = ((RTOL_BF16, ATOL_BF16) if qdt == torch.bfloat16
+                      else (RTOL_F32, ATOL_F32))
+        ok, err = close(torch, got, want, rtol=rtol, atol=atol)
+        if not ok or not bool(torch.isfinite(got.float()).all()):
+            fail(f"flash_decode {tag}: max |err| {err:.3e} beyond rtol "
+                 f"{rtol:.2e} + atol {atol:.0e}")
+        t_k = timer.ms(kern)
+        t_kw = timer.wall_ms(kern)
+        t_p = timer.ms(plain)
+        t_l = None
+        if not quant:
+            qs = q.view(bkv, g, 1, d)
+            ksd, vsd = kc[:, None], vc[:, None]
+            live = torch.arange(s, device="cuda")[None, :] < n_dev
+
+            def lib():
+                return F.scaled_dot_product_attention(qs, ksd, vsd,
+                                                      attn_mask=live,
+                                                      enable_gqa=True)
+            t_l = timer.ms(lib)
+        live_n = min(n, s)
+        nbytes = (live_n * bkv * d * 2 * kc.element_size()
+                  + 2 * bkv * g * d * q.element_size()
+                  + (2 * live_n * bkv * ks.element_size() if quant else 0))
+        ops_n = 4 * d * live_n * bkv * g
+        bound, by = dense_bound(nbytes, ops_n, PEAK_BF16 if qdt ==
+                                torch.bfloat16 else PEAK_F32)
+        lib_s = "none (int8)" if t_l is None else f"{t_l:.4f} ms"
+        log(f"  flash_decode {tag} (BKV={bkv}, group {g}, S={s}, hd={d}): "
+            f"max|err| {err:.3e} (rtol {rtol:.2e} + atol {atol:.0e})  "
+            f"kernel {t_k:.4f} ms (call, event-timed {t_kw:.4f} ms)  plain "
+            f"{t_p:.4f} ms  SDPA {lib_s}  bound {bound:.5f} ms ({by}; "
+            f"{nbytes / 1e6:.3f} MB)")
+        res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
+                        bound_by=by, library_ms=t_l)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 3: end to end
 # ---------------------------------------------------------------------------
@@ -758,22 +978,44 @@ def layer_steps(engine, steps0, cfg):
     return plain, draft, verify
 
 
+def prefill_layers(engine, kind: str) -> int:
+    """Layers of ``kind`` ("attn" or "ssm") that the drive's prefills ran:
+    each prefill runs to the depth of the mode its request was admitted
+    at."""
+    cfg = engine.cfg
+    modes = engine.ctrl.mode_by_name
+    pre = [r for r in engine.completed if r.prefilled]
+    if len(pre) != engine.prefills:
+        fail(f"{len(pre)} prefilled requests, engine counted "
+             f"{engine.prefills} prefills")
+    per_group = sum(cfg.layer_kind(p) == kind for p in range(cfg.period))
+    return sum(modes[r.mode_name].depth for r in pre) * per_group
+
+
 def expected_launches(torch, engine, steps0, fused: bool, device):
     """Launch counts one TinyLlama drive must show. Unfused, every decoder
     layer of every decode, draft and verify step runs its 7 gated
     projections through ``morph_matmul``. Fused, attention is one
     ``fused_decode`` (decode and draft steps) or one ``fused_verify``
     (verify steps), whose output projections are not ``morph_matmul``
-    counts, and the MLP is 3 ``morph_matmul``. No scan runs. On the CPU the
-    wrappers count nothing."""
+    counts, and the MLP is 3 ``morph_matmul``. Under
+    ``attn_impl="chunked"`` every attention layer of every prefill is one
+    ``flash_attention`` (prompts here are at most 256 tokens, so "auto"
+    takes the einsum attention and launches none). No scan runs. On the CPU
+    the wrappers count nothing."""
     plain, draft, verify = steps = layer_steps(engine, steps0, engine.cfg)
+    flash = (prefill_layers(engine, "attn")
+             if engine.cfg.attn_impl == "chunked" else 0)
+    steps = steps + (flash,)
     zero = dict.fromkeys(KERNEL_NAMES, 0)
     if torch.device(device).type != "cuda":
         return zero, steps
     if fused:
         return dict(zero, morph_matmul=3 * (plain + draft + verify),
-                    fused_decode=plain + draft, fused_verify=verify), steps
-    return dict(zero, morph_matmul=7 * (plain + draft + verify)), steps
+                    fused_decode=plain + draft, fused_verify=verify,
+                    flash_attention=flash), steps
+    return dict(zero, morph_matmul=7 * (plain + draft + verify),
+                flash_attention=flash), steps
 
 
 def expected_launches_ssm(torch, engine, steps0, fused: bool, device):
@@ -784,12 +1026,7 @@ def expected_launches_ssm(torch, engine, steps0, fused: bool, device):
     every prefill, which runs to the depth of the mode its request was
     admitted at. ``fused`` reaches attention layers only."""
     plain, draft, verify = steps = layer_steps(engine, steps0, engine.cfg)
-    modes = engine.ctrl.mode_by_name
-    pre = [r for r in engine.completed if r.prefilled]
-    if len(pre) != engine.prefills:
-        fail(f"{len(pre)} prefilled requests, engine counted "
-             f"{engine.prefills} prefills")
-    scans = sum(modes[r.mode_name].depth for r in pre) * engine.cfg.period
+    scans = prefill_layers(engine, "ssm")
     zero = dict.fromkeys(KERNEL_NAMES, 0)
     if torch.device(device).type != "cuda":
         return zero, steps + (scans,)
@@ -797,34 +1034,48 @@ def expected_launches_ssm(torch, engine, steps0, fused: bool, device):
                  ssd_scan=scans), steps + (scans,))
 
 
-KERNEL_NAMES = ("morph_matmul", "fused_decode", "fused_verify", "ssd_scan")
-# path name -> (fused, speculative, temperature, top_k)
-PATHS = (("unfused", False, False, 0.0, 0), ("fused", True, False, 0.0, 0),
-         ("spec_unfused", False, True, 0.0, 0),
-         ("spec_fused", True, True, 0.0, 0),
-         ("spec_fused_t0.8_k50", True, True, 0.8, 50))
+KERNEL_NAMES = ("morph_matmul", "fused_decode", "fused_verify", "ssd_scan",
+                "flash_attention", "flash_decode")
+# path name -> (fused, speculative, temperature, top_k, attn_impl or None
+# for the config's own)
+PATHS = (("unfused", False, False, 0.0, 0, None),
+         ("fused", True, False, 0.0, 0, None),
+         ("fused_chunked", True, False, 0.0, 0, "chunked"),
+         ("spec_unfused", False, True, 0.0, 0, None),
+         ("spec_fused", True, True, 0.0, 0, None),
+         ("spec_fused_t0.8_k50", True, True, 0.8, 50, None))
 AGREE = (("unfused", "fused", "f32 fused projections vs bf16 unfused weights"),
+         ("fused_chunked", "fused", "flash kernel's f32 P.V vs einsum "
+          "attention's bf16-rounded p on the prompt pass"),
          ("spec_unfused", "unfused", "bf16 verify pass vs bf16 decode steps"),
          ("spec_fused", "fused", "bf16 verify kernel vs bf16 decode kernel"))
-SSM_PATHS = (("mamba2_plain", False, False, 0.0, 0),
-             ("mamba2_spec", False, True, 0.0, 0))
+SSM_PATHS = (("mamba2_plain", False, False, 0.0, 0, None),
+             ("mamba2_spec", False, True, 0.0, 0, None))
 SSM_AGREE = (("mamba2_spec", "mamba2_plain",
               "verify pass vs decode steps, bf16 activations"),)
 SPEC_K = 4
 
 
-def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
-               prompt_len=(16, 256), new_tokens=(32, 64), capacity=512,
-               paths=PATHS, expect=expected_launches, agreements=AGREE):
-    """Serve ``cfg`` through each of ``paths`` on one trace; ``expect``
-    gives the exact launch counts each drive must show. Returns (launches
-    per path, results per path)."""
+def counters():
+    """kernel name -> (launch count, reset) of every kernel's wrapper."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FDK
     from repro_torch.kernels import fused_decode as FD
     from repro_torch.kernels import morph_matmul as MM
     from repro_torch.kernels import ssd_scan as SSD
+
+    return {"morph_matmul": (MM.launch_count, MM.reset_launch_count),
+            "fused_decode": (FD.launch_count, FD.reset_launch_count),
+            "fused_verify": (FD.verify_launch_count,
+                             FD.reset_verify_launch_count),
+            "ssd_scan": (SSD.launch_count, SSD.reset_launch_count),
+            "flash_attention": (FA.launch_count, FA.reset_launch_count),
+            "flash_decode": (FDK.launch_count, FDK.reset_launch_count)}
+
+
+def init_on_card(torch, cfg, device="cuda"):
+    """Seeded random parameters of ``cfg`` on ``device``."""
     from repro_torch.models.model import init_params
-    from repro_torch.runtime.serving import ServingEngine, poisson_trace
-    from repro_torch.runtime.speculative import SpecConfig, draft_compile_key
 
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=device)
@@ -832,20 +1083,29 @@ def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"  init_params: {n_params / 1e9:.3f} B f32 parameters on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    return params
+
+
+def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
+               prompt_len=(16, 256), new_tokens=(32, 64), capacity=512,
+               paths=PATHS, expect=expected_launches, agreements=AGREE):
+    """Serve ``cfg`` through each of ``paths`` on one trace; ``expect``
+    gives the exact launch counts each drive must show. Returns (launches
+    per path, results per path)."""
+    from repro_torch.runtime.serving import ServingEngine, poisson_trace
+    from repro_torch.runtime.speculative import SpecConfig, draft_compile_key
+
     trace = poisson_trace(n_requests, 50.0, seed=0, prompt_len=prompt_len,
                           new_tokens=new_tokens, vocab=cfg.vocab_size)
     results = {}
     launches = {}  # path -> kernel -> launches in that path's drive
-    counters = {"morph_matmul": (MM.launch_count, MM.reset_launch_count),
-                "fused_decode": (FD.launch_count, FD.reset_launch_count),
-                "fused_verify": (FD.verify_launch_count,
-                                 FD.reset_verify_launch_count),
-                "ssd_scan": (SSD.launch_count, SSD.reset_launch_count)}
-    for tag, fused, spec, temp, top_k in paths:
+    count_reset = counters()
+    for tag, fused, spec, temp, top_k, impl in paths:
+        pcfg = cfg if impl is None else cfg.scaled(attn_impl=impl)
         # min_accept_rate 0: with random weights acceptance may be low, and
         # the collapse fallback must not switch the path off
         engine = ServingEngine(
-            params, cfg, batch_size=8, cache_capacity=capacity,
+            params, pcfg, batch_size=8, cache_capacity=capacity,
             prefill_threshold=8, fused=fused, temperature=temp, top_k=top_k,
             speculative=(SpecConfig(ks=(SPEC_K,), min_accept_rate=0.0)
                          if spec else None), device=device)
@@ -853,10 +1113,10 @@ def end_to_end(torch, cfg, timer=None, device="cuda", n_requests=24,
         steps0 = {n: t.steps for n, t in engine.ctrl.telemetry.items()}
         # each path's counts cover exactly its own drive: zeroed just
         # before it, read just after
-        for _, reset in counters.values():
+        for _, reset in count_reset.values():
             reset()
         wall, streams = drive(engine, trace, switch_every=12)
-        run_launches = {n: count() for n, (count, _) in counters.items()}
+        run_launches = {n: count() for n, (count, _) in count_reset.items()}
         launches[tag] = run_launches
         want, steps = expect(torch, engine, steps0, fused, device)
         if run_launches != want:
@@ -1007,9 +1267,35 @@ def smoke_reference(torch, arch="tinyllama-1.1b"):
             fail(f"{arch} smoke model fused={fused}: card vs CPU max |err| "
                  f"{err:.3e}")
         worst = max(worst, err)
+    what = "decode, prefill, verify"
+    if not ssm:
+        # the chunked prompt pass: the flash kernel on the card, the
+        # model's chunked attention on the CPU; 29 tokens cut the kernel's
+        # last tile short
+        from repro_torch.kernels import flash_attention as FA
+
+        ccfg = cfg.scaled(attn_impl="chunked", attn_chunk=8)
+        prompt = (torch.arange(1, 30)[None] * 7) % cfg.vocab_size
+        outs = []
+        for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            n0 = FA.launch_count()
+            pl, pc = prefill(p, {"tokens": prompt.to(dev)}, ccfg,
+                             cache_extra=4)
+            if dev == "cuda" and FA.launch_count() != n0 + cfg.n_groups:
+                fail(f"chunked prefill launched flash_attention "
+                     f"{FA.launch_count() - n0} times, expected "
+                     f"{cfg.n_groups}")
+            outs.append(torch.cat([pl.float().cpu().reshape(-1)] + [
+                a.float().cpu().reshape(-1) for a in pc["stack"]["pos0"]
+                .values()]))
+        err = float((outs[0] - outs[1]).abs().max())
+        if not math.isfinite(err) or err > ATOL_SMOKE:
+            fail(f"{arch} smoke model chunked prefill: card vs CPU max |err| "
+                 f"{err:.3e}")
+        worst = max(worst, err)
+        what += ", chunked prefill through flash_attention"
     log(f"  {arch} smoke model (f32) on the card vs plain versions on the "
-        f"CPU (decode, prefill, verify): max |err| {worst:.3e} (atol "
-        f"{ATOL_SMOKE:.0e})")
+        f"CPU ({what}): max |err| {worst:.3e} (atol {ATOL_SMOKE:.0e})")
 
 
 def _move(tree, dev):
@@ -1017,32 +1303,80 @@ def _move(tree, dev):
             for k, v in tree.items()}
 
 
-def unported_bounds():
-    """Least time on the card (H100 data sheet) of the TPU kernels still to
-    port, at the shapes ``benchmarks/kernel_bench.py`` runs them (flash
-    decode has no caller: ``tests/test_flash_decode.py``'s largest case).
-    f32 operands: bytes at 3.35 TB/s, operations at 67 TFLOP/s."""
+def prompt_pass_ms(torch, params, cfg, seq: int = 256, iters: int = 5):
+    """One full-depth prompt pass of ``seq`` tokens (batch 1), under the
+    einsum attention and under ``attn_impl="chunked"`` (the flash kernel):
+    host ms and device kernel ms of each."""
+    from repro_torch.models.model import prefill
+
+    toks = (torch.arange(seq, device="cuda")[None] * 31 + 7) % cfg.vocab_size
     out = {}
+    for impl in ("einsum", "chunked"):
+        pcfg = cfg.scaled(attn_impl=impl)
 
-    def put(name, nbytes, ops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
-        out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o
-                     else "operations", nbytes, ops)
+        def run():
+            return prefill(params, {"tokens": toks}, pcfg, cache_extra=0)
 
-    # flash_decode: BKV 2, group 4, S = kv_len = 128, hd 32
-    bkv, grp, sk, hd = 2, 4, 128, 32
-    put("flash_decode", 4 * (2 * bkv * grp * hd + 2 * bkv * sk * hd),
-        4 * hd * sk * bkv * grp)
-    # flash_attention_bshd: q (2, 256, 4, 64), k/v (2, 256, 2, 64), causal
-    b, sq, H, KV, hd = 2, 256, 4, 2, 64
-    nbytes = 4 * (2 * b * sq * H * hd + 2 * b * sq * KV * hd)
-    for window in (0, 64):
-        pairs = sum(min(i + 1, window or sq) for i in range(sq))
-        put(f"flash_attention win{window}", nbytes, 4 * hd * pairs * b * H)
-    for name, (ms, by, nbytes, ops) in out.items():
-        log(f"  bound {name}: {ms:.5f} ms ({by}; {nbytes / 1e6:.3f} MB, "
-            f"{ops / 1e6:.1f} MFLOP)")
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / iters * 1e3
+        per = kernel_us(torch, run, iters)
+        dev = sum(per.values()) / iters / 1e3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+        log(f"  prompt pass, {seq} tokens, depth {cfg.n_groups}, {impl}: host "
+            f"{host:.3f} ms, device {dev:.3f} ms ({dev / seq * 1e3:.2f} us per "
+            f"token; idle share {1 - dev / host:.3f}); heaviest: " + "; ".join(
+                f"{v / iters / 1e3:.3f} ms {k[:50]}" for k, v in top))
+        out[impl] = dict(host_ms=host, device_ms=dev)
     return out
+
+
+def flash_decode_drive(torch, cfg, calls: int = 0):
+    """The flash decode entry point driven as a caller would: one call per
+    TinyLlama layer (``calls`` defaults to the depth) over the serving
+    cache's shape (8 slots x 4 KV rows of 512 positions, group 8, bf16),
+    each at its own length given as a device scalar. Counters are zeroed
+    just before and read just after; the output is checked against the
+    plain oracle ``ref.flash_decode_ref`` on the card."""
+    from repro_torch.kernels import flash_decode as FDK
+    from repro_torch.kernels import ref
+
+    slots, S = 8, 512
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    calls = calls or cfg.n_groups * cfg.period
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    kc, vc, _, _ = decode_cache(torch, gen, slots * KV, S, hd, False)
+    q = torch.randn(calls, slots * H, hd, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.randint(1, S + 1, (calls, 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    count_reset = counters()
+    for _, reset in count_reset.values():
+        reset()
+    outs = [FDK.flash_decode(q[i], kc, vc, lens[i], group=H // KV)
+            for i in range(calls)]
+    torch.cuda.synchronize()
+    run_launches = {n: count() for n, (count, _) in count_reset.items()}
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["flash_decode"] = calls
+    if run_launches != want:
+        fail(f"flash_decode drive: launches {run_launches}, expected {want}")
+    err = 0.0
+    for i in (0, calls - 1):
+        ok, e = close(torch, outs[i], ref.flash_decode_ref(
+            q[i], kc, vc, lens[i], group=H // KV))
+        if not ok:
+            fail(f"flash_decode drive call {i}: max |err| {e:.3e} vs oracle")
+        err = max(err, e)
+    log(f"  flash_decode entry point: {calls} calls at kv_len "
+        f"{lens.min().item()}..{lens.max().item()}; launches " + ", ".join(
+            f"{n} {c}" for n, c in run_launches.items())
+        + f" (as expected); max |err| vs oracle {err:.3e}")
+    return run_launches
 
 
 def main(argv=None) -> int:
@@ -1087,22 +1421,31 @@ def main(argv=None) -> int:
     mmv = check_morph_matmul_verify(torch, cfg, timer)
     fd = check_fused_decode(torch, cfg, timer)
     fv = check_fused_verify(torch, cfg, timer)
+    fa = check_flash_attention(torch, cfg, timer)
+    fdk = check_flash_decode(torch, cfg, timer)
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
     mms, mmsv = check_morph_matmul_ssm(torch, mcfg, timer)
     ssd = check_ssd_scan(torch, mcfg, timer)
     torch.cuda.empty_cache()
 
     launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
-                for p in PATHS + SSM_PATHS}
+                for p in PATHS + SSM_PATHS + (("flash_decode_entry",),)}
     if not args.skip_e2e:
         phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
+        params = init_on_card(torch, cfg)
         # 12 requests: the Mamba2 drives below share the run's time
-        launches, _ = end_to_end(torch, cfg, timer, n_requests=12)
+        launches, _ = end_to_end(torch, cfg, params, timer, n_requests=12)
+        prompt_pass_ms(torch, params, cfg)
+        del params
         torch.cuda.empty_cache()
+        phase("[phase 3] the flash_decode entry point at the serving cache's "
+              "shape")
+        launches["flash_decode_entry"] = flash_decode_drive(torch, cfg)
         phase("[phase 3] end to end: mamba2-370m, full width, one card")
         smoke_reference(torch, "mamba2-370m")
-        ssm_launches, _ = end_to_end(torch, mcfg, timer, paths=SSM_PATHS,
+        ssm_launches, _ = end_to_end(torch, mcfg, init_on_card(torch, mcfg),
+                                     timer, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
@@ -1112,13 +1455,23 @@ def main(argv=None) -> int:
     # the count from the path the kernel carries (morph_matmul: the default
     # unfused TinyLlama engine; fused_decode: ``fused=True``; fused_verify:
     # greedy speculative ``fused=True``; ssd_scan: the plain Mamba2 engine's
-    # prefills); ``launches_by_path`` gives every path's own count.
+    # prefills; flash_attention: the fused TinyLlama engine under
+    # ``attn_impl="chunked"``, its prefills; flash_decode: its own entry
+    # point, which no model path calls, as in the reference);
+    # ``launches_by_path`` gives every path's own count.
     status = "ok" if not args.skip_e2e else "ok (kernel checks only)"
 
     def by_path(name):
         return {p: c[name] for p, c in launches.items()}
 
+    def others(res, main):
+        return {k: {m: r[m] for m in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms")}
+                for k, r in res.items() if r is not main}
+
     prompt = ssd["prompt S=256"]
+    fa_main = fa["prompt S=256"]
+    fd_main = fdk["serving bf16 kv_len=512"]
     kernels = [
         dict(name="morph_matmul", route="cuda", status=status,
              source="src/repro_torch/csrc/morph_matmul.cu",
@@ -1164,11 +1517,31 @@ def main(argv=None) -> int:
              other_shapes={k: {m: r[m] for m in ("ms", "plain_ms",
                                                   "bound_ms")}
                            for k, r in ssd.items() if r is not prompt}),
+        dict(name="flash_attention", route="cuda", status=status,
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:26",
+             launches=launches["fused_chunked"]["flash_attention"],
+             launches_by_path=by_path("flash_attention"),
+             max_abs_err=max(r["max_abs_err"] for r in fa.values()),
+             ms=fa_main["ms"], plain_ms=fa_main["plain_ms"],
+             bound_ms=fa_main["bound_ms"], bound_by=fa_main["bound_by"],
+             library_ms=fa_main["library_ms"], library=fa_main["library"],
+             other_shapes=others(fa, fa_main)),
+        dict(name="flash_decode", route="cuda", status=status,
+             source="src/repro_torch/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_decode.py:31",
+             launches=launches["flash_decode_entry"]["flash_decode"],
+             launches_by_path=by_path("flash_decode"),
+             launched_on="its own entry point only (phase 3 drive "
+                         "flash_decode_entry); no model path calls it, as "
+                         "in the reference",
+             max_abs_err=max(r["max_abs_err"] for r in fdk.values()),
+             ms=fd_main["ms"], plain_ms=fd_main["plain_ms"],
+             bound_ms=fd_main["bound_ms"], bound_by=fd_main["bound_by"],
+             library_ms=fd_main["library_ms"],
+             other_shapes=others(fdk, fd_main)),
     ]
     phase("[phase 4] summary")
-    log("  bounds of the TPU kernels still to port, at the reference's "
-        "benchmark shapes:")
-    unported_bounds()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

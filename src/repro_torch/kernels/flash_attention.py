@@ -1,0 +1,169 @@
+"""flash_attention — tiled causal / sliding-window GQA attention.
+
+Port of ``repro.kernels.flash_attention``. Layout as there: q (BH, Sq, hd),
+k and v (BKV, Sk, hd) with BH = BKV * group; query row bh reads KV row
+bh // group. Out (BH, Sq, hd) in q's dtype. The mask is additive and
+finite (-1e30) for cols > rows (causal) and cols <= rows - window (sliding
+window), and key tiles that lie wholly past the causal frontier or behind
+the window are skipped, as in the TPU kernel. ``ops.flash_attention_bshd``
+reaches the same kernel in the model layout.
+
+Unlike the reference, which asserts that the tiles divide Sq and Sk, any
+lengths are taken: the last query tile and the last key tile are cut short
+(the kernel masks them). The function does not change: rows and columns past
+the ends are simply not there.
+
+On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``, a tiled
+mirror of the TPU kernel at tiles (``bq``, ``bk``). On CUDA tensors it
+launches the hand-written kernel in ``csrc/flash_attention.cu`` (64 x 64
+tiles of its own) or raises; ``bq`` and ``bk`` select only the plain
+version's tiling (rounding only). ``launch_count()`` counts the kernel's
+launches, from either entry point.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_LAUNCHES = {"n": 0}
+_MAX_HD = 128  # kMaxHD in csrc/flash_attention.cu
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+
+def launch_count() -> int:
+    """Kernel launches since import / reset."""
+    return _LAUNCHES["n"]
+
+
+def reset_launch_count() -> None:
+    _LAUNCHES["n"] = 0
+
+
+def flash_attention_plain(q, k, v, *, group: int, causal: bool = True,
+                          window: int = 0, bq: int = 128, bk: int = 128):
+    """The kernel's plain PyTorch version: the TPU kernel's loop over
+    (bq, bk) tiles with running (max, sum, acc) in f32, the same skipped
+    tiles and the same finite -1e30 mask. p stays in f32 for P.V."""
+    BH, Sq, hd = q.shape
+    BKV, Sk, _ = k.shape
+    if BH != BKV * group:
+        raise ValueError(f"q has {BH} rows, expected {BKV} x group {group}")
+    if bq < 1 or bk < 1:
+        raise ValueError(f"tiles must be positive, got ({bq}, {bk})")
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    qf = q.float().reshape(BKV, group, Sq, hd)
+    kf, vf = k.float(), v.float()
+    out = torch.zeros((BKV, group, Sq, hd), dtype=torch.float32, device=dev)
+    for q0 in range(0, Sq, bq):
+        q1 = min(q0 + bq, Sq)
+        rows = torch.arange(q0, q1, device=dev)[:, None]
+        m = torch.full((BKV, group, q1 - q0), NEG_INF, device=dev)
+        l = torch.zeros((BKV, group, q1 - q0), device=dev)
+        acc = torch.zeros((BKV, group, q1 - q0, hd), device=dev)
+        for k0 in range(0, Sk, bk):
+            k1 = min(k0 + bk, Sk)
+            # tile-level gating: skip wholly masked key tiles
+            if causal and k0 > q1 - 1:
+                break
+            if window > 0 and k1 - 1 <= q0 - window:
+                continue
+            s = torch.einsum("bgqh,bsh->bgqs", qf[:, :, q0:q1],
+                             kf[:, k0:k1]) * scale
+            cols = torch.arange(k0, k1, device=dev)[None, :]
+            bad = torch.zeros((q1 - q0, k1 - k0), dtype=torch.bool, device=dev)
+            if causal:
+                bad = bad | (cols > rows)
+            if window > 0:
+                bad = bad | (cols <= rows - window)
+            s = s + torch.where(bad, NEG_INF, 0.0)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bgqs,bsh->bgqh", p, vf[:, k0:k1])
+            m = m_new
+        out[:, :, q0:q1] = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(BH, Sq, hd).to(q.dtype)
+
+
+def _lib():
+    fn = _build.load("flash_attention").flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _L, _I, _I, _F, _P]
+        fn.restype = _I
+    return fn
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           out: torch.Tensor, *, causal: bool, window: int) -> torch.Tensor:
+    """Launch the kernel on 4-d views: q and ``out`` (B, Sq, H, hd) with the
+    same strides, k and v (B, Sk, KV, hd) with the same strides, hd
+    contiguous in all four; f32 or bf16, one dtype, one CUDA device.
+    Writes ``out`` and returns it. Counted."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype not in _DTYPE_CODE or t.dtype != q.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
+                            f"one of {tuple(_DTYPE_CODE)} for all four")
+        if t.dim() != 4 or t.stride(3) != 1:
+            raise ValueError(f"{name} must be 4-d with hd contiguous, got "
+                             f"shape {tuple(t.shape)} strides {t.stride()}")
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if tuple(out.shape) != tuple(q.shape) or out.stride() != q.stride():
+        raise ValueError("out must match q's shape and strides")
+    if (tuple(v.shape) != tuple(k.shape) or v.stride() != k.stride()
+            or k.shape[0] != B or k.shape[3] != hd):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if KV < 1 or H % KV or not 1 <= hd <= _MAX_HD or B * H > 65535:
+        raise ValueError(f"need heads ({H}) a multiple of KV heads ({KV}), "
+                         f"1 <= hd ({hd}) <= {_MAX_HD}, B * H <= 65535")
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, hd, *q.stride()[:3],
+                 *k.stride()[:3], int(causal), max(int(window), 0),
+                 1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    _LAUNCHES["n"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    group: int = 1, causal: bool = True, window: int = 0,
+                    bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """q: (BH, Sq, hd); k, v: (BKV, Sk, hd) with BH == BKV * group. ``bq``
+    and ``bk`` tile the plain version on the CPU; the kernel ignores them."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, group=group, causal=causal,
+                                     window=window, bq=bq, bk=bk)
+    BH, Sq, hd = q.shape
+    BKV = k.shape[0]
+    if BH != BKV * group:
+        raise ValueError(f"q has {BH} rows, expected {BKV} x group {group}")
+    q = q.contiguous()
+    out = torch.empty_like(q)
+
+    def heads(t):  # (BKV * group, Sq, hd) -> (BKV, Sq, group, hd) view
+        return t.view(BKV, group, Sq, hd).transpose(1, 2)
+
+    launch(heads(q), k.contiguous()[:, :, None], v.contiguous()[:, :, None],
+           heads(out), causal=causal, window=window)
+    return out

@@ -1,9 +1,9 @@
 """Model-facing wrappers around the port's kernels.
 
-Port of ``repro.kernels.ops`` for the SSD scan: the wrapper takes the
-model's layout and runs the hand-written kernel on CUDA tensors, the plain
-version on CPU tensors. ``morph_matmul`` is reached through
-``kernels.morph_matmul`` directly.
+Port of ``repro.kernels.ops`` for flash attention and the SSD scan: each
+wrapper takes the model's layout and runs the hand-written kernel on CUDA
+tensors, the plain version on CPU tensors. ``morph_matmul`` is reached
+through ``kernels.morph_matmul`` directly.
 """
 from __future__ import annotations
 
@@ -11,15 +11,33 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 
 
-def flash_attention_bshd(*args, **kwargs):
-    """Tiled causal / sliding-window attention in the model layout: arrives
-    with the flash-attention slice of the port
-    (``repro.kernels.ops.flash_attention_bshd`` is its reference)."""
-    raise NotImplementedError("flash_attention_bshd arrives with the "
-                              "flash-attention slice of the port")
+def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
+                         bq: int = 128, bk: int = 128) -> torch.Tensor:
+    """Model-layout flash attention. q: (B, Sq, H, hd); k, v: (B, Sk, KV,
+    hd) -> (B, Sq, H, hd) in q's dtype, the function of
+    ``kernels.flash_attention.flash_attention`` with group H / KV.
+
+    On a card the kernel reads the model layout in place (no transposed
+    copies); on the CPU the heads are flattened to (B * H, Sq, hd) and the
+    plain version runs at tiles (``bq``, ``bk``), this wrapper's only knob
+    (rounding only; the kernel's tiling is its own). Any Sq and Sk."""
+    if q.device.type == "cpu":
+        B, Sq, H, hd = q.shape
+        KV, Sk = k.shape[2], k.shape[1]
+        qf = q.transpose(1, 2).reshape(B * H, Sq, hd)
+        kf = k.transpose(1, 2).reshape(B * KV, Sk, hd)
+        vf = v.transpose(1, 2).reshape(B * KV, Sk, hd)
+        o = _fa.flash_attention_plain(qf, kf, vf, group=H // KV,
+                                      causal=causal, window=window, bq=bq,
+                                      bk=bk)
+        return o.reshape(B, H, Sq, hd).transpose(1, 2)
+    q = q.contiguous()
+    return _fa.launch(q, k.contiguous(), v.contiguous(), torch.empty_like(q),
+                      causal=causal, window=window)
 
 
 def ssd_scan_bshn(x, dt, A, B_, C_, *, chunk: int = 128

@@ -1,12 +1,16 @@
 """Plain PyTorch oracles for the kernels of this slice.
 
 Port of ``repro.kernels.ref``, plus ``ssd_reference``, the model-layout
-sequential scan of ``repro.models.ssm``. ``flash_attention_ref`` arrives
-with the slice that ports its kernel.
+sequential scan of ``repro.models.ssm``, and ``flash_decode_ref``, the
+oracle that ``repro.kernels.flash_decode`` keeps beside its kernel.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
 
 
 def _per_batch(a) -> bool:
@@ -34,6 +38,45 @@ def morph_matmul_ref(x, w, active_n=None, active_k=None):
                      w[:ak, :an].float())
     y = torch.nn.functional.pad(y, (0, N - an))
     return y.to(x.dtype)
+
+
+def flash_attention_ref(q, k, v, *, group: int = 1, causal: bool = True,
+                        window: int = 0):
+    """q: (BH, Sq, hd); k, v: (BKV, Sk, hd) with BH = BKV * group. One
+    softmax in f32 with the additive -1e30 mask; out in q's dtype."""
+    Sq, hd = q.shape[1], q.shape[2]
+    Sk = k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    s = torch.einsum("bqh,bsh->bqs", q.float(), kf) / math.sqrt(hd)
+    rows = torch.arange(Sq, device=q.device)[:, None]
+    cols = torch.arange(Sk, device=q.device)[None, :]
+    bad = torch.zeros((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        bad = bad | (cols > rows)
+    if window > 0:
+        bad = bad | (cols <= rows - window)
+    w = torch.softmax(s + torch.where(bad, NEG_INF, 0.0), dim=-1)
+    return torch.einsum("bqs,bsh->bqh", w, vf).to(q.dtype)
+
+
+def flash_decode_ref(q, k, v, kv_len, k_scale=None, v_scale=None, *,
+                     group: int = 1):
+    """q: (BH, hd); k, v: (BKV, S, hd) float or int8 with scales (BKV, S,
+    1). One softmax over the positions < ``kv_len``; out in q's dtype.
+    With ``kv_len`` = 0 every column is masked alike and this returns the
+    mean of v (the kernel returns zeros)."""
+    kf, vf = k.float(), v.float()
+    if k.dtype == torch.int8:
+        kf = kf * k_scale.float()
+        vf = vf * v_scale.float()
+    kf = kf.repeat_interleave(group, dim=0)
+    vf = vf.repeat_interleave(group, dim=0)
+    s = torch.einsum("bh,bsh->bs", q.float(), kf) / math.sqrt(q.shape[-1])
+    n = torch.as_tensor(kv_len, device=q.device).reshape(())
+    live = torch.arange(k.shape[1], device=q.device)[None, :] < n
+    w = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
+    return torch.einsum("bs,bsh->bh", w, vf).to(q.dtype)
 
 
 def ssd_scan_ref(x, dt, A, B, C):

@@ -277,8 +277,20 @@ def mha(params, x, cfg: ModelConfig, positions, *, kv_x=None,
     impl = cfg.attn_impl
     if impl == "auto":
         impl = "chunked" if Sk > 2048 else "einsum"
-    fn = attention_chunked if impl == "chunked" else attention_full
-    out = fn(q, k, v, cfg, positions, kpos, causal=causal)
+    if impl == "chunked" and kv_x is None and q.device.type == "cuda":
+        # The flash kernel masks by index, not by ``positions``. That is the
+        # same mask here: the prompt pass numbers its tokens 0..S-1
+        # (``model._embed_inputs``). Key positions of their own have no
+        # place in it.
+        if kv_positions is not None:
+            raise ValueError("the flash attention kernel masks by index; "
+                             "mha with kv_positions has no kernel route")
+        from repro_torch.kernels import ops
+        out = ops.flash_attention_bshd(q, k, v, causal=causal,
+                                       window=cfg.sliding_window)
+    else:
+        fn = attention_chunked if impl == "chunked" else attention_full
+        out = fn(q, k, v, cfg, positions, kpos, causal=causal)
     out = matmul(out.reshape(out.shape[0], out.shape[1], cfg.q_dim),
                  params["wo"], dt)
     return out, (k, v)

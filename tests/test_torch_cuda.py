@@ -317,3 +317,113 @@ def test_mamba2_smoke_model_on_card_matches_cpu(cuda):
         outs.append([t.float().cpu() for t in got])
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 64, 4, 2, 32, True, 0),
+                                   (1, 200, 8, 2, 64, True, 0),
+                                   (1, 100, 4, 4, 16, True, 8),
+                                   (2, 40, 2, 1, 128, False, 0),
+                                   (2, 131, 6, 3, 40, True, 70)])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, shape):
+    """The flash kernel against its plain version: GQA at B = 2, a ragged
+    S = 200 (last query and key tiles cut short), a window of 8 (rows whose
+    first visited tile is wholly masked), non-causal at hd 128, and a
+    window of 70 at S = 131 and hd 40 (not a multiple of 8). Through the
+    model-layout wrapper and the flat entry point."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    B, S, H, KV, hd, causal, window = shape
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+    n0 = FA.launch_count()
+    o = ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
+    assert FA.launch_count() == n0 + 1
+    flat = [t.transpose(1, 2).reshape(-1, S, hd).contiguous()
+            for t in (q, k, v)]
+    want = FA.flash_attention_plain(*flat, group=H // KV, causal=causal,
+                                    window=window)
+    o_flat = FA.flash_attention(*flat, group=H // KV, causal=causal,
+                                window=window)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
+    _close(o.transpose(1, 2).reshape(-1, S, hd), want, dtype)
+    _close(o_flat, want, dtype)
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("group", [1, 4])
+def test_flash_decode_kernel_matches_plain(cuda, cache, group):
+    """The decode kernel against its plain version at kv_len 0, 1, 77 and
+    S (given as an int and as a device scalar), several splits (S = 300),
+    an int8 cache with bf16 scales, bf16 queries with a bf16 cache."""
+    from repro_torch.kernels import flash_decode as FDK
+    from repro_torch.models.layers import quantize_kv
+
+    BKV, S, hd = 3, 300, 64
+    g = torch.Generator(device=cuda).manual_seed(12)
+    qdt = torch.bfloat16 if cache == "bf16" else torch.float32
+    q = torch.randn(BKV * group, hd, generator=g, device=cuda).to(qdt)
+    k = torch.randn(BKV, S, hd, generator=g, device=cuda)
+    v = torch.randn(BKV, S, hd, generator=g, device=cuda)
+    ks = vs = None
+    if cache == "int8":
+        k, ks = quantize_kv(k)
+        v, vs = quantize_kv(v)
+    elif cache == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    for n in (0, 1, 77, S):
+        for kv_len in (n, torch.tensor([n], dtype=torch.int32, device=cuda)):
+            n0 = FDK.launch_count()
+            got = FDK.flash_decode(q, k, v, kv_len, ks, vs, group=group)
+            assert FDK.launch_count() == n0 + 1
+            want = FDK.flash_decode_plain(q, k, v, n, ks, vs, group=group)
+            torch.cuda.synchronize()
+            assert got.dtype == qdt
+            _close(got, want, qdt)
+            if n == 0:
+                assert not bool(got.any())
+
+
+def test_cuda_tensors_reach_the_flash_kernels_never_the_plain(cuda,
+                                                             monkeypatch):
+    """On CUDA tensors the chunked prompt pass launches the flash kernel
+    once per attention layer and flash_decode launches its kernel; the
+    plain versions and the model's chunked attention are never called.
+    The chunked prompt pass on the card matches the CPU's to 1e-3."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FDK
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import init_params, prefill
+
+    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"),
+                              attn_impl="chunked", attn_chunk=8)
+    p_cpu = init_params(cfg, seed=3, device="cpu")
+    prompt = (torch.arange(1, 30)[None] * 7) % cfg.vocab_size
+    want, _ = prefill(p_cpu, {"tokens": prompt}, cfg)
+
+    def banned(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for mod, name in ((FA, "flash_attention_plain"),
+                      (FDK, "flash_decode_plain"),
+                      (L, "attention_chunked")):
+        monkeypatch.setattr(mod, name, banned)
+
+    def move(t):
+        return ({k: move(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(cuda))
+
+    n0 = FA.launch_count()
+    got, _ = prefill(move(p_cpu), {"tokens": prompt.to(cuda)}, cfg)
+    assert FA.launch_count() == n0 + cfg.n_groups * cfg.period
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+    q = torch.randn(8, 16, device=cuda)
+    kv = torch.randn(2, 64, 16, device=cuda)
+    n0 = FDK.launch_count()
+    FDK.flash_decode(q, kv, kv, 10, group=4)
+    assert FDK.launch_count() == n0 + 1

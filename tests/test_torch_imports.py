@@ -55,6 +55,17 @@ def test_ssm_modules_are_in_the_probe():
             "repro_torch.kernels.ops"} <= names
 
 
+def test_flash_modules_are_in_the_probe():
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.flash_decode"} <= names
+
+
 def test_cuda_without_a_card_raises_instead_of_falling_back():
     from repro_torch.configs import smoke_config
     from repro_torch.device import resolve_device

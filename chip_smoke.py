@@ -5,13 +5,15 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
 
 1. Device and build: print the card's name and power limit, build all six
    CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
-   (one nvcc per source, started together) and print the build seconds and
-   ptxas register/spill lines.
-2. Kernels vs their plain versions, on the card, at full TinyLlama-1.1B
-   shapes in bf16 with B = 8 slots at mixed widths {0.25, 0.5, 1.0}:
-   ``morph_matmul`` over the seven projections of one decoder layer plus a
-   width that is not tile-aligned, and again at the verify pass's shapes
-   (B = 8 x S = 5 rows); ``fused_decode_step`` on a 1024-row cache at mixed
+   (one nvcc per source, started together) and print the build seconds,
+   each kernel's ptxas registers and spills, and the tensor-core (HMMA)
+   instructions in the SASS of ``morph_matmul`` and ``flash_attention``.
+2. The read rate a streaming kernel can reach under the timer below
+   (``read_rate``). Kernels vs their plain versions, on the card, at full
+   TinyLlama-1.1B shapes in bf16 with B = 8 slots at mixed widths
+   {0.25, 0.5, 1.0}: ``morph_matmul`` over the seven projections of one
+   decoder layer plus a width that is not tile-aligned, and again at the
+   verify pass's shapes (B = 8 x S = 5 rows) and at 64 rows; ``fused_decode_step`` on a 1024-row cache at mixed
    positions, plain and int8-KV; ``fused_verify`` on a 512-row cache at
    mixed committed counts, a bf16 cache with the linear mask (S = 5) and an
    int8 cache with a (2, 2) token-tree mask (S = 7); ``flash_attention`` at
@@ -131,6 +133,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sass_mma(name: str) -> str:
+    """The tensor-core instructions (HMMA) in a built library's SASS, from
+    ``cuobjdump -sass``, per kernel that has any."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "SASS not read (no cuobjdump)"
+    sass = subprocess.run([tool, "-sass", str(_build._target(name))],
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, "?"
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+        elif "HMMA" in ln:
+            counts[fn] = counts.get(fn, 0) + 1
+    return (f"HMMA instructions in SASS, by kernel: {counts}" if counts
+            else "no HMMA instruction in SASS")
+
+
 def kernel_us(torch, fn, iters: int):
     """Per-kernel device microseconds over ``iters`` calls of ``fn``, from
     ``torch.profiler`` (CUPTI sees the ctypes-launched kernels too)."""
@@ -221,7 +245,8 @@ def mm_cases(torch, timer, gen, cases, S: int, title: str):
     from repro_torch.kernels import morph_matmul as MM
 
     B = 8
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    tot = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0)
     max_err = 0.0
     for name, K, N, an, ak, per_layer in cases:
         x = torch.randn(B, S, K, generator=gen, device="cuda").to(torch.bfloat16)
@@ -256,14 +281,17 @@ def mm_cases(torch, timer, gen, cases, S: int, title: str):
         log(f"  morph_matmul {name:9s} ({B}, {S}, {K:5d}) x {N:5d} max|err| "
             f"{err:.3e}  kernel {t_k:.4f} ms (call, event-timed {t_kw:.4f} "
             f"ms)  plain {t_p:.4f} ms  torch.matmul(bf16, full width) "
-            f"{t_l:.4f} ms  bound {bound:.4f} ms (bytes)")
-        for k_, v_ in (("ms", t_k), ("plain_ms", t_p), ("bound_ms", bound),
-                       ("library_ms", t_l)):
+            f"{t_l:.4f} ms  bound {bound:.4f} ms (bytes; kernel at "
+            f"{bound / t_k:.2f} of it, {t_k / t_l:.2f}x the library)")
+        for k_, v_ in (("ms", t_k), ("wall_ms", t_kw), ("plain_ms", t_p),
+                       ("bound_ms", bound), ("library_ms", t_l)):
             tot[k_] += v_ * per_layer
-    log(f"  morph_matmul, {title}: kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
-        f"bound {tot['bound_ms']:.4f} ms; tolerance rtol {RTOL_BF16:.2e} + "
-        f"atol {ATOL_BF16:.0e}")
+    log(f"  morph_matmul, {title}: kernel {tot['ms']:.4f} ms (event-timed "
+        f"{tot['wall_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, library "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; at "
+        f"{tot['bound_ms'] / tot['ms']:.2f} of the bound, "
+        f"{tot['ms'] / tot['library_ms']:.2f}x the library; tolerance rtol "
+        f"{RTOL_BF16:.2e} + atol {ATOL_BF16:.0e}")
     return dict(max_abs_err=max_err, **tot)
 
 
@@ -275,6 +303,45 @@ def _tinyllama_cases(cfg, act):
             ("attn wo", qd, dm, None, act["q_dim"], 1),
             ("wi/wg", dm, ff, act["d_ff"], None, 2),
             ("mlp wo", ff, dm, None, act["d_ff"], 1)]
+
+
+def read_rate(torch, timer, cfg):
+    """The card's read rate as kernels are timed here: one ``torch.amax``
+    over an f32 weight of TinyLlama's wq (16.8 MB) and wi (46.1 MB), the
+    median of 20 CUDA-event times, with the L2 flushed before each call as
+    the timer flushes it (zeroing 256 MB, which leaves it dirty, so the
+    first reads also write that back) and by reading the 256 MB instead (a
+    clean L2). The ceiling a weight-streaming kernel can reach under this
+    timer, beside the data sheet's 3.35 TB/s."""
+    dm, ff = cfg.d_model, cfg.d_ff
+
+    def median_ms(w, flush):
+        pairs = []
+        for _ in range(20):
+            flush()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.amax(w)
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return sorted(a.elapsed_time(b) for a, b in pairs)[10]
+
+    res = {}
+    for name, (k, n) in (("wq", (dm, dm)), ("wi", (dm, ff))):
+        w = torch.randn(k, n, device="cuda")
+        nbytes = w.numel() * 4
+        t_dirty = median_ms(w, timer._flush)
+        t_clean = median_ms(
+            w, lambda: timer.flush_buf.view(torch.int32).sum())
+        res[name] = (nbytes / t_dirty / 1e9, nbytes / t_clean / 1e9)
+        log(f"  read rate, torch.amax over {nbytes / 1e6:.1f} MB of f32 "
+            f"({name}): {res[name][0]:.2f} TB/s ({t_dirty * 1e3:.1f} us) "
+            f"after the timer's flush (dirty L2), {res[name][1]:.2f} TB/s "
+            f"({t_clean * 1e3:.1f} us) after a read-only flush (data sheet "
+            f"{HBM_BYTES_PER_S / 1e12:.2f}); CUDA events, median of 20")
+    return res
 
 
 def check_morph_matmul(torch, cfg, timer):
@@ -383,8 +450,9 @@ def check_fused_decode(torch, cfg, timer):
 
 def check_morph_matmul_verify(torch, cfg, timer, S=5):
     """``morph_matmul`` at the unfused verify pass's shapes: B = 8 slots of
-    S = K+1 = 5 rows each, 40 rows per launch (five 8-row groups of the
-    kernel), for each projection of one decoder layer."""
+    S = K+1 = 5 rows each, 40 rows per launch (five n8 row tiles of the
+    tensor-core kernel), for each projection of one decoder layer; with
+    S = 8, 64 rows (eight)."""
     from repro_torch.core import elastic
 
     widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
@@ -741,15 +809,19 @@ def check_flash_attention(torch, cfg, timer):
         ops_n = 4 * d * attn_pairs(s, s, True, window) * b * h
         peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
         bound, by = dense_bound(nbytes, ops_n, peak)
+        route = "tc (tensor cores)" if dt == torch.bfloat16 else "fma (f32)"
         log(f"  flash_attention {tag} (b={b}, h={h}/{kv}, hd={d}, window "
-            f"{window}, {str(dt)[6:]}): max|err| {err:.3e} (rtol {rtol:.2e} "
-            f"+ atol {atol:.0e}; SDPA vs plain {lib_err:.3e})  kernel "
-            f"{t_k:.4f} ms (call, event-timed {t_kw:.4f} ms)  plain "
-            f"{t_p:.4f} ms  SDPA ({backend}) {t_l:.4f} ms  bound "
-            f"{bound:.5f} ms ({by}; {nbytes / 1e6:.3f} MB, {ops_n / 1e6:.1f} "
-            f"MFLOP at {peak / 1e12:.0f} TFLOP/s)")
-        res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-                        bound_by=by, library_ms=t_l, library=f"sdpa {backend}")
+            f"{window}, {str(dt)[6:]}, route {route}): max|err| {err:.3e} "
+            f"(rtol {rtol:.2e} + atol {atol:.0e}; SDPA vs plain "
+            f"{lib_err:.3e})  kernel {t_k:.4f} ms (call, event-timed "
+            f"{t_kw:.4f} ms)  plain {t_p:.4f} ms  SDPA ({backend}) "
+            f"{t_l:.4f} ms  bound {bound:.5f} ms ({by}; {nbytes / 1e6:.3f} "
+            f"MB, {ops_n / 1e6:.1f} MFLOP at {peak / 1e12:.0f} TFLOP/s); "
+            f"kernel at {bound / t_k:.3f} of the bound, {t_k / t_l:.2f}x "
+            f"SDPA")
+        res[tag] = dict(max_abs_err=err, ms=t_k, wall_ms=t_kw, plain_ms=t_p,
+                        bound_ms=bound, bound_by=by, library_ms=t_l,
+                        library=f"sdpa {backend}")
     return res
 
 
@@ -1092,6 +1164,7 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
     """Serve ``cfg`` through each of ``paths`` on one trace; ``expect``
     gives the exact launch counts each drive must show. Returns (launches
     per path, results per path)."""
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.runtime.serving import ServingEngine, poisson_trace
     from repro_torch.runtime.speculative import SpecConfig, draft_compile_key
 
@@ -1118,6 +1191,10 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
         wall, streams = drive(engine, trace, switch_every=12)
         run_launches = {n: count() for n, (count, _) in count_reset.items()}
         launches[tag] = run_launches
+        routes = FA.route_counts()
+        if routes["tc"] != run_launches["flash_attention"]:
+            fail(f"{tag} path: flash_attention routes {routes}; every launch "
+                 f"of a bf16 model must take the tensor-core kernel")
         want, steps = expect(torch, engine, steps0, fused, device)
         if run_launches != want:
             fail(f"{tag} path: launches {run_launches}, expected {want} for "
@@ -1412,13 +1489,20 @@ def main(argv=None) -> int:
     for name in _build.KERNELS:
         for ln in _build.ptxas_report(name):
             log(f"    {name}: {ln}")
+    for name in ("morph_matmul", "flash_attention"):
+        log(f"  {name}: {sass_mma(name)}")
 
     cfg = get_config("tinyllama-1.1b")
     mcfg = get_config("mamba2-370m")
     timer = Timer(torch)
     phase("[phase 2] kernels vs plain versions (full TinyLlama shapes, bf16)")
+    read_rate(torch, timer, cfg)
     mm = check_morph_matmul(torch, cfg, timer)
     mmv = check_morph_matmul_verify(torch, cfg, timer)
+    mm64 = check_morph_matmul_verify(torch, cfg, timer, S=8)
+    log(f"  morph_matmul per TinyLlama layer: 40 rows / 8 rows = "
+        f"{mmv['ms'] / mm['ms']:.2f}x, 64 rows / 8 rows = "
+        f"{mm64['ms'] / mm['ms']:.2f}x")
     fd = check_fused_decode(torch, cfg, timer)
     fv = check_fused_verify(torch, cfg, timer)
     fa = check_flash_attention(torch, cfg, timer)
@@ -1482,8 +1566,11 @@ def main(argv=None) -> int:
                              mms["max_abs_err"], mmsv["max_abs_err"]),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
              bound_by="bytes", library_ms=mm["library_ms"],
-             verify_shape={k: mmv[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "library_ms")},
+             wall_ms=mm["wall_ms"],
+             verify_shape={k: mmv[k] for k in ("ms", "wall_ms", "plain_ms",
+                                               "bound_ms", "library_ms")},
+             rows64_shape={k: mm64[k] for k in ("ms", "wall_ms", "plain_ms",
+                                                "bound_ms", "library_ms")},
              mamba2_layer={k: mms[k] for k in ("ms", "plain_ms", "bound_ms",
                                                "library_ms")},
              mamba2_verify_shape={k: mmsv[k] for k in ("ms", "plain_ms",

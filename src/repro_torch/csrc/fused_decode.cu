@@ -347,8 +347,8 @@ extern "C" int fused_qkv_launch(const void* x, int x_dtype, const void* wq,
                                 const void* wk, const void* wv, int w_dtype,
                                 float* q, float* k, float* v, const int* a_q,
                                 const int* a_kv, int B, int dm, int nq, int nkv,
-                                int vec, int splits, int k_per_split, float* ws,
-                                int* tickets, void* stream) {
+                                int splits, int k_per_split,
+                                void* stream) {
   rt::GemvArgs g = {};
   g.x = x;
   g.ak = nullptr;
@@ -361,10 +361,8 @@ extern "C" int fused_qkv_launch(const void* x, int x_dtype, const void* wq,
   g.seg[2] = {wv, v, a_kv, nkv, 0};
   g.splits = splits;
   g.k_per_split = k_per_split;
-  g.ws = ws;
-  g.tickets = tickets;
-  return rt::gemv_launch(g, x_dtype, w_dtype, rt::kF32, vec != 0, false,
-                         static_cast<cudaStream_t>(stream));
+  return rt::gemv_launch<false>(g, x_dtype, w_dtype, rt::kF32, false,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // (b) RoPE + decode attention split over cache rows + merge + quantize round

@@ -360,8 +360,8 @@ extern "C" int verify_qkv_launch(const void* x, int x_dtype, const void* wq,
                                  const void* wk, const void* wv, int w_dtype,
                                  float* q, float* k, float* v, const int* a_q,
                                  const int* a_kv, int B, int M, int dm, int nq,
-                                 int nkv, int vec, int splits, int k_per_split,
-                                 float* ws, int* tickets, void* stream) {
+                                 int nkv, int splits, int k_per_split,
+                                 void* stream) {
   rt::GemvArgs g = {};
   g.x = x;
   g.ak = nullptr;
@@ -374,10 +374,8 @@ extern "C" int verify_qkv_launch(const void* x, int x_dtype, const void* wq,
   g.seg[2] = {wv, v, a_kv, nkv, 0};
   g.splits = splits;
   g.k_per_split = k_per_split;
-  g.ws = ws;
-  g.tickets = tickets;
-  return rt::gemv_launch(g, x_dtype, w_dtype, rt::kF32, vec != 0, false,
-                         static_cast<cudaStream_t>(stream));
+  return rt::gemv_launch<false>(g, x_dtype, w_dtype, rt::kF32, false,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // (b) RoPE + attention over the cache split into row ranges + merge with

@@ -11,8 +11,8 @@ extern "C" int morph_matmul_launch(const void* x, int x_dtype, const void* w,
                                    int w_dtype, void* out, int out_dtype,
                                    const int* active_n, const int* active_k,
                                    int B, int M, int K, int N, int round_w,
-                                   int vec, int splits, int k_per_split,
-                                   float* ws, int* tickets, void* stream) {
+                                   int splits, int k_per_split,
+                                   void* stream) {
   rt::GemvArgs a = {};
   a.x = x;
   a.ak = active_k;
@@ -26,8 +26,16 @@ extern "C" int morph_matmul_launch(const void* x, int x_dtype, const void* w,
   a.seg[0].N = N;
   a.splits = splits;
   a.k_per_split = k_per_split;
-  a.ws = ws;
-  a.tickets = tickets;
-  return rt::gemv_launch(a, x_dtype, w_dtype, out_dtype, vec != 0,
-                         round_w != 0, static_cast<cudaStream_t>(stream));
+  return rt::gemv_launch(a, x_dtype, w_dtype, out_dtype, round_w != 0,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of `splits` blocks of the kernel a launch with these
+// dtypes and `rows` rows would take fit on the card at once; written to
+// *out. Returns the query's error code.
+extern "C" int morph_matmul_max_clusters(int x_dtype, int w_dtype,
+                                         int round_w, int rows, int splits,
+                                         int* out) {
+  return rt::gemv_max_clusters(x_dtype, w_dtype, round_w != 0, rows, splits,
+                               out);
 }

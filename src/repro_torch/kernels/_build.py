@@ -101,12 +101,21 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:
 
 
 def ptxas_report(name: str) -> List[str]:
-    """The ``ptxas info`` lines of a built library's log (registers, spills)."""
+    """One line per kernel of a built library's ``ptxas`` log: its (mangled)
+    name, registers and spills."""
     log = _target(name).with_suffix(".log")
     if not log.exists():
         return []
-    return [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
+    out, fn, spill = [], "?", ""
+    for ln in log.read_text().splitlines():
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for", 1)[1].strip()
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln:
+            regs = ln.split(":", 1)[-1].strip()
+            out.append(f"{fn}: {regs}; {spill}")
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,10 +15,13 @@ the ends are simply not there.
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_plain``, a tiled
 mirror of the TPU kernel at tiles (``bq``, ``bk``). On CUDA tensors it
-launches the hand-written kernel in ``csrc/flash_attention.cu`` (64 x 64
+launches a hand-written kernel in ``csrc/flash_attention.cu`` (64 x 64
 tiles of its own) or raises; ``bq`` and ``bk`` select only the plain
-version's tiling (rounding only). ``launch_count()`` counts the kernel's
-launches, from either entry point.
+version's tiling (rounding only). The kernel is chosen by dtype: bf16
+inputs go to the tensor-core kernel (route ``"tc"``: bf16 products, f32
+sums, p split into two bf16 halves so that P.V keeps an f32 p), f32 inputs
+to the f32 FMA kernel (route ``"fma"``). ``launch_count()`` counts the
+launches of both, from either entry point; ``route_counts()`` by route.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LAUNCHES = {"n": 0}
+_LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
+_ROUTE = {torch.bfloat16: "tc", torch.float32: "fma"}
 _MAX_HD = 128  # kMaxHD in csrc/flash_attention.cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +47,15 @@ def launch_count() -> int:
     return _LAUNCHES["n"]
 
 
+def route_counts() -> dict:
+    """Launches per kernel route since import / reset: ``tc`` (bf16 inputs,
+    tensor cores) and ``fma`` (f32 inputs, f32 FMAs)."""
+    return {r: _LAUNCHES[r] for r in ("tc", "fma")}
+
+
 def reset_launch_count() -> None:
-    _LAUNCHES["n"] = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
 
 
 def flash_attention_plain(q, k, v, *, group: int, causal: bool = True,
@@ -97,10 +107,10 @@ def flash_attention_plain(q, k, v, *, group: int, causal: bool = True,
     return out.reshape(BH, Sq, hd).to(q.dtype)
 
 
-def _lib():
-    fn = _build.load("flash_attention").flash_attention_launch
+def _lib(route: str):
+    fn = getattr(_build.load("flash_attention"), f"flash_attention_{route}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _L, _I, _I, _F, _P]
         fn.restype = _I
     return fn
@@ -111,16 +121,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on 4-d views: q and ``out`` (B, Sq, H, hd) with the
     same strides, k and v (B, Sk, KV, hd) with the same strides, hd
     contiguous in all four; f32 or bf16, one dtype, one CUDA device.
-    Writes ``out`` and returns it. Counted."""
+    bf16 goes to the tensor-core kernel, f32 to the FMA kernel. Writes
+    ``out`` and returns it. Counted, in all and by route."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype not in _DTYPE_CODE or t.dtype != q.dtype:
+        if t.dtype not in _ROUTE or t.dtype != q.dtype:
             raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
-                            f"one of {tuple(_DTYPE_CODE)} for all four")
+                            f"one of {tuple(_ROUTE)} for all four")
         if t.dim() != 4 or t.stride(3) != 1:
             raise ValueError(f"{name} must be 4-d with hd contiguous, got "
                              f"shape {tuple(t.shape)} strides {t.stride()}")
@@ -135,14 +146,17 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if KV < 1 or H % KV or not 1 <= hd <= _MAX_HD or B * H > 65535:
         raise ValueError(f"need heads ({H}) a multiple of KV heads ({KV}), "
                          f"1 <= hd ({hd}) <= {_MAX_HD}, B * H <= 65535")
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], B, H, KV, Sq, Sk, hd, *q.stride()[:3],
-                 *k.stride()[:3], int(causal), max(int(window), 0),
-                 1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+    route = _ROUTE[q.dtype]
+    err = _lib(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, H, KV, Sq, Sk, hd, *q.stride()[:3],
+                      *k.stride()[:3], int(causal), max(int(window), 0),
+                      1.0 / math.sqrt(hd),
+                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention ({route}) kernel launch failed: "
+                           f"CUDA error {err}")
     _LAUNCHES["n"] += 1
+    _LAUNCHES[route] += 1
     return out
 
 

@@ -50,6 +50,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _CACHE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _CHUNK = 64  # cache rows the attention kernel stages at once (kChunk)
+_ATTN_TARGET_BLOCKS = 264  # two resident blocks on each of the H100's 132 SMs
 
 
 def launch_count() -> int:
@@ -178,8 +179,7 @@ def _lib():
     lib = _build.load("fused_decode")
     qkv, attn = lib.fused_qkv_launch, lib.fused_attn_launch
     if qkv.argtypes is None:
-        qkv.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+        qkv.argtypes = [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 6 + [_P]
         qkv.restype = _I
         attn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -192,7 +192,7 @@ def _attn_plan(heads: int, S: int, max_splits: int = 1 << 30):
     head) pairs: enough blocks to fill the card (at most ``max_splits`` per
     pair), whole 64-row chunks."""
     chunks = max(1, -(-S // _CHUNK))
-    s = max(1, min(chunks, -(-_mm._TARGET_BLOCKS // heads), max_splits))
+    s = max(1, min(chunks, -(-_ATTN_TARGET_BLOCKS // heads), max_splits))
     per = -(-chunks // s)
     return -(-chunks // per), per * _CHUNK
 
@@ -243,16 +243,13 @@ def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
     q = torch.empty((B, qd), dtype=torch.float32, device=dev)
     k = torch.empty((B, kvd), dtype=torch.float32, device=dev)
     v = torch.empty((B, kvd), dtype=torch.float32, device=dev)
-    align = 16 if wq.dtype == torch.float32 else 8
-    vec = (qd % 4 == 0 and kvd % 4 == 0
-           and all(w.data_ptr() % align == 0 for w in (wq, wk, wv)))
-    splits, kps, ws, tickets = _mm.plan([qd, kvd, kvd], dm, B, dev)
+    splits, kps = _mm.plan([qd, kvd, kvd], dm, B, x.dtype, wq.dtype,
+                          False, dev)
     err = qkv_fn(x.data_ptr(), _mm._DTYPE_CODE[x.dtype], wq.data_ptr(),
                  wk.data_ptr(), wv.data_ptr(), _mm._DTYPE_CODE[wq.dtype],
                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  _mm._gate_ptr(a_q, B, dev), _mm._gate_ptr(a_kv, B, dev),
-                 B, dm, qd, kvd, int(vec), splits, kps, _mm._ptr(ws),
-                 _mm._ptr(tickets), stream)
+                 B, dm, qd, kvd, splits, kps, stream)
     if err != 0:
         raise RuntimeError(f"fused QKV kernel launch failed: CUDA error {err}")
     att = torch.empty((B, qd), dtype=torch.float32, device=dev)
@@ -428,7 +425,7 @@ def _verify_lib():
     fn = lib.verify_attn_launch
     if fn.argtypes is None:
         lib.verify_qkv_launch.argtypes = (
-            [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 8 + [_P] * 3)
+            [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 7 + [_P])
         lib.verify_qkv_launch.restype = _I
         fn.argtypes = ([_P] * 7 + [_I] + [_P] * 9 + [_I] * 12
                        + [_F, _F, _P])
@@ -478,16 +475,13 @@ def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
     q = torch.empty((R, qd), dtype=torch.float32, device=dev)
     k = torch.empty((R, kvd), dtype=torch.float32, device=dev)
     v = torch.empty((R, kvd), dtype=torch.float32, device=dev)
-    align = 16 if wq.dtype == torch.float32 else 8
-    vec = (qd % 4 == 0 and kvd % 4 == 0
-           and all(w.data_ptr() % align == 0 for w in (wq, wk, wv)))
-    splits, kps, ws, tickets = _mm.plan([qd, kvd, kvd], dm, R, dev)
+    splits, kps = _mm.plan([qd, kvd, kvd], dm, R, x.dtype, wq.dtype,
+                          False, dev)
     err = qkv_fn(x.data_ptr(), _mm._DTYPE_CODE[x.dtype], wq.data_ptr(),
                  wk.data_ptr(), wv.data_ptr(), _mm._DTYPE_CODE[wq.dtype],
                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  _mm._gate_ptr(a_q, B, dev), _mm._gate_ptr(a_kv, B, dev),
-                 B, S, dm, qd, kvd, int(vec), splits, kps, _mm._ptr(ws),
-                 _mm._ptr(tickets), stream)
+                 B, S, dm, qd, kvd, splits, kps, stream)
     if err != 0:
         raise RuntimeError(f"verify QKV kernel launch failed: CUDA error {err}")
     att = torch.empty((R, qd), dtype=torch.float32, device=dev)

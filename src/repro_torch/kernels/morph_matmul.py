@@ -10,8 +10,10 @@ the kernel does that cast on load.
 
 On a CPU tensor the wrapper runs ``morph_matmul_plain``. On a CUDA tensor it
 launches the hand-written kernel in ``csrc/morph_matmul.cu`` (see
-``csrc/gemv.cuh`` for its design) or raises. ``launch_count()`` counts the
-kernel launches made through ``morph_matmul``.
+``csrc/gemv.cuh`` for its design) or raises: with bf16 x the product runs
+on the tensor cores (bf16 operands, f32 sums, exactly the plain version's
+function), with f32 x in f32 FMAs. ``launch_count()`` counts the kernel
+launches made through ``morph_matmul``.
 """
 from __future__ import annotations
 
@@ -28,9 +30,10 @@ ActiveDim = Union[int, torch.Tensor, None]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"n": 0}
 _TICKETS = {}
-# launch geometry shared with csrc/gemv.cuh (kBN, kKC) and a block target of
-# two resident blocks on each of the H100's 132 SMs
-_BN, _KC, _TARGET_BLOCKS = 32, 256, 264
+# launch geometry shared with csrc/gemv.cuh: 64-column tiles (kBN), chunks of
+# 64 contraction rows (kKC), at most 16 splits per tile (kMaxSplits: the
+# splits of a tile form one thread block cluster)
+_BN, _KC, _MAX_SPLITS = 64, 64, 16
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -84,8 +87,7 @@ def _lib():
     lib = _build.load("morph_matmul")
     fn = lib.morph_matmul_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _P, _P, _P]
+        fn.argtypes = [_P, _I, _P, _I, _P, _I, _P, _P] + [_I] * 7 + [_P]
         fn.restype = _I
     return fn
 
@@ -110,43 +112,77 @@ def _gate_ptr(a: Optional[torch.Tensor], batch: int,
     return a.data_ptr()
 
 
-def plan(n_cols: Sequence[int], K: int, rows: int,
-         device: torch.device) -> Tuple[int, int, Optional[torch.Tensor],
-                                         Optional[torch.Tensor]]:
-    """Contraction splits for a gated product over column blocks ``n_cols``:
-    (splits, k_per_split, f32 partials workspace, tickets). Enough blocks to
-    fill the card, each split at least one staged chunk, no empty split."""
-    tiles, splits, kps = _split_plan(tuple(n_cols), K)
-    if splits == 1:
-        return 1, kps, None, None
-    ws = torch.empty(splits * rows * sum(n_cols), dtype=torch.float32,
-                     device=device)
-    return splits, kps, ws, _tickets(tiles, device)
+def plan(n_cols: Sequence[int], K: int, rows: int, x_dtype: torch.dtype,
+         w_dtype: torch.dtype, round_w: bool,
+         device: torch.device) -> Tuple[int, int]:
+    """Contraction splits for a gated product over column blocks ``n_cols``
+    with ``rows`` rows: (splits, k_per_split). The splits of a column tile
+    run as one cluster; the plan takes the most splits (at most
+    ``_MAX_SPLITS``) for which every tile's cluster fits on the card at
+    once, as the kernel's occupancy query reports, so that the launch is
+    one wave. The kernel adds the splits' partials in shared memory, so a
+    plan needs no workspace. Cached per shape."""
+    code = (_DTYPE_CODE[x_dtype], _DTYPE_CODE[w_dtype], int(round_w))
+    caps = _cluster_caps(code, rows, _device_index(device))
+    return _split_plan(tuple(n_cols), K, caps)[1:]
+
+
+def _device_index(device: torch.device) -> int:
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"a launch plan needs a CUDA device, got {dev}")
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 @functools.lru_cache(maxsize=None)
-def _split_plan(n_cols: Tuple[int, ...], K: int) -> Tuple[int, int, int]:
-    """(tiles, splits, k_per_split) for one launch shape."""
+def _cluster_caps(code: Tuple[int, int, int], rows: int,
+                  device_index: int) -> Tuple[int, ...]:
+    """Clusters of s = 1 .. _MAX_SPLITS blocks of the kernel for these
+    dtypes and rows that fit on the card at once."""
+    fn = _build.load("morph_matmul").morph_matmul_max_clusters
+    if fn.argtypes is None:
+        fn.argtypes = [_I] * 5 + [_P]
+        fn.restype = _I
+    caps = []
+    with torch.cuda.device(device_index):
+        for s in range(1, _MAX_SPLITS + 1):
+            n = ctypes.c_int(0)
+            err = fn(*code, rows, s, ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"morph_matmul occupancy query failed: "
+                                   f"CUDA error {err}")
+            caps.append(n.value)
+    return tuple(caps)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(n_cols: Tuple[int, ...], K: int,
+                caps: Tuple[int, ...]) -> Tuple[int, int, int]:
+    """(tiles, splits, k_per_split) for one launch shape, given ``caps[s -
+    1]``, the clusters of s blocks that fit on the card at once: the most
+    splits whose clusters all fit (one split when none does), no more
+    splits than 64-row chunks, none of them empty."""
     tiles = sum((n + _BN - 1) // _BN for n in n_cols)
     chunks = max(1, (K + _KC - 1) // _KC)
-    s = max(1, min((_TARGET_BLOCKS + tiles - 1) // max(tiles, 1), chunks))
+    s = 1
+    for cand in range(min(len(caps), chunks), 1, -1):
+        if caps[cand - 1] >= tiles:
+            s = cand
+            break
     per = (chunks + s - 1) // s
     return tiles, (chunks + per - 1) // per, per * _KC
 
 
 def _tickets(n: int, device: torch.device) -> torch.Tensor:
-    """Zeroed per-tile counters; the kernel leaves them zeroed again, so one
-    buffer serves every launch on the stream."""
+    """Zeroed counters for the attention kernels' last-block merges
+    (``fused_decode``, ``flash_decode``); each kernel leaves them zeroed
+    again, so one buffer serves every launch on the stream."""
     key = str(device)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _TICKETS[key] = t
     return t
-
-
-def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    return None if t is None else t.data_ptr()
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
@@ -167,14 +203,12 @@ def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     if K != K2 or tuple(out.shape) != (B, M, N):
         raise ValueError(f"shapes x {tuple(x.shape)} w {tuple(w.shape)} "
                          f"out {tuple(out.shape)} do not match")
-    align = 16 if w.dtype == torch.float32 else 8
-    vec = N % 4 == 0 and w.data_ptr() % align == 0
-    splits, kps, ws, tickets = plan([N], K, B * M, dev)
+    splits, kps = plan([N], K, B * M, x.dtype, w.dtype, round_w, dev)
     err = _lib()(x.data_ptr(), _DTYPE_CODE[x.dtype], w.data_ptr(),
                  _DTYPE_CODE[w.dtype], out.data_ptr(), _DTYPE_CODE[out.dtype],
                  _gate_ptr(active_n, B, dev), _gate_ptr(active_k, B, dev),
-                 B, M, K, N, int(round_w), int(vec), splits, kps, _ptr(ws),
-                 _ptr(tickets), torch.cuda.current_stream(dev).cuda_stream)
+                 B, M, K, N, int(round_w), splits, kps,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"morph_matmul kernel launch failed: CUDA error {err}")
     return out

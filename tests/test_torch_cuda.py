@@ -9,8 +9,10 @@ installed and ``tests/conftest.py`` cannot load:
 
 Tolerances: f32 inputs agree to 1e-4 (summation order only); bf16 outputs
 to one bf16 rounding step (rtol 2^-7) plus atol 1e-3; int8 cache values
-exactly. The morph_matmul shapes with 9 and 40 rows (B*M) are the verify
-pass's: several row groups of the kernel, the last one partial.
+exactly. The morph_matmul shapes with 9, 15, 40, 64 and 80 rows (B*M) are
+the verify pass's and larger: several n8 row tiles of the tensor-core
+kernel, the last one partial; bf16 x takes the tensor-core route, f32 x
+the f32 FMA route.
 """
 import dataclasses
 
@@ -44,12 +46,21 @@ def _close(got, want, dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(3, 1, 64, 96), (3, 5, 70, 45),
                                    (16, 1, 600, 2051), (2, 3, 4097, 40),
-                                   (3, 3, 600, 2051), (8, 5, 2048, 256)])
+                                   (3, 3, 600, 2051), (8, 5, 2048, 256),
+                                   (8, 5, 2048, 5632, "model"),
+                                   (8, 8, 2048, 2048, "model"),
+                                   (16, 5, 5632, 2048, "model")])
 def test_morph_matmul_kernel_matches_plain(cuda, dtype, shape):
-    B, M, K, N = shape
+    """Shapes marked "model" take the model's weight scale 1 / sqrt(K), so
+    that outputs are O(1) as the f32 tolerance assumes (unscaled, at K =
+    5632 they reach ~300 and f32 summation order alone moves them by
+    2e-4)."""
+    B, M, K, N = shape[:4]
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(B, M, K, generator=g, device=cuda).to(dtype)
     w = torch.randn(K, N, generator=g, device=cuda)
+    if shape[4:] == ("model",):
+        w = w / np.sqrt(K)
     an = torch.randint(0, N + 1, (B,), generator=g, device=cuda,
                        dtype=torch.int32)
     ak = torch.randint(0, K + 1, (B,), generator=g, device=cuda,
@@ -62,6 +73,45 @@ def test_morph_matmul_kernel_matches_plain(cuda, dtype, shape):
         if a_n is not None:
             dead = torch.arange(N, device=cuda)[None, None, :] >= a_n[:, None, None]
             assert bool((got[dead.expand(B, M, N)] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_morph_matmul_kernel_is_deterministic(cuda, dtype):
+    """Launches on the same inputs are bit-identical: the split-K partials
+    are added in split order through the cluster's shared memory."""
+    B, M, K, N = 8, 5, 2048, 2048
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(B, M, K, generator=g, device=cuda).to(dtype)
+    w = torch.randn(K, N, generator=g, device=cuda)
+    an = torch.randint(1, N + 1, (B,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    ak = torch.randint(1, K + 1, (B,), generator=g, device=cuda,
+                       dtype=torch.int32)
+    # the split-K merge runs
+    assert MM.plan([N], K, B * M, dtype, w.dtype, dtype == torch.bfloat16,
+                   cuda)[0] > 1
+    first = MM.morph_matmul(x, w, an, ak)
+    for _ in range(3):
+        assert torch.equal(MM.morph_matmul(x, w, an, ak), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_morph_matmul_dead_tiles_are_zero(cuda, dtype):
+    """Column tiles at or past every slot's active_n read no weights and
+    come out all zeros (the output is allocated uninitialized), the live
+    tile matches the plain version."""
+    B, M, K, N = 3, 5, 300, 300
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(B, M, K, generator=g, device=cuda).to(dtype)
+    w = torch.randn(K, N, generator=g, device=cuda)
+    an = torch.tensor([10, 64, 3], dtype=torch.int32, device=cuda)
+    for _ in range(2):
+        got = MM.morph_matmul(x, w, an)
+        torch.cuda.synchronize()
+        assert not bool(got[:, :, 64:].any())
+        _close(got, MM.morph_matmul_plain(x, w, an), dtype)
 
 
 @pytest.mark.parametrize("variant", ["full", "swa", "kv_quant", "bf16"])
@@ -325,25 +375,33 @@ def test_mamba2_smoke_model_on_card_matches_cpu(cuda):
                                    (1, 200, 8, 2, 64, True, 0),
                                    (1, 100, 4, 4, 16, True, 8),
                                    (2, 40, 2, 1, 128, False, 0),
-                                   (2, 131, 6, 3, 40, True, 70)])
+                                   (2, 131, 6, 3, 40, True, 70),
+                                   (1, 1, 4, 2, 64, True, 0),
+                                   (1, 17, 4, 2, 64, True, 0),
+                                   (1, (17, 50), 4, 2, 64, False, 0),
+                                   (1, (50, 17), 4, 2, 64, True, 0),
+                                   (1, 33, 2, 1, 20, True, 0)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, shape):
     """The flash kernel against its plain version: GQA at B = 2, a ragged
     S = 200 (last query and key tiles cut short), a window of 8 (rows whose
-    first visited tile is wholly masked), non-causal at hd 128, and a
-    window of 70 at S = 131 and hd 40 (not a multiple of 8). Through the
-    model-layout wrapper and the flat entry point."""
+    first visited tile is wholly masked), non-causal at hd 128, a window of
+    70 at S = 131 and hd 40 (not a multiple of 16, zero-padded), Sq = 1 and
+    17 (fewer rows than a warp's 16 or a block's 64), Sq != Sk both ways,
+    and hd 20 (rows not 16-byte aligned: element copies). S is Sq = Sk or
+    (Sq, Sk). Through the model-layout wrapper and the flat entry point."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
 
     B, S, H, KV, hd, causal, window = shape
+    Sq, Sk = S if isinstance(S, tuple) else (S, S)
     g = torch.Generator(device=cuda).manual_seed(11)
-    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
-    k = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
-    v = torch.randn(B, S, KV, hd, generator=g, device=cuda).to(dtype)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, Sk, KV, hd, generator=g, device=cuda).to(dtype)
     n0 = FA.launch_count()
     o = ops.flash_attention_bshd(q, k, v, causal=causal, window=window)
     assert FA.launch_count() == n0 + 1
-    flat = [t.transpose(1, 2).reshape(-1, S, hd).contiguous()
+    flat = [t.transpose(1, 2).reshape(-1, t.shape[1], hd).contiguous()
             for t in (q, k, v)]
     want = FA.flash_attention_plain(*flat, group=H // KV, causal=causal,
                                     window=window)
@@ -351,8 +409,26 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, shape):
                                 window=window)
     torch.cuda.synchronize()
     assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
-    _close(o.transpose(1, 2).reshape(-1, S, hd), want, dtype)
+    _close(o.transpose(1, 2).reshape(-1, Sq, hd), want, dtype)
     _close(o_flat, want, dtype)
+
+
+def test_flash_attention_routes_by_dtype(cuda):
+    """bf16 inputs reach the tensor-core kernel and f32 inputs the FMA
+    kernel; both count as flash_attention launches."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(1, 64, 4, 64, generator=g, device=cuda)
+    k = torch.randn(1, 64, 2, 64, generator=g, device=cuda)
+    for dtype, route in ((torch.bfloat16, "tc"), (torch.float32, "fma")):
+        n0, r0 = FA.launch_count(), FA.route_counts()
+        ops.flash_attention_bshd(q.to(dtype), k.to(dtype), k.to(dtype))
+        r1 = FA.route_counts()
+        assert FA.launch_count() == n0 + 1
+        assert r1[route] == r0[route] + 1
+        assert sum(r1.values()) == sum(r0.values()) + 1
 
 
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])

@@ -7,22 +7,27 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
    (one nvcc per source, started together) and print the build seconds,
    each kernel's ptxas registers and spills, and the tensor-core (HMMA)
-   instructions in the SASS of ``morph_matmul`` and ``flash_attention``.
+   instructions in the SASS of ``morph_matmul``, ``flash_attention``,
+   ``fused_decode`` and ``flash_decode``.
 2. The read rate a streaming kernel can reach under the timer below
    (``read_rate``). Kernels vs their plain versions, on the card, at full
    TinyLlama-1.1B shapes in bf16 with B = 8 slots at mixed widths
    {0.25, 0.5, 1.0}: ``morph_matmul`` over the seven projections of one
    decoder layer plus a width that is not tile-aligned, and again at the
    verify pass's shapes (B = 8 x S = 5 rows) and at 64 rows; ``fused_decode_step`` on a 1024-row cache at mixed
-   positions, plain and int8-KV; ``fused_verify`` on a 512-row cache at
+   positions, plain and int8-KV, with each of its three launches
+   (attention, QKV, output projection) timed beside its own byte bound and
+   the attention beside SDPA over the same live rows; ``fused_verify`` on a 512-row cache at
    mixed committed counts, a bf16 cache with the linear mask (S = 5) and an
    int8 cache with a (2, 2) token-tree mask (S = 7); ``flash_attention`` at
    the full-width prompt pass (1 x 256 tokens, 32 / 4 heads of 64, causal,
    bf16), at a ragged S = 200 and at the reference's ``kernel_bench`` shape
    (f32, window 0 and 64); ``flash_decode`` at the serving cache's shape
    (8 slots x 32 heads over 8 x 4 KV rows of 512, group 8) with a bf16 and
-   an int8 cache at kv_len 1, 300 and 512, and at
-   ``tests/test_flash_decode.py``'s largest case. Then at full
+   an int8 cache at kv_len 1, 300 and 512 (at kv_len 1 beside an empty
+   kernel and the kernel's skeleton at the same grid and clusters: the
+   timer's floor), and at ``tests/test_flash_decode.py``'s largest case;
+   the route counts of both decode kernels. Then at full
    Mamba2-370M shapes: ``morph_matmul`` over the four gated projections of
    one SSM layer (B = 8, widths {0.5, 1.0}, at decode shape and at the
    verify pass's S = 5), and ``ssd_scan`` at the
@@ -56,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    per verify layer-step; Mamba2, 4 ``morph_matmul`` per SSM layer-step
    and 1 ``ssd_scan`` per SSM layer of every prefill; under
    ``attn_impl="chunked"``, 1 ``flash_attention`` per attention layer of
-   every prefill, and none on any other drive. Then one full-depth
+   every prefill, and none on any other drive; every ``fused_decode``
+   and ``flash_decode`` launch on the tensor-core route. Then one full-depth
    256-token prompt pass under the einsum and under the chunked attention
    (host and device ms), and the ``flash_decode`` entry point (which no
    model path calls, as in the reference) driven once per TinyLlama layer
@@ -189,6 +195,16 @@ class Timer:
     def _flush(self):
         self.flush_buf.zero_()
 
+    def warm_ms(self, fn, iters: int = 20) -> dict:
+        """Device ms per call of each kernel over ``iters`` back-to-back
+        calls with no flush between them (L2 and the instruction caches
+        warm, as in a serving loop), from ``torch.profiler``."""
+        for _ in range(3):
+            fn()
+        self.torch.cuda.synchronize()
+        return {k: v / iters / 1e3
+                for k, v in kernel_us(self.torch, fn, iters).items()}
+
     def wall_ms(self, fn, iters: int = 20) -> float:
         torch = self.torch
         pairs = []
@@ -307,7 +323,9 @@ def _tinyllama_cases(cfg, act):
 
 def read_rate(torch, timer, cfg):
     """The card's read rate as kernels are timed here: one ``torch.amax``
-    over an f32 weight of TinyLlama's wq (16.8 MB) and wi (46.1 MB), the
+    over an f32 weight of TinyLlama's wq (16.8 MB, also the size of the
+    attention's output projection), of the fused QKV weights (21.0 MB) and
+    of wi (46.1 MB), the
     median of 20 CUDA-event times, with the L2 flushed before each call as
     the timer flushes it (zeroing 256 MB, which leaves it dirty, so the
     first reads also write that back) and by reading the 256 MB instead (a
@@ -329,7 +347,9 @@ def read_rate(torch, timer, cfg):
         return sorted(a.elapsed_time(b) for a, b in pairs)[10]
 
     res = {}
-    for name, (k, n) in (("wq", (dm, dm)), ("wi", (dm, ff))):
+    for name, (k, n) in (("wq", (dm, dm)), ("wq+wk+wv", (dm, cfg.q_dim
+                                                          + 2 * cfg.kv_dim)),
+                         ("wi", (dm, ff))):
         w = torch.randn(k, n, device="cuda")
         nbytes = w.numel() * 4
         t_dirty = median_ms(w, timer._flush)
@@ -422,11 +442,15 @@ def check_fused_decode(torch, cfg, timer):
         log(f"  fused_decode {variant}: out/cache max|err| {err:.3e} "
             f"(rtol {RTOL_BF16:.2e} + atol {ATOL_BF16:.0e})")
         out[variant] = dict(err=err, cache=c_k, qcfg=qcfg)
+    splits, rows = FD.attn_plan(B, H, KV, hd, S, torch.bfloat16, "cuda")
+    log(f"  fused_decode attention plan: {B * KV} clusters of {splits} "
+        f"blocks, {rows} cache rows each; routes {FD.route_counts()}")
     # time the main-path variant (bf16 cache, as tinyllama serves)
     c = out["bf16"]["cache"]
     t_k = timer.ms(lambda: FD.fused_decode_step(params, x, c, pos, cfg,
                                                 active=act))
-    for name, t in sorted(timer.last.items(), key=lambda kv: -kv[1]):
+    per_kernel = dict(timer.last)
+    for name, t in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
         log(f"    {t:.4f} ms  {name[:100]}")
     t_kw = timer.wall_ms(lambda: FD.fused_decode_step(params, x, c, pos, cfg,
                                                       active=act))
@@ -444,8 +468,76 @@ def check_fused_decode(torch, cfg, timer):
     log(f"  fused_decode bf16 (B=8, S=1024, one layer): kernels {t_k:.4f} ms"
         f" (call, event-timed {t_kw:.4f} ms)  plain {t_p:.4f} ms  bound "
         f"{bound:.4f} ms ({by}; f32 math at {PEAK_F32 / 1e12:.0f} TFLOP/s)")
+    warm = timer.warm_ms(lambda: FD.fused_decode_step(params, x, c, pos, cfg,
+                                                      active=act))
+    launches = fused_launch_times(torch, timer, per_kernel, warm, cfg, x, c,
+                                  lens, aq, akv)
     return dict(max_abs_err=max(o["err"] for o in out.values()), ms=t_k,
-                plain_ms=t_p, bound_ms=bound, bound_by=by, library_ms=None)
+                plain_ms=t_p, bound_ms=bound, bound_by=by, library_ms=None,
+                per_launch=launches, splits=splits,
+                rows_per_split=rows)
+
+
+def fused_launch_times(torch, timer, per_kernel, warm, cfg, x, cache, lens,
+                       aq, akv):
+    """The three launches of one fused decode layer (B = 8, bf16 cache),
+    each with the bytes it must move at the data sheet's rate: the
+    attention (live K/V rows read once, q, the new k and v, the output and
+    the written cache row), the QKV product (the live f32 weight block, x,
+    the f32 outputs) and the output projection (the live f32 weight block,
+    the f32 attention output, the bf16 out); the read rate each reaches,
+    and each one's time back to back with no flush (``warm``). Beside the
+    attention launch, SDPA over the same live rows (bf16 q, a boolean
+    live-row mask), a yardstick the port never calls."""
+    F = torch.nn.functional
+    B, dm = x.shape[0], cfg.d_model
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S = cache["k"].shape[1]
+    qd, kvd = H * hd, KV * hd
+
+    def split(times):
+        parts = {"attention": 0.0, "qkv": 0.0, "wo": 0.0}
+        for name, t in times.items():
+            if "decode_attn_core" in name:
+                parts["attention"] += t
+            elif "gated_gemm<float, float" in name:
+                parts["wo"] += t
+            elif "gated_gemm" in name:
+                parts["qkv"] += t
+        return parts
+
+    parts, warm_parts = split(per_kernel), split(warm)
+    nbytes = {
+        "attention": (sum(lens) * KV * hd * 2 * 2 + B * (2 * qd + 2 * kvd) * 4
+                      + B * KV * hd * 2 * 2),
+        "qkv": dm * (max(aq) + 2 * max(akv)) * 4 + B * dm * 2
+               + B * (qd + 2 * kvd) * 4,
+        "wo": max(aq) * dm * 4 + B * qd * 4 + B * dm * 2,
+    }
+    qs = torch.randn(B, H, 1, hd, device="cuda").to(torch.bfloat16)
+    ks = cache["k"].transpose(1, 2).contiguous()
+    vs = cache["v"].transpose(1, 2).contiguous()
+    live = (torch.arange(S, device="cuda")[None, :]
+            < torch.tensor(lens, device="cuda")[:, None])[:, None, None, :]
+    t_sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=live, enable_gqa=True))
+    backend = sdpa_backend(timer.last)
+    res = {}
+    for part in ("attention", "qkv", "wo"):
+        t, nb = parts[part], nbytes[part]
+        bound = nb / HBM_BYTES_PER_S * 1e3
+        res[part] = dict(ms=t, bound_ms=bound, bytes=nb,
+                         warm_ms=warm_parts[part])
+        extra = ""
+        if part == "attention":
+            res[part]["library_ms"] = t_sdpa
+            extra = (f"; SDPA ({backend}) over the same live rows "
+                     f"{t_sdpa:.4f} ms")
+        log(f"  fused_decode launch {part}: {t:.4f} ms, bound {bound:.5f} ms "
+            f"({nb / 1e6:.2f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; the "
+            f"kernel reads at {nb / t / 1e9 if t else 0.0:.2f} TB/s); "
+            f"{warm_parts[part]:.4f} ms back to back with no flush{extra}")
+    return res
 
 
 def check_morph_matmul_verify(torch, cfg, timer, S=5):
@@ -906,13 +998,35 @@ def check_flash_decode(torch, cfg, timer):
         bound, by = dense_bound(nbytes, ops_n, PEAK_BF16 if qdt ==
                                 torch.bfloat16 else PEAK_F32)
         lib_s = "none (int8)" if t_l is None else f"{t_l:.4f} ms"
-        log(f"  flash_decode {tag} (BKV={bkv}, group {g}, S={s}, hd={d}): "
+        splits, rows = FDK.plan(bkv, g, s, qdt, kc.dtype, d, "cuda")
+        log(f"  flash_decode {tag} (BKV={bkv}, group {g}, S={s}, hd={d}; "
+            f"{splits} splits of {rows} rows): "
             f"max|err| {err:.3e} (rtol {rtol:.2e} + atol {atol:.0e})  "
             f"kernel {t_k:.4f} ms (call, event-timed {t_kw:.4f} ms)  plain "
             f"{t_p:.4f} ms  SDPA {lib_s}  bound {bound:.5f} ms ({by}; "
             f"{nbytes / 1e6:.3f} MB)")
         res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
                         bound_by=by, library_ms=t_l)
+        if n == 1:
+            # the timer's floor for this launch shape: an empty kernel at
+            # the same grid, clusters and shared memory, and the kernel's
+            # chain of dependent steps without its work
+            t_f = timer.ms(lambda: FDK.probe_launch(q, kc, vc, n_dev, ks, vs,
+                                                    group=g))
+            t_s = timer.ms(lambda: FDK.probe_launch(q, kc, vc, n_dev, ks, vs,
+                                                    group=g, kind="skeleton"))
+            t_w = sum(timer.warm_ms(kern).values())
+            log(f"  flash_decode {tag}: an empty kernel at the same grid, "
+                f"clusters and shared memory takes {t_f:.4f} ms under this "
+                f"timer, the skeleton (kv_len read, one dependent cache-row "
+                f"load, two cluster barriers) {t_s:.4f} ms; the kernel at "
+                f"kv_len 1 is {t_k / t_f:.2f}x the empty kernel, "
+                f"{t_k / t_s:.2f}x the skeleton, and {t_w:.4f} ms back to "
+                f"back with no flush")
+            res[tag]["floor_ms"] = t_f
+            res[tag]["skeleton_ms"] = t_s
+            res[tag]["warm_ms"] = t_w
+    log(f"  flash_decode routes over these checks: {FDK.route_counts()}")
     return res
 
 
@@ -1165,6 +1279,7 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
     gives the exact launch counts each drive must show. Returns (launches
     per path, results per path)."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_decode as FD
     from repro_torch.runtime.serving import ServingEngine, poisson_trace
     from repro_torch.runtime.speculative import SpecConfig, draft_compile_key
 
@@ -1195,6 +1310,10 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
         if routes["tc"] != run_launches["flash_attention"]:
             fail(f"{tag} path: flash_attention routes {routes}; every launch "
                  f"of a bf16 model must take the tensor-core kernel")
+        routes = FD.route_counts()
+        if routes["tc"] != run_launches["fused_decode"]:
+            fail(f"{tag} path: fused_decode routes {routes}; every launch "
+                 f"over a bf16 cache must take the tensor-core route")
         want, steps = expect(torch, engine, steps0, fused, device)
         if run_launches != want:
             fail(f"{tag} path: launches {run_launches}, expected {want} for "
@@ -1442,6 +1561,9 @@ def flash_decode_drive(torch, cfg, calls: int = 0):
     want["flash_decode"] = calls
     if run_launches != want:
         fail(f"flash_decode drive: launches {run_launches}, expected {want}")
+    if FDK.route_counts() != {"tc": calls, "fma": 0}:
+        fail(f"flash_decode drive: routes {FDK.route_counts()}; a bf16 "
+             f"cache must take the tensor-core route")
     err = 0.0
     for i in (0, calls - 1):
         ok, e = close(torch, outs[i], ref.flash_decode_ref(
@@ -1489,7 +1611,8 @@ def main(argv=None) -> int:
     for name in _build.KERNELS:
         for ln in _build.ptxas_report(name):
             log(f"    {name}: {ln}")
-    for name in ("morph_matmul", "flash_attention"):
+    for name in ("morph_matmul", "flash_attention", "fused_decode",
+                 "flash_decode"):
         log(f"  {name}: {sass_mma(name)}")
 
     cfg = get_config("tinyllama-1.1b")
@@ -1583,7 +1706,10 @@ def main(argv=None) -> int:
              launches_by_path=by_path("fused_decode"),
              max_abs_err=fd["max_abs_err"], ms=fd["ms"],
              plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
-             bound_by=fd["bound_by"], library_ms=None),
+             bound_by=fd["bound_by"], library_ms=None,
+             per_launch=fd["per_launch"],
+             attention_plan=dict(splits=fd["splits"],
+                                 rows_per_split=fd["rows_per_split"])),
         dict(name="fused_verify", route="cuda", status=status,
              source="src/repro_torch/csrc/fused_verify.cu",
              replaces="src/repro/kernels/fused_decode.py:621",
@@ -1626,7 +1752,11 @@ def main(argv=None) -> int:
              ms=fd_main["ms"], plain_ms=fd_main["plain_ms"],
              bound_ms=fd_main["bound_ms"], bound_by=fd_main["bound_by"],
              library_ms=fd_main["library_ms"],
-             other_shapes=others(fdk, fd_main)),
+             other_shapes=others(fdk, fd_main),
+             empty_kernel_floor_ms={k: r["floor_ms"] for k, r in fdk.items()
+                                    if "floor_ms" in r},
+             skeleton_ms={k: r["skeleton_ms"] for k, r in fdk.items()
+                          if "skeleton_ms" in r}),
     ]
     phase("[phase 4] summary")
     print(json.dumps({"kernels": kernels}), flush=True)

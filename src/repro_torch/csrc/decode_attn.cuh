@@ -1,0 +1,669 @@
+// One decode-attention core for Hopper (sm_90a), shared by flash_decode.cu
+// and the attention launch of fused_decode.cu.
+//
+// What it computes, for each unit u (a KV row of flash_decode, a (slot, KV
+// head) pair of the fused decode) and the G query heads that share it:
+//   softmax(q K^T * scale) V
+// over the unit's cache rows [0, n) that the problem lets attend, with the
+// running max, sum and accumulator in f32, the finite -1e30 mask, and
+// masked probabilities zeroed explicitly (a wholly masked chunk would
+// otherwise add exp(0) = 1). n is read from device memory by every block.
+// The TPU kernels it replaces are src/repro/kernels/flash_decode.py:_kernel
+// and the attention part of src/repro/kernels/fused_decode.py:_decode_kernel.
+//
+// What bounds it on the H100: bytes, and in practice latency. A cache row
+// of hd bf16 keys and values feeds 4 * G * hd flops: ~4 flops per byte at
+// G = 8, against the ~295 the card needs before its tensor cores limit. At
+// the serving shapes (a few MB of live rows) one DRAM round trip is most of
+// the time, so the design keeps every row of a block in flight at once and
+// pays the round trip once:
+//   * Grid: (units x head groups of <= 16 heads, splits). The splits of a
+//     unit split its cache rows into ranges of whole 64-row chunks and run
+//     as one thread block cluster (<= 16 blocks). A block whose rows lie at
+//     or past n loads nothing and only takes part in the merge.
+//   * Loads: each 64-row chunk of K and V goes into a ring of kStages = 2
+//     chunk slots in shared memory by 16-byte cp.async copies (element
+//     copies where rows are not 16-byte aligned); rows at or past n are
+//     zero-filled, never left stale (a masked p of 0 times a stale
+//     non-finite V is NaN on a tensor core). The next chunk loads while one
+//     is multiplied; at the serving shapes a split is one or two chunks,
+//     and two slots (not three) leave room for 4 blocks on an SM. The
+//     problem computes a row's address once per row.
+//   * Math, bf16 and int8 caches (route "tc"): mma.sync.m16n8k16 bf16 with
+//     f32 sums. The <= 16 heads are the MMA's M side (8 of 16 rows live at
+//     G = 8), cache rows its n8 side, hd its k16 side; each of the 4 warps
+//     takes 16 rows of every chunk. S = Q K^T from q fragments held in
+//     registers and K fragments by ldmatrix; P V reuses the S accumulators
+//     as A fragments, V by ldmatrix.trans. Exactness as in the TPU kernels:
+//       - f32 q (the fused decode's, and flash_decode's f32 queries) is split
+//         q = q_hi + q_lo, two bf16 products into one f32 accumulator; bf16
+//         q is exact as it is;
+//       - p stays f32 in effect: p = p_hi + p_lo, two products, as in
+//         flash_attn_tc (|p - p_hi - p_lo| <= 2^-16 p);
+//       - an int8 cache enters the MMA as its exact int8 values in bf16 (the
+//         fragments built from shared memory); the per-row k scale
+//         multiplies the score after Q K^T and the v scale is folded into p
+//         before P V (l sums the unfolded p). A product k * k_scale would
+//         need 15 mantissa bits, which a bf16 operand does not have.
+//   * Math, f32 caches (route "fma"): the same fragment layout, computed by
+//     f32 FMAs (a tensor core would change f32 products).
+//   * Merge: the 4 warps of a block merge their (max, sum, acc) through
+//     shared memory into the block's partial. After a cluster barrier the
+//     blocks of the cluster merge the partials through distributed shared
+//     memory, in split order, each block taking a share of the outputs (per
+//     split an 8-byte (max, sum) and a 16-byte sum load, those of up to 8
+//     splits all in flight before the sums, in few enough registers that
+//     the compiler keeps them in flight): deterministic, no workspace in
+//     device memory, no atomics, no fences. A second
+//     cluster barrier, without release semantics (it orders no memory),
+//     keeps every block's shared memory alive until its peers have read it.
+//     The first barrier also orders the fused decode's write-back of the new
+//     K/V after every block of the unit has read its rows.
+//
+// A problem type P supplies the unit's rows and what surrounds the core:
+//   int units, hgroups, G, hd, rps (rows per split, a multiple of kChunk),
+//   vec (16-byte copies allowed); float scale; const void *kc, *vc (the
+//   cache pools);
+//   static constexpr bool kQuant (int8 cache with per-row scales),
+//                         kExt (an extension column beside the cache);
+//   static constexpr int kExtFloats (shared floats the problem keeps);
+//   int begin(unit, h0, nh)   per-block set-up; returns n, the rows visited
+//   bool ok(jj)               row jj < n attends
+//   size_t row(jj)            element offset of row jj in kc / vc
+//   float kscale(jj), vscale(jj)     (kQuant) the row's scales, in f32
+//   void load_q<HDP>(qs, ldq, ext, t)  q of the nh heads as f32 rows of
+//                                    qs (zeros past hd up to HDP, and in
+//                                    rows nh .. kMaxHeads), and anything
+//                                    the problem keeps in ext; all threads,
+//                                    every load issued before the first
+//                                    store (a store to shared memory between
+//                                    them would serialize the round trips)
+//   void prepare(qs, ldq, ext, t)    after load_q and a barrier
+//   float ext_score(ext, h), ext_value(ext, d)   (kExt) the extension
+//   void store(h, d, v)              one output element
+//   void after_merge(ext, split, hg, t)  after the first cluster barrier
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "ptx.cuh"
+
+namespace da {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 64;         // cache rows per ring slot
+constexpr int kStages = 2;         // ring slots
+constexpr int kMaxSplits = 16;     // blocks of one cluster (the H100 takes 16)
+constexpr int kMaxHeads = 16;      // heads per block: the MMA's M side
+constexpr int kMaxHD = 128;
+constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
+static_assert(kMaxHD <= kThreads, "a thread per column of a row");
+
+enum CacheType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() { return T(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+
+// two int8 values (lo at the lower address) as a bf16 pair: exact
+__device__ __forceinline__ uint32_t i8x2_bf16(int8_t lo, int8_t hi) {
+  return ptx::pack_bf16((float)lo, (float)hi);
+}
+
+// f32 pair as bf16 hi + lo halves (hi = bf16(x), lo = bf16(x - hi))
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = ptx::pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// Shared-memory layout, in bytes from the start of the dynamic buffer.
+template <typename TC, int HDP>
+struct Layout {
+  static constexpr int LD = HDP + 16 / (int)sizeof(TC);  // ring row stride
+  static constexpr int LQ = HDP + 4;                     // q row stride
+  static constexpr int kTile = kChunk * LD * (int)sizeof(TC);
+  static constexpr int kRing = kStages * 2 * kTile;      // K and V per slot
+  // the warps' partials (max, sum per head, acc rows of HDP + 4 floats, so
+  // that the 8 heads of a store fall in different banks) take the ring's
+  // place
+  static constexpr int LW = HDP + 4;
+  static constexpr int kWarp = 2 * kMaxHeads + kMaxHeads * LW;
+  static constexpr int kWarpPart = kWarps * kWarp * 4;
+  static constexpr int kUnion = kRing > kWarpPart ? kRing : kWarpPart;
+  static constexpr int kScales = kUnion;                  // [kStages][2][kChunk] f32
+  static constexpr int kQ = kScales + kStages * 2 * kChunk * 4;
+  static constexpr int kStat = kQ + kMaxHeads * LQ * 4;   // [kMaxHeads] float2 (m, l)
+  static constexpr int kAcc = kStat + kMaxHeads * 16;     // [kMaxHeads][HDP] f32
+  static constexpr int kExt = kAcc + kMaxHeads * HDP * 4;
+  static constexpr int bytes(int ext_floats) {
+    return kExt + ((ext_floats + 3) / 4) * 16;
+  }
+};
+
+// Scores of one warp's 16 rows of a chunk, f32 cache: the fragment layout
+// of the tensor-core route (s[j][e]: head g + 8 (e >> 1), row 8 j + 2 t +
+// (e & 1)), by f32 FMAs over hd.
+template <int HDP>
+__device__ __forceinline__ void fma_scores(float (&s)[2][4], const float* qs,
+                                           int ldq, const float* Kb, int ld,
+                                           int g, int tq, int nh) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int head = g + 8 * (e >> 1);
+      float acc = 0.f;
+      if (head < nh) {
+        const float* qr = qs + head * ldq;
+        const float* kr = Kb + (8 * j + 2 * tq + (e & 1)) * ld;
+#pragma unroll
+        for (int d = 0; d < HDP; d += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(qr + d);
+          const float4 b = *reinterpret_cast<const float4*>(kr + d);
+          acc = fmaf(a.x, b.x, acc);
+          acc = fmaf(a.y, b.y, acc);
+          acc = fmaf(a.z, b.z, acc);
+          acc = fmaf(a.w, b.w, acc);
+        }
+      }
+      s[j][e] = acc;
+    }
+}
+
+template <class P, typename TC, bool QSPLIT, int HDP>
+__global__ void __launch_bounds__(kThreads) decode_attn_core(const P prm) {
+  typedef Layout<TC, HDP> Lay;
+  constexpr int LD = Lay::LD, LQ = Lay::LQ;
+  constexpr int KS = HDP / 16;  // k16 steps of Q K^T
+  constexpr int ND = HDP / 8;   // n8 tiles of the output over hd
+  constexpr bool kTC = sizeof(TC) != 4;
+  constexpr bool kI8 = sizeof(TC) == 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TC* ring = reinterpret_cast<TC*>(smem);
+  float* scl = reinterpret_cast<float*>(smem + Lay::kScales);
+  float* qs = reinterpret_cast<float*>(smem + Lay::kQ);
+  float* stat = reinterpret_cast<float*>(smem + Lay::kStat);
+  float* bacc = reinterpret_cast<float*>(smem + Lay::kAcc);
+  float* ext = reinterpret_cast<float*>(smem + Lay::kExt);
+
+  P pb = prm;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int hg = (int)blockIdx.x % pb.hgroups;
+  const int unit = (int)blockIdx.x / pb.hgroups;
+  const int split = (int)blockIdx.y, splits = (int)gridDim.y;
+  const int h0 = hg * kMaxHeads;
+  const int nh = min(kMaxHeads, pb.G - h0);
+  const int hd = pb.hd;
+  const int n = pb.begin(unit, h0, nh);
+  const int rbeg = split * pb.rps;
+  const int rend = min(n, rbeg + pb.rps);
+  const int nchunks = rend > rbeg ? (rend - rbeg + kChunk - 1) / kChunk : 0;
+
+  // pad columns hd .. HDP of every ring tile are read by the products and
+  // never copied: zero them once
+  if (hd < HDP) {
+    const int padw = HDP - hd;
+    for (int i = t; i < kStages * 2 * kChunk * padw; i += kThreads)
+      ring[(i / padw) * LD + hd + i % padw] = zero_of<TC>();
+  }
+
+  const TC* kc = static_cast<const TC*>(pb.kc);
+  const TC* vc = static_cast<const TC*>(pb.vc);
+  constexpr int EPC = 16 / (int)sizeof(TC);  // elements per 16-byte copy
+  const int cpr = pb.vec ? hd / EPC : 0;     // copies per row
+  // the scales of this thread's row (t < kChunk) of the chunks in flight:
+  // loaded as the chunk is issued, stored beside it when it is consumed
+  float pk[kStages - 1], pv[kStages - 1];
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) pk[i] = pv[i] = 0.f;
+
+  auto issue = [&](int c, float& sk, float& sv) {
+    const int k0 = rbeg + c * kChunk;
+    TC* Kd = ring + (c % kStages) * 2 * kChunk * LD;
+    TC* Vd = Kd + kChunk * LD;
+    if (pb.vec) {
+      int r_last = -1;
+      size_t off = 0;
+      for (int i = t; i < kChunk * cpr; i += kThreads) {
+        const int r = i / cpr, seg = (i % cpr) * EPC;
+        const bool ok = k0 + r < rend;
+        if (ok && r != r_last) {  // one address per row
+          off = pb.row(k0 + r);
+          r_last = r;
+        }
+        ptx::cp_async16(Kd + r * LD + seg, ok ? kc + off + seg : kc, ok);
+        ptx::cp_async16(Vd + r * LD + seg, ok ? vc + off + seg : vc, ok);
+      }
+    } else {
+      for (int r = t / 32; r < kChunk; r += kWarps) {
+        const bool ok = k0 + r < rend;
+        const size_t off = ok ? pb.row(k0 + r) : 0;
+        for (int d = lane; d < hd; d += 32) {
+          Kd[r * LD + d] = ok ? kc[off + d] : zero_of<TC>();
+          Vd[r * LD + d] = ok ? vc[off + d] : zero_of<TC>();
+        }
+      }
+    }
+    if constexpr (P::kQuant) {
+      if (t < kChunk && k0 + t < rend) {
+        sk = pb.kscale(k0 + t);
+        sv = pb.vscale(k0 + t);
+      } else {
+        sk = sv = 0.f;
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) issue(s, pk[s], pv[s]);
+    ptx::cp_async_commit();
+  }
+
+  // q (and the problem's own set-up) while the first chunks load
+  pb.template load_q<HDP>(qs, LQ, ext, t);
+  __syncthreads();
+  pb.prepare(qs, LQ, ext, t);
+  __syncthreads();
+
+  uint32_t qa[KS][4], qb[KS][4];  // q A fragments: hi and (QSPLIT) lo
+  if constexpr (kTC) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float* r0 = qs + g * LQ + 16 * ks + 2 * tq;
+      const float* r1 = r0 + 8 * LQ;
+      const float2 x0 = *reinterpret_cast<const float2*>(r0);
+      const float2 x1 = *reinterpret_cast<const float2*>(r1);
+      const float2 x2 = *reinterpret_cast<const float2*>(r0 + 8);
+      const float2 x3 = *reinterpret_cast<const float2*>(r1 + 8);
+      if constexpr (QSPLIT) {
+        split2(x0.x, x0.y, qa[ks][0], qb[ks][0]);
+        split2(x1.x, x1.y, qa[ks][1], qb[ks][1]);
+        split2(x2.x, x2.y, qa[ks][2], qb[ks][2]);
+        split2(x3.x, x3.y, qa[ks][3], qb[ks][3]);
+      } else {  // q came in bf16: exact
+        qa[ks][0] = ptx::pack_bf16(x0.x, x0.y);
+        qa[ks][1] = ptx::pack_bf16(x1.x, x1.y);
+        qa[ks][2] = ptx::pack_bf16(x2.x, x2.y);
+        qa[ks][3] = ptx::pack_bf16(x3.x, x3.y);
+      }
+    }
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float scale = pb.scale;
+
+#pragma unroll 1
+  for (int c = 0; c < nchunks; ++c) {
+    ptx::cp_async_wait<kStages - 2>();
+    const int st = c % kStages;
+    if constexpr (P::kQuant) {
+      if (t < kChunk) {
+        scl[(st * 2) * kChunk + t] = pk[0];
+        scl[(st * 2 + 1) * kChunk + t] = pv[0];
+      }
+#pragma unroll
+      for (int i = 0; i + 1 < kStages - 1; ++i) {
+        pk[i] = pk[i + 1];
+        pv[i] = pv[i + 1];
+      }
+    }
+    __syncthreads();  // chunk c visible to all; chunk c - 1 consumed by all
+    if (c + kStages - 1 < nchunks)
+      issue(c + kStages - 1, pk[kStages - 2], pv[kStages - 2]);
+    ptx::cp_async_commit();
+
+    const int w0 = rbeg + c * kChunk + 16 * warp;  // this warp's first row
+    if (w0 >= rend) continue;                      // warp-uniform
+    const TC* Kb = ring + st * 2 * kChunk * LD + 16 * warp * LD;
+    const TC* Vb = Kb + kChunk * LD;
+    const float* sk = scl + (st * 2) * kChunk + 16 * warp;
+    const float* sv = sk + kChunk;
+
+    float s[2][4];
+    if constexpr (kTC) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kf[4];  // b0, b1 of row tiles 0 and 1
+        if constexpr (kI8) {
+          const int8_t* K8 = reinterpret_cast<const int8_t*>(Kb);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int8_t* p = K8 + (8 * j + g) * LD + 16 * ks + 2 * tq;
+            kf[2 * j] = i8x2_bf16(p[0], p[1]);
+            kf[2 * j + 1] = i8x2_bf16(p[8], p[9]);
+          }
+        } else {
+          ptx::ldmatrix_x4(kf, Kb + (lane % 8 + (lane / 16) * 8) * LD +
+                                   16 * ks + ((lane / 8) % 2) * 8);
+        }
+        ptx::mma_bf16(s[0], qa[ks], kf[0], kf[1]);
+        ptx::mma_bf16(s[1], qa[ks], kf[2], kf[3]);
+        if constexpr (QSPLIT) {
+          ptx::mma_bf16(s[0], qb[ks], kf[0], kf[1]);
+          ptx::mma_bf16(s[1], qb[ks], kf[2], kf[3]);
+        }
+      }
+    } else {
+      fma_scores<HDP>(s, qs, LQ, reinterpret_cast<const float*>(Kb), LD, g,
+                      tq, nh);
+    }
+
+    // scale (and the k scale), mask, online softmax over the warp's rows
+    bool okr[2][2];
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int rr = 8 * j + 2 * tq + u, jj = w0 + rr;
+        okr[j][u] = jj < rend && pb.ok(jj);
+        const float f = P::kQuant ? scale * sk[rr] : scale;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float x = okr[j][u] ? s[j][2 * i + u] * f : kNegInf;
+          s[j][2 * i + u] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int rr = 8 * j + 2 * tq + u;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float p = okr[j][u] ? expf(s[j][2 * i + u] - m[i]) : 0.f;
+          l[i] += p;
+          // the v scale folded into p for P V (l keeps the unfolded p)
+          s[j][2 * i + u] = P::kQuant ? p * sv[rr] : p;
+        }
+      }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+
+    if constexpr (kTC) {
+      // O += P V, P = p_hi + p_lo straight from the S fragments
+      uint32_t ph[4], pl[4];
+      split2(s[0][0], s[0][1], ph[0], pl[0]);
+      split2(s[0][2], s[0][3], ph[1], pl[1]);
+      split2(s[1][0], s[1][1], ph[2], pl[2]);
+      split2(s[1][2], s[1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int d = 0; d < ND; d += 2) {
+        uint32_t vf[4];  // b0, b1 of hd tiles d and d + 1
+        if constexpr (kI8) {
+          const int8_t* V8 = reinterpret_cast<const int8_t*>(Vb);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int8_t* p = V8 + (2 * tq) * LD + 8 * (d + u) + g;
+            vf[2 * u] = i8x2_bf16(p[0], p[LD]);
+            vf[2 * u + 1] = i8x2_bf16(p[8 * LD], p[9 * LD]);
+          }
+        } else {
+          ptx::ldmatrix_x4_trans(
+              vf, Vb + (lane % 8 + ((lane / 8) % 2) * 8) * LD + 8 * d +
+                      (lane / 16) * 8);
+        }
+        ptx::mma_bf16(acc[d], ph, vf[0], vf[1]);
+        ptx::mma_bf16(acc[d], pl, vf[0], vf[1]);
+        ptx::mma_bf16(acc[d + 1], ph, vf[2], vf[3]);
+        ptx::mma_bf16(acc[d + 1], pl, vf[2], vf[3]);
+      }
+    } else {
+      // O += P V by FMAs: p of row rr comes from the quad lane that holds it
+      const float* Vf = reinterpret_cast<const float*>(Vb);
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) {
+        const int j = rr / 8, u = rr % 2, src = 4 * g + (rr % 8) / 2;
+        const float pa = __shfl_sync(0xffffffffu, s[j][u], src);
+        const float pb2 = __shfl_sync(0xffffffffu, s[j][2 + u], src);
+        const float* vr = Vf + rr * LD + 2 * tq;
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          const float2 v = *reinterpret_cast<const float2*>(vr + 8 * d);
+          acc[d][0] = fmaf(pa, v.x, acc[d][0]);
+          acc[d][1] = fmaf(pa, v.y, acc[d][1]);
+          acc[d][2] = fmaf(pb2, v.x, acc[d][2]);
+          acc[d][3] = fmaf(pb2, v.y, acc[d][3]);
+        }
+      }
+    }
+  }
+  ptx::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps' partials take its place
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  constexpr int LW = Lay::LW, WS = Lay::kWarp;
+  {
+    float* wp = reinterpret_cast<float*>(smem) + warp * WS;
+    float* wacc = wp + 2 * kMaxHeads;
+    if (tq == 0) {
+      wp[g] = m[0];
+      wp[g + 8] = m[1];
+      wp[kMaxHeads + g] = l[0];
+      wp[kMaxHeads + g + 8] = l[1];
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wacc[(g + 8 * (e >> 1)) * LW + 8 * d + 2 * tq + (e & 1)] = acc[d][e];
+  }
+  __syncthreads();
+  // the block's partial: the 4 warps merged, in warp order
+  for (int i = t; i < nh * (HDP / 4); i += kThreads) {
+    const int head = i / (HDP / 4), c4 = 4 * (i % (HDP / 4));
+    const float* wp = reinterpret_cast<const float*>(smem);
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wp[w * WS + head]);
+    float L = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(wp[w * WS + head] - M);
+      L += wp[w * WS + kMaxHeads + head] * f;
+      const float4 x = *reinterpret_cast<const float4*>(
+          wp + w * WS + 2 * kMaxHeads + head * LW + c4);
+      a.x += x.x * f;
+      a.y += x.y * f;
+      a.z += x.z * f;
+      a.w += x.w * f;
+    }
+    *reinterpret_cast<float4*>(bacc + head * HDP + c4) = a;
+    if (c4 == 0) *reinterpret_cast<float2*>(stat + 2 * head) = make_float2(M, L);
+  }
+
+  ptx::cluster_sync();  // every block's partial is written; every row read
+  pb.after_merge(ext, split, hg, t);
+  // the outputs, each block a share: (head, 4 columns) groups split, split +
+  // splits, ...; the partials added in split order. Every split's (m, l)
+  // and the first 8 splits' sums are loaded at once, all in flight, so a
+  // cluster of up to 8 costs one round trip (64 registers of loads).
+  constexpr int kBatch = 8;
+  const int groups = nh * (HDP / 4);
+  for (int i = t * splits + split; i < groups; i += kThreads * splits) {
+    const int head = i / (HDP / 4), c4 = 4 * (i % (HDP / 4));
+    if (c4 >= hd) continue;
+    float2 ml[kMaxSplits];
+    float4 ax[kBatch];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < splits) ml[sp] = ptx::ld_cluster_f32x2(stat + 2 * head, sp);
+#pragma unroll
+    for (int sp = 0; sp < kBatch; ++sp)
+      if (sp < splits) ax[sp] = ptx::ld_cluster_f32x4(bacc + head * HDP + c4, sp);
+    float M = P::kExt ? pb.ext_score(ext, head) : kNegInf;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < splits) M = fmaxf(M, ml[sp].x);
+    float L = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int b0 = 0; b0 < kMaxSplits; b0 += kBatch) {
+      if (b0 >= splits) break;
+      if (b0 > 0) {
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (b0 + u < splits)
+            ax[u] = ptx::ld_cluster_f32x4(bacc + head * HDP + c4, b0 + u);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (b0 + u < splits) {
+          const float f = expf(ml[b0 + u].x - M);
+          L += ml[b0 + u].y * f;
+          o[0] += ax[u].x * f;
+          o[1] += ax[u].y * f;
+          o[2] += ax[u].z * f;
+          o[3] += ax[u].w * f;
+        }
+      }
+    }
+    if constexpr (P::kExt) {
+      const float pe = expf(pb.ext_score(ext, head) - M);
+      L += pe;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[e] += pe * pb.ext_value(ext, c4 + e);
+    }
+    const float inv = 1.f / fmaxf(L, 1e-20f);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c4 + e < hd) pb.store(head, c4 + e, o[e] * inv);
+  }
+  // peers have read this block's partial; no memory to order
+  ptx::cluster_sync_relaxed();
+}
+
+// Kernel routes, as the wrappers count them.
+enum Route : int { kRouteFMA = 0, kRouteTC = 1 };
+
+// Calls f(std::integral_constant<int, HDP>()) with hd rounded up to 16, 32,
+// 64 or 128.
+template <class F>
+int with_hdp(int hd, F&& f) {
+  if (hd < 1 || hd > kMaxHD) return (int)cudaErrorInvalidValue;
+  if (hd <= 16) return f(std::integral_constant<int, 16>());
+  if (hd <= 32) return f(std::integral_constant<int, 32>());
+  if (hd <= 64) return f(std::integral_constant<int, 64>());
+  return f(std::integral_constant<int, 128>());
+}
+
+// The core's launch shape for `kern` (the core, or a kernel timed at its
+// shape): grid (units x head groups, splits), or one cluster when
+// `one_cluster`, a cluster of `splits` blocks, the core's shared memory.
+// Sets kern's attributes; `attr` must outlive `cfg`.
+template <class P, typename TC, int HDP>
+int core_config(const void* kern, const P& pb, int splits, cudaStream_t st,
+                bool one_cluster, cudaLaunchConfig_t& cfg,
+                cudaLaunchAttribute& attr) {
+  if (splits < 1 || splits > kMaxSplits || pb.rps % kChunk != 0)
+    return (int)cudaErrorInvalidValue;
+  const int smem = Layout<TC, HDP>::bytes(P::kExtFloats);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (splits > 8) {  // clusters past the portable 8
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cfg = {};
+  cfg.gridDim = dim3(one_cluster ? 1 : pb.units * pb.hgroups, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = splits;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return 0;
+}
+
+// Launch the core, or with max_clusters set report how many clusters of
+// `splits` blocks fit on the card at once (cudaOccupancyMaxActiveClusters).
+// A launch writes the route of the kernel it launched to *route.
+template <class P, typename TC, bool QSPLIT, int HDP>
+int launch_core(const P& pb, int splits, cudaStream_t st, int* max_clusters,
+                int* route) {
+  void* kern = (void*)decode_attn_core<P, TC, QSPLIT, HDP>;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int err = core_config<P, TC, HDP>(kern, pb, splits, st, max_clusters != nullptr,
+                                    cfg, attr);
+  if (err) return err;
+  if (max_clusters)
+    return (int)cudaOccupancyMaxActiveClusters(max_clusters, kern, &cfg);
+  if (pb.units * pb.hgroups == 0) return (int)cudaGetLastError();
+  cudaError_t e = cudaLaunchKernelEx(&cfg, decode_attn_core<P, TC, QSPLIT, HDP>, pb);
+  if (e != cudaSuccess) return (int)e;
+  if (route) *route = sizeof(TC) == 4 ? kRouteFMA : kRouteTC;
+  return (int)cudaGetLastError();
+}
+
+template <class P, typename TC, bool QSPLIT>
+int launch_hd(const P& pb, int splits, cudaStream_t st, int* max_clusters,
+              int* route) {
+  return with_hdp(pb.hd, [&](auto hdp) {
+    return launch_core<P, TC, QSPLIT, decltype(hdp)::value>(
+        pb, splits, st, max_clusters, route);
+  });
+}
+
+__host__ inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace da

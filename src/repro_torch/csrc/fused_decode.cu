@@ -4,7 +4,7 @@
 // (pallas_call in _decode_pallas, called through fused_decode_step). Per slot
 // it computes the width-gated QKV projection in f32 from the f32 master
 // weights, RoPE, the optional int8 absmax round trip of the new K/V, an
-// online-softmax decode over the cache walked through a (B, P) page table,
+// online-softmax decode over the slot's dense cache rows,
 // the extension column for the new token, and the width-gated output
 // projection.
 //
@@ -16,15 +16,15 @@
 // times. Here the layer is three launches, each reading its bytes once:
 //   (a) fused_qkv_launch: the three projections as one gated skinny product
 //       (gemv.cuh) over all slots, f32 out, no weight rounding;
-//   (b) fused_attn_launch (this file): blocks over (slot, KV head, range of
-//       cache rows). Each applies RoPE to its head's queries and walks its
-//       rows once in 64-row chunks staged in shared memory, keeping the
-//       running max, sum and accumulator there, and writes them as a
-//       partial. The last block of a (slot, head) to finish (an atomic
-//       ticket) merges the partials in row order with the extension column,
-//       applies the quantize round trip to the new K/V, and writes the new
-//       K/V into the cache. Splitting the rows keeps the card busy: one
-//       block per (slot, head) is only B * KV = 32 blocks at TinyLlama width;
+//   (b) fused_attn_launch (this file): the shared decode-attention core
+//       (decode_attn.cuh: its bound and design) with one unit per (slot, KV
+//       head), its cache rows split over one thread block cluster. Every
+//       block applies RoPE to its heads' queries and works out the new
+//       token's K/V (RoPE, the quantize round trip) while its first chunks
+//       load; the cluster merges the partials through distributed shared
+//       memory with the extension column; after the cluster's first barrier
+//       (every block has read its rows) the first block writes the new K/V
+//       and scales into the cache;
 //   (c) the output projection through the morph_matmul kernel with
 //       active_k = a_q (launched by the Python wrapper).
 // Traps kept from the TPU kernel: the running max starts at -1e30 and masked
@@ -36,20 +36,11 @@
 // attends with the bf16-rounded scale.
 #include <math.h>
 
+#include "decode_attn.cuh"
 #include "gemv.cuh"
 
 namespace {
 
-constexpr int kAttnThreads = 128;
-constexpr int kAttnWarps = kAttnThreads / 32;
-constexpr int kChunk = 64;            // cache rows staged per pass
-constexpr float kNegInf = -1e30f;     // running-max init (KERNEL_NEG_INF)
-
-enum CacheType : int { kCacheF32 = 0, kCacheBF16 = 1, kCacheI8 = 2 };
-
-__device__ __forceinline__ float cache_f32(float v) { return v; }
-__device__ __forceinline__ float cache_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float cache_f32(int8_t v) { return (float)v; }
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -59,283 +50,225 @@ __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void put(int8_t* p, float v) { *p = (int8_t)v; }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+// The extension's floats in the core's `ext` buffer: the attended new k and
+// v, their stored values, the extension score of each head, the k/v scales,
+// and RoPE's cosines and sines.
+constexpr int kExtKe = 0, kExtVe = da::kMaxHD, kExtKst = 2 * da::kMaxHD,
+              kExtVst = 3 * da::kMaxHD, kExtS = 4 * da::kMaxHD,
+              kExtSc = kExtS + da::kMaxHeads, kExtRope = kExtSc + 2;
 
-struct AttnArgs {
-  const float* q;      // (B, H*hd) gated projections, before RoPE
-  const float* k;      // (B, KV*hd)
-  const float* v;      // (B, KV*hd)
-  void* kc;            // pool (n_pages, bk, KV, hd)
-  void* vc;
-  __nv_bfloat16* ks;   // (n_pages, bk, KV, 1) scales, int8 caches only
+template <typename TC, bool QUANT>
+struct FusedAttnProb {
+  // the core's interface (decode_attn.cuh)
+  int units, hgroups, G, hd, rps, vec;
+  float scale;
+  const void* kc;       // (B, S, KV, hd)
+  const void* vc;
+  static constexpr bool kQuant = QUANT;
+  static constexpr bool kExt = true;
+  static constexpr int kExtFloats = kExtRope + da::kMaxHD;
+  // this problem
+  const float* q;       // (B, H*hd) gated projections, before RoPE
+  const float* k;       // (B, KV*hd)
+  const float* v;       // (B, KV*hd)
+  __nv_bfloat16* ks;    // (B, S, KV, 1) scales, int8 caches only
   __nv_bfloat16* vs;
-  const int* table;    // (B, P) physical page of each logical page
-  const int* pos;      // (B,) absolute position of the new token
-  float* out;          // (B, H*hd) attention output, before the out proj
-  float* ws;           // (B*KV, splits, 2G + G*hd) partial max, sum, acc
-  int* tickets;        // (B*KV,) zeroed; left zeroed
-  int B, H, KV, hd, P, bk, window, use_rope;
-  int splits, rows_per_split;  // rows_per_split: a multiple of kChunk
-  float rope_coef;     // log(theta) / (hd / 2)
-  float scale;         // 1 / sqrt(hd)
+  const int* pos;       // (B,) absolute position of the new token
+  float* out;           // (B, H*hd) attention output, before the out proj
+  int H, KV, S, window, use_rope;
+  float rope_coef;      // log(theta) / (hd / 2)
+  int b, h, h0, nh, p, slot, p_div, p_mod;  // this block
+
+  __device__ int begin(int unit, int h0_, int nh_) {
+    b = unit / KV;
+    h = unit % KV;
+    h0 = h0_;
+    nh = nh_;
+    p = pos[b];
+    p_div = p / S;
+    p_mod = p % S;
+    slot = window ? p_mod : min(p, S - 1);
+    return window ? (p > 0 ? S : 0) : min(p + 1, S);
+  }
+  __device__ bool ok(int jj) const {
+    int kp;
+    if (window) {
+      const int wraps = jj <= p_mod ? 0 : 1;
+      kp = (p_div - wraps) * S + jj;
+    } else {
+      kp = jj <= p ? jj : -1;
+    }
+    return kp >= 0 && jj != slot && kp <= p && (!window || kp > p - window);
+  }
+  __device__ size_t phys(int jj) const { return (size_t)b * S + jj; }
+  __device__ size_t row(int jj) const { return (phys(jj) * KV + h) * hd; }
+  __device__ float kscale(int jj) const {
+    return __bfloat162float(ks[phys(jj) * KV + h]);
+  }
+  __device__ float vscale(int jj) const {
+    return __bfloat162float(vs[phys(jj) * KV + h]);
+  }
+  template <int HDP>
+  __device__ void load_q(float* qs, int ldq, float* ext, int t) const {
+    constexpr int N = da::kMaxHeads * HDP / da::kThreads;
+    const size_t qoff = (size_t)b * H * hd + ((size_t)h * G + h0) * hd;
+    const size_t kvoff = (size_t)b * KV * hd + (size_t)h * hd;
+    float x[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int i = t + u * da::kThreads, r = i / HDP, d = i % HDP;
+      x[u] = r < nh && d < hd ? q[qoff + (size_t)r * hd + d] : 0.f;
+    }
+    // hd <= kMaxHD = kThreads: one element of the new k and v per thread
+    const float kx = t < hd ? k[kvoff + t] : 0.f;
+    const float vx = t < hd ? v[kvoff + t] : 0.f;
+#pragma unroll
+    for (int u = 0; u < N; ++u) {
+      const int i = t + u * da::kThreads;
+      qs[(i / HDP) * ldq + i % HDP] = x[u];
+    }
+    if (t < hd) {
+      ext[kExtKe + t] = kx;
+      ext[kExtVe + t] = vx;
+    }
+  }
+  // RoPE of the queries and the new key; the new K/V as the cache will
+  // hold them (int8 with a bf16 scale, or the cache dtype) and their
+  // read-back, which the extension attends over; the extension's scores
+  __device__ void prepare(float* qs, int ldq, float* ext, int t) const {
+    const int half = hd / 2, warp = t / 32, lane = t % 32;
+    float* ke = ext + kExtKe;
+    float* ve = ext + kExtVe;
+    const float pf = (float)p;
+    if (use_rope) {  // the angles once per column pair, then every row
+      float* cs = ext + kExtRope;
+      for (int d = t; d < half; d += da::kThreads) {
+        const float ang = pf * expf(-(float)d * rope_coef);
+        cs[d] = cosf(ang);
+        cs[half + d] = sinf(ang);
+      }
+      __syncthreads();
+      for (int i = t; i < (nh + 1) * half; i += da::kThreads) {
+        const int r = i / half, d = i % half;
+        float* x = r < nh ? qs + r * ldq : ke;
+        const float c = cs[d], s = cs[half + d];
+        const float x1 = x[d], x2 = x[d + half];
+        x[d] = x1 * c - x2 * s;
+        x[d + half] = x2 * c + x1 * s;
+      }
+      __syncthreads();
+    }
+    if (warp < 2) {
+      float* e = warp == 0 ? ke : ve;
+      float* st = ext + (warp == 0 ? kExtKst : kExtVst);
+      if constexpr (QUANT) {
+        float mx = 0.f;
+        for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, fabsf(e[d]));
+        mx = da::warp_max(mx);
+        const float sc = mx / 127.f;
+        const float den = fmaxf(sc, 1e-8f);
+        const float scb = __bfloat162float(__float2bfloat16_rn(sc));
+        for (int d = lane; d < hd; d += 32) {
+          const float qv = rintf(e[d] / den);
+          st[d] = qv;
+          e[d] = qv * scb;
+        }
+        if (lane == 0) ext[kExtSc + warp] = sc;
+      } else {
+        for (int d = lane; d < hd; d += 32) {
+          st[d] = round_to(e[d], static_cast<const TC*>(nullptr));
+          e[d] = st[d];
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < nh; r += da::kWarps) {
+      float s = 0.f;
+      for (int d = lane; d < hd; d += 32) s = fmaf(qs[r * ldq + d], ke[d], s);
+      s = da::warp_sum(s) * scale;
+      if (lane == 0) ext[kExtS + r] = s;
+    }
+  }
+  __device__ float ext_score(const float* ext, int r) const {
+    return ext[kExtS + r];
+  }
+  __device__ float ext_value(const float* ext, int d) const {
+    return ext[kExtVe + d];
+  }
+  __device__ void store(int r, int d, float val) const {
+    out[(size_t)b * H * hd + ((size_t)h * G + h0 + r) * hd + d] = val;
+  }
+  // write-back: every block of (slot b, head h) has read its rows
+  __device__ void after_merge(float* ext, int split, int hg, int t) const {
+    if (split != 0 || hg != 0) return;
+    const size_t row = phys(slot);
+    TC* kw = static_cast<TC*>(const_cast<void*>(kc));
+    TC* vw = static_cast<TC*>(const_cast<void*>(vc));
+    for (int d = t; d < hd; d += da::kThreads) {
+      put(kw + (row * KV + h) * hd + d, ext[kExtKst + d]);
+      put(vw + (row * KV + h) * hd + d, ext[kExtVst + d]);
+    }
+    if (QUANT && t == 0) {
+      ks[row * KV + h] = __float2bfloat16_rn(ext[kExtSc]);
+      vs[row * KV + h] = __float2bfloat16_rn(ext[kExtSc + 1]);
+    }
+  }
 };
 
-// Shared-memory floats for one block (launch_attn sizes the launch by it).
-__host__ __device__ inline int attn_smem_floats(int G, int hd) {
-  return G * hd          // q
-         + 4 * hd        // new k, v (attended) and their stored values
-         + kChunk * (hd + 1) + kChunk * hd  // staged K (padded) and V rows
-         + G * kChunk    // scores / probabilities
-         + G * hd        // accumulator
-         + 4 * G         // running max, sum, rescale, extension prob
-         + kChunk        // validity of the staged rows
-         + 2;            // new-token k, v scales
+template <typename TC, bool QUANT>
+int launch_attn(const float* q, const float* k, const float* v, void* kc,
+                void* vc, void* ks, void* vs, const int* pos, float* out,
+                int B, int H, int KV, int hd, int S, int window, int use_rope,
+                int splits, int rows_per_split, float rope_coef, float scale,
+                cudaStream_t st, int* max_clusters, int* route) {
+  FusedAttnProb<TC, QUANT> a = {};
+  a.units = B * KV;
+  a.G = KV > 0 ? H / KV : 1;
+  a.hgroups = (a.G + da::kMaxHeads - 1) / da::kMaxHeads;
+  a.hd = hd;
+  a.rps = rows_per_split;
+  a.vec = (hd * (int)sizeof(TC)) % 16 == 0 && da::aligned16(kc) &&
+          da::aligned16(vc);
+  a.scale = scale;
+  a.kc = kc;
+  a.vc = vc;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.ks = static_cast<__nv_bfloat16*>(ks);
+  a.vs = static_cast<__nv_bfloat16*>(vs);
+  a.pos = pos;
+  a.out = out;
+  a.H = H;
+  a.KV = KV;
+  a.S = S;
+  a.window = window;
+  a.use_rope = use_rope;
+  a.rope_coef = rope_coef;
+  // bf16 and int8 caches on the tensor cores (q is f32: split hi + lo)
+  return da::launch_hd<decltype(a), TC, true>(a, splits, st, max_clusters,
+                                              route);
 }
 
-template <typename TC, bool QUANT>
-__global__ void __launch_bounds__(kAttnThreads) decode_attn(AttnArgs a) {
-  extern __shared__ float sm[];
-  const int KV = a.KV, hd = a.hd, G = a.H / KV, half = hd / 2;
-  const int bh = blockIdx.x, b = bh / KV, h = bh % KV, split = blockIdx.y;
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  float* q_s = sm;
-  float* ke = q_s + G * hd;
-  float* ve = ke + hd;
-  float* kst = ve + hd;
-  float* vst = kst + hd;
-  float* k_s = vst + hd;
-  float* v_s = k_s + kChunk * (hd + 1);
-  float* p_s = v_s + kChunk * hd;
-  float* acc = p_s + G * kChunk;
-  float* m_s = acc + G * hd;
-  float* l_s = m_s + G;
-  float* al_s = l_s + G;
-  float* pe_s = al_s + G;
-  float* ok_s = pe_s + G;
-  float* sc_s = ok_s + kChunk;
-
-  const int p = a.pos[b];
-  const size_t qoff = (size_t)b * a.H * hd + (size_t)h * G * hd;
-  for (int i = t; i < G * hd; i += kAttnThreads) {
-    q_s[i] = a.q[qoff + i];
-    acc[i] = 0.f;
-  }
-  for (int g = t; g < G; g += kAttnThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-  const float pf = (float)p;
-  if (a.use_rope) {  // rotate this head group's queries
-    for (int i = t; i < G * half; i += kAttnThreads) {
-      const int g = i / half, d = i % half;
-      float* x = q_s + g * hd;
-      const float ang = pf * expf(-(float)d * a.rope_coef);
-      const float c = cosf(ang), s = sinf(ang);
-      const float x1 = x[d], x2 = x[d + half];
-      x[d] = x1 * c - x2 * s;
-      x[d + half] = x2 * c + x1 * s;
-    }
-    __syncthreads();
-  }
-
-  const TC* kc = static_cast<const TC*>(a.kc);
-  const TC* vc = static_cast<const TC*>(a.vc);
-  const int S = a.P * a.bk;
-  const int slot = a.window ? p % S : min(p, S - 1);
-  const int lens = a.window ? (p > 0 ? S : 0) : min(p + 1, S);
-  const int r_end = min(lens, (split + 1) * a.rows_per_split);
-  for (int c0 = split * a.rows_per_split; c0 < r_end; c0 += kChunk) {
-    const int nc = min(kChunk, r_end - c0);
-    for (int j = t; j < nc; j += kAttnThreads) {
-      const int jj = c0 + j;
-      int kp;
-      if (a.window) {
-        const int wraps = jj <= p % S ? 0 : 1;
-        kp = (p / S - wraps) * S + jj;
-      } else {
-        kp = jj <= p ? jj : -1;
-      }
-      const bool ok = kp >= 0 && jj != slot && kp <= p &&
-                      (!a.window || kp > p - a.window);
-      ok_s[j] = ok ? 1.f : 0.f;
-    }
-    for (int i = t; i < nc * hd; i += kAttnThreads) {
-      const int j = i / hd, d = i % hd, jj = c0 + j;
-      const size_t row = (size_t)a.table[(size_t)b * a.P + jj / a.bk] * a.bk + jj % a.bk;
-      const size_t idx = (row * KV + h) * hd + d;
-      float kv = cache_f32(kc[idx]), vv = cache_f32(vc[idx]);
-      if constexpr (QUANT) {
-        kv *= __bfloat162float(a.ks[row * KV + h]);
-        vv *= __bfloat162float(a.vs[row * KV + h]);
-      }
-      k_s[j * (hd + 1) + d] = kv;
-      v_s[j * hd + d] = vv;
-    }
-    __syncthreads();
-    for (int i = t; i < G * nc; i += kAttnThreads) {
-      const int g = i / nc, j = i % nc;
-      const float* qg = q_s + g * hd;
-      const float* kr = k_s + j * (hd + 1);
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qg[d], kr[d], s);
-      p_s[g * kChunk + j] = ok_s[j] != 0.f ? s * a.scale : kNegInf;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kAttnWarps) {
-      float* pg = p_s + g * kChunk;
-      float mx = kNegInf;
-      for (int j = lane; j < nc; j += 32) mx = fmaxf(mx, pg[j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < nc; j += 32) {
-        const float e = ok_s[j] != 0.f ? expf(pg[j] - m_new) : 0.f;
-        pg[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        al_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int o = t; o < G * hd; o += kAttnThreads) {
-      const int g = o / hd, d = o % hd;
-      const float* pg = p_s + g * kChunk;
-      float v = acc[o] * al_s[g];
-      for (int j = 0; j < nc; ++j) v = fmaf(pg[j], v_s[j * hd + d], v);
-      acc[o] = v;
-    }
-    __syncthreads();
-  }
-
-  // publish this block's partial; the last block of (slot, head) merges
-  const int stride = 2 * G + G * hd;
-  float* part = a.ws + ((size_t)bh * a.splits + split) * stride;
-  for (int g = t; g < G; g += kAttnThreads) {
-    part[g] = m_s[g];
-    part[G + g] = l_s[g];
-  }
-  for (int o = t; o < G * hd; o += kAttnThreads) part[2 * G + o] = acc[o];
-  __shared__ int s_last;
-  __threadfence();
-  __syncthreads();
-  if (t == 0) s_last = atomicAdd(&a.tickets[bh], 1) == a.splits - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  // the new token's K/V: RoPE, then what the cache will hold (int8 with a
-  // bf16 scale, or the cache dtype) and its read-back, which the extension
-  // column attends over
-  const size_t kvoff = (size_t)b * KV * hd + (size_t)h * hd;
-  for (int d = t; d < hd; d += kAttnThreads) {
-    ke[d] = a.k[kvoff + d];
-    ve[d] = a.v[kvoff + d];
-  }
-  __syncthreads();
-  if (a.use_rope) {
-    for (int d = t; d < half; d += kAttnThreads) {
-      const float ang = pf * expf(-(float)d * a.rope_coef);
-      const float c = cosf(ang), s = sinf(ang);
-      const float x1 = ke[d], x2 = ke[d + half];
-      ke[d] = x1 * c - x2 * s;
-      ke[d + half] = x2 * c + x1 * s;
-    }
-    __syncthreads();
-  }
-  if (warp < 2) {
-    float* e = warp == 0 ? ke : ve;
-    float* st = warp == 0 ? kst : vst;
-    if constexpr (QUANT) {
-      float mx = 0.f;
-      for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, fabsf(e[d]));
-      mx = warp_max(mx);
-      const float sc = mx / 127.f;
-      const float den = fmaxf(sc, 1e-8f);
-      const float scb = __bfloat162float(__float2bfloat16_rn(sc));
-      for (int d = lane; d < hd; d += 32) {
-        const float qv = rintf(e[d] / den);
-        st[d] = qv;
-        e[d] = qv * scb;
-      }
-      if (lane == 0) sc_s[warp] = sc;
-    } else {
-      for (int d = lane; d < hd; d += 32) {
-        st[d] = round_to(e[d], static_cast<const TC*>(nullptr));
-        e[d] = st[d];
-      }
-    }
-  }
-  __syncthreads();
-
-  // merge: extension score, then the partials in row order
-  const float* parts = a.ws + (size_t)bh * a.splits * stride;
-  for (int g = warp; g < G; g += kAttnWarps) {
-    float s = 0.f;
-    for (int d = lane; d < hd; d += 32) s = fmaf(q_s[g * hd + d], ke[d], s);
-    s = warp_sum(s) * a.scale;
-    if (lane == 0) {
-      float m = s;
-      for (int sp = 0; sp < a.splits; ++sp) m = fmaxf(m, __ldcg(parts + sp * stride + g));
-      float l = 0.f;
-      for (int sp = 0; sp < a.splits; ++sp)
-        l += __ldcg(parts + sp * stride + G + g) *
-             expf(__ldcg(parts + sp * stride + g) - m);
-      const float pe = expf(s - m);
-      m_s[g] = m;
-      pe_s[g] = pe;
-      l_s[g] = l + pe;
-    }
-  }
-  __syncthreads();
-  for (int o = t; o < G * hd; o += kAttnThreads) {
-    const int g = o / hd, d = o % hd;
-    float v = 0.f;
-    for (int sp = 0; sp < a.splits; ++sp)
-      v += __ldcg(parts + sp * stride + 2 * G + o) *
-           expf(__ldcg(parts + sp * stride + g) - m_s[g]);
-    v += pe_s[g] * ve[d];
-    a.out[qoff + o] = v / fmaxf(l_s[g], 1e-20f);
-  }
-
-  // write-back: every block of (slot b, head h) has read its rows
-  const size_t row = (size_t)a.table[(size_t)b * a.P + slot / a.bk] * a.bk + slot % a.bk;
-  TC* kw = static_cast<TC*>(a.kc);
-  TC* vw = static_cast<TC*>(a.vc);
-  for (int d = t; d < hd; d += kAttnThreads) {
-    put(kw + (row * KV + h) * hd + d, kst[d]);
-    put(vw + (row * KV + h) * hd + d, vst[d]);
-  }
-  if (QUANT && t == 0) {
-    a.ks[row * KV + h] = __float2bfloat16_rn(sc_s[0]);
-    a.vs[row * KV + h] = __float2bfloat16_rn(sc_s[1]);
-  }
-  if (t == 0) a.tickets[bh] = 0;  // ready for the next launch
-}
-
-template <typename TC, bool QUANT>
-int launch_attn(const AttnArgs& a, cudaStream_t st) {
-  const int G = a.H / a.KV;
-  const size_t bytes = sizeof(float) * (size_t)attn_smem_floats(G, a.hd);
-  if (bytes > 48 * 1024) {
-    cudaFuncSetAttribute(decode_attn<TC, QUANT>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  }
-  decode_attn<TC, QUANT><<<dim3(a.B * a.KV, a.splits), kAttnThreads, bytes, st>>>(a);
-  return (int)cudaGetLastError();
+int dispatch_attn(const float* q, const float* k, const float* v, void* kc,
+                  void* vc, void* ks, void* vs, int cache_dtype,
+                  const int* pos, float* out, int B, int H, int KV, int hd,
+                  int S, int window, int use_rope, int splits,
+                  int rows_per_split, float rope_coef, float scale,
+                  cudaStream_t st, int* max_clusters, int* route) {
+  if (cache_dtype == da::kI8)
+    return launch_attn<int8_t, true>(q, k, v, kc, vc, ks, vs, pos, out, B, H,
+                                     KV, hd, S, window, use_rope, splits,
+                                     rows_per_split, rope_coef, scale, st,
+                                     max_clusters, route);
+  if (cache_dtype == da::kBF16)
+    return launch_attn<__nv_bfloat16, false>(
+        q, k, v, kc, vc, ks, vs, pos, out, B, H, KV, hd, S, window, use_rope,
+        splits, rows_per_split, rope_coef, scale, st, max_clusters, route);
+  return launch_attn<float, false>(q, k, v, kc, vc, ks, vs, pos, out, B, H,
+                                   KV, hd, S, window, use_rope, splits,
+                                   rows_per_split, rope_coef, scale, st,
+                                   max_clusters, route);
 }
 
 }  // namespace
@@ -366,45 +299,34 @@ extern "C" int fused_qkv_launch(const void* x, int x_dtype, const void* wq,
 }
 
 // (b) RoPE + decode attention split over cache rows + merge + quantize round
-// trip of the new K/V + cache write-back. splits * rows_per_split must cover
-// the cache rows; ws holds B*KV*splits*(2G + G*hd) floats; tickets B*KV ints.
-// cache_dtype: 0 f32, 1 bf16, 2 int8 (with bf16 scales).
+// trip of the new K/V + cache write-back, over a dense (B, S, KV, hd) cache.
+// The splits of a (slot, head) form one cluster (1 <= splits <= 16); splits
+// * rows_per_split must cover the S cache rows, rows_per_split a multiple
+// of 64. cache_dtype: 0 f32, 1 bf16, 2 int8 (with bf16 scales). Writes the
+// route of the kernel launched (0 f32 FMAs, 1 tensor cores) to *route.
 extern "C" int fused_attn_launch(const float* q, const float* k, const float* v,
                                  void* kc, void* vc, void* ks, void* vs,
-                                 int cache_dtype, const int* table,
-                                 const int* pos, float* out, float* ws,
-                                 int* tickets, int B, int H, int KV, int hd,
-                                 int P, int bk, int window, int use_rope,
-                                 int splits, int rows_per_split, float rope_coef,
-                                 float scale, void* stream) {
-  AttnArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.kc = kc;
-  a.vc = vc;
-  a.ks = static_cast<__nv_bfloat16*>(ks);
-  a.vs = static_cast<__nv_bfloat16*>(vs);
-  a.table = table;
-  a.pos = pos;
-  a.out = out;
-  a.ws = ws;
-  a.tickets = tickets;
-  a.splits = splits;
-  a.rows_per_split = rows_per_split;
-  a.B = B;
-  a.H = H;
-  a.KV = KV;
-  a.hd = hd;
-  a.P = P;
-  a.bk = bk;
-  a.window = window;
-  a.use_rope = use_rope;
-  a.rope_coef = rope_coef;
-  a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B * KV == 0) return (int)cudaGetLastError();
-  if (cache_dtype == kCacheI8) return launch_attn<int8_t, true>(a, st);
-  if (cache_dtype == kCacheBF16) return launch_attn<__nv_bfloat16, false>(a, st);
-  return launch_attn<float, false>(a, st);
+                                 int cache_dtype, const int* pos, float* out,
+                                 int B, int H, int KV, int hd, int S,
+                                 int window, int use_rope, int splits,
+                                 int rows_per_split, float rope_coef,
+                                 float scale, int* route, void* stream) {
+  if (KV < 1 || H % KV != 0 || hd < 1 || hd > da::kMaxHD || hd % 2 != 0 ||
+      (long long)splits * rows_per_split < S)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_attn(q, k, v, kc, vc, ks, vs, cache_dtype, pos, out, B, H,
+                       KV, hd, S, window, use_rope, splits, rows_per_split,
+                       rope_coef, scale, static_cast<cudaStream_t>(stream),
+                       nullptr, route);
+}
+
+// How many clusters of `splits` blocks of the attention kernel for this
+// cache dtype and hd fit on the card at once; written to *out.
+extern "C" int fused_attn_max_clusters(int cache_dtype, int hd, int splits,
+                                       int* out) {
+  if (hd < 1 || hd > da::kMaxHD) return (int)cudaErrorInvalidValue;
+  return dispatch_attn(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, cache_dtype, nullptr, nullptr, 1, 1, 1, hd, 1,
+                       0, 0, splits, da::kChunk, 1.f, 1.f, nullptr, out,
+                       nullptr);
 }

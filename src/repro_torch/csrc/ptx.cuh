@@ -94,6 +94,29 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// The same barrier without release semantics: for a barrier that orders no
+// memory access (peers only have to have finished reading this block's
+// shared memory, which their loads have, once their values are used), so
+// the arrive does not wait for this block's outstanding global stores.
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  asm volatile(
+      "barrier.cluster.arrive.relaxed.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// two f32 at the same shared-memory offset as p (8-byte aligned) in block
+// `rank` of the cluster, in one load
+__device__ __forceinline__ float2 ld_cluster_f32x2(const float* p,
+                                                   unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(remote));
+  return v;
+}
+
 // four f32 at the same shared-memory offset as p (16-byte aligned) in block
 // `rank` of the cluster (distributed shared memory), in one load; ordered
 // by cluster_sync's barrier, not by a memory clobber

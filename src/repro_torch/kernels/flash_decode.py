@@ -16,8 +16,14 @@ v there instead.
 The reference has no model caller: ``flash_decode`` is its own entry point.
 On CPU tensors it runs ``flash_decode_plain``, a tiled mirror of the TPU
 kernel at ``bk``-row tiles; on CUDA tensors it launches the hand-written
-kernel in ``csrc/flash_decode.cu`` (its own 64-row chunks, split over
-blocks and merged) or raises. ``launch_count()`` counts its launches.
+kernel in ``csrc/flash_decode.cu`` or raises. The kernel is the shared
+decode-attention core (``csrc/decode_attn.cuh``; its 64-row chunks split
+over one thread block cluster per KV row, sized by ``decode_attn``). The
+route is chosen by the cache's dtype: bf16 and int8 caches go to the tensor
+cores (route ``"tc"``: bf16 products with f32 sums, f32 queries split into
+two bf16 halves, p into two), f32 caches to f32 FMAs (route ``"fma"``).
+``launch_count()`` counts its launches, ``route_counts()`` by the route
+the kernel reports it launched.
 """
 from __future__ import annotations
 
@@ -28,14 +34,13 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
 
 NEG_INF = -1e30
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_LAUNCHES = {"n": 0}
-_CHUNK = 64            # kChunk in csrc/flash_decode.cu
-_TARGET_BLOCKS = 264   # two resident blocks on each of the H100's 132 SMs
+_LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -48,8 +53,16 @@ def launch_count() -> int:
     return _LAUNCHES["n"]
 
 
+def route_counts() -> dict:
+    """Launches per kernel route since import / reset, as the launch
+    reports it: ``tc`` (bf16 or int8 cache, tensor cores) and ``fma`` (f32
+    cache, f32 FMAs)."""
+    return {r: _LAUNCHES[r] for r in ("tc", "fma")}
+
+
 def reset_launch_count() -> None:
-    _LAUNCHES["n"] = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
 
 
 def _check_shapes(q, k, v, k_scale, v_scale, group):
@@ -103,31 +116,33 @@ def flash_decode_plain(q, k, v, kv_len: KvLen, k_scale=None, v_scale=None,
 
 
 def _lib():
-    fn = _build.load("flash_decode").flash_decode_launch
+    lib = _build.load("flash_decode")
+    fn, probe = lib.flash_decode_launch, lib.flash_decode_probe
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _F, _P]
+        args = [_P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
+                _I, _I]
+        fn.argtypes = args + [_F, _P, _P]
         fn.restype = _I
-    return fn
+        probe.argtypes = args + [_I, _P]
+        probe.restype = _I
+    return fn, probe
 
 
-def split_plan(BKV: int, S: int):
-    """(splits, rows per split): rows in whole 64-row chunks, enough splits
-    for about ``_TARGET_BLOCKS`` blocks, no more splits than chunks."""
-    chunks = max(1, -(-S // _CHUNK))
-    splits = max(1, min(chunks, -(-_TARGET_BLOCKS // max(BKV, 1))))
-    rows = -(-chunks // splits) * _CHUNK
-    return -(-S // rows) if S else 1, rows
+def plan(BKV: int, group: int, S: int, q_dtype: torch.dtype,
+         cache_dtype: torch.dtype, hd: int, device) -> tuple:
+    """(splits, rows per split) of the launch (``decode_attn.plan``: one
+    cluster per KV row and group of 16 heads)."""
+    return _da.plan("flash_decode", "flash_decode_max_clusters",
+                    (_Q_CODE[q_dtype], _CACHE_CODE[cache_dtype], hd), BKV,
+                    group, S, device)
 
 
-def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           kv_len: KvLen, k_scale: Optional[torch.Tensor] = None,
-           v_scale: Optional[torch.Tensor] = None, *,
-           group: int = 1) -> torch.Tensor:
-    """Launch the kernel. q (BH, hd) f32 or bf16; k, v (BKV, S, hd) f32,
-    bf16 or int8 (then scales (BKV, S, 1) f32 or bf16); all contiguous on
-    one CUDA device; ``kv_len`` an int or an int32 tensor of one element on
-    that device. Returns (BH, hd) in q's dtype. Counted."""
+_PROBES = ("empty", "skeleton")
+
+
+def _launch(q, k, v, kv_len, k_scale, v_scale, group, probe=None):
+    """Launch the kernel and return (out, route), or with ``probe`` one of
+    ``_PROBES`` at the kernel's launch shape and return (out, None)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
@@ -157,24 +172,56 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         len_host = int(kv_len)
     BH, hd = q.shape
     BKV, S, _ = k.shape
-    splits, rows = split_plan(BKV, S)
+    if hd > _da.MAX_HD:
+        raise ValueError(f"the kernel takes hd <= {_da.MAX_HD}, got {hd}")
+    splits, rows = plan(BKV, group, S, q.dtype, k.dtype, hd, dev)
     out = torch.empty_like(q)
-    ws = torch.empty(BKV * splits * (2 * group + group * hd),
-                     dtype=torch.float32, device=dev)
-    tickets = _mm._tickets(BKV, dev)
-    err = _lib()(q.data_ptr(), _Q_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
-                 _CACHE_CODE[k.dtype],
-                 k_scale.data_ptr() if quant else None,
-                 v_scale.data_ptr() if quant else None,
-                 _Q_CODE[k_scale.dtype] if quant else 0, len_ptr, len_host,
-                 out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), BKV,
-                 group, S, hd, splits, rows, 1.0 / math.sqrt(hd),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    args = (q.data_ptr(), _Q_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
+            _CACHE_CODE[k.dtype], k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            _Q_CODE[k_scale.dtype] if quant else 0, len_ptr, len_host,
+            out.data_ptr(), BKV, group, S, hd, splits, rows)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn, probe_fn = _lib()
+    route = ctypes.c_int(-1)
+    if probe is None:
+        err = fn(*args, 1.0 / math.sqrt(hd), ctypes.byref(route), stream)
+    else:
+        err = probe_fn(*args, _PROBES.index(probe), stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
+    return out, None if probe else _da.ROUTES[route.value]
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_len: KvLen, k_scale: Optional[torch.Tensor] = None,
+           v_scale: Optional[torch.Tensor] = None, *,
+           group: int = 1) -> torch.Tensor:
+    """Launch the kernel. q (BH, hd) f32 or bf16, hd <= 128; k, v (BKV, S,
+    hd) f32, bf16 or int8 (then scales (BKV, S, 1) f32 or bf16); all
+    contiguous on one CUDA device; ``kv_len`` an int or an int32 tensor of
+    one element on that device. Returns (BH, hd) in q's dtype. Counted,
+    and by route."""
+    out, route = _launch(q, k, v, kv_len, k_scale, v_scale, group)
     _LAUNCHES["n"] += 1
+    _LAUNCHES[route] += 1
     return out
+
+
+def probe_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kv_len: KvLen, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None, *,
+                 group: int = 1, kind: str = "empty") -> None:
+    """Launch a probe at the grid, cluster shape and shared memory that
+    ``launch`` would use for these inputs, to read what a launch of this
+    shape costs under a timer before its work: ``kind="empty"`` an empty
+    kernel; ``"skeleton"`` the kernel's chain of dependent steps alone (each
+    block reads kv_len from device memory, then loads its first cache row,
+    then passes the merge's two cluster barriers). Not counted."""
+    if kind not in _PROBES:
+        raise ValueError(f"kind must be one of {_PROBES}, got {kind!r}")
+    _launch(q, k, v, kv_len, k_scale, v_scale, group, kind)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -18,9 +18,13 @@ On a CPU tensor ``fused_decode_step`` runs ``fused_decode_plain``. On CUDA
 tensors it issues three launches (design in ``csrc/fused_decode.cu``): the
 QKV projection kernel, the attention kernel, and the morph_matmul kernel for
 the output projection with ``active_k = a_q``. ``launch_count()`` counts
-fused_decode_step calls that launched them. Dense caches enter the attention
-kernel as a pool of one page per slot (page = slot, table = arange(B)), so
-any capacity works; paged caches arrive with the paged slice.
+fused_decode_step calls that launched them. The attention kernel is the
+decode-attention core shared with ``flash_decode`` (``csrc/decode_attn.cuh``,
+split plan in ``decode_attn``): bf16 and int8 caches on the tensor cores
+(route ``"tc"``), f32 caches on f32 FMAs (route ``"fma"``), counted by
+``route_counts()`` from the route the kernel reports it launched. It reads
+the dense (B, S, KV, hd) cache in place, so any capacity works; paged
+caches arrive with the paged slice.
 
 ``fused_verify`` is the same layer over S positions per slot (speculative
 verify, linear or token tree), with the contract of ``layers.mha_verify``:
@@ -38,18 +42,19 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
 from repro_torch.models.layers import _cache_kpos
 
 KERNEL_NEG_INF = -1e30  # running-max init (flash_decode convention)
 
-_LAUNCHES = {"n": 0}
+_LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
 _TABLES: Dict[tuple, torch.Tensor] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _CACHE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_CHUNK = 64  # cache rows the attention kernel stages at once (kChunk)
+_CHUNK = 64  # cache rows the verify kernel stages at once (kChunk)
 _ATTN_TARGET_BLOCKS = 264  # two resident blocks on each of the H100's 132 SMs
 
 
@@ -58,8 +63,16 @@ def launch_count() -> int:
     return _LAUNCHES["n"]
 
 
+def route_counts() -> dict:
+    """fused_decode_step calls per route of its attention kernel since
+    import / reset, as the launch reports it: ``tc`` (bf16 or int8 cache,
+    tensor cores) and ``fma`` (f32 cache, f32 FMAs)."""
+    return {r: _LAUNCHES[r] for r in ("tc", "fma")}
+
+
 def reset_launch_count() -> None:
-    _LAUNCHES["n"] = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0
 
 
 def _gates(active, B: int, device):
@@ -181,20 +194,30 @@ def _lib():
     if qkv.argtypes is None:
         qkv.argtypes = [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 6 + [_P]
         qkv.restype = _I
-        attn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+        attn.argtypes = [_P] * 7 + [_I] + [_P] * 2 + [_I] * 9 + [_F, _F,
+                                                                 _P, _P]
         attn.restype = _I
     return qkv, attn
 
 
 def _attn_plan(heads: int, S: int, max_splits: int = 1 << 30):
-    """(splits, rows per split) of the cache rows for ``heads`` (slot, KV
-    head) pairs: enough blocks to fill the card (at most ``max_splits`` per
-    pair), whole 64-row chunks."""
+    """(splits, rows per split) of the verify kernel's cache rows for
+    ``heads`` (slot, KV head) pairs: enough blocks to fill the card (at most
+    ``max_splits`` per pair), whole 64-row chunks."""
     chunks = max(1, -(-S // _CHUNK))
     s = max(1, min(chunks, -(-_ATTN_TARGET_BLOCKS // heads), max_splits))
     per = -(-chunks // s)
     return -(-chunks // per), per * _CHUNK
+
+
+def attn_plan(B: int, H: int, KV: int, hd: int, S: int,
+              cache_dtype: torch.dtype, device) -> tuple:
+    """(splits, rows per split) of the attention launch
+    (``decode_attn.plan``: one cluster per (slot, KV head) and group of 16
+    heads)."""
+    return _da.plan("fused_decode", "fused_attn_max_clusters",
+                    (_CACHE_CODE[cache_dtype], hd), B * KV, H // KV, S,
+                    device)
 
 
 def _identity_table(B: int, device) -> torch.Tensor:
@@ -237,6 +260,9 @@ def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
         pos = pos.expand(B)
     pos = pos.contiguous()
     _mm._check(pos, "pos", dev, (torch.int32,))
+    if hd > _da.MAX_HD or hd % 2:
+        raise ValueError(f"the attention kernel takes an even hd <= "
+                         f"{_da.MAX_HD}, got {hd}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     qkv_fn, attn_fn = _lib()
     qd, kvd = H * hd, KV * hd
@@ -254,23 +280,20 @@ def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
         raise RuntimeError(f"fused QKV kernel launch failed: CUDA error {err}")
     att = torch.empty((B, qd), dtype=torch.float32, device=dev)
     rope_coef = float(np.float32(math.log(cfg.rope_theta) / (hd // 2)))
-    splits, rows = _attn_plan(B * KV, S)
-    G = H // KV
-    ws_a = torch.empty(B * KV * splits * (2 * G + G * hd), dtype=torch.float32,
-                       device=dev)
+    splits, rows = attn_plan(B, H, KV, hd, S, kc.dtype, dev)
+    route = ctypes.c_int(-1)
     err = attn_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kc.data_ptr(),
                   vc.data_ptr(), ks_p, vs_p, _CACHE_CODE[kc.dtype],
-                  _identity_table(B, dev).data_ptr(), pos.data_ptr(),
-                  att.data_ptr(), ws_a.data_ptr(),
-                  _mm._tickets(B * KV, dev).data_ptr(), B, H, KV, hd, 1, S,
+                  pos.data_ptr(), att.data_ptr(), B, H, KV, hd, S,
                   int(cfg.sliding_window), int(bool(cfg.use_rope)), splits,
-                  rows, rope_coef, 1.0 / math.sqrt(hd), stream)
+                  rows, rope_coef, 1.0 / math.sqrt(hd), ctypes.byref(route),
+                  stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: "
                            f"CUDA error {err}")
     out = torch.empty((B, 1, wo.shape[1]), dtype=x.dtype, device=dev)
     _mm.launch(att.view(B, 1, qd), wo, out, None, a_q, round_w=False)
-    return out, cache
+    return out, cache, _da.ROUTES[route.value]
 
 
 def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
@@ -286,10 +309,11 @@ def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
     if x.device.type == "cpu":
         return fused_decode_plain(params, x, cache, pos, cfg, a_q, a_kv)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    out = _fused_decode_cuda(params, x.contiguous(), cache, pos, cfg, a_q,
-                             a_kv)
+    out, cache, route = _fused_decode_cuda(params, x.contiguous(), cache,
+                                           pos, cfg, a_q, a_kv)
     _LAUNCHES["n"] += 1
-    return out
+    _LAUNCHES[route] += 1
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

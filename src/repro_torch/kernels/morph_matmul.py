@@ -174,9 +174,9 @@ def _split_plan(n_cols: Tuple[int, ...], K: int,
 
 
 def _tickets(n: int, device: torch.device) -> torch.Tensor:
-    """Zeroed counters for the attention kernels' last-block merges
-    (``fused_decode``, ``flash_decode``); each kernel leaves them zeroed
-    again, so one buffer serves every launch on the stream."""
+    """Zeroed counters for the verify kernel's last-block merge
+    (``fused_verify``); the kernel leaves them zeroed again, so one buffer
+    serves every launch on the stream."""
     key = str(device)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:

@@ -114,10 +114,16 @@ def test_morph_matmul_dead_tiles_are_zero(cuda, dtype):
         _close(got, MM.morph_matmul_plain(x, w, an), dtype)
 
 
-@pytest.mark.parametrize("variant", ["full", "swa", "kv_quant", "bf16"])
+@pytest.mark.parametrize("variant", ["full", "swa", "kv_quant", "bf16",
+                                     "swa_bf16", "swa_int8"])
 def test_fused_decode_kernels_match_plain(cuda, variant):
+    """The smoke config (hd 16) with f32 caches on the FMA route and bf16 /
+    int8 caches on the tensor-core route, with and without a sliding window
+    (the slot wraps at position S + 70)."""
     kw = {"full": {}, "swa": {"sliding_window": 6},
-          "kv_quant": {"kv_quant": True}, "bf16": {"dtype": "bfloat16"}}[variant]
+          "kv_quant": {"kv_quant": True}, "bf16": {"dtype": "bfloat16"},
+          "swa_bf16": {"sliding_window": 40, "dtype": "bfloat16"},
+          "swa_int8": {"sliding_window": 40, "kv_quant": True}}[variant]
     cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -125,7 +131,7 @@ def test_fused_decode_kernels_match_plain(cuda, variant):
     params = {n: torch.randn(*s, generator=g, device=cuda) / np.sqrt(s[0])
               for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
                            ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
-    S = 6 if cfg.sliding_window else 130
+    S = cfg.sliding_window or 130
     shape = (B, S, KV, hd)
     if cfg.kv_quant:
         cache = {"k": torch.randint(-127, 128, shape, generator=g, device=cuda,
@@ -145,7 +151,10 @@ def test_fused_decode_kernels_match_plain(cuda, variant):
            "kv_dim": torch.tensor([16, 32, 24], dtype=torch.int32, device=cuda)}
     c_k = {n: t.clone() for n, t in cache.items()}
     c_p = {n: t.clone() for n, t in cache.items()}
+    route = "fma" if cache["k"].dtype == torch.float32 else "tc"
+    r0 = FD.route_counts()
     o_k, _ = FD.fused_decode_step(params, x, c_k, pos, cfg, active=act)
+    assert FD.route_counts()[route] == r0[route] + 1
     o_p, _ = FD.fused_decode_plain(params, x, c_p, pos, cfg, act["q_dim"],
                                    act["kv_dim"])
     torch.cuda.synchronize()
@@ -503,3 +512,176 @@ def test_cuda_tensors_reach_the_flash_kernels_never_the_plain(cuda,
     n0 = FDK.launch_count()
     FDK.flash_decode(q, kv, kv, 10, group=4)
     assert FDK.launch_count() == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# the decode-attention core (csrc/decode_attn.cuh) under both kernels
+# ---------------------------------------------------------------------------
+
+
+def _serving_cache(g, cuda, shape, cache):
+    """k, v and (int8) bf16 scales of a cache of ``shape`` (the last axis
+    hd) in ``cache`` dtype."""
+    from repro_torch.models.layers import quantize_kv
+
+    k = torch.randn(shape, generator=g, device=cuda)
+    v = torch.randn(shape, generator=g, device=cuda)
+    if cache == "int8":
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        return k, v, ks, vs
+    dt = torch.bfloat16 if cache == "bf16" else torch.float32
+    return k.to(dt), v.to(dt), None, None
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "int8_f32_scales",
+                                   "f32"])
+def test_flash_decode_serving_shape_matches_plain(cuda, cache):
+    """The TinyLlama serving cache (32 KV rows of 512, group 8, hd 64):
+    bf16 and int8 (bf16 or f32 scales) on the tensor cores with bf16
+    queries, f32 on the FMA route with f32 queries; kv_len 0, 1, 37 (every
+    split empty but the first), 300 and 512 on the device."""
+    from repro_torch.kernels import flash_decode as FDK
+
+    BKV, G, S, hd = 32, 8, 512, 64
+    g = torch.Generator(device=cuda).manual_seed(21)
+    k, v, ks, vs = _serving_cache(g, cuda, (BKV, S, hd),
+                                  cache.split("_")[0])
+    if cache == "int8_f32_scales":
+        ks, vs = ks.float(), vs.float()
+    qdt = torch.float32 if cache == "f32" else torch.bfloat16
+    q = torch.randn(BKV * G, hd, generator=g, device=cuda).to(qdt)
+    assert FDK.plan(BKV, G, S, qdt, k.dtype, hd, cuda)[0] > 1
+    route = "fma" if cache == "f32" else "tc"
+    for n in (0, 1, 37, 300, 512):
+        r0 = FDK.route_counts()
+        got = FDK.flash_decode(q, k, v, torch.tensor([n], dtype=torch.int32,
+                                                     device=cuda), ks, vs,
+                               group=G)
+        assert FDK.route_counts()[route] == r0[route] + 1
+        want = FDK.flash_decode_plain(q, k, v, n, ks, vs, group=G)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got.float()).all())
+        _close(got, want, qdt)
+        if n == 0:
+            assert not bool(got.any())
+
+
+def _fused_serving_case(cuda, cache, pos, S=1024, seed=22):
+    """Full-width TinyLlama attention weights, B = 8 slots at mixed widths
+    and positions ``pos`` over an S-row cache of ``cache`` dtype."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import elastic
+
+    cfg = get_config("tinyllama-1.1b")
+    if cache == "int8":
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    dm, H, KV, hd, B = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    params = {n: torch.randn(*s, generator=g, device=cuda) / np.sqrt(s[0])
+              for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
+                           ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
+    k, v, ks, vs = _serving_cache(g, cuda, (B, S, KV, hd), cache)
+    c = {"k": k, "v": v}
+    if cache == "int8":
+        c.update(k_scale=ks, v_scale=vs)
+    xdt = torch.float32 if cache == "f32" else torch.bfloat16
+    x = torch.randn(B, 1, dm, generator=g, device=cuda).to(xdt)
+    act = elastic.active_widths_batch(
+        cfg, [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25], device=cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    return cfg, params, c, x, act, pos
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("where", ["mixed", "first_split"])
+def test_fused_decode_serving_shape_matches_plain(cuda, cache, where):
+    """One full-width TinyLlama attention layer, B = 8 over a 1024-row
+    cache: the kernels against the plain version, output and written cache
+    (int8 values within 1: f32 sums in another order may move a value across
+    a .5 edge). "first_split": every slot below position 64, so every split
+    of every (slot, head) is empty but the first."""
+    pos = ([0, 1, 63, 64, 200, 511, 777, 1023] if where == "mixed"
+           else [0, 1, 2, 7, 30, 31, 62, 63])
+    cfg, params, cache_, x, act, pos_t = _fused_serving_case(cuda, cache,
+                                                             pos)
+    assert FD.attn_plan(8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 1024,
+                        cache_["k"].dtype, cuda)[0] > 1
+    c_k = {n: t.clone() for n, t in cache_.items()}
+    c_p = {n: t.clone() for n, t in cache_.items()}
+    o_k, _ = FD.fused_decode_step(params, x, c_k, pos_t, cfg, active=act)
+    o_p, _ = FD.fused_decode_plain(params, x, c_p, pos_t, cfg, act["q_dim"],
+                                   act["kv_dim"])
+    torch.cuda.synchronize()
+    _close(o_k, o_p, x.dtype)
+    for n in c_k:
+        if c_k[n].dtype == torch.int8:
+            assert int((c_k[n].int() - c_p[n].int()).abs().max()) <= 1, n
+        else:
+            _close(c_k[n], c_p[n], c_k[n].dtype)
+
+
+@pytest.mark.parametrize("kernel", ["flash_decode", "fused_decode"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_decode_attn_kernels_are_deterministic(cuda, kernel, cache):
+    """Repeated launches on the same inputs are bit-identical: the splits'
+    partials are merged in split order through the cluster's shared
+    memory, with no atomics."""
+    from repro_torch.kernels import flash_decode as FDK
+
+    if kernel == "flash_decode":
+        g = torch.Generator(device=cuda).manual_seed(23)
+        k, v, ks, vs = _serving_cache(g, cuda, (32, 512, 64), cache)
+        q = torch.randn(256, 64, generator=g, device=cuda).to(torch.bfloat16)
+        n = torch.tensor([479], dtype=torch.int32, device=cuda)
+
+        def run():
+            return FDK.flash_decode(q, k, v, n, ks, vs, group=8)
+    else:
+        cfg, params, c, x, act, pos = _fused_serving_case(
+            cuda, cache, [5, 100, 333, 512, 640, 700, 900, 1000])
+        base = {nm: t.clone() for nm, t in c.items()}
+
+        def run():
+            for nm in c:  # the same cache before every launch
+                c[nm].copy_(base[nm])
+            return FD.fused_decode_step(params, x, c, pos, cfg,
+                                        active=act)[0]
+    first = run().clone()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+@pytest.mark.parametrize("shape", [(8, 2048, 32768), (8, 5632, 2048),
+                                   (40, 5632, 2048)],
+                         ids=["logits", "wo_8", "wo_40"])
+def test_bf16_matmul_sums_in_f32(cuda, shape):
+    """The port's ungated bf16 products (``layers.matmul``: the prompt
+    pass's projections and every step's logits) against the f32-sum result:
+    the operands upcast, the product in f32, then rounded once to bf16, as
+    the reference sums them (``preferred_element_type=f32``). At most one
+    bf16 step apart, at the split-K-prone shapes of the TinyLlama logits and
+    the MLP's output projection (K = 5632) at 8 and 40 rows.
+
+    The operands are small integers (x in [-8, 8], w in [-8, 8] / 64), so
+    every partial sum is exact in f32 (at most 19 significant bits) and the
+    f32 sum does not depend on its order: an f32 reduction gives exactly
+    the reference, while split-K partials rounded to bf16 (8 bits) would
+    move outputs by several steps. (With real-valued operands two f32 sums
+    in different orders differ by more than a bf16 step of an output that
+    cancels to near zero, which says nothing about the reduction.)"""
+    from repro_torch.models import layers as L
+
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randint(-8, 9, (M, K), generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = torch.randint(-8, 9, (K, N), generator=g, device=cuda).float() / 64
+    got = L.matmul(x, w, torch.bfloat16)
+    want = (x.float() @ w).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+    step = torch.ldexp(torch.ones_like(got, dtype=torch.float32), e - 8)
+    bad = (got.float() - want.float()).abs() > step
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} outputs more than one bf16 step "
+        f"from the f32-sum result")

@@ -31,6 +31,7 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_jax, to_numpy
+from repro_torch.kernels import decode_attn as TDA
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import ops as TOPS
@@ -233,12 +234,37 @@ def test_flash_decode_zero_length_gives_zeros():
     assert not bool(got.any())
 
 
-def test_flash_decode_split_plan_covers_the_cache():
-    for bkv, s in ((32, 512), (2, 128), (1, 1), (64, 4096), (3, 100)):
-        splits, rows = TFD.split_plan(bkv, s)
-        assert rows % 64 == 0 and splits * rows >= s
-        assert (splits - 1) * rows < s  # no empty split past the cache
-    assert TFD.split_plan(32, 512) == (8, 64)  # 256 blocks at serving shape
+@pytest.mark.parametrize("clusters,S,caps", [
+    (32, 512, tuple(396 // s for s in range(1, 17))),   # flash_decode serving
+    (32, 1024, tuple(528 // s for s in range(1, 17))),  # fused decode, B = 8
+    (32, 1024, (200,) * 7 + (20,) * 9),                 # 16 blocks do not fit
+    (2, 128, tuple(396 // s for s in range(1, 17))),
+    (1, 1, tuple(396 // s for s in range(1, 17))),
+    (1, 0, tuple(396 // s for s in range(1, 17))),
+    (64, 4096, tuple(264 // s for s in range(1, 17))),
+    (3, 100, (1,) * 16),                                # nothing fits
+    (1000, 300, tuple(396 // s for s in range(1, 17))),
+])
+def test_flash_decode_split_plan_covers_the_cache(clusters, S, caps):
+    """The decode-attention core's split plan (shared by flash_decode and
+    the fused decode): whole 64-row chunks, every cache row in exactly one
+    split, no split past the cache, at most 16 splits (one cluster), and
+    more than one split only when every unit's cluster fits on the card at
+    once, with no larger split count that would fit as well."""
+    splits, rows = TDA.split_plan(clusters, S, caps)
+    assert rows % 64 == 0 and 1 <= splits <= 16
+    covered = np.zeros(max(S, 1), np.int64)
+    for sp in range(splits):
+        covered[sp * rows:min((sp + 1) * rows, S)] += 1
+        assert sp * rows < max(S, 1)  # no split past the cache
+    assert (covered[:S] == 1).all()
+    chunks = max(1, -(-S // 64))
+    if splits > 1:
+        assert caps[splits - 1] >= clusters
+    for s in range(splits + 1, min(16, chunks) + 1):
+        assert caps[s - 1] < clusters or -(-chunks // -(-chunks // s)) == splits
+    if (clusters, S) == (32, 512):
+        assert (splits, rows) == (8, 64)  # 256 blocks at the serving shape
 
 
 def test_flash_decode_launch_needs_cuda():

@@ -22,6 +22,18 @@ work and rounding, on the same numpy inputs as the Pallas kernels.
 * The split planner (``kernels/morph_matmul.py``: ``_split_plan``): every
   split non-empty, each contraction row in exactly one split, at most 16
   splits, and one wave whenever more than one split is taken.
+* The decode-attention core (``csrc/decode_attn.cuh``: ``flash_decode`` and
+  the attention launch of ``fused_decode_step``), bf16 and int8 caches:
+  f32 q split as q_hi + q_lo (bf16 q as it is) times the cache's exact
+  values in bf16, f32 sums; an int8 cache's k scale applied to the score
+  after Q.K^T and its v scale folded into p before P.V (l sums the
+  unfolded p); an online softmax per warp over its 16 rows of every 64-row
+  chunk of its split, the 4 warps merged in order, then the splits'
+  partials merged in split order (with the new token's extension column in
+  the fused decode); P.V as p_hi + p_lo. Held to the Pallas kernels in
+  interpret mode: bf16 outputs to one bf16 step (rtol 2^-7 + atol 1e-3),
+  f32 outputs to rtol 1e-4 + atol 1e-4 (the two splits keep q and p to
+  about 2^-16, summed over 16..64 terms of O(1)).
 """
 import math
 
@@ -30,12 +42,21 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.kernels import fused_decode as JFD
 from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.morph_matmul import morph_matmul as jax_morph_matmul
+from repro_torch.configs import smoke_config
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_decode as FDK
+from repro_torch.kernels import fused_decode as FD
 from repro_torch.kernels import morph_matmul as MM
 
 BF16_TOL = dict(atol=1e-3, rtol=2.0 ** -7)
+F32_TOL = dict(atol=1e-4, rtol=1e-4)
 NEG_INF = -1e30
 
 
@@ -235,3 +256,263 @@ def test_split_plan_covers_each_row_once(n_cols, K, caps):
     chunks = -(-K // 64)
     for s in range(splits + 1, min(16, chunks) + 1):
         assert caps[s - 1] < tiles or -(-chunks // -(-chunks // s)) == splits
+
+
+# ---------------------------------------------------------------------------
+# the decode-attention core
+# ---------------------------------------------------------------------------
+
+
+def tc_decode(q, k, v, ok, rps, k_scale=None, v_scale=None, ext=None,
+              q_split=True, chunk=64, warp_rows=16):
+    """The decode-attention core's tensor-core arithmetic for U units. q
+    (U, G, hd) f32 (bf16 values when ``q_split`` is False); k, v (U, S, hd)
+    the cache's values (bf16 or int8, held in f32); ok (U, S) the rows that
+    attend; scales (U, S) for an int8 cache; ``ext`` (scores (U, G), values
+    (U, hd)) an extension column merged with the splits. Splits of ``rps``
+    rows, 64-row chunks, 16 rows per warp. Returns (U, G, hd) f32."""
+    U, G, hd = q.shape
+    S = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    if q_split:
+        qh, ql = split_p(q)
+        qq = (qh, ql)
+    else:
+        qq = (q,)
+    neg = torch.tensor(NEG_INF)
+    parts = []
+    for r0 in range(0, max(S, 1), rps):
+        warps = []
+        for w in range(chunk // warp_rows):
+            m = torch.full((U, G), NEG_INF)
+            l = torch.zeros(U, G)
+            acc = torch.zeros(U, G, hd)
+            for c0 in range(r0, min(r0 + rps, S), chunk):
+                a, b = c0 + w * warp_rows, min(c0 + (w + 1) * warp_rows, S)
+                if a >= b:
+                    continue
+                kt, vt, okt = k[:, a:b], v[:, a:b], ok[:, a:b]
+                s = sum(x @ kt.transpose(1, 2) for x in qq)  # (U, G, rows)
+                f = scale if k_scale is None else scale * k_scale[:, None, a:b]
+                x = torch.where(okt[:, None, :], s * f, neg)
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(okt[:, None, :], torch.exp(x - m_new[..., None]),
+                                torch.zeros(()))
+                l = l * alpha + p.sum(-1)
+                if v_scale is not None:
+                    p = p * v_scale[:, None, a:b]
+                hi, lo = split_p(p)
+                acc = acc * alpha[..., None] + hi @ vt + lo @ vt
+                m = m_new
+            warps.append((m, l, acc))
+        M = torch.stack([w[0] for w in warps]).amax(0)
+        L = torch.zeros(U, G)
+        A = torch.zeros(U, G, hd)
+        for m, l, acc in warps:  # the block's partial, warps in order
+            f = torch.exp(m - M)
+            L = L + l * f
+            A = A + acc * f[..., None]
+        parts.append((M, L, A))
+    M = torch.stack([p[0] for p in parts]).amax(0)
+    if ext is not None:
+        M = torch.maximum(M, ext[0])
+    L = torch.zeros(U, G)
+    A = torch.zeros(U, G, hd)
+    for m, l, acc in parts:  # the cluster's merge, in split order
+        f = torch.exp(m - M)
+        L = L + l * f
+        A = A + acc * f[..., None]
+    if ext is not None:
+        pe = torch.exp(ext[0] - M)
+        L = L + pe
+        A = A + pe[..., None] * ext[1][:, None, :]
+    return A / torch.clamp(L, min=1e-20)[..., None]
+
+
+def test_q_split_error_is_far_below_bf16():
+    """|q - q_hi - q_lo| <= 2^-16 |q|: the f32 queries of the fused decode
+    keep about 16 bits through two bf16 products."""
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy((rng.standard_normal(100_000)
+                          * np.exp(rng.uniform(-20, 20, 100_000))).astype(
+        np.float32))
+    hi, lo = split_p(q)
+    assert ((q - hi - lo).abs() / q.abs()).max().item() <= 2.0 ** -16
+
+
+@pytest.mark.parametrize("cache,q_dt,rps", [("bf16", "bf16", 64),
+                                            ("int8", "f32", 128),
+                                            ("int8", "bf16", 64)])
+def test_tc_flash_decode_emulation_matches_pallas(cache, q_dt, rps):
+    """flash_decode over one KV row of 192 positions, group 8, hd 32, in
+    splits of ``rps`` rows (3 splits of one chunk, or 2 of which the second
+    is short), at kv_len 0, 1, a ragged 77 and the full cache: the core's
+    arithmetic against the Pallas kernel in interpret mode, and the port's
+    plain version against both."""
+    G, S, hd = 8, 192, 32
+    rng = np.random.default_rng(len(cache) + rps)
+    q = rng.standard_normal((G, hd)).astype(np.float32)
+    k = rng.standard_normal((1, S, hd)).astype(np.float32)
+    v = rng.standard_normal((1, S, hd)).astype(np.float32)
+    if cache == "int8":
+        kq = np.clip(np.rint(k * 40), -127, 127).astype(np.int8)
+        vq = np.clip(np.rint(v * 40), -127, 127).astype(np.int8)
+        ks = rng.uniform(0.005, 0.05, (1, S, 1)).astype(np.float32)
+        vs = rng.uniform(0.005, 0.05, (1, S, 1)).astype(np.float32)
+        jk, jv = jnp.asarray(kq), jnp.asarray(vq)
+        jks = jnp.asarray(ks).astype(jnp.bfloat16)
+        jvs = jnp.asarray(vs).astype(jnp.bfloat16)
+        tk, tv = torch.from_numpy(kq), torch.from_numpy(vq)
+        tks = torch.from_numpy(ks).bfloat16()
+        tvs = torch.from_numpy(vs).bfloat16()
+        scales = (tks.float()[..., 0], tvs.float()[..., 0])
+    else:
+        (jk, tk), (jv, tv) = _bf16(k), _bf16(v)
+        jks = jvs = tks = tvs = None
+        scales = (None, None)
+    if q_dt == "bf16":
+        jq, tq = _bf16(q)
+        tol = BF16_TOL
+    else:
+        jq, tq = jnp.asarray(q), torch.from_numpy(q)
+        tol = F32_TOL
+    for n in (0, 1, 77, S):
+        want = np.asarray(jax_flash_decode(jq, jk, jv, n, jks, jvs, group=G,
+                                           bk=64, interpret=True)).astype(
+            np.float32)
+        ok = torch.arange(S)[None, :] < n
+        got = tc_decode(tq.float()[None], tk.float(), tv.float(), ok, rps,
+                        *scales, q_split=q_dt == "f32")[0]
+        got = got.to(tq.dtype).float().numpy()
+        np.testing.assert_allclose(got, want, **tol, err_msg=f"kv_len {n}")
+        plain = FDK.flash_decode_plain(tq, tk, tv, n, tks, tvs, group=G)
+        np.testing.assert_allclose(plain.float().numpy(), want, **tol)
+        if n == 0:
+            assert not got.any()
+
+
+def tc_fused_decode(params, x, cache, pos, cfg, a_q, a_kv, rps):
+    """The fused decode's kernels on a bf16 or int8 cache: f32 QKV from the
+    f32 masters (gemv.cuh's exact-f32 route: an f32 product up to order),
+    RoPE and the quantize round trip as the plain version does them, the
+    attention by the core (one unit per (slot, KV head), the extension
+    column merged with the splits), the f32 output projection. Returns the
+    output and the cache it writes (a copy)."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    xf = x[:, 0].float()
+
+    def gate(y, a):
+        cols = torch.arange(y.shape[-1])[None, :]
+        return torch.where(cols < a[:, None], y, torch.zeros(()))
+
+    q = gate(xf @ params["wq"], a_q).view(B, H, hd)
+    kn = gate(xf @ params["wk"], a_kv).view(B, KV, hd)
+    vn = gate(xf @ params["wv"], a_kv).view(B, KV, hd)
+    q = FD._rope_rows(q, pos, cfg.rope_theta)
+    kn = FD._rope_rows(kn, pos, cfg.rope_theta)
+    out_cache = {n: t.clone() for n, t in cache.items()}
+    S = cache["k"].shape[1]
+    if cfg.kv_quant:
+        ksc = kn.abs().amax(-1, keepdim=True) / 127.0
+        vsc = vn.abs().amax(-1, keepdim=True) / 127.0
+        kq = torch.round(kn / torch.clamp(ksc, min=1e-8))
+        vq = torch.round(vn / torch.clamp(vsc, min=1e-8))
+        ke = kq * ksc.bfloat16().float()
+        ve = vq * vsc.bfloat16().float()
+        k_st, v_st = kq.to(torch.int8), vq.to(torch.int8)
+        scales = (cache["k_scale"].float()[..., 0].transpose(1, 2)
+                  .reshape(B * KV, S),
+                  cache["v_scale"].float()[..., 0].transpose(1, 2)
+                  .reshape(B * KV, S))
+    else:
+        k_st, v_st = kn.bfloat16(), vn.bfloat16()
+        ke, ve = k_st.float(), v_st.float()
+        scales = (None, None)
+    slot, kpos = FD._slot_kpos(pos, S, cfg.sliding_window)
+    p = pos.long()[:, None]
+    ok = (kpos >= 0) & (kpos <= p)
+    if cfg.sliding_window:
+        ok &= kpos > p - cfg.sliding_window
+    kc = cache["k"].float().transpose(1, 2).reshape(B * KV, S, hd)
+    vc = cache["v"].float().transpose(1, 2).reshape(B * KV, S, hd)
+    qu = q.view(B * KV, G, hd)
+    s_e = (qu * ke.reshape(B * KV, 1, hd)).sum(-1) / math.sqrt(hd)
+    o = tc_decode(qu, kc, vc, ok.repeat_interleave(KV, 0), rps, *scales,
+                  ext=(s_e, ve.reshape(B * KV, hd)))
+    o = gate(o.reshape(B, H * hd), a_q)
+    out = (o @ params["wo"]).to(x.dtype)[:, None, :]
+    bix = torch.arange(B)
+    out_cache["k"][bix, slot] = k_st
+    out_cache["v"][bix, slot] = v_st
+    if cfg.kv_quant:
+        out_cache["k_scale"][bix, slot] = ksc.bfloat16()
+        out_cache["v_scale"][bix, slot] = vsc.bfloat16()
+    return out, out_cache
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "swa_bf16", "swa_int8"])
+def test_tc_fused_decode_emulation_matches_pallas(variant):
+    """fused_decode_step on the smoke config (G = 2, hd 16) at mixed widths
+    over a 160-row cache (three 64-row splits; with a sliding window of 80
+    the ring is 80 rows, two splits, and the last slot's position wraps):
+    bf16 activations and cache, or f32 activations over an int8 cache. The
+    core's arithmetic against the Pallas kernel in interpret mode, output
+    and written cache (int8 values exact)."""
+    kw = {"bf16": {"dtype": "bfloat16"}, "int8": {"kv_quant": True},
+          "swa_bf16": {"dtype": "bfloat16", "sliding_window": 80},
+          "swa_int8": {"kv_quant": True, "sliding_window": 80}}[variant]
+    jcfg = dataclasses.replace(jax_smoke_config("tinyllama-1.1b"), **kw)
+    tcfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
+    rng = np.random.default_rng(len(variant))
+    dm, H, KV, hd, B = tcfg.d_model, tcfg.n_heads, tcfg.n_kv_heads, \
+        tcfg.head_dim, 3
+    params = {n: (rng.standard_normal(sh) / np.sqrt(sh[0])).astype(np.float32)
+              for n, sh in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
+                            ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
+    S = tcfg.sliding_window or 160
+    shape = (B, S, KV, hd)
+    x = rng.standard_normal((B, 1, dm)).astype(np.float32)
+    if tcfg.kv_quant:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, shape[:-1] + (1,)).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, shape[:-1] + (1,)).astype(np.float32)
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v),
+              "k_scale": jnp.asarray(ks).astype(jnp.bfloat16),
+              "v_scale": jnp.asarray(vs).astype(jnp.bfloat16)}
+        tc = {"k": torch.from_numpy(k), "v": torch.from_numpy(v),
+              "k_scale": torch.from_numpy(ks).bfloat16(),
+              "v_scale": torch.from_numpy(vs).bfloat16()}
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+        tol = F32_TOL
+    else:
+        k = rng.standard_normal(shape).astype(np.float32)
+        v = rng.standard_normal(shape).astype(np.float32)
+        (jk, tk), (jv, tv) = _bf16(k), _bf16(v)
+        jc, tc = {"k": jk, "v": jv}, {"k": tk, "v": tv}
+        jx, tx = _bf16(x)
+        tol = BF16_TOL
+    pos = np.array([0, 70, S + 100], np.int32)
+    a_q = np.array([32, 64, 24], np.int32)
+    a_kv = np.array([16, 32, 24], np.int32)
+    o_j, c_j = JFD.fused_decode_step(
+        {n: jnp.asarray(w) for n, w in params.items()}, jx, jc,
+        jnp.asarray(pos), jcfg,
+        active={"q_dim": jnp.asarray(a_q), "kv_dim": jnp.asarray(a_kv)},
+        impl="pallas", interpret=True)
+    o_t, c_t = tc_fused_decode(
+        {n: torch.from_numpy(w) for n, w in params.items()}, tx, tc,
+        torch.from_numpy(pos), tcfg, torch.from_numpy(a_q),
+        torch.from_numpy(a_kv), rps=64)
+    np.testing.assert_allclose(o_t.float().numpy(),
+                               np.asarray(o_j).astype(np.float32), **tol)
+    for n in tc:
+        got = c_t[n].float().numpy()
+        want = np.asarray(c_j[n]).astype(np.float32)
+        if c_t[n].dtype == torch.int8:
+            np.testing.assert_array_equal(got, want, err_msg=n)
+        else:
+            np.testing.assert_allclose(got, want, **BF16_TOL, err_msg=n)

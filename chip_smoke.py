@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    (one nvcc per source, started together) and print the build seconds,
    each kernel's ptxas registers and spills, and the tensor-core (HMMA)
    instructions in the SASS of ``morph_matmul``, ``flash_attention``,
-   ``fused_decode`` and ``flash_decode``.
+   ``fused_decode``, ``flash_decode``, ``fused_verify`` and ``ssd_scan``.
 2. The read rate a streaming kernel can reach under the timer below
    (``read_rate``). Kernels vs their plain versions, on the card, at full
    TinyLlama-1.1B shapes in bf16 with B = 8 slots at mixed widths
@@ -19,7 +19,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    (attention, QKV, output projection) timed beside its own byte bound and
    the attention beside SDPA over the same live rows; ``fused_verify`` on a 512-row cache at
    mixed committed counts, a bf16 cache with the linear mask (S = 5) and an
-   int8 cache with a (2, 2) token-tree mask (S = 7); ``flash_attention`` at
+   int8 cache with a (2, 2) token-tree mask (S = 7), each launch on the
+   tensor-core route, its three launches (QKV, attention, output
+   projection) timed in both of its timed passes, the attention beside its
+   bound and beside SDPA over the same live rows and extension columns
+   under the same boolean mask; ``flash_attention`` at
    the full-width prompt pass (1 x 256 tokens, 32 / 4 heads of 64, causal,
    bf16), at a ragged S = 200 and at the reference's ``kernel_bench`` shape
    (f32, window 0 and 64); ``flash_decode`` at the serving cache's shape
@@ -33,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    verify pass's S = 5), and ``ssd_scan`` at the
    full-width prompt pass (1 x 256 tokens, 32 heads of 64, n = 128, chunk
    256; and 200 tokens, a ragged tile, through ``ops.ssd_scan_bshn``) and
-   at the reference's ``kernel_bench`` shape. Each is timed on the card
+   at the reference's ``kernel_bench`` shape, each of its three launches
+   beside the sum. Each is timed on the card
    (device time of its kernels from ``torch.profiler``, L2 flushed before
    every call; the CUDA-event time of the whole call, host launch gaps
    included, is printed beside it) together with its plain version, a
@@ -61,10 +66,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    per verify layer-step; Mamba2, 4 ``morph_matmul`` per SSM layer-step
    and 1 ``ssd_scan`` per SSM layer of every prefill; under
    ``attn_impl="chunked"``, 1 ``flash_attention`` per attention layer of
-   every prefill, and none on any other drive; every ``fused_decode``
-   and ``flash_decode`` launch on the tensor-core route. Then one full-depth
-   256-token prompt pass under the einsum and under the chunked attention
-   (host and device ms), and the ``flash_decode`` entry point (which no
+   every prefill, and none on any other drive; every ``fused_decode``,
+   ``fused_verify`` and ``flash_decode`` launch on the tensor-core route.
+   Then one full-depth 256-token prompt pass under the einsum and under the
+   chunked attention (host and device ms), one full-depth 256-token
+   Mamba2 prompt pass (48 scans), and the ``flash_decode`` entry point (which no
    model path calls, as in the reference) driven once per TinyLlama layer
    at the serving cache's shape. Speculative drives
    report acceptance, tokens per verify launch per slot, tick p50/p95 and
@@ -198,12 +204,17 @@ class Timer:
     def warm_ms(self, fn, iters: int = 20) -> dict:
         """Device ms per call of each kernel over ``iters`` back-to-back
         calls with no flush between them (L2 and the instruction caches
-        warm, as in a serving loop), from ``torch.profiler``."""
+        warm, as in a serving loop), from ``torch.profiler``; profiled
+        again (three times in all) when a profile comes back empty."""
         for _ in range(3):
             fn()
         self.torch.cuda.synchronize()
-        return {k: v / iters / 1e3
-                for k, v in kernel_us(self.torch, fn, iters).items()}
+        for _ in range(3):
+            per = {k: v / iters / 1e3
+                   for k, v in kernel_us(self.torch, fn, iters).items()}
+            if sum(per.values()) > 0.0:
+                return per
+        fail("torch.profiler recorded no device time for a warm call")
 
     def wall_ms(self, fn, iters: int = 20) -> float:
         torch = self.torch
@@ -478,6 +489,21 @@ def check_fused_decode(torch, cfg, timer):
                 rows_per_split=rows)
 
 
+def launch_parts(times):
+    """Device ms of a fused decode or verify layer by launch: the attention
+    (the decode core), the output projection (the f32-x product) and the
+    QKV product (bf16 x)."""
+    parts = {"attention": 0.0, "qkv": 0.0, "wo": 0.0}
+    for name, t in times.items():
+        if "decode_attn_core" in name:
+            parts["attention"] += t
+        elif "gated_gemm<float, float" in name:
+            parts["wo"] += t
+        elif "gated_gemm" in name:
+            parts["qkv"] += t
+    return parts
+
+
 def fused_launch_times(torch, timer, per_kernel, warm, cfg, x, cache, lens,
                        aq, akv):
     """The three launches of one fused decode layer (B = 8, bf16 cache),
@@ -495,18 +521,7 @@ def fused_launch_times(torch, timer, per_kernel, warm, cfg, x, cache, lens,
     S = cache["k"].shape[1]
     qd, kvd = H * hd, KV * hd
 
-    def split(times):
-        parts = {"attention": 0.0, "qkv": 0.0, "wo": 0.0}
-        for name, t in times.items():
-            if "decode_attn_core" in name:
-                parts["attention"] += t
-            elif "gated_gemm<float, float" in name:
-                parts["wo"] += t
-            elif "gated_gemm" in name:
-                parts["qkv"] += t
-        return parts
-
-    parts, warm_parts = split(per_kernel), split(warm)
+    parts, warm_parts = launch_parts(per_kernel), launch_parts(warm)
     nbytes = {
         "attention": (sum(lens) * KV * hd * 2 * 2 + B * (2 * qd + 2 * kvd) * 4
                       + B * KV * hd * 2 * 2),
@@ -606,7 +621,7 @@ def check_fused_verify(torch, cfg, timer):
     pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 505], dtype=torch.int32,
                        device="cuda")
     depths, bias = tree_np((2, 2))
-    errs = {}
+    errs, check_parts = {}, {}
     main = None
     for variant, qcfg, nd, tb, S in (
             ("bf16 linear", cfg, None, None, 5),
@@ -622,8 +637,13 @@ def check_fused_verify(torch, cfg, timer):
             cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
         before = {n: t.clone() for n, t in cache.items()}
         x = torch.randn(B, S, dm, generator=gen, device="cuda").to(torch.bfloat16)
+        r0 = FD.verify_route_counts()
         o_k, kv_k = FD.fused_verify(params, x, cache, pos, qcfg, active=act,
                                     node_depth=nd, tree_bias=tb)
+        r1 = FD.verify_route_counts()
+        if r1["tc"] != r0["tc"] + 1 or r1["fma"] != r0["fma"]:
+            fail(f"fused_verify {variant}: routes {r0} -> {r1}; a bf16 or "
+                 f"int8 cache must take the tensor-core route")
         o_p, kv_p = FD.fused_verify_plain(params, x, cache, pos, qcfg,
                                           act["q_dim"], act["kv_dim"], nd, tb)
         torch.cuda.synchronize()
@@ -642,20 +662,38 @@ def check_fused_verify(torch, cfg, timer):
         t_v = timer.ms(lambda: FD.fused_verify(params, x, cache, pos, qcfg,
                                                active=act, node_depth=nd,
                                                tree_bias=tb))
+        check_parts[variant] = launch_parts(timer.last)
         log(f"  fused_verify {variant} (B={B}, S={S}, cache {Sc}): out/k/v "
             f"max|err| {err:.3e} (rtol {RTOL_BF16:.2e} + atol "
-            f"{ATOL_BF16:.0e}); cache untouched; kernels {t_v:.4f} ms")
+            f"{ATOL_BF16:.0e}); cache untouched; route tc; kernels "
+            f"{t_v:.4f} ms (" + ", ".join(
+                f"{k} {v:.4f}" for k, v in check_parts[variant].items()) + ")")
         if main is None:
-            main = (x, cache, S)
-    x, cache, S = main
+            main = (x, cache, S, t_v)
+    x, cache, S, t_check = main
+    splits, rows = FD.verify_attn_plan(B, H, KV, hd, S, Sc, torch.bfloat16,
+                                       0, "cuda")
+    log(f"  fused_verify attention plan: {B * KV} clusters of {splits} "
+        f"blocks, {rows} cache rows each; one block carries the "
+        f"{(H // KV) * S} query rows of a (slot, KV head)")
 
     def run():
         return FD.fused_verify(params, x, cache, pos, cfg, active=act)
 
     t_k = timer.ms(run)
+    prof_parts = launch_parts(timer.last)
     for name, t in sorted(timer.last.items(), key=lambda kv: -kv[1]):
         log(f"    {t:.4f} ms  {name[:100]}")
     t_kw = timer.wall_ms(run)
+    warm_parts = launch_parts(timer.warm_ms(run))
+    log(f"  fused_verify bf16 linear per launch, check pass (timed right after "
+        f"its own check) / profiler pass (timed again after the int8 tree) / "
+        f"back to back with no flush: " + "; ".join(
+            f"{k} {check_parts['bf16 linear'][k]:.4f} / {prof_parts[k]:.4f} / "
+            f"{warm_parts[k]:.4f} ms" for k in prof_parts)
+        + f"; layer {t_check:.4f} / {t_k:.4f} ms")
+    attn = verify_attention_yardstick(torch, timer, cfg, x, cache, pos, S,
+                                      prof_parts["attention"])
     t_p = timer.ms(lambda: FD.fused_verify_plain(params, x, cache, pos, cfg,
                                                  act["q_dim"], act["kv_dim"]))
     aq, akv = act["q_dim"].tolist(), act["kv_dim"].tolist()
@@ -675,8 +713,49 @@ def check_fused_verify(torch, cfg, timer):
         f"{ops / 1e9:.3f} GFLOP f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s); at full "
         f"width with every slot at 512 rows: {full_bytes / 1e6:.1f} MB -> "
         f"{full_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    per_launch = {k: dict(ms=prof_parts[k], check_pass_ms=check_parts[
+        "bf16 linear"][k], warm_ms=warm_parts[k]) for k in prof_parts}
+    per_launch["attention"].update(attn)
     return dict(max_abs_err=max(errs.values()), ms=t_k, plain_ms=t_p,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                bound_ms=bound, bound_by=by, library_ms=None,
+                check_pass_ms=t_check, per_launch=per_launch, splits=splits,
+                rows_per_split=rows)
+
+
+def verify_attention_yardstick(torch, timer, cfg, x, cache, pos, S, t_attn):
+    """The verify attention launch beside its bound and beside SDPA over
+    the same live cache rows and S extension columns (bf16 q, K/V the cache
+    and the new rows concatenated beforehand, a boolean mask: cache rows
+    below each slot's committed count, extension columns causal), a
+    yardstick the port never calls. Bound: the live K/V rows read once,
+    the f32 q, new k and v read, the f32 output and the bf16 candidates
+    written, against the f32 work 4 H S hd (rows + S) at 67 TFLOP/s."""
+    F = torch.nn.functional
+    B, Sc = x.shape[0], cache["k"].shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lens = [min(p, Sc) for p in pos.tolist()]
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q = torch.randn(B, H, S, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    kn = torch.randn(B, KV, S, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.cat([cache["k"].transpose(1, 2), kn], dim=2).contiguous()
+    v = torch.cat([cache["v"].transpose(1, 2), kn], dim=2).contiguous()
+    live = (torch.arange(Sc, device="cuda")[None, :]
+            < torch.tensor(lens, device="cuda")[:, None])   # (B, Sc)
+    causal = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    mask = torch.cat([live[:, None, :].expand(B, S, Sc),
+                      causal[None].expand(B, S, S)], dim=2)[:, None]
+    t_sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True))
+    backend = sdpa_backend(timer.last)
+    nbytes = (sum(lens) * KV * hd * 2 * 2 + B * S * (2 * H + 2 * KV) * hd * 4
+              + 2 * B * S * KV * hd * 2)
+    ops = sum(4 * H * S * hd * (n + S) for n in lens)
+    bound, by = dense_bound(nbytes, ops, PEAK_F32)
+    log(f"  fused_verify attention launch: {t_attn:.4f} ms, bound {bound:.5f} "
+        f"ms ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP); SDPA "
+        f"({backend}) over the same live rows and extension columns "
+        f"{t_sdpa:.4f} ms")
+    return dict(bound_ms=bound, bound_by=by, bytes=nbytes, library_ms=t_sdpa)
 
 
 def check_morph_matmul_ssm(torch, cfg, timer):
@@ -789,7 +868,12 @@ def check_ssd_scan(torch, cfg, timer):
                      f"{RTOL_SCAN:.0e} + atol {ATOL_SCAN:.0e}")
             err = max(err, e)
         t_k = timer.ms(kern)
+        parts = {"chunk": 0.0, "pass": 0.0, "out": 0.0}
+        for name, t in timer.last.items():
+            parts["chunk" if "ssd_chunk_kernel" in name else "pass"
+                  if "ssd_pass_kernel" in name else "out"] += t
         t_kw = timer.wall_ms(kern)
+        t_warm = sum(timer.warm_ms(kern).values())
         t_p = timer.ms(plain)
         bound, by, nbytes, nops, tile = scan_bound(b, s, hh, pp, gg, nn)
         log(f"  ssd_scan {tag} (b={b}, h={hh}, p={pp}, g={gg}, n={nn}, chunk "
@@ -799,9 +883,12 @@ def check_ssd_scan(torch, cfg, timer):
             f"(call, event-timed {t_kw:.4f} ms)  plain {t_p:.4f} ms  bound "
             f"{bound:.4f} ms ({by}; {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
             f"GFLOP f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s, carried every "
-            f"{tile} steps)")
+            f"{tile} steps); launches: tile states and C.B^T "
+            f"{parts['chunk']:.4f} ms + carry {parts['pass']:.4f} ms + "
+            f"outputs {parts['out']:.4f} ms; {t_warm:.4f} ms back to back "
+            f"with no flush")
         res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
-                        bound_by=by)
+                        bound_by=by, per_launch=parts, warm_ms=t_warm)
     return res
 
 
@@ -1314,6 +1401,10 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
         if routes["tc"] != run_launches["fused_decode"]:
             fail(f"{tag} path: fused_decode routes {routes}; every launch "
                  f"over a bf16 cache must take the tensor-core route")
+        routes = FD.verify_route_counts()
+        if routes["tc"] != run_launches["fused_verify"]:
+            fail(f"{tag} path: fused_verify routes {routes}; every launch "
+                 f"over a bf16 cache must take the tensor-core route")
         want, steps = expect(torch, engine, steps0, fused, device)
         if run_launches != want:
             fail(f"{tag} path: launches {run_launches}, expected {want} for "
@@ -1499,16 +1590,18 @@ def _move(tree, dev):
             for k, v in tree.items()}
 
 
-def prompt_pass_ms(torch, params, cfg, seq: int = 256, iters: int = 5):
-    """One full-depth prompt pass of ``seq`` tokens (batch 1), under the
-    einsum attention and under ``attn_impl="chunked"`` (the flash kernel):
+def prompt_pass_ms(torch, params, cfg, seq: int = 256, iters: int = 5,
+                   impls=("einsum", "chunked")):
+    """One full-depth prompt pass of ``seq`` tokens (batch 1), under each
+    attention of ``impls`` (``"einsum"``, ``attn_impl="chunked"``: the
+    flash kernel; None: the config's own, for a model without attention):
     host ms and device kernel ms of each."""
     from repro_torch.models.model import prefill
 
     toks = (torch.arange(seq, device="cuda")[None] * 31 + 7) % cfg.vocab_size
     out = {}
-    for impl in ("einsum", "chunked"):
-        pcfg = cfg.scaled(attn_impl=impl)
+    for impl in impls:
+        pcfg = cfg if impl is None else cfg.scaled(attn_impl=impl)
 
         def run():
             return prefill(params, {"tokens": toks}, pcfg, cache_extra=0)
@@ -1523,7 +1616,8 @@ def prompt_pass_ms(torch, params, cfg, seq: int = 256, iters: int = 5):
         per = kernel_us(torch, run, iters)
         dev = sum(per.values()) / iters / 1e3
         top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
-        log(f"  prompt pass, {seq} tokens, depth {cfg.n_groups}, {impl}: host "
+        log(f"  prompt pass, {cfg.name}, {seq} tokens, depth {cfg.n_groups}, "
+            f"{impl or 'own attention'}: host "
             f"{host:.3f} ms, device {dev:.3f} ms ({dev / seq * 1e3:.2f} us per "
             f"token; idle share {1 - dev / host:.3f}); heaviest: " + "; ".join(
                 f"{v / iters / 1e3:.3f} ms {k[:50]}" for k, v in top))
@@ -1612,7 +1706,7 @@ def main(argv=None) -> int:
         for ln in _build.ptxas_report(name):
             log(f"    {name}: {ln}")
     for name in ("morph_matmul", "flash_attention", "fused_decode",
-                 "flash_decode"):
+                 "flash_decode", "fused_verify", "ssd_scan"):
         log(f"  {name}: {sass_mma(name)}")
 
     cfg = get_config("tinyllama-1.1b")
@@ -1651,11 +1745,14 @@ def main(argv=None) -> int:
         launches["flash_decode_entry"] = flash_decode_drive(torch, cfg)
         phase("[phase 3] end to end: mamba2-370m, full width, one card")
         smoke_reference(torch, "mamba2-370m")
-        ssm_launches, _ = end_to_end(torch, mcfg, init_on_card(torch, mcfg),
+        mparams = init_on_card(torch, mcfg)
+        ssm_launches, _ = end_to_end(torch, mcfg, mparams,
                                      timer, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
+        phase("[phase 3] a full-depth Mamba2-370M prompt pass")
+        prompt_pass_ms(torch, mparams, mcfg, impls=(None,))
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
@@ -1717,7 +1814,10 @@ def main(argv=None) -> int:
              launches_by_path=by_path("fused_verify"),
              max_abs_err=fv["max_abs_err"], ms=fv["ms"],
              plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
-             bound_by=fv["bound_by"], library_ms=None),
+             bound_by=fv["bound_by"], library_ms=None,
+             check_pass_ms=fv["check_pass_ms"], per_launch=fv["per_launch"],
+             attention_plan=dict(splits=fv["splits"],
+                                 rows_per_split=fv["rows_per_split"])),
         dict(name="ssd_scan", route="cuda", status=status,
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:27",
@@ -1726,9 +1826,9 @@ def main(argv=None) -> int:
              max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
              ms=prompt["ms"], plain_ms=prompt["plain_ms"],
              bound_ms=prompt["bound_ms"], bound_by=prompt["bound_by"],
-             library_ms=None,
+             library_ms=None, per_launch=prompt["per_launch"],
              other_shapes={k: {m: r[m] for m in ("ms", "plain_ms",
-                                                  "bound_ms")}
+                                                  "bound_ms", "per_launch")}
                            for k, r in ssd.items() if r is not prompt}),
         dict(name="flash_attention", route="cuda", status=status,
              source="src/repro_torch/csrc/flash_attention.cu",

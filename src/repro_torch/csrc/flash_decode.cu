@@ -38,7 +38,9 @@ struct FlashDecodeProb {
   const void* vc;
   static constexpr bool kQuant = QUANT;
   static constexpr bool kExt = false;
-  static constexpr int kExtFloats = 0;
+  static constexpr bool kRowMask = false;
+  static constexpr int kMTiles = 1;
+  int ext_floats() const { return 0; }
   // this problem
   const void* q;        // (BKV * G, hd), q_dt
   void* out;            // (BKV * G, hd), q_dt
@@ -61,10 +63,10 @@ struct FlashDecodeProb {
   __device__ float vscale(int jj) const {
     return load_any(vs, scale_dt, (size_t)r * S + jj);
   }
-  template <int HDP>
+  template <int HDP, int MR>
   __device__ void load_q(float* qs, int ldq, float*, int t) const {
-    constexpr int N = da::kMaxHeads * HDP / da::kThreads;
-    const int nh = min(da::kMaxHeads, G - h0);
+    constexpr int N = MR * HDP / da::kThreads;
+    const int nh = min(MR, G - h0);
     const size_t base = ((size_t)r * G + h0) * hd;
     float x[N];
 #pragma unroll
@@ -79,9 +81,8 @@ struct FlashDecodeProb {
       qs[(i / HDP) * ldq + i % HDP] = x[u];
     }
   }
+  template <int HDP, int MR>
   __device__ void prepare(float*, int, float*, int) const {}
-  __device__ float ext_score(const float*, int) const { return 0.f; }
-  __device__ float ext_value(const float*, int) const { return 0.f; }
   __device__ void store(int h, int d, float v) const {
     const size_t i = ((size_t)r * G + h0 + h) * hd + d;
     if (q_dt == kF32)

@@ -66,7 +66,10 @@ struct FusedAttnProb {
   const void* vc;
   static constexpr bool kQuant = QUANT;
   static constexpr bool kExt = true;
+  static constexpr bool kRowMask = false;
+  static constexpr int kMTiles = 1;
   static constexpr int kExtFloats = kExtRope + da::kMaxHD;
+  int ext_floats() const { return kExtFloats; }
   // this problem
   const float* q;       // (B, H*hd) gated projections, before RoPE
   const float* k;       // (B, KV*hd)
@@ -108,9 +111,9 @@ struct FusedAttnProb {
   __device__ float vscale(int jj) const {
     return __bfloat162float(vs[phys(jj) * KV + h]);
   }
-  template <int HDP>
+  template <int HDP, int MR>
   __device__ void load_q(float* qs, int ldq, float* ext, int t) const {
-    constexpr int N = da::kMaxHeads * HDP / da::kThreads;
+    constexpr int N = MR * HDP / da::kThreads;
     const size_t qoff = (size_t)b * H * hd + ((size_t)h * G + h0) * hd;
     const size_t kvoff = (size_t)b * KV * hd + (size_t)h * hd;
     float x[N];
@@ -135,6 +138,7 @@ struct FusedAttnProb {
   // RoPE of the queries and the new key; the new K/V as the cache will
   // hold them (int8 with a bf16 scale, or the cache dtype) and their
   // read-back, which the extension attends over; the extension's scores
+  template <int HDP, int MR>
   __device__ void prepare(float* qs, int ldq, float* ext, int t) const {
     const int half = hd / 2, warp = t / 32, lane = t % 32;
     float* ke = ext + kExtKe;
@@ -189,10 +193,13 @@ struct FusedAttnProb {
       if (lane == 0) ext[kExtS + r] = s;
     }
   }
-  __device__ float ext_score(const float* ext, int r) const {
+  // one extension column: the new token
+  __device__ int ext_cols() const { return 1; }
+  __device__ bool ext_ok(const float*, int, int) const { return true; }
+  __device__ float ext_score(const float* ext, int r, int) const {
     return ext[kExtS + r];
   }
-  __device__ float ext_value(const float* ext, int d) const {
+  __device__ float ext_value(const float* ext, int, int d) const {
     return ext[kExtVe + d];
   }
   __device__ void store(int r, int d, float val) const {

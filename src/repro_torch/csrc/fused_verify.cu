@@ -14,24 +14,34 @@
 // once per topology by the wrapper), so linear and tree verify share this
 // kernel.
 //
-// What bounds it on the H100. At TinyLlama width with B = 8 slots, S = 5 and
-// a 512-row bf16 cache, one layer reads 37.7 MB of f32 weights and 4.2 MB of
-// cache: 0.0125 ms at 3.35 TB/s. The f32 products are 2 * 40 rows * 2048 *
-// 4608 = 0.75 GFLOP, 0.011 ms at 67 TFLOP/s on the CUDA cores: this f32
-// design sits near both bounds; tensor cores are a later step. The layer is
-// three launches, each reading its bytes once:
+// What bounds it on the H100: bytes. At TinyLlama width with B = 8 slots,
+// S = 5 and a 512-row bf16 cache, one layer reads 37.7 MB of f32 weights
+// and up to 4.2 MB of cache: 0.0125 ms at 3.35 TB/s; the f32 projections
+// are 0.75 GFLOP, 0.011 ms at 67 TFLOP/s. The layer is three launches, each
+// reading its bytes once:
 //   (a) verify_qkv_launch: the three projections as one gated skinny
 //       product (gemv.cuh) over the B*S rows, row b*S + s taking slot b's
 //       gates, f32 out, no weight rounding;
-//   (b) verify_attn_launch (this file): blocks over (slot, KV head, range
-//       of cache rows). A block holds the G*S query rows of its KV head in
-//       the TPU kernel's order (g-major, then s), applies RoPE at each row's
-//       own position, walks its cache rows once in 64-row chunks staged in
-//       shared memory, and writes its running max, sum and accumulator as a
-//       partial. The last block of a (slot, head) to finish (an atomic
-//       ticket) builds the S extension keys (RoPE, raw candidates out, int8
-//       round trip), merges the partials (one warp per query row, lanes
-//       over the partials) and adds the extension columns under ext_ok;
+//   (b) verify_attn_launch (this file): the shared decode-attention core
+//       (decode_attn.cuh: its design) with one unit per (slot, KV head)
+//       whose G*S query rows, in the TPU kernel's order (g-major, then s),
+//       are the MMA's M side: 40 rows at G = 8, S = 5 (three m16 tiles),
+//       56 for the (2, 2) tree (four). A block carries all of them (up to
+//       kMTiles = 4 tiles, 2 at hd 128), so a K/V chunk is read from device
+//       memory once per (slot, KV head); spreading the rows over 16-row
+//       groups instead would read it once per group, 3-4 times the cache
+//       bytes and clusters, for 96 fewer accumulator registers. The cost is
+//       registers (~128 of accumulators) and shared memory (the warps'
+//       partials of 64 rows), two blocks per SM; the launch still takes
+//       every cluster in one wave (the plan reads the kernel's own
+//       occupancy, kernels/decode_attn.py). Every block applies RoPE to its
+//       rows at each row's own position, builds the S extension keys (RoPE,
+//       the int8 round trip) and their f32 scores while its first chunks
+//       load; the cluster merges the splits through distributed shared
+//       memory, then the S extension columns under ext_ok in f32 FMAs. The
+//       first block of a unit writes the raw candidates. Under a sliding
+//       window the lower edge of the visible cache rows moves with each
+//       row's position: that problem masks per (row, cache row).
 //   (c) the output projection through the morph_matmul kernel over the
 //       B*S rows with active_k = a_q (launched by the Python wrapper), which
 //       zeroes the dead query columns' contribution.
@@ -44,310 +54,347 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_attn.cuh"
 #include "gemv.cuh"
 
 namespace {
 
-constexpr int kVThreads = 256;
-constexpr int kVWarps = kVThreads / 32;
-constexpr int kChunk = 64;            // cache rows staged per pass
-constexpr float kNegInf = -1e30f;     // running-max init (KERNEL_NEG_INF)
+enum XType : int { kXF32 = 0, kXBF16 = 1 };
 
-enum CacheType : int { kCacheF32 = 0, kCacheBF16 = 1, kCacheI8 = 2 };
-
-__device__ __forceinline__ float cache_f32(float v) { return v; }
-__device__ __forceinline__ float cache_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float cache_f32(int8_t v) { return (float)v; }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct VerifyArgs {
-  const float* q;        // (B*S, H*hd) gated projections, before RoPE
-  const float* k;        // (B*S, KV*hd)
-  const float* v;        // (B*S, KV*hd)
-  const void* kc;        // pool (n_pages, bk, KV, hd)
+// The verify problem on the decode-attention core. Query row r of a unit
+// (slot b, KV head h) is head h * Gq + r / S at verified position r % S.
+template <typename TC, bool QUANT, bool WINDOW>
+struct VerifyProb {
+  // the core's interface (decode_attn.cuh)
+  int units, hgroups, G, hd, rps, vec;  // G: query rows per unit, Gq * S
+  float scale;
+  const void* kc;       // (B, Sc, KV, hd)
   const void* vc;
-  const __nv_bfloat16* ks;  // (n_pages, bk, KV, 1) scales, int8 caches only
+  static constexpr bool kQuant = QUANT;
+  static constexpr bool kExt = true;
+  static constexpr bool kRowMask = WINDOW;
+  static constexpr int kMTiles = 4;
+  // this problem
+  const float* q;       // (B*S, H*hd) gated projections, before RoPE
+  const float* k;       // (B*S, KV*hd)
+  const float* v;       // (B*S, KV*hd)
+  const __nv_bfloat16* ks;  // (B, Sc, KV, 1) scales, int8 caches only
   const __nv_bfloat16* vs;
-  const int* table;      // (B, P) physical page of each logical page
-  const int* pos;        // (B,) committed tokens (the cache holds < pos)
-  const int* offs;       // (S,) position offset of each verified row
-  const int8_t* ext_ok;  // (S, S) may row s attend to new column c
-  float* out;            // (B*S, H*hd) attention output, before the out proj
-  void* k_new;           // (B, S, KV, hd) raw candidates, x's dtype
+  const int* pos;       // (B,) committed tokens (the cache holds < pos)
+  const int* offs;      // (S,) position offset of each verified row
+  const int8_t* ext_ok_g;  // (S, S) may row s attend to new column c
+  float* out;           // (B*S, H*hd) attention output, before the out proj
+  void* k_new;          // (B, S, KV, hd) raw candidates, x's dtype
   void* v_new;
-  float* ws;             // (B*KV, splits, 2*G*S + G*S*hd) partials
-  int* tickets;          // (B*KV,) zeroed; left zeroed
-  int x_dtype;           // 0 f32, 1 bf16 (the candidates' type)
-  int B, H, KV, hd, S, P, bk, window, use_rope;
-  int splits, rows_per_split;  // rows_per_split: a multiple of kChunk
-  float rope_coef;       // log(theta) / (hd / 2)
-  float scale;           // 1 / sqrt(hd)
+  int x_dtype, H, KV, Gq, S, Sc, window, use_rope, rows;  // rows: <= MR
+  float rope_coef;      // log(theta) / (hd / 2)
+  int b, h, h0, nh, p, last_div, last_mod;  // this block
+
+  // the extension's floats: the S new keys and values (what the extension
+  // attends), RoPE's cosines and sines per position, the scores of the
+  // block's rows, the (S, S) mask, the offsets
+  __host__ __device__ int e_v() const { return S * hd; }
+  __host__ __device__ int e_cs() const { return 2 * S * hd; }
+  __host__ __device__ int e_sc() const { return 3 * S * hd; }
+  __host__ __device__ int e_ok() const { return e_sc() + rows * S; }
+  __host__ __device__ int e_off() const { return e_ok() + S * S; }
+  int ext_floats() const { return e_off() + S; }
+
+  __device__ int begin(int unit, int h0_, int nh_) {
+    b = unit / KV;
+    h = unit % KV;
+    h0 = h0_;
+    nh = nh_;
+    p = pos[b];
+    if (WINDOW) {
+      const int last = max(p - 1, 0);  // newest committed position
+      last_div = last / Sc;
+      last_mod = last % Sc;
+      return p > 0 ? Sc : 0;
+    }
+    return min(p, Sc);
+  }
+  // absolute position of cache row jj (rows < n)
+  __device__ int kpos(int jj) const {
+    if (!WINDOW) return jj;
+    return (last_div - (jj <= last_mod ? 0 : 1)) * Sc + jj;
+  }
+  // without a window every row < n = min(pos, Sc) is below every query
+  // row's position; with one, kpos <= pos - 1 still, and rows never
+  // written are negative
+  __device__ bool ok(int jj) const { return !WINDOW || kpos(jj) >= 0; }
+  __device__ int row_key(const float* ext, int r) const {
+    const int s = (h0 + r) % S;
+    return p + reinterpret_cast<const int*>(ext + e_off())[s] - window;
+  }
+  __device__ bool ok_row(int key, int jj) const { return kpos(jj) > key; }
+  __device__ size_t phys(int jj) const { return (size_t)b * Sc + jj; }
+  __device__ size_t row(int jj) const { return (phys(jj) * KV + h) * hd; }
+  __device__ float kscale(int jj) const {
+    return __bfloat162float(ks[phys(jj) * KV + h]);
+  }
+  __device__ float vscale(int jj) const {
+    return __bfloat162float(vs[phys(jj) * KV + h]);
+  }
+  template <int HDP, int MR>
+  __device__ void load_q(float* qs, int ldq, float* ext, int t) const {
+    constexpr int NKV = 4;  // new k / v values per thread in the first batch
+    const int qd = H * hd, kvd = KV * hd;
+    // q as float4: this thread's 4-column groups step by RS rows, their
+    // (g, s) by steps (no division per element); rows 16-byte aligned when
+    // hd % 4 == 0, else one element at a time
+    constexpr int N4 = (MR * HDP / 4 + da::kThreads - 1) / da::kThreads;
+    constexpr int RS = 4 * da::kThreads / HDP;
+    const bool v4 = hd % 4 == 0;
+    float4 x[N4];
+    float kx[NKV], vx[NKV];
+    const int d = (4 * t) % HDP;
+    int gq = (h0 + 4 * t / HDP) / S, sq = (h0 + 4 * t / HDP) % S;
+#pragma unroll
+    for (int u = 0; u < N4; ++u) {
+      const int r = 4 * t / HDP + u * RS;
+      const float* src = q + (size_t)(b * S + sq) * qd + (size_t)(h * Gq + gq) * hd + d;
+      x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nh) {
+        if (v4 && d < hd) {
+          x[u] = *reinterpret_cast<const float4*>(src);
+        } else if (!v4) {
+          x[u].x = d < hd ? src[0] : 0.f;
+          x[u].y = d + 1 < hd ? src[1] : 0.f;
+          x[u].z = d + 2 < hd ? src[2] : 0.f;
+          x[u].w = d + 3 < hd ? src[3] : 0.f;
+        }
+      }
+      sq += RS;
+      while (sq >= S) {
+        sq -= S;
+        ++gq;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NKV; ++u) {
+      const int i = t + u * da::kThreads;
+      const size_t src = (size_t)(b * S + i / hd) * kvd + (size_t)h * hd + i % hd;
+      kx[u] = i < S * hd ? k[src] : 0.f;
+      vx[u] = i < S * hd ? v[src] : 0.f;
+    }
+    const int of = t < S ? offs[t] : 0;
+    const int8_t okv = t < S * S ? ext_ok_g[t] : 0;
+#pragma unroll
+    for (int u = 0; u < N4; ++u) {
+      const int i = 4 * (t + u * da::kThreads);
+      if (i < MR * HDP)
+        *reinterpret_cast<float4*>(qs + (i / HDP) * ldq + i % HDP) = x[u];
+    }
+#pragma unroll
+    for (int u = 0; u < NKV; ++u) {
+      const int i = t + u * da::kThreads;
+      if (i < S * hd) {
+        ext[i] = kx[u];
+        ext[e_v() + i] = vx[u];
+      }
+    }
+    for (int i = t + NKV * da::kThreads; i < S * hd; i += da::kThreads) {
+      const size_t src = (size_t)(b * S + i / hd) * kvd + (size_t)h * hd + i % hd;
+      ext[i] = k[src];
+      ext[e_v() + i] = v[src];
+    }
+    if (t < S) reinterpret_cast<int*>(ext + e_off())[t] = of;
+    if (t < S * S) ext[e_ok() + t] = okv ? 1.f : 0.f;
+    for (int i = t + da::kThreads; i < S * S; i += da::kThreads)
+      ext[e_ok() + i] = ext_ok_g[i] ? 1.f : 0.f;
+  }
+  // RoPE of the rows and of the new keys at each one's own position; the
+  // raw candidates out (one block per unit); the int8 round trip of what
+  // the extension attends; the extension's scores of the block's rows
+  template <int HDP, int MR>
+  __device__ void prepare(float* qs, int ldq, float* ext, int t) const {
+    const int half = hd / 2, warp = t / 32, lane = t % 32;
+    float* ke = ext;
+    float* ve = ext + e_v();
+    const int* of = reinterpret_cast<const int*>(ext + e_off());
+    if (use_rope) {
+      // a thread per column pair d (of HDP / 2) and every RS-th row
+      constexpr int HP = HDP / 2, RS = da::kThreads / HP;
+      const int d = t % HP, r0 = t / HP;
+      float* cs = ext + e_cs();
+      if (d < half) {  // the angles once per (position, column pair)
+        const float fr = expf(-(float)d * rope_coef);
+        for (int s = r0; s < S; s += RS) {
+          float sn, c;
+          sincosf((float)(p + of[s]) * fr, &sn, &c);
+          cs[s * hd + d] = c;
+          cs[s * hd + half + d] = sn;
+        }
+      }
+      __syncthreads();
+      if (d < half) {
+        int sq = (h0 + r0) % S;  // rows r0, r0 + RS, ...: their positions
+        for (int r = r0; r < nh + S; r += RS) {
+          const int s = r < nh ? sq : r - nh;
+          float* x = r < nh ? qs + r * ldq : ke + s * hd;
+          const float c = cs[s * hd + d], sn = cs[s * hd + half + d];
+          const float x1 = x[d], x2 = x[d + half];
+          x[d] = x1 * c - x2 * sn;
+          x[d + half] = x2 * c + x1 * sn;
+          sq += RS;
+          while (sq >= S) sq -= S;
+        }
+      }
+      __syncthreads();
+    }
+    if (blockIdx.y == 0 && h0 == 0) {  // the unit's first block
+      for (int i = t; i < S * hd; i += da::kThreads) {
+        const size_t dst = ((size_t)(b * S + i / hd) * KV + h) * hd + i % hd;
+        if (x_dtype == kXF32) {
+          static_cast<float*>(k_new)[dst] = ke[i];
+          static_cast<float*>(v_new)[dst] = ve[i];
+        } else {
+          static_cast<__nv_bfloat16*>(k_new)[dst] = __float2bfloat16_rn(ke[i]);
+          static_cast<__nv_bfloat16*>(v_new)[dst] = __float2bfloat16_rn(ve[i]);
+        }
+      }
+    }
+    if constexpr (QUANT) {
+      __syncthreads();  // candidates stored before the round trip rewrites them
+      for (int w = warp; w < 2 * S; w += da::kWarps) {
+        float* e = (w < S ? ke : ve) + (w % S) * hd;
+        float mx = 0.f;
+        for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, fabsf(e[d]));
+        mx = da::warp_max(mx);
+        const float sc = mx / 127.f;
+        const float den = fmaxf(sc, 1e-8f);
+        const float scb = __bfloat162float(__float2bfloat16_rn(sc));
+        for (int d = lane; d < hd; d += 32) e[d] = rintf(e[d] / den) * scb;
+      }
+      __syncthreads();
+    }
+    // one thread per (row, column): f32 FMAs over hd, four running sums
+    for (int i = t; i < nh * S; i += da::kThreads) {
+      const int r = i / S, c = i % S;
+      const float* qr = qs + r * ldq;
+      const float* kr = ke + c * hd;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      if (hd % 4 == 0) {  // rows 16-byte aligned
+#pragma unroll 4
+        for (int d = 0; d < hd; d += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qr + d);
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+          a0 = fmaf(qv.x, kv.x, a0);
+          a1 = fmaf(qv.y, kv.y, a1);
+          a2 = fmaf(qv.z, kv.z, a2);
+          a3 = fmaf(qv.w, kv.w, a3);
+        }
+      } else {
+        for (int d = 0; d < hd; ++d) a0 = fmaf(qr[d], kr[d], a0);
+      }
+      ext[e_sc() + r * S + c] = ((a0 + a1) + (a2 + a3)) * scale;
+    }
+  }
+  __device__ int ext_cols() const { return S; }
+  __device__ bool ext_ok(const float* ext, int r, int c) const {
+    return ext[e_ok() + ((h0 + r) % S) * S + c] != 0.f;
+  }
+  __device__ float ext_score(const float* ext, int r, int c) const {
+    return ext[e_sc() + r * S + c];
+  }
+  __device__ float ext_value(const float* ext, int c, int d) const {
+    return ext[e_v() + c * hd + d];
+  }
+  __device__ void store(int r, int d, float val) const {
+    const int gr = h0 + r;
+    out[(size_t)(b * S + gr % S) * H * hd + (size_t)(h * Gq + gr / S) * hd + d] =
+        val;
+  }
+  __device__ void after_merge(float*, int, int, int) const {}
 };
 
-// Shared-memory bytes of one block (the launch is sized by it).
-__host__ __device__ inline int verify_smem_bytes(int G, int S, int hd) {
-  const int GS = G * S;
-  return 4 * (2 * GS * hd                     // queries, accumulator
-              + kChunk * (hd + 1) + kChunk * hd  // staged K (padded) and V
-              + GS * kChunk                   // scores / probabilities
-              + 3 * GS                        // running max, sum, rescale
-              + kChunk + S);                  // ints: row positions, offsets
+struct VerifyLaunch {
+  const float *q, *k, *v;
+  const void *kc, *vc, *ks, *vs;
+  const int *pos, *offs;
+  const int8_t* ext_ok;
+  float* out;
+  void *k_new, *v_new;
+  int x_dtype, B, H, KV, hd, S, Sc, window, use_rope, splits, rows_per_split;
+  float rope_coef, scale;
+};
+
+template <typename TC, bool QUANT, bool WINDOW>
+VerifyProb<TC, QUANT, WINDOW> make_prob(const VerifyLaunch& a) {
+  VerifyProb<TC, QUANT, WINDOW> p = {};
+  p.units = a.B * a.KV;
+  p.Gq = a.KV > 0 ? a.H / a.KV : 1;
+  p.G = p.Gq * a.S;
+  p.hd = a.hd;
+  p.rps = a.rows_per_split;
+  p.vec = (a.hd * (int)sizeof(TC)) % 16 == 0 && da::aligned16(a.kc) &&
+          da::aligned16(a.vc);
+  p.scale = a.scale;
+  p.kc = a.kc;
+  p.vc = a.vc;
+  p.q = a.q;
+  p.k = a.k;
+  p.v = a.v;
+  p.ks = static_cast<const __nv_bfloat16*>(a.ks);
+  p.vs = static_cast<const __nv_bfloat16*>(a.vs);
+  p.pos = a.pos;
+  p.offs = a.offs;
+  p.ext_ok_g = a.ext_ok;
+  p.out = a.out;
+  p.k_new = a.k_new;
+  p.v_new = a.v_new;
+  p.x_dtype = a.x_dtype;
+  p.H = a.H;
+  p.KV = a.KV;
+  p.S = a.S;
+  p.Sc = a.Sc;
+  p.window = a.window;
+  p.use_rope = a.use_rope;
+  p.rope_coef = a.rope_coef;
+  return p;
 }
 
-__device__ __forceinline__ bool visible(int kp, int qp, int window) {
-  return kp >= 0 && kp <= qp && (window == 0 || kp > qp - window);
+// Calls f(problem, (TC*)nullptr, std::integral_constant<int, HDP>()) for
+// the cache dtype, window and hd of the launch, the problem's row groups
+// sized by the rows a block carries at that HDP.
+template <class F>
+int with_prob(const VerifyLaunch& a, int cache_dtype, F&& f) {
+  auto go = [&](auto tc, auto quant, auto win) {
+    using TC = std::remove_const_t<std::remove_pointer_t<decltype(tc)>>;
+    auto p = make_prob<TC, decltype(quant)::value, decltype(win)::value>(a);
+    return da::with_hdp(a.hd, [&](auto hdp) {
+      constexpr int HDP = decltype(hdp)::value;
+      constexpr int MR = 16 * da::block_mtiles<decltype(p), TC, HDP>();
+      p.rows = min(p.G, MR);
+      p.hgroups = (p.G + MR - 1) / MR;
+      return f(p, tc, hdp);
+    });
+  };
+  const std::true_type yes;
+  const std::false_type no;
+  if (cache_dtype == da::kI8) {
+    const int8_t* tc = nullptr;
+    return a.window ? go(tc, yes, yes) : go(tc, yes, no);
+  }
+  if (cache_dtype == da::kBF16) {
+    const __nv_bfloat16* tc = nullptr;
+    return a.window ? go(tc, no, yes) : go(tc, no, no);
+  }
+  const float* tc = nullptr;
+  return a.window ? go(tc, no, yes) : go(tc, no, no);
 }
 
-__device__ __forceinline__ void rotate(float* x, int half, int d, float pf,
-                                       float coef) {
-  const float ang = pf * expf(-(float)d * coef);
-  const float c = cosf(ang), s = sinf(ang);
-  const float x1 = x[d], x2 = x[d + half];
-  x[d] = x1 * c - x2 * s;
-  x[d + half] = x2 * c + x1 * s;
-}
-
-template <typename TC, bool QUANT>
-__global__ void __launch_bounds__(kVThreads) verify_attn(VerifyArgs a) {
-  extern __shared__ float sm[];
-  const int KV = a.KV, hd = a.hd, S = a.S, G = a.H / KV, GS = G * S;
-  const int half = hd / 2, qd = a.H * hd, kvd = KV * hd;
-  const int bh = blockIdx.x, b = bh / KV, h = bh % KV, split = blockIdx.y;
-  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  float* q_s = sm;
-  float* acc = q_s + GS * hd;
-  float* k_s = acc + GS * hd;
-  float* v_s = k_s + kChunk * (hd + 1);
-  float* p_s = v_s + kChunk * hd;
-  float* m_s = p_s + GS * kChunk;
-  float* l_s = m_s + GS;
-  float* al_s = l_s + GS;
-  int* kp_s = reinterpret_cast<int*>(al_s + GS);
-  int* of_s = kp_s + kChunk;
-
-  const int p = a.pos[b];
-  for (int i = t; i < S; i += kVThreads) of_s[i] = a.offs[i];
-  // row r = g*S + s: head h*G + g of verified position s
-  for (int i = t; i < GS * hd; i += kVThreads) {
-    const int r = i / hd, d = i % hd, g = r / S, s = r % S;
-    q_s[i] = a.q[(size_t)(b * S + s) * qd + (size_t)(h * G + g) * hd + d];
-    acc[i] = 0.f;
-  }
-  for (int r = t; r < GS; r += kVThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  __syncthreads();
-  if (a.use_rope) {
-    for (int i = t; i < GS * half; i += kVThreads) {
-      const int r = i / half;
-      rotate(q_s + r * hd, half, i % half, (float)(p + of_s[r % S]), a.rope_coef);
-    }
-    __syncthreads();
-  }
-
-  const TC* kc = static_cast<const TC*>(a.kc);
-  const TC* vc = static_cast<const TC*>(a.vc);
-  const int Sc = a.P * a.bk;
-  const int lens = a.window ? (p > 0 ? Sc : 0) : min(p, Sc);
-  const int last = p - 1;  // newest committed position; >= 0 when lens > 0
-  const int r_end = min(lens, (split + 1) * a.rows_per_split);
-  for (int c0 = split * a.rows_per_split; c0 < r_end; c0 += kChunk) {
-    const int nc = min(kChunk, r_end - c0);
-    for (int j = t; j < nc; j += kVThreads) {
-      const int jj = c0 + j;
-      int kp;
-      if (a.window) {
-        const int wraps = jj <= last % Sc ? 0 : 1;
-        kp = (last / Sc - wraps) * Sc + jj;
-      } else {
-        kp = jj < p ? jj : -1;
-      }
-      kp_s[j] = kp;
-    }
-    for (int i = t; i < nc * hd; i += kVThreads) {
-      const int j = i / hd, d = i % hd, jj = c0 + j;
-      const size_t row = (size_t)a.table[(size_t)b * a.P + jj / a.bk] * a.bk + jj % a.bk;
-      const size_t idx = (row * KV + h) * hd + d;
-      float kv = cache_f32(kc[idx]), vv = cache_f32(vc[idx]);
-      if constexpr (QUANT) {
-        kv *= __bfloat162float(a.ks[row * KV + h]);
-        vv *= __bfloat162float(a.vs[row * KV + h]);
-      }
-      k_s[j * (hd + 1) + d] = kv;
-      v_s[j * hd + d] = vv;
-    }
-    __syncthreads();
-    for (int i = t; i < GS * nc; i += kVThreads) {
-      const int r = i / nc, j = i % nc;
-      const float* qr = q_s + r * hd;
-      const float* kr = k_s + j * (hd + 1);
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(qr[d], kr[d], s);
-      const bool ok = visible(kp_s[j], p + of_s[r % S], a.window);
-      p_s[r * kChunk + j] = ok ? s * a.scale : kNegInf;
-    }
-    __syncthreads();
-    for (int r = warp; r < GS; r += kVWarps) {
-      float* pr = p_s + r * kChunk;
-      const int qp = p + of_s[r % S];
-      float mx = kNegInf;
-      for (int j = lane; j < nc; j += 32) mx = fmaxf(mx, pr[j]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < nc; j += 32) {
-        const float e = visible(kp_s[j], qp, a.window) ? expf(pr[j] - m_new) : 0.f;
-        pr[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        al_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int o = t; o < GS * hd; o += kVThreads) {
-      const int r = o / hd, d = o % hd;
-      const float* pr = p_s + r * kChunk;
-      float v = acc[o] * al_s[r];
-      for (int j = 0; j < nc; ++j) v = fmaf(pr[j], v_s[j * hd + d], v);
-      acc[o] = v;
-    }
-    __syncthreads();
-  }
-
-  // publish this block's partial; the last block of (slot, head) merges
-  const int stride = 2 * GS + GS * hd;
-  float* part = a.ws + ((size_t)bh * a.splits + split) * stride;
-  for (int r = t; r < GS; r += kVThreads) {
-    part[r] = m_s[r];
-    part[GS + r] = l_s[r];
-  }
-  for (int o = t; o < GS * hd; o += kVThreads) part[2 * GS + o] = acc[o];
-  __shared__ int s_last;
-  __threadfence();
-  __syncthreads();
-  if (t == 0) s_last = atomicAdd(&a.tickets[bh], 1) == a.splits - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-
-  // the S new keys/values of head h (the staging buffers are free now):
-  // RoPE, the raw candidates out, then what the extension attends over
-  float* ke = k_s;  // (S, hd)
-  float* ve = v_s;  // (S, hd)
-  for (int i = t; i < S * hd; i += kVThreads) {
-    const int s = i / hd, d = i % hd;
-    const size_t src = (size_t)(b * S + s) * kvd + (size_t)h * hd + d;
-    ke[i] = a.k[src];
-    ve[i] = a.v[src];
-  }
-  __syncthreads();
-  if (a.use_rope) {
-    for (int i = t; i < S * half; i += kVThreads) {
-      const int s = i / half;
-      rotate(ke + s * hd, half, i % half, (float)(p + of_s[s]), a.rope_coef);
-    }
-    __syncthreads();
-  }
-  for (int i = t; i < S * hd; i += kVThreads) {
-    const int s = i / hd, d = i % hd;
-    const size_t dst = ((size_t)(b * S + s) * KV + h) * hd + d;
-    if (a.x_dtype == rt::kF32) {
-      static_cast<float*>(a.k_new)[dst] = ke[i];
-      static_cast<float*>(a.v_new)[dst] = ve[i];
-    } else {
-      static_cast<__nv_bfloat16*>(a.k_new)[dst] = __float2bfloat16_rn(ke[i]);
-      static_cast<__nv_bfloat16*>(a.v_new)[dst] = __float2bfloat16_rn(ve[i]);
-    }
-  }
-  if constexpr (QUANT) {
-    __syncthreads();  // candidates stored before the round trip rewrites them
-    for (int w = warp; w < 2 * S; w += kVWarps) {
-      float* e = (w < S ? ke : ve) + (w % S) * hd;
-      float mx = 0.f;
-      for (int d = lane; d < hd; d += 32) mx = fmaxf(mx, fabsf(e[d]));
-      mx = warp_max(mx);
-      const float sc = mx / 127.f;
-      const float den = fmaxf(sc, 1e-8f);
-      const float scb = __bfloat162float(__float2bfloat16_rn(sc));
-      for (int d = lane; d < hd; d += 32) e[d] = rintf(e[d] / den) * scb;
-    }
-  }
-  __syncthreads();
-
-  // merge, one warp per query row, lanes over the partials: the row's max
-  // over the partials and the extension scores, each partial's rescale
-  // exp(m_sp - m) (kept in the accumulator buffer, free now: splits <= hd),
-  // and the softmax sum
-  const float* parts = a.ws + (size_t)bh * a.splits * stride;
-  float* se = p_s;   // (GS, S) extension scores, then probabilities
-  float* wsp = acc;  // (splits, GS) partial rescales
-  for (int r = warp; r < GS; r += kVWarps) {
-    const int s = r % S;
-    for (int c = 0; c < S; ++c) {
-      float dot = 0.f;
-      for (int d = lane; d < hd; d += 32) dot = fmaf(q_s[r * hd + d], ke[c * hd + d], dot);
-      dot = warp_sum(dot) * a.scale;
-      if (lane == 0) se[r * S + c] = a.ext_ok[s * S + c] ? dot : kNegInf;
-    }
-    __syncwarp();
-    float m = kNegInf;
-    for (int sp = lane; sp < a.splits; sp += 32) m = fmaxf(m, __ldcg(parts + sp * stride + r));
-    for (int c = lane; c < S; c += 32) m = fmaxf(m, se[r * S + c]);
-    m = warp_max(m);
-    __syncwarp();
-    float l = 0.f;
-    for (int sp = lane; sp < a.splits; sp += 32) {
-      const float w = expf(__ldcg(parts + sp * stride + r) - m);
-      wsp[sp * GS + r] = w;
-      l = fmaf(__ldcg(parts + sp * stride + GS + r), w, l);
-    }
-    for (int c = lane; c < S; c += 32) {
-      const float pe = a.ext_ok[s * S + c] ? expf(se[r * S + c] - m) : 0.f;
-      se[r * S + c] = pe;
-      l += pe;
-    }
-    l = warp_sum(l);
-    if (lane == 0) l_s[r] = l;
-  }
-  __syncthreads();
-  for (int o = t; o < GS * hd; o += kVThreads) {
-    const int r = o / hd, d = o % hd, g = r / S, s = r % S;
-    float v = 0.f;
-#pragma unroll 4
-    for (int sp = 0; sp < a.splits; ++sp)
-      v = fmaf(__ldcg(parts + sp * stride + 2 * GS + o), wsp[sp * GS + r], v);
-    for (int c = 0; c < S; ++c) v = fmaf(se[r * S + c], ve[c * hd + d], v);
-    a.out[(size_t)(b * S + s) * qd + (size_t)(h * G + g) * hd + d] =
-        v / fmaxf(l_s[r], 1e-20f);
-  }
-  if (t == 0) a.tickets[bh] = 0;  // ready for the next launch
-}
-
-template <typename TC, bool QUANT>
-int launch_verify(const VerifyArgs& a, cudaStream_t st) {
-  const int bytes = verify_smem_bytes(a.H / a.KV, a.S, a.hd);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        verify_attn<TC, QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  verify_attn<TC, QUANT><<<dim3(a.B * a.KV, a.splits), kVThreads, bytes, st>>>(a);
-  return (int)cudaGetLastError();
+// the core (f32 q: split hi + lo on the tensor cores), or with max_clusters
+// set its occupancy query
+int dispatch(const VerifyLaunch& a, int cache_dtype, cudaStream_t st,
+             int* max_clusters, int* route) {
+  return with_prob(a, cache_dtype, [&](const auto& p, auto tc, auto hdp) {
+    using TC = std::remove_const_t<std::remove_pointer_t<decltype(tc)>>;
+    return da::launch_core<std::decay_t<decltype(p)>, TC, true,
+                           decltype(hdp)::value>(p, a.splits, st, max_clusters,
+                                                 route);
+  });
 }
 
 }  // namespace
@@ -378,56 +425,67 @@ extern "C" int verify_qkv_launch(const void* x, int x_dtype, const void* wq,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// (b) RoPE + attention over the cache split into row ranges + merge with
+// (b) RoPE + attention over the dense (B, Sc, KV, hd) cache split into row
+// ranges (one cluster of 1..16 splits per (slot, KV head) and row group) +
 // the S extension columns under ext_ok + raw candidates out. splits *
-// rows_per_split must cover the cache rows, splits <= hd; ws holds
-// B*KV*splits*(2*G*S + G*S*hd) floats, tickets B*KV ints; S <= 64. cache_dtype: 0 f32, 1 bf16,
-// 2 int8 (with bf16 scales); x_dtype: 0 f32, 1 bf16.
+// rows_per_split must cover the Sc cache rows, rows_per_split a multiple of
+// 64; 1 <= S <= 64. cache_dtype: 0 f32, 1 bf16, 2 int8 (with bf16 scales);
+// x_dtype: 0 f32, 1 bf16. Writes the route of the kernel launched (0 f32
+// FMAs, 1 tensor cores) to *route.
 extern "C" int verify_attn_launch(const float* q, const float* k, const float* v,
                                   const void* kc, const void* vc, const void* ks,
                                   const void* vs, int cache_dtype,
-                                  const int* table, const int* pos,
-                                  const int* offs, const int8_t* ext_ok,
-                                  float* out, void* k_new, void* v_new,
-                                  float* ws, int* tickets, int x_dtype, int B,
-                                  int H, int KV, int hd, int S, int P, int bk,
+                                  const int* pos, const int* offs,
+                                  const int8_t* ext_ok, float* out,
+                                  void* k_new, void* v_new, int x_dtype, int B,
+                                  int H, int KV, int hd, int S, int Sc,
                                   int window, int use_rope, int splits,
                                   int rows_per_split, float rope_coef,
-                                  float scale, void* stream) {
-  VerifyArgs a;
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.kc = kc;
-  a.vc = vc;
-  a.ks = static_cast<const __nv_bfloat16*>(ks);
-  a.vs = static_cast<const __nv_bfloat16*>(vs);
-  a.table = table;
-  a.pos = pos;
-  a.offs = offs;
-  a.ext_ok = ext_ok;
-  a.out = out;
-  a.k_new = k_new;
-  a.v_new = v_new;
-  a.ws = ws;
-  a.tickets = tickets;
-  a.x_dtype = x_dtype;
-  a.B = B;
-  a.H = H;
-  a.KV = KV;
+                                  float scale, int* route, void* stream) {
+  if (KV < 1 || H % KV != 0 || hd < 1 || hd > da::kMaxHD || hd % 2 != 0 ||
+      S < 1 || S > 64 || (long long)splits * rows_per_split < Sc)
+    return (int)cudaErrorInvalidValue;
+  const VerifyLaunch a = {q,     k,      v,      kc,     vc,     ks,
+                        vs,    pos,    offs,   ext_ok, out,    k_new,
+                        v_new, x_dtype, B,     H,      KV,     hd,
+                        S,     Sc,     window, use_rope, splits, rows_per_split,
+                        rope_coef, scale};
+  return dispatch(a, cache_dtype, static_cast<cudaStream_t>(stream), nullptr,
+                  route);
+}
+
+// Query rows one block of the attention kernel carries for this cache dtype
+// and hd (64 on the tensor cores up to hd 64, 32 at hd 128, 16 in f32).
+extern "C" int verify_attn_block_rows(int cache_dtype, int hd) {
+  if (hd < 1 || hd > da::kMaxHD) return 0;
+  VerifyLaunch a = {};
+  a.hd = hd;
+  a.B = a.H = a.KV = a.S = 1;
+  return with_prob(a, cache_dtype, [&](const auto&, auto tc, auto hdp) {
+    using TC = std::remove_const_t<std::remove_pointer_t<decltype(tc)>>;
+    using Prob = VerifyProb<TC, false, false>;
+    return 16 * da::block_mtiles<Prob, TC, decltype(hdp)::value>();
+  });
+}
+
+// How many clusters of `splits` blocks of the attention kernel for this
+// cache dtype, hd, group, S and window (0 / 1) fit on the card at once;
+// written to *out.
+extern "C" int verify_attn_max_clusters(int cache_dtype, int hd, int group,
+                                        int S, int window, int splits,
+                                        int* out) {
+  if (hd < 1 || hd > da::kMaxHD || group < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  VerifyLaunch a = {};
+  a.B = 1;
+  a.KV = 1;
+  a.H = group;
   a.hd = hd;
   a.S = S;
-  a.P = P;
-  a.bk = bk;
+  a.Sc = 1;
   a.window = window;
-  a.use_rope = use_rope;
   a.splits = splits;
-  a.rows_per_split = rows_per_split;
-  a.rope_coef = rope_coef;
-  a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B * KV == 0 || S == 0) return (int)cudaGetLastError();
-  if (cache_dtype == kCacheI8) return launch_verify<int8_t, true>(a, st);
-  if (cache_dtype == kCacheBF16) return launch_verify<__nv_bfloat16, false>(a, st);
-  return launch_verify<float, false>(a, st);
+  a.rows_per_split = da::kChunk;
+  a.rope_coef = a.scale = 1.f;
+  return dispatch(a, cache_dtype, nullptr, out, nullptr);
 }

@@ -1,8 +1,9 @@
 // Thin wrappers over the Hopper (sm_90a) instructions the hand-written
 // kernels share: asynchronous 16-byte copies into shared memory (cp.async,
-// with zero fill), ldmatrix (plain and transposed), the bf16 tensor-core
-// product mma.sync.m16n8k16 with f32 accumulators, and the cluster barrier
-// and distributed shared-memory loads of thread block clusters.
+// with zero fill), ldmatrix (plain and transposed), the tensor-core
+// products mma.sync.m16n8k16 (bf16) and m16n8k8 (tf32) with f32
+// accumulators, and the cluster barrier and distributed shared-memory loads
+// of thread block clusters.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (PTX ISA, "Matrix Fragments
 // for mma.m16n8k16"), with lane = 4 * g + t (g = lane / 4, t = lane % 4):
@@ -80,6 +81,34 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32 rounded to tf32 (nearest, ties away from zero), as a b32 operand of
+// a tf32 mma: the 13 low mantissa bits zero
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as tf32 hi + lo (hi = tf32(x), lo = tf32(x - hi)): |x - hi - lo| <=
+// 2^-22 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += A * B: mma.sync.m16n8k8 with tf32 operands and f32 accumulators.
+// Fragments (lane = 4 g + t): a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; C as for m16n8k16.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -1,12 +1,13 @@
 """The launch plan of the decode-attention core (``csrc/decode_attn.cuh``).
 
-``flash_decode`` and the attention launch of ``fused_decode_step`` run on
-one CUDA core: per unit (a KV row, or a (slot, KV head) pair) the cache rows
-split into ranges of whole 64-row chunks, and the splits of a unit run as
-one thread block cluster that merges its partials in shared memory. This
-module sizes the split: the most splits (at most 16, the largest cluster
-the H100 takes) for which every unit's cluster fits on the card at once, as
-the kernel's own occupancy query reports, so that a launch is one wave.
+``flash_decode`` and the attention launches of ``fused_decode_step`` and
+``fused_verify`` run on one CUDA core: per unit (a KV row, or a (slot, KV
+head) pair) the cache rows split into ranges of whole 64-row chunks, and the
+splits of a unit run as one thread block cluster that merges its partials
+in shared memory. This module sizes the split: the most splits (at most 16,
+the largest cluster the H100 takes) for which every unit's cluster fits on
+the card at once, as the kernel's own occupancy query reports, so that a
+launch is one wave.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from repro_torch.kernels import morph_matmul as _mm
 
 CHUNK = 64        # kChunk: cache rows per ring slot
 MAX_SPLITS = 16   # kMaxSplits: blocks of one cluster
-MAX_HEADS = 16    # kMaxHeads: query heads per block
+MAX_HEADS = 16    # kMaxHeads: query rows of one m16 tile (and of a block
+                  # of flash_decode and fused_decode)
 MAX_HD = 128      # kMaxHD
 ROUTES = ("fma", "tc")  # Route: the route code a launch reports
 _I = ctypes.c_int
@@ -45,13 +47,14 @@ def split_plan(clusters: int, S: int,
 
 
 def plan(lib: str, fn_name: str, code: Tuple[int, ...], units: int,
-         group: int, S: int, device) -> Tuple[int, int]:
+         group: int, S: int, device,
+         rows_per_block: int = MAX_HEADS) -> Tuple[int, int]:
     """(splits, rows per split) of a launch over ``units`` units of
-    ``group`` query heads each (one cluster per unit and group of 16 heads)
-    of an S-row cache, for the kernel that ``lib``'s ``fn_name`` occupancy
-    query reports on for ``code``."""
+    ``group`` query rows each (one cluster per unit and group of
+    ``rows_per_block`` rows) of an S-row cache, for the kernel that
+    ``lib``'s ``fn_name`` occupancy query reports on for ``code``."""
     caps = cluster_caps(lib, fn_name, code, _mm._device_index(device))
-    return split_plan(units * -(-group // MAX_HEADS), S, caps)
+    return split_plan(units * -(-group // rows_per_block), S, caps)
 
 
 @functools.lru_cache(maxsize=None)

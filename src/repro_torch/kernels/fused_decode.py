@@ -31,6 +31,9 @@ verify, linear or token tree), with the contract of ``layers.mha_verify``:
 the cache is read only and the new K/V come back raw as candidates. On a
 CPU tensor it runs ``fused_verify_plain``; on CUDA tensors the three
 launches of ``csrc/fused_verify.cu``, counted by ``verify_launch_count()``.
+Its attention launch runs on the same decode-attention core, each (slot,
+KV head)'s G*S query rows in one block (up to four m16 row tiles), counted
+per route by ``verify_route_counts()``.
 """
 from __future__ import annotations
 
@@ -49,13 +52,11 @@ from repro_torch.models.layers import _cache_kpos
 KERNEL_NEG_INF = -1e30  # running-max init (flash_decode convention)
 
 _LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
-_TABLES: Dict[tuple, torch.Tensor] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _CACHE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_CHUNK = 64  # cache rows the verify kernel stages at once (kChunk)
-_ATTN_TARGET_BLOCKS = 264  # two resident blocks on each of the H100's 132 SMs
+_MAX_VERIFY_ROWS = 64  # positions the verify kernel scores per slot
 
 
 def launch_count() -> int:
@@ -200,16 +201,6 @@ def _lib():
     return qkv, attn
 
 
-def _attn_plan(heads: int, S: int, max_splits: int = 1 << 30):
-    """(splits, rows per split) of the verify kernel's cache rows for
-    ``heads`` (slot, KV head) pairs: enough blocks to fill the card (at most
-    ``max_splits`` per pair), whole 64-row chunks."""
-    chunks = max(1, -(-S // _CHUNK))
-    s = max(1, min(chunks, -(-_ATTN_TARGET_BLOCKS // heads), max_splits))
-    per = -(-chunks // s)
-    return -(-chunks // per), per * _CHUNK
-
-
 def attn_plan(B: int, H: int, KV: int, hd: int, S: int,
               cache_dtype: torch.dtype, device) -> tuple:
     """(splits, rows per split) of the attention launch
@@ -218,15 +209,6 @@ def attn_plan(B: int, H: int, KV: int, hd: int, S: int,
     return _da.plan("fused_decode", "fused_attn_max_clusters",
                     (_CACHE_CODE[cache_dtype], hd), B * KV, H // KV, S,
                     device)
-
-
-def _identity_table(B: int, device) -> torch.Tensor:
-    key = (B, str(device))
-    t = _TABLES.get(key)
-    if t is None:
-        t = torch.arange(B, dtype=torch.int32, device=device)[:, None]
-        _TABLES[key] = t
-    return t
 
 
 def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
@@ -320,7 +302,7 @@ def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
 # verify: S positions per slot, read-only cache, raw K/V candidates out
 # ---------------------------------------------------------------------------
 
-_VERIFY_LAUNCHES = {"n": 0}
+_VERIFY_LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
 _VERIFY_OPERANDS: Dict[tuple, tuple] = {}
 
 
@@ -330,8 +312,16 @@ def verify_launch_count() -> int:
     return _VERIFY_LAUNCHES["n"]
 
 
+def verify_route_counts() -> dict:
+    """fused_verify calls per route of its attention kernel since import /
+    reset, as the launch reports it: ``tc`` (bf16 or int8 cache, tensor
+    cores) and ``fma`` (f32 cache, f32 FMAs)."""
+    return {r: _VERIFY_LAUNCHES[r] for r in ("tc", "fma")}
+
+
 def reset_verify_launch_count() -> None:
-    _VERIFY_LAUNCHES["n"] = 0
+    for k in _VERIFY_LAUNCHES:
+        _VERIFY_LAUNCHES[k] = 0
 
 
 def ext_mask_np(offs: np.ndarray, window: int,
@@ -451,10 +441,28 @@ def _verify_lib():
         lib.verify_qkv_launch.argtypes = (
             [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 7 + [_P])
         lib.verify_qkv_launch.restype = _I
-        fn.argtypes = ([_P] * 7 + [_I] + [_P] * 9 + [_I] * 12
-                       + [_F, _F, _P])
+        fn.argtypes = ([_P] * 7 + [_I] + [_P] * 6 + [_I] * 11
+                       + [_F, _F, _P, _P])
         fn.restype = _I
+        lib.verify_attn_block_rows.argtypes = [_I, _I]
+        lib.verify_attn_block_rows.restype = _I
     return lib.verify_qkv_launch, fn
+
+
+def verify_attn_plan(B: int, H: int, KV: int, hd: int, S: int, Sc: int,
+                     cache_dtype: torch.dtype, window: int, device) -> tuple:
+    """(splits, rows per split) of the verify attention launch over an
+    Sc-row cache (``decode_attn.plan``: one cluster per (slot, KV head) and
+    group of the query rows a block carries, from the kernel's own
+    occupancy at this S)."""
+    code = _CACHE_CODE[cache_dtype]
+    rows = _build.load("fused_verify").verify_attn_block_rows(code, hd)
+    if rows <= 0:
+        raise ValueError(f"the verify attention kernel takes hd <= "
+                         f"{_da.MAX_HD}, got {hd}")
+    return _da.plan("fused_verify", "verify_attn_max_clusters",
+                    (code, hd, H // KV, S, int(bool(window))), B * KV,
+                    (H // KV) * S, Sc, device, rows_per_block=rows)
 
 
 def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
@@ -487,9 +495,12 @@ def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
         ks_p = vs_p = None
     pos = pos.expand(B).contiguous() if pos.dim() == 0 else pos.contiguous()
     _mm._check(pos, "pos", dev, (torch.int32,))
-    if not 0 < S <= _CHUNK:
-        raise ValueError(f"the verify kernel scores 1..{_CHUNK} positions "
-                         f"per slot, got S={S}")
+    if not 0 < S <= _MAX_VERIFY_ROWS:
+        raise ValueError(f"the verify kernel scores 1..{_MAX_VERIFY_ROWS} "
+                         f"positions per slot, got S={S}")
+    if hd > _da.MAX_HD or hd % 2:
+        raise ValueError(f"the attention kernel takes an even hd <= "
+                         f"{_da.MAX_HD}, got {hd}")
     offs, ext_ok = verify_operands(S, node_depth, tree_bias,
                                    cfg.sliding_window, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -512,27 +523,23 @@ def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
     k_new = torch.empty((B, S, KV, hd), dtype=x.dtype, device=dev)
     v_new = torch.empty_like(k_new)
     rope_coef = float(np.float32(math.log(cfg.rope_theta) / (hd // 2)))
-    # the merge keeps one rescale per (split, query row) in a (G*S, hd)
-    # buffer: at most hd splits
-    splits, rows = _attn_plan(B * KV, Sc, max_splits=hd)
-    G = H // KV
-    ws_a = torch.empty(B * KV * splits * (2 * G * S + G * S * hd),
-                       dtype=torch.float32, device=dev)
+    window = int(cfg.sliding_window)
+    splits, rows = verify_attn_plan(B, H, KV, hd, S, Sc, kc.dtype, window,
+                                    dev)
+    route = ctypes.c_int(-1)
     err = attn_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kc.data_ptr(),
                   vc.data_ptr(), ks_p, vs_p, _CACHE_CODE[kc.dtype],
-                  _identity_table(B, dev).data_ptr(), pos.data_ptr(),
-                  offs.data_ptr(), ext_ok.data_ptr(), att.data_ptr(),
-                  k_new.data_ptr(), v_new.data_ptr(), ws_a.data_ptr(),
-                  _mm._tickets(B * KV, dev).data_ptr(),
-                  _mm._DTYPE_CODE[x.dtype], B, H, KV, hd, S, 1, Sc,
-                  int(cfg.sliding_window), int(bool(cfg.use_rope)), splits,
-                  rows, rope_coef, 1.0 / math.sqrt(hd), stream)
+                  pos.data_ptr(), offs.data_ptr(), ext_ok.data_ptr(),
+                  att.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                  _mm._DTYPE_CODE[x.dtype], B, H, KV, hd, S, Sc, window,
+                  int(bool(cfg.use_rope)), splits, rows, rope_coef,
+                  1.0 / math.sqrt(hd), ctypes.byref(route), stream)
     if err != 0:
         raise RuntimeError(f"verify attention kernel launch failed: "
                            f"CUDA error {err}")
     out = torch.empty((B, S, wo.shape[1]), dtype=x.dtype, device=dev)
     _mm.launch(att.view(B, S, qd), wo, out, None, a_q, round_w=False)
-    return out, {"k": k_new, "v": v_new}
+    return out, {"k": k_new, "v": v_new}, _da.ROUTES[route.value]
 
 
 def fused_verify(params, x, cache, pos, cfg, *, active=None, node_depth=None,
@@ -555,7 +562,8 @@ def fused_verify(params, x, cache, pos, cfg, *, active=None, node_depth=None,
         return fused_verify_plain(params, x, cache, pos, cfg, a_q, a_kv,
                                   node_depth, tree_bias)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
-    out = _fused_verify_cuda(params, x.contiguous(), cache, pos, cfg, a_q,
-                             a_kv, node_depth, tree_bias)
+    out, kv, route = _fused_verify_cuda(params, x.contiguous(), cache, pos,
+                                        cfg, a_q, a_kv, node_depth, tree_bias)
     _VERIFY_LAUNCHES["n"] += 1
-    return out
+    _VERIFY_LAUNCHES[route] += 1
+    return out, kv

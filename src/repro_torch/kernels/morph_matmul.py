@@ -29,7 +29,6 @@ ActiveDim = Union[int, torch.Tensor, None]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"n": 0}
-_TICKETS = {}
 # launch geometry shared with csrc/gemv.cuh: 64-column tiles (kBN), chunks of
 # 64 contraction rows (kKC), at most 16 splits per tile (kMaxSplits: the
 # splits of a tile form one thread block cluster)
@@ -171,18 +170,6 @@ def _split_plan(n_cols: Tuple[int, ...], K: int,
             break
     per = (chunks + s - 1) // s
     return tiles, (chunks + per - 1) // per, per * _KC
-
-
-def _tickets(n: int, device: torch.device) -> torch.Tensor:
-    """Zeroed counters for the verify kernel's last-block merge
-    (``fused_verify``); the kernel leaves them zeroed again, so one buffer
-    serves every launch on the stream."""
-    key = str(device)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _TICKETS[key] = t
-    return t
 
 
 def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,

@@ -9,12 +9,16 @@ model layout, with B and C read per group instead of repeated per head.
 ``ssd_chunked`` (a port of ``repro.models.ssm.ssd_chunked``) is the
 chunked algorithm in plain PyTorch in the model layout; on a CPU tensor
 ``ssd_scan`` runs ``ssd_scan_plain``, that function on a one-head view. On
-CUDA tensors it launches the hand-written kernel in ``csrc/ssd_scan.cu``
-or raises. The kernel carries the state every 64 steps and masks a ragged
-last tile; no argument changes its tiling. Every chunk size gives the same
-function up to rounding, so ``chunk`` selects only the plain version's
-chunking, and is kept for the reference's signature.
-``launch_count()`` counts the kernel's launches, from either entry point.
+CUDA tensors it launches the hand-written kernels in ``csrc/ssd_scan.cu``
+or raises: three launches, the products on the tensor cores (3xTF32): the
+64-step tiles' state contributions, and C.B^T once per (batch, group,
+tile), all tiles in parallel; the carry of the state over the tiles
+(elementwise); the outputs of all tiles in parallel. They work in 64-step
+tiles and mask a ragged last tile; no argument changes the tiling.
+Every chunk size gives the same function up to rounding, so ``chunk``
+selects only the plain version's chunking, and is kept for the reference's
+signature. ``launch_count()`` counts the scans launched (three kernel
+launches each), from either entry point.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ _I = ctypes.c_int
 
 
 def launch_count() -> int:
-    """Kernel launches since import / reset."""
+    """Scans launched (three kernel launches each) since import / reset."""
     return _LAUNCHES["n"]
 
 
@@ -112,21 +116,23 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
 
 
 def _lib():
-    fn = _build.load("ssd_scan").ssd_scan_launch
+    lib = _build.load("ssd_scan")
+    fn = lib.ssd_scan_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P]
+        fn.argtypes = [_P, _I] + [_P] * 7 + [_I] * 6 + [_P]
         fn.restype = _I
-    return fn
+        lib.ssd_scan_workspace.argtypes = [_I] * 6
+        lib.ssd_scan_workspace.restype = ctypes.c_longlong
+    return lib
 
 
 def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel in the model layout: x (b, s, h, p) f32 or bf16;
+    """Launch the kernels in the model layout: x (b, s, h, p) f32 or bf16;
     dt (b, s, h), A_bh (b, h), B and C (b, s, g, n), all f32, contiguous
     and on one CUDA device. Returns (y (b, s, h, p) in x's dtype, state
-    (b, h, p, n) f32). Counted."""
+    (b, h, p, n) f32). Counted once."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
@@ -155,12 +161,16 @@ def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
     if g < 1 or h % g or not 1 <= n <= _MAX_STATE:
         raise ValueError(f"need heads ({h}) a multiple of groups ({g}) and "
                          f"1 <= n <= {_MAX_STATE}, got n = {n}")
+    lib = _lib()
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    err = _lib()(x.data_ptr(), _DTYPE_CODE[x.dtype], dt.data_ptr(),
-                 A_bh.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                 state.data_ptr(), b, s, h, p, g, n,
-                 torch.cuda.current_stream(dev).cuda_stream)
+    ws = torch.empty(max(1, lib.ssd_scan_workspace(b, s, h, p, g, n)),
+                     dtype=torch.float32, device=dev)
+    err = lib.ssd_scan_launch(x.data_ptr(), _DTYPE_CODE[x.dtype],
+                              dt.data_ptr(), A_bh.data_ptr(), B.data_ptr(),
+                              C.data_ptr(), y.data_ptr(), state.data_ptr(),
+                              ws.data_ptr(), b, s, h, p, g, n,
+                              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     _LAUNCHES["n"] += 1

@@ -208,15 +208,24 @@ def tree_np(branching):
     return np.asarray(depths, np.int32), bias
 
 
-@pytest.mark.parametrize("variant", ["linear_f32", "linear_bf16",
-                                     "tree_int8", "linear_swa"])
-def test_fused_verify_kernel_matches_plain(cuda, variant):
+def _verify_case(cuda, variant, seed=4):
+    """A verify layer on the smoke config (hd 16): the variant's config,
+    f32 weights, B = 3 slots, a 130-row cache (6 rows under the window) at
+    positions 0, 4 and Sc + 70, mixed widths. "_g8" variants take 16 query
+    heads over 2 KV heads: G * S = 40 (linear) or 56 ((2, 2) tree) query
+    rows per (slot, KV head), three or four m16 row tiles of one block."""
     kw = {"linear_f32": {}, "linear_bf16": {"dtype": "bfloat16"},
           "tree_int8": {"kv_quant": True},
-          "linear_swa": {"sliding_window": 6}}[variant]
+          "linear_swa": {"sliding_window": 6},
+          "linear_bf16_g8": {"dtype": "bfloat16", "n_heads": 16,
+                             "n_kv_heads": 2},
+          "tree_int8_g8": {"kv_quant": True, "n_heads": 16, "n_kv_heads": 2},
+          "linear_swa_bf16_g8": {"dtype": "bfloat16", "n_heads": 16,
+                                 "n_kv_heads": 2, "sliding_window": 70},
+          }[variant]
     cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    g = torch.Generator(device=cuda).manual_seed(4)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     dm, H, KV, hd, B = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 3
     params = {n: torch.randn(*s, generator=g, device=cuda) / np.sqrt(s[0])
               for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
@@ -226,7 +235,7 @@ def test_fused_verify_kernel_matches_plain(cuda, variant):
     if variant.startswith("tree"):
         nd, tb = tree_np((2, 2))
         S = len(nd)
-    Sc = 6 if cfg.sliding_window else 130
+    Sc = cfg.sliding_window or 130
     shape = (B, Sc, KV, hd)
     if cfg.kv_quant:
         cache = {"k": torch.randint(-127, 128, shape, generator=g, device=cuda,
@@ -242,13 +251,33 @@ def test_fused_verify_kernel_matches_plain(cuda, variant):
                  "v": torch.randn(shape, generator=g, device=cuda).to(dt)}
     x = torch.randn(B, S, dm, generator=g, device=cuda).to(dt)
     pos = torch.tensor([0, 4, Sc + 70], dtype=torch.int32, device=cuda)
-    act = {"q_dim": torch.tensor([32, 64, 24], dtype=torch.int32, device=cuda),
+    act = {"q_dim": torch.tensor([32, H * hd, 24], dtype=torch.int32,
+                                 device=cuda),
            "kv_dim": torch.tensor([16, 32, 24], dtype=torch.int32, device=cuda)}
+    return cfg, dt, params, cache, x, pos, act, nd, tb
+
+
+@pytest.mark.parametrize("variant", ["linear_f32", "linear_bf16",
+                                     "tree_int8", "linear_swa",
+                                     "linear_bf16_g8", "tree_int8_g8",
+                                     "linear_swa_bf16_g8"])
+def test_fused_verify_kernel_matches_plain(cuda, variant):
+    """Against the plain version: outputs, raw candidates, the cache left
+    as it was, and the route the attention launch reports (bf16 and int8
+    caches on the tensor cores, f32 on FMAs). The "_g8" variants carry
+    more than 16 query rows per (slot, KV head); under the window of 70
+    the rows' lower edges differ inside one block."""
+    cfg, dt, params, cache, x, pos, act, nd, tb = _verify_case(cuda, variant)
     before = {n: t.clone() for n, t in cache.items()}
     n0 = FD.verify_launch_count()
+    route = "fma" if cache["k"].dtype == torch.float32 else "tc"
+    r0 = FD.verify_route_counts()
     o_k, kv_k = FD.fused_verify(params, x, cache, pos, cfg, active=act,
                                 node_depth=nd, tree_bias=tb)
     assert FD.verify_launch_count() == n0 + 1
+    r1 = FD.verify_route_counts()
+    assert r1[route] == r0[route] + 1 and sum(r1.values()) == sum(
+        r0.values()) + 1
     o_p, kv_p = FD.fused_verify_plain(params, x, cache, pos, cfg,
                                       act["q_dim"], act["kv_dim"], nd, tb)
     torch.cuda.synchronize()
@@ -299,11 +328,14 @@ def _ssd_inputs(g, shape, dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(2, 128, 4, 16, 1, 16),
                                    (1, 100, 6, 24, 2, 128),
-                                   (2, 37, 3, 8, 3, 40)])
+                                   (2, 37, 3, 8, 3, 40),
+                                   (1, 256, 32, 64, 1, 128),
+                                   (1, 1000, 8, 64, 2, 128)])
 def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
     """The scan kernel against ``ssd_chunked`` (chunk 16) in the model layout
-    (B and C per group, a ragged last tile at s = 100 and 37, hp not a
-    multiple of the kernel's 16 columns at 24 and 8) and against
+    (B and C per group, a ragged last tile at s = 100, 37 and 1000, hp not a
+    multiple of the kernel's 16 columns at 24 and 8; Mamba2-370M's full
+    width, and 16 tiles over two groups) and against
     ``ssd_scan_plain`` in the kernel's own layout. f32 y and states agree
     to 1e-3 (the kernel restarts the decay sum every 64 steps, the plain
     version every chunk: rounding only); a bf16 y to one bf16 step."""
@@ -685,3 +717,36 @@ def test_bf16_matmul_sums_in_f32(cuda, shape):
     assert not bool(bad.any()), (
         f"{int(bad.sum())} of {bad.numel()} outputs more than one bf16 step "
         f"from the f32-sum result")
+
+
+@pytest.mark.parametrize("kernel", ["fused_verify_g8", "fused_verify_tree",
+                                    "ssd_scan"])
+def test_verify_and_scan_kernels_are_deterministic(cuda, kernel):
+    """Repeated launches on the same inputs are bit-identical: the verify's
+    splits merge in split order through the cluster's shared memory, and
+    the scan's tiles meet in a fixed order through its workspace, with no
+    atomics in either."""
+    from repro_torch.kernels import ops
+
+    if kernel == "ssd_scan":
+        g = torch.Generator(device=cuda).manual_seed(29)
+        x, dt, A, B, C = _ssd_inputs(g, (1, 300, 8, 64, 2, 128),
+                                     torch.float32)
+
+        def run():
+            y, st = ops.ssd_scan_bshn(x, dt, A, B, C, chunk=64)
+            return torch.cat([y.flatten(), st.flatten()])
+    else:
+        variant = ("linear_bf16_g8" if kernel == "fused_verify_g8"
+                   else "tree_int8_g8")
+        cfg, dt, params, cache, x, pos, act, nd, tb = _verify_case(
+            cuda, variant, seed=31)
+
+        def run():
+            o, kv = FD.fused_verify(params, x, cache, pos, cfg, active=act,
+                                    node_depth=nd, tree_bias=tb)
+            return torch.cat([o.float().flatten(), kv["k"].float().flatten(),
+                              kv["v"].float().flatten()])
+    first = run().clone()
+    for _ in range(3):
+        assert torch.equal(run(), first)

@@ -489,3 +489,23 @@ def test_check_width_rejects_widths_not_dividing_ssm_heads():
             jax_check_width(JCFG, w)
     assert elastic.active_widths(TCFG, 0.5) == {"d_inner": 64,
                                                 "ssm_heads": 4}
+
+
+def test_tf32_split_error_is_far_below_f32_tolerance():
+    """The scan kernels' 3xTF32 operand split (``csrc/ssd_scan.cu``: hi =
+    tf32(a) by cvt.rna, lo = tf32(a - hi)): |a - hi - lo| <= 2^-22 |a|, and
+    hi alone keeps 10 mantissa bits (nearest, ties away from zero)."""
+    def tf32(a):
+        i = a.contiguous().view(torch.int32)
+        return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy((rng.standard_normal(100_000)
+                          * np.exp(rng.uniform(-20, 20, 100_000))).astype(
+        np.float32))
+    hi = tf32(a)
+    lo = tf32(a - hi)
+    assert ((a - hi - lo).abs() / a.abs()).max().item() <= 2.0 ** -22
+    assert ((a - hi).abs() / a.abs()).max().item() <= 2.0 ** -11
+    assert tf32(torch.tensor([1.0 + 2.0 ** -11])).item() == 1.0 + 2.0 ** -10
+    assert tf32(torch.tensor([-(1.0 + 2.0 ** -11)])).item() == -(1.0 + 2.0 ** -10)

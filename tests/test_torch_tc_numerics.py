@@ -34,9 +34,24 @@ work and rounding, on the same numpy inputs as the Pallas kernels.
   interpret mode: bf16 outputs to one bf16 step (rtol 2^-7 + atol 1e-3),
   f32 outputs to rtol 1e-4 + atol 1e-4 (the two splits keep q and p to
   about 2^-16, summed over 16..64 terms of O(1)).
+* The same core under ``fused_verify`` (``csrc/fused_verify.cu``): the G*S
+  query rows of a (slot, KV head) in one block (more than 16: several m16
+  row tiles), each row RoPE'd at its own position and masked by its own
+  window edge, the S extension columns scored in f32 and merged after the
+  splits under the (S, S) mask ``ext_ok``. Held to
+  ``repro.kernels.fused_decode.fused_verify(impl="pallas", interpret=True)``
+  at one bf16 step (rtol 2^-7 + atol 1e-3).
+* ``ssd_scan`` (``csrc/ssd_scan.cu``): 64-step tiles, every product as
+  3xTF32 (each f32 operand split hi = tf32(a), lo = tf32(a - hi), the
+  products lo*hi + hi*lo + hi*hi summed in f32), the tiles' state
+  contributions and C.B^T in parallel, the carry in f32, then y_diag + y_off
+  per tile. Held to the Pallas ``ssd_scan`` in interpret mode and to
+  ``ssd_chunked`` at rtol 1e-4 + atol 1e-4 (the split keeps each product to
+  3 * 2^-22 of |a b|).
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,11 +64,16 @@ from repro.kernels import fused_decode as JFD
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.morph_matmul import morph_matmul as jax_morph_matmul
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
+from repro.models import ssm as JSSM
+from repro.runtime.speculative import tree_topology
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FDK
 from repro_torch.kernels import fused_decode as FD
 from repro_torch.kernels import morph_matmul as MM
+from repro_torch.kernels import ssd_scan as TSSD
+from repro_torch.models.layers import _cache_kpos
 
 BF16_TOL = dict(atol=1e-3, rtol=2.0 ** -7)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -268,11 +288,15 @@ def tc_decode(q, k, v, ok, rps, k_scale=None, v_scale=None, ext=None,
     """The decode-attention core's tensor-core arithmetic for U units. q
     (U, G, hd) f32 (bf16 values when ``q_split`` is False); k, v (U, S, hd)
     the cache's values (bf16 or int8, held in f32); ok (U, S) the rows that
-    attend; scales (U, S) for an int8 cache; ``ext`` (scores (U, G), values
-    (U, hd)) an extension column merged with the splits. Splits of ``rps``
-    rows, 64-row chunks, 16 rows per warp. Returns (U, G, hd) f32."""
+    attend, or (U, G, S) per query row; scales (U, S) for an int8 cache;
+    ``ext`` (scores (U, G), values (U, hd)) an extension column, or (scores
+    (U, G, E), ok (U, G, E), values (U, E, hd)) E columns, merged after the
+    splits. Splits of ``rps`` rows, 64-row chunks, 16 rows per warp; the
+    m16 row tiles of a block see the same chunks in the same order.
+    Returns (U, G, hd) f32."""
     U, G, hd = q.shape
     S = k.shape[1]
+    okq = ok[:, None, :] if ok.dim() == 2 else ok  # (U, G or 1, S)
     scale = 1.0 / math.sqrt(hd)
     if q_split:
         qh, ql = split_p(q)
@@ -291,13 +315,13 @@ def tc_decode(q, k, v, ok, rps, k_scale=None, v_scale=None, ext=None,
                 a, b = c0 + w * warp_rows, min(c0 + (w + 1) * warp_rows, S)
                 if a >= b:
                     continue
-                kt, vt, okt = k[:, a:b], v[:, a:b], ok[:, a:b]
+                kt, vt, okt = k[:, a:b], v[:, a:b], okq[:, :, a:b]
                 s = sum(x @ kt.transpose(1, 2) for x in qq)  # (U, G, rows)
                 f = scale if k_scale is None else scale * k_scale[:, None, a:b]
-                x = torch.where(okt[:, None, :], s * f, neg)
+                x = torch.where(okt, s * f, neg)
                 m_new = torch.maximum(m, x.amax(-1))
                 alpha = torch.exp(m - m_new)
-                p = torch.where(okt[:, None, :], torch.exp(x - m_new[..., None]),
+                p = torch.where(okt, torch.exp(x - m_new[..., None]),
                                 torch.zeros(()))
                 l = l * alpha + p.sum(-1)
                 if v_scale is not None:
@@ -316,17 +340,22 @@ def tc_decode(q, k, v, ok, rps, k_scale=None, v_scale=None, ext=None,
         parts.append((M, L, A))
     M = torch.stack([p[0] for p in parts]).amax(0)
     if ext is not None:
-        M = torch.maximum(M, ext[0])
+        if len(ext) == 2:  # one column
+            es, eok, ev = ext[0][..., None], None, ext[1][:, None, :]
+            eok = torch.ones_like(es, dtype=torch.bool)
+        else:
+            es, eok, ev = ext
+        M = torch.maximum(M, torch.where(eok, es, neg).amax(-1))
     L = torch.zeros(U, G)
     A = torch.zeros(U, G, hd)
     for m, l, acc in parts:  # the cluster's merge, in split order
         f = torch.exp(m - M)
         L = L + l * f
         A = A + acc * f[..., None]
-    if ext is not None:
-        pe = torch.exp(ext[0] - M)
-        L = L + pe
-        A = A + pe[..., None] * ext[1][:, None, :]
+    if ext is not None:  # then the extension columns, masked p zeroed
+        pe = torch.where(eok, torch.exp(es - M[..., None]), torch.zeros(()))
+        L = L + pe.sum(-1)
+        A = A + pe @ ev
     return A / torch.clamp(L, min=1e-20)[..., None]
 
 
@@ -516,3 +545,256 @@ def test_tc_fused_decode_emulation_matches_pallas(variant):
             np.testing.assert_array_equal(got, want, err_msg=n)
         else:
             np.testing.assert_allclose(got, want, **BF16_TOL, err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the verify problem on the decode-attention core
+# ---------------------------------------------------------------------------
+
+
+def tc_fused_verify(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
+                    tree_bias, rps=64):
+    """fused_verify's kernels on a bf16 or int8 cache: f32 QKV from the f32
+    masters (an f32 product up to order), RoPE at each row's own position,
+    the raw candidates, the extension keys (through the int8 round trip
+    with the bf16-rounded scale on an int8 cache), then the attention by the
+    core: one unit per (slot, KV head) whose G*S rows (g-major, then s) are
+    one block's m16 row tiles, each row's own visibility, the S extension
+    columns in f32 under ext_ok; the f32 output projection. Returns (out,
+    {"k", "v"})."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    offs, ext_ok = FD.verify_operands(S, node_depth, tree_bias,
+                                      cfg.sliding_window, "cpu")
+    qpos = pos.long()[:, None] + offs.long()[None, :]  # (B, S)
+    xf = x.float()
+
+    def gate(y, a):
+        cols = torch.arange(y.shape[-1])[None, None, :]
+        return torch.where(cols < a[:, None, None], y, torch.zeros(()))
+
+    q = gate(xf @ params["wq"], a_q).view(B * S, H, hd)
+    kn = gate(xf @ params["wk"], a_kv).view(B * S, KV, hd)
+    vn = gate(xf @ params["wv"], a_kv).view(B, S, KV, hd)
+    q = FD._rope_rows(q, qpos.reshape(-1), cfg.rope_theta).view(B, S, H, hd)
+    kn = FD._rope_rows(kn, qpos.reshape(-1), cfg.rope_theta).view(B, S, KV,
+                                                                  hd)
+    Sc = cache["k"].shape[1]
+    if cfg.kv_quant:
+        def trip(t):
+            sc = t.abs().amax(-1, keepdim=True) / 127.0
+            return (torch.round(t / torch.clamp(sc, min=1e-8))
+                    * sc.bfloat16().float())
+        ke, ve = trip(kn), trip(vn)
+        scales = tuple(cache[n].float()[..., 0].transpose(1, 2)
+                       .reshape(B * KV, Sc) for n in ("k_scale", "v_scale"))
+    else:
+        ke, ve = kn, vn
+        scales = (None, None)
+    kpos = _cache_kpos(pos, Sc, cfg.sliding_window)  # (B, Sc)
+    qp = qpos[:, :, None]
+    ok = (kpos[:, None, :] >= 0) & (kpos[:, None, :] <= qp)
+    if cfg.sliding_window:
+        ok &= kpos[:, None, :] > qp - cfg.sliding_window
+    # units (b, h); rows r = g * S + s
+    qu = q.view(B, S, KV, G, hd).permute(0, 2, 3, 1, 4).reshape(B * KV,
+                                                                G * S, hd)
+    oku = ok[:, None, None].expand(B, KV, G, S, Sc).reshape(B * KV, G * S,
+                                                            Sc)
+    keu = ke.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    veu = ve.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    s_e = qu @ keu.transpose(1, 2) / math.sqrt(hd)  # (U, G*S, S) in f32
+    eok = ext_ok.bool()[None, None].expand(B * KV, G, S, S).reshape(
+        B * KV, G * S, S)
+    kc = cache["k"].float().transpose(1, 2).reshape(B * KV, Sc, hd)
+    vc = cache["v"].float().transpose(1, 2).reshape(B * KV, Sc, hd)
+    o = tc_decode(qu, kc, vc, oku, rps, *scales, ext=(s_e, eok, veu))
+    o = o.view(B, KV, G, S, hd).permute(0, 3, 1, 2, 4).reshape(B, S, H * hd)
+    out = (gate(o, a_q) @ params["wo"]).to(x.dtype)
+    return out, {"k": kn.to(x.dtype), "v": vn.to(x.dtype)}
+
+
+@pytest.mark.parametrize("variant", ["linear_bf16", "tree_int8",
+                                     "swa_linear_bf16"])
+def test_tc_fused_verify_emulation_matches_pallas(variant):
+    """fused_verify at 16 query heads over 2 KV heads (G * S = 40 rows for
+    S = 5, 56 for the (2, 2) tree: three and four m16 row tiles of one
+    block), hd 16, mixed widths and positions: a bf16 cache of 160 rows
+    (three 64-row splits) with the linear mask; an int8 cache with the
+    tree's ancestor mask; and a sliding window of 40 over a 40-row ring
+    (the last slot wrapped), whose lower edge differs between the rows of
+    one block. The core's arithmetic against the Pallas kernel in interpret
+    mode, output and candidates."""
+    kw = {"linear_bf16": {"dtype": "bfloat16"},
+          "tree_int8": {"kv_quant": True},
+          "swa_linear_bf16": {"dtype": "bfloat16", "sliding_window": 40},
+          }[variant]
+    kw.update(n_heads=16, n_kv_heads=2)
+    jcfg = dataclasses.replace(jax_smoke_config("tinyllama-1.1b"), **kw)
+    tcfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
+    rng = np.random.default_rng(len(variant) + 17)
+    dm, H, KV, hd, B = tcfg.d_model, tcfg.n_heads, tcfg.n_kv_heads, \
+        tcfg.head_dim, 3
+    assert H // KV == 8
+    params = {n: (rng.standard_normal(sh) / np.sqrt(sh[0])).astype(np.float32)
+              for n, sh in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
+                            ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
+    nd = tb = None
+    S = 5
+    if variant.startswith("tree"):
+        topo = tree_topology((2, 2))
+        nd, tb = topo.depths, topo.ancestor_bias
+        S = len(nd)
+    Sc = tcfg.sliding_window or 160
+    shape = (B, Sc, KV, hd)
+    x = rng.standard_normal((B, S, dm)).astype(np.float32)
+    if tcfg.kv_quant:
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = rng.uniform(0.001, 0.02, shape[:-1] + (1,)).astype(np.float32)
+        vs = rng.uniform(0.001, 0.02, shape[:-1] + (1,)).astype(np.float32)
+        jc = {"k": jnp.asarray(k), "v": jnp.asarray(v),
+              "k_scale": jnp.asarray(ks).astype(jnp.bfloat16),
+              "v_scale": jnp.asarray(vs).astype(jnp.bfloat16)}
+        tc = {"k": torch.from_numpy(k), "v": torch.from_numpy(v),
+              "k_scale": torch.from_numpy(ks).bfloat16(),
+              "v_scale": torch.from_numpy(vs).bfloat16()}
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    else:
+        k = rng.standard_normal(shape).astype(np.float32)
+        v = rng.standard_normal(shape).astype(np.float32)
+        (jk, tk), (jv, tv) = _bf16(k), _bf16(v)
+        jc, tc = {"k": jk, "v": jv}, {"k": tk, "v": tv}
+        jx, tx = _bf16(x)
+    pos = np.array([0, 70, Sc + 73], np.int32)
+    a_q = np.array([64, 256, 96], np.int32)
+    a_kv = np.array([16, 32, 24], np.int32)
+    # one compiled executable (not one per eager op): the suite's workers
+    # run many modules in one process, and XLA's compiler state adds up
+    o_j, kv_j = jax.jit(lambda prm, xx, c, ps, act: JFD.fused_verify(
+        prm, xx, c, ps, jcfg, active=act, node_depth=nd, tree_bias=tb,
+        impl="pallas", interpret=True))(
+        {n: jnp.asarray(w) for n, w in params.items()}, jx, jc,
+        jnp.asarray(pos),
+        {"q_dim": jnp.asarray(a_q), "kv_dim": jnp.asarray(a_kv)})
+    o_t, kv_t = tc_fused_verify(
+        {n: torch.from_numpy(w) for n, w in params.items()}, tx, tc,
+        torch.from_numpy(pos), tcfg, torch.from_numpy(a_q),
+        torch.from_numpy(a_kv), nd, tb)
+    np.testing.assert_allclose(o_t.float().numpy(),
+                               np.asarray(o_j).astype(np.float32), **BF16_TOL)
+    for n in ("k", "v"):
+        np.testing.assert_allclose(kv_t[n].float().numpy(),
+                                   np.asarray(kv_j[n]).astype(np.float32),
+                                   **BF16_TOL, err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan: tiles in parallel, then the carry, products in 3xTF32
+# ---------------------------------------------------------------------------
+
+
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to tf32 as cvt.rna.tf32.f32 does: 10 mantissa bits,
+    nearest, ties away from zero."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as 3xTF32: a_lo b_hi + a_hi b_lo + a_hi b_hi, f32 sums."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def tc_ssd_scan(x, dt, A, B_, C_, L=64):
+    """The scan kernels' arithmetic in the model layout: x (b, s, h, p), dt
+    (b, s, h), A (h,), B_ and C_ (b, s, g, n), f32. 64-step tiles (a ragged
+    last one zero-filled: dt = 0 and x = 0); launch 1 the tiles' state
+    contributions (u o decay)^T B and exp(cs_last) per (batch, head, tile)
+    and C.B^T once per (batch, group, tile); launch 2 the carry in f32;
+    launch 3 y = (C.B^T o L) u + exp(cs) C state^T per tile. Returns (y,
+    final state (b, h, p, n))."""
+    b, s, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    T = -(-s // L)
+    pad = T * L - s
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    B_ = torch.nn.functional.pad(B_, (0, 0, 0, 0, 0, pad))
+    C_ = torch.nn.functional.pad(C_, (0, 0, 0, 0, 0, pad))
+    y = torch.zeros(b, T * L, h, p)
+    state = torch.zeros(b, h, p, n)
+    tri = torch.tril(torch.ones(L, L, dtype=torch.bool))
+    for bi in range(b):
+        for hi in range(h):
+            gi = hi // (h // g)
+            st, el, cbs, css = [], [], [], []
+            for c in range(T):  # launch 1, every tile on its own
+                sl = slice(c * L, (c + 1) * L)
+                Bt, Ct = B_[bi, sl, gi], C_[bi, sl, gi]
+                d = dt[bi, sl, hi]
+                cs = torch.cumsum(d * A[hi], 0)
+                w = torch.exp(cs[-1] - cs) * d
+                st.append(mm3((w[:, None] * x[bi, sl, hi]).T, Bt))
+                el.append(torch.exp(cs[-1]))
+                cbs.append(mm3(Ct, Bt.T))  # once per (batch, group, tile)
+                css.append(cs)
+            prev = [torch.zeros(p, n)]  # launch 2
+            for c in range(T):
+                prev.append(el[c] * prev[c] + st[c])
+            state[bi, hi] = prev[T]
+            for c in range(T):  # launch 3
+                sl = slice(c * L, (c + 1) * L)
+                cs = css[c]
+                Lm = torch.where(tri, torch.exp(cs[:, None] - cs[None, :]),
+                                 torch.zeros(()))
+                M = torch.where(tri, cbs[c] * Lm, torch.zeros(()))
+                u = dt[bi, sl, hi][:, None] * x[bi, sl, hi]
+                y[bi, sl, hi] = (mm3(M, u) + torch.exp(cs)[:, None]
+                                 * mm3(C_[bi, sl, gi], prev[c].T))
+    return y[:, :s], state
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 150, 4, 16, 2, 16), 50),
+                                         ((1, 128, 2, 8, 1, 32), 64)])
+def test_tc_ssd_scan_emulation_matches_pallas(shape, chunk):
+    """The scan kernels' decomposition and 3xTF32 products at a ragged S =
+    150 (tiles of 64, 64 and 22) with two groups, and at two whole tiles,
+    against the Pallas ``ssd_scan`` in interpret mode (the kernel's own
+    layout: one head per row, B and C repeated) and against the port's and
+    JAX's ``ssd_chunked`` in the model layout, rtol 1e-4 + atol 1e-4."""
+    b, s, h, p, g, n = shape
+    rng = np.random.default_rng(s + n)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 2.0)).astype(
+        np.float32)
+    A = -np.exp(rng.uniform(0, 2.7, h)).astype(np.float32)
+    B_ = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    C_ = rng.standard_normal((b, s, g, n)).astype(np.float32)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    y, st = tc_ssd_scan(*map(torch.from_numpy, (x, dt, A, B_, C_)))
+    yp, stp = TSSD.ssd_chunked(*map(torch.from_numpy, (x, dt, A, B_, C_)),
+                               64)
+    np.testing.assert_allclose(y.numpy(), yp.numpy(), **tol)
+    np.testing.assert_allclose(st.numpy(), stp.numpy(), **tol)
+    jy, jst = jax.jit(JSSM.ssd_chunked, static_argnums=5)(
+        *map(jnp.asarray, (x, dt, A, B_, C_)), chunk)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **tol)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), **tol)
+    rep_ = h // g
+    flat = (x.transpose(0, 2, 1, 3).reshape(b * h, s, p),
+            dt.transpose(0, 2, 1).reshape(b * h, s),
+            np.broadcast_to(A, (b, h)).reshape(b * h),
+            *(np.repeat(t, rep_, axis=2).transpose(0, 2, 1, 3)
+              .reshape(b * h, s, n) for t in (B_, C_)))
+    ky, kst = jax.jit(lambda *a: jax_ssd_scan(*a, chunk=chunk,
+                                              interpret=True))(
+        *map(jnp.asarray, flat))
+    np.testing.assert_allclose(
+        y.numpy().transpose(0, 2, 1, 3).reshape(b * h, s, p), np.asarray(ky),
+        **tol)
+    np.testing.assert_allclose(st.numpy().reshape(b * h, p, n),
+                               np.asarray(kst), **tol)

@@ -23,7 +23,13 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    tensor-core route, its three launches (QKV, attention, output
    projection) timed in both of its timed passes, the attention beside its
    bound and beside SDPA over the same live rows and extension columns
-   under the same boolean mask; ``flash_attention`` at
+   under the same boolean mask; the page-table half of both
+   (``check_paged``: B = 8 over a 512-row capacity, page 16, shuffled
+   pages, two slots sharing four, a bf16 and an int8 cache; each paged
+   launch against its plain paged version, on the tensor-core route,
+   bit-identical to its dense twin over the same contents, and timed beside
+   that twin and its bound, the layer and its attention launch);
+   ``flash_attention`` at
    the full-width prompt pass (1 x 256 tokens, 32 / 4 heads of 64, causal,
    bf16), at a ragged S = 200 and at the reference's ``kernel_bench`` shape
    (f32, window 0 and 64); ``flash_decode`` at the serving cache's shape
@@ -54,8 +60,13 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``attn_impl="chunked"`` (every prompt pass through ``flash_attention``),
    then linear self-speculation
    (``SpecConfig(ks=(4,), min_accept_rate=0.0)``) unfused greedy, fused
-   greedy and fused at temperature 0.8 with top-k 50; then full-width,
-   full-depth ``mamba2-370m`` (24 requests) twice: plain greedy and
+   greedy and fused at temperature 0.8 with top-k 50; then, on a trace of
+   12 requests whose prompts share a 128-token prefix, all admitted in the
+   full mode, four fused drives: plain and greedy speculative, each over a
+   dense cache and over a block-paged one (page 16, the worst-case pool of
+   264 pages), asserting identical tokens pair by pair, radix hits, the
+   page accounting after every tick, every fused launch paged; then
+   full-width, full-depth ``mamba2-370m`` (24 requests) twice: plain greedy and
    speculative greedy (depth 48 drafts at exit 36, depth 36 at exit 24).
    Launch counters are zeroed just before each drive and read just after
    it, and each path must show its exact counts, worked out from the
@@ -80,7 +91,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    each smoke model on the card against the plain versions on the CPU
    (decode, prefill and verify, and for TinyLlama a chunked prefill
    through the flash kernel; a small-input reference).
-4. A ``{"kernels": [...]}`` JSON line, then the last line
+4. A ``{"kernels": [...]}`` JSON line (``fused_decode`` and
+   ``fused_verify`` add their paged timings under ``paged`` and the paged
+   drives' counts under ``paged_launches_by_path``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -720,6 +733,222 @@ def check_fused_verify(torch, cfg, timer):
                 bound_ms=bound, bound_by=by, library_ms=None,
                 check_pass_ms=t_check, per_launch=per_launch, splits=splits,
                 rows_per_split=rows)
+
+
+def paged_twin(torch, cfg, gen, B=8, S=512, ps=16):
+    """A dense (B, S, KV, hd) cache at full TinyLlama shapes (bf16, or int8
+    with bf16 scales when ``cfg.kv_quant``) and its paged twin: the same
+    rows scattered into shuffled pages of a worst-case pool (B * (S / ps +
+    1) pages: a scratch page per slot), slots 6 and 7 sharing their first
+    four pages and the rows in them. Returns (dense, pool, table)."""
+    from repro_torch.models import layers as L
+
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    P = S // ps
+    n_pages = B * (P + 1)
+    k = torch.randn(B, S, KV, hd, generator=gen, device="cuda")
+    v = torch.randn(B, S, KV, hd, generator=gen, device="cuda")
+    if cfg.kv_quant:
+        (kq, ks), (vq, vs) = L.quantize_kv(k), L.quantize_kv(v)
+        dense = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        dense = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    table = torch.randperm(n_pages, generator=gen, device="cuda")[:B * P]
+    table = table.view(B, P).to(torch.int32)
+    for t in dense.values():
+        t[7, :4 * ps] = t[6, :4 * ps]
+    table[7, :4] = table[6, :4]
+    pool = {}
+    for n, t in dense.items():
+        pool[n] = torch.zeros((n_pages, ps) + tuple(t.shape[2:]),
+                              dtype=t.dtype, device="cuda")
+        pool[n][table.long().flatten()] = t.reshape(
+            (B * P, ps) + tuple(t.shape[2:]))
+    return dense, pool, table
+
+
+def check_paged(torch, cfg, timer):
+    """The page-table half of ``fused_decode`` and ``fused_verify`` at the
+    phase-2 shape: B = 8 slots at mixed widths and positions over a
+    512-row capacity, page 16, shuffled pages, two slots sharing four, a
+    bf16 and an int8 cache. Each paged launch is checked against its plain
+    paged version, asserted on route ``tc`` and counted as paged, and held
+    bit-identical to its dense twin over the same contents (the paged
+    launch plans its splits from the slot's 512-row capacity); then both
+    are timed, the layer and its attention launch, beside the bound (the
+    dense twin's bytes plus the table's), and the attention launch once
+    more through an identity table over the dense cache's own memory (each
+    slot's pages in order), which splits the paged launch's extra time
+    into the table's code path and the pages' scattered placement."""
+    import dataclasses
+
+    from repro_torch.core import elastic
+    from repro_torch.kernels import fused_decode as FD
+
+    B, S, ps, SV = 8, 512, 16, 5
+    dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    params = {
+        "wq": torch.randn(dm, H * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wk": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wv": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wo": torch.randn(H * hd, dm, generator=gen, device="cuda") / math.sqrt(H * hd),
+    }
+    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    aq, akv = act["q_dim"].tolist(), act["kv_dim"].tolist()
+    pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 505], dtype=torch.int32,
+                       device="cuda")
+    out = {}
+    for variant, qcfg in (("bf16", cfg),
+                          ("int8", dataclasses.replace(cfg, kv_quant=True))):
+        dense, pool, table = paged_twin(torch, qcfg, gen, B, S, ps)
+        kw = dict(pages=table, page_size=ps, plan_len=S)
+        ident = torch.arange(B * (S // ps), dtype=torch.int32,
+                             device="cuda").view(B, S // ps)
+        row_bytes = KV * hd * (1 + 2 / hd if qcfg.kv_quant else 2)
+        tbl_bytes = table.numel() * 4
+        res = {}
+        for kind, xs in (("decode", 1), ("verify", SV)):
+            x = torch.randn(B, xs, dm, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            if kind == "decode":
+                c_k = {n: t.clone() for n, t in pool.items()}
+                c_p = {n: t.clone() for n, t in pool.items()}
+                c_d = {n: t.clone() for n, t in dense.items()}
+                n0, r0 = FD.paged_launch_count(), FD.route_counts()
+                o_k, _ = FD.fused_decode_step(params, x, c_k, pos, qcfg,
+                                              active=act, **kw)
+                n1, r1 = FD.paged_launch_count(), FD.route_counts()
+                o_p, _ = FD.fused_decode_plain(params, x, c_p, pos, qcfg,
+                                               act["q_dim"], act["kv_dim"],
+                                               table, ps)
+                o_d, _ = FD.fused_decode_step(params, x, c_d, pos, qcfg,
+                                              active=act)
+                outs = [("out", o_k, o_p)] + [
+                    (n, c_k[n], c_p[n]) for n in pool
+                    if c_k[n].dtype != torch.int8]
+                lens = [min(p + 1, S) for p in pos.tolist()]
+
+                def run_p(x=x, c=c_k):
+                    return FD.fused_decode_step(params, x, c, pos, qcfg,
+                                                active=act, **kw)
+
+                def run_d(x=x, c=c_d):
+                    return FD.fused_decode_step(params, x, c, pos, qcfg,
+                                                active=act)
+
+                def run_plain(x=x, c=c_p):
+                    return FD.fused_decode_plain(params, x, c, pos, qcfg,
+                                                 act["q_dim"], act["kv_dim"],
+                                                 table, ps)
+
+                def run_id(x=x, c=c_d):
+                    c = {n: t.view((B * (S // ps), ps) + tuple(t.shape[2:]))
+                         for n, t in c.items()}
+                    return FD.fused_decode_step(params, x, c, pos, qcfg,
+                                                active=act, pages=ident,
+                                                page_size=ps, plan_len=S)
+            else:
+                n0, r0 = FD.paged_verify_launch_count(), FD.verify_route_counts()
+                o_k, kv_k = FD.fused_verify(params, x, pool, pos, qcfg,
+                                            active=act, **kw)
+                n1, r1 = FD.paged_verify_launch_count(), FD.verify_route_counts()
+                o_p, kv_p = FD.fused_verify_plain(
+                    params, x, pool, pos, qcfg, act["q_dim"], act["kv_dim"],
+                    pages=table, page_size=ps)
+                o_d, _ = FD.fused_verify(params, x, dense, pos, qcfg,
+                                         active=act)
+                outs = [("out", o_k, o_p), ("k", kv_k["k"], kv_p["k"]),
+                        ("v", kv_k["v"], kv_p["v"])]
+                lens = [min(p, S) for p in pos.tolist()]
+
+                def run_p(x=x):
+                    return FD.fused_verify(params, x, pool, pos, qcfg,
+                                           active=act, **kw)
+
+                def run_d(x=x):
+                    return FD.fused_verify(params, x, dense, pos, qcfg,
+                                           active=act)
+
+                def run_plain(x=x):
+                    return FD.fused_verify_plain(
+                        params, x, pool, pos, qcfg, act["q_dim"],
+                        act["kv_dim"], pages=table, page_size=ps)
+
+                def run_id(x=x):
+                    c = {n: t.view((B * (S // ps), ps) + tuple(t.shape[2:]))
+                         for n, t in dense.items()}
+                    return FD.fused_verify(params, x, c, pos, qcfg,
+                                           active=act, pages=ident,
+                                           page_size=ps, plan_len=S)
+            torch.cuda.synchronize()
+            if n1 != n0 + 1 or r1["tc"] != r0["tc"] + 1 or r1["fma"] != r0["fma"]:
+                fail(f"paged {kind} {variant}: paged count {n0} -> {n1}, "
+                     f"routes {r0} -> {r1}; a paged bf16 or int8 launch must "
+                     f"take the tensor-core route")
+            err = 0.0
+            for name, got, want in outs:
+                ok, e = close(torch, got, want)
+                if not ok:
+                    fail(f"paged {kind} {variant} {name}: max |err| {e:.3e} "
+                         f"beyond rtol {RTOL_BF16:.2e} + atol {ATOL_BF16:.0e}")
+                err = max(err, e)
+            if kind == "decode" and qcfg.kv_quant:
+                for n in ("k", "v"):
+                    e = float((c_k[n].int() - c_p[n].int()).abs().max())
+                    if e > 1:  # f32 sum order may move a value past a .5 edge
+                        fail(f"paged decode {variant} pool {n}: int8 off by "
+                             f"{e}")
+            if not torch.equal(o_k, o_d):
+                fail(f"paged {kind} {variant}: output differs from its dense "
+                     f"twin over the same contents (max |diff| "
+                     f"{float((o_k.float() - o_d.float()).abs().max()):.3e})")
+            t_p = timer.ms(run_p)
+            parts_p = launch_parts(timer.last)
+            t_d = timer.ms(run_d)
+            parts_d = launch_parts(timer.last)
+            t_plain = timer.ms(run_plain)
+            timer.ms(run_id)
+            id_attn = launch_parts(timer.last)["attention"]
+            t_pw = timer.warm_ms(run_p)
+            t_dw = timer.warm_ms(run_d)
+            warm_p = launch_parts(t_pw)["attention"]
+            warm_d = launch_parts(t_dw)["attention"]
+            rows = xs
+            w_bytes = (dm * (max(aq) + 2 * max(akv)) + max(aq) * dm) * 4
+            io_bytes = 2 * B * rows * dm * 2 + 2 * B * rows * KV * hd * 2
+            kv_bytes = sum(lens) * row_bytes * 2
+            ops = sum(rows * (2 * dm * (q + 2 * k_) + 2 * q * dm)
+                      + 4 * q * rows * (n + rows)
+                      for q, k_, n in zip(aq, akv, lens))
+            bound, by = dense_bound(w_bytes + io_bytes + kv_bytes + tbl_bytes,
+                                    ops, PEAK_F32)
+            a_bytes = (kv_bytes + tbl_bytes + B * rows * (2 * H + 2 * KV)
+                       * hd * 4 + B * rows * KV * hd * 2 * 2)
+            a_ops = sum(4 * H * rows * hd * (n + rows) for n in lens)
+            a_bound, a_by = dense_bound(a_bytes, a_ops, PEAK_F32)
+            res[kind] = dict(
+                max_abs_err=err, ms=t_p, dense_ms=t_d, plain_ms=t_plain,
+                bound_ms=bound, bound_by=by,
+                attention=dict(ms=parts_p["attention"],
+                               dense_ms=parts_d["attention"],
+                               identity_table_ms=id_attn,
+                               warm_ms=warm_p, dense_warm_ms=warm_d,
+                               bound_ms=a_bound, bound_by=a_by))
+            log(f"  paged {kind} {variant} (B={B}, {rows} row(s) per slot, "
+                f"capacity {S}, page {ps}, {table.shape[1]} pages per slot, "
+                f"shuffled, two slots sharing four): max|err| vs plain "
+                f"{err:.3e}; bit-identical to its dense twin; route tc; "
+                f"layer {t_p:.4f} ms (dense twin {t_d:.4f}; plain "
+                f"{t_plain:.4f}); attention launch {parts_p['attention']:.4f}"
+                f" ms (dense {parts_d['attention']:.4f}; through an identity "
+                f"table over the dense memory {id_attn:.4f}; back to back "
+                f"{warm_p:.4f} / {warm_d:.4f}); bound: layer {bound:.4f} ms "
+                f"({by}), attention {a_bound:.5f} ms ({a_by}; table "
+                f"{tbl_bytes} B)")
+        out[variant] = res
+    return out
 
 
 def verify_attention_yardstick(torch, timer, cfg, x, cache, pos, S, t_attn):
@@ -1504,6 +1733,140 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
     return launches, results
 
 
+# path name -> (speculative, paged); every one fused, greedy, on one trace
+# whose prompts share a 128-token prefix, admitted in the full mode
+PAGED_PATHS = (("prefix_fused", False, False),
+               ("prefix_fused_paged", False, True),
+               ("prefix_spec_fused", True, False),
+               ("prefix_spec_fused_paged", True, True))
+PAGE = 16
+
+
+def prefix_trace(cfg, n_requests=12, prefix_len=128, seed=7):
+    """Requests whose prompts start with one shared ``prefix_len``-token
+    prefix (eight pages of 16) followed by 8-64 tokens of their own, 32-48
+    new tokens each."""
+    import numpy as np
+
+    from repro_torch.runtime.serving import Request
+
+    rng = np.random.default_rng(seed)
+    prefix = tuple(int(t) for t in rng.integers(1, cfg.vocab_size,
+                                                prefix_len))
+    reqs = []
+    for i in range(n_requests):
+        own = tuple(int(t) for t in rng.integers(
+            1, cfg.vocab_size, int(rng.integers(8, 65))))
+        reqs.append(Request(rid=i, prompt=prefix + own,
+                            max_new_tokens=int(rng.integers(32, 49))))
+    return reqs
+
+
+def paged_end_to_end(torch, cfg, params, device="cuda"):
+    """Serve full-width TinyLlama through ``PAGED_PATHS``: fused plain
+    decode and fused greedy speculation (K = 4), each over a dense cache and
+    over a paged one (page 16, the worst-case pool of 8 slots x (512 / 16 +
+    1) = 264 pages), on ``prefix_trace``, every request admitted in the full
+    mode (the radix keys on depth and width). Asserts per pair identical
+    tokens, and per paged drive radix hits > 0, the page accounting after
+    every tick, every fused launch paged, and nothing built after warmup;
+    launch counts exactly as ``expected_launches``. Returns (launches per
+    path, paged launches per path, results per path)."""
+    import copy
+
+    from repro_torch.kernels import fused_decode as FD
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.runtime.serving import ServingEngine
+    from repro_torch.runtime.speculative import SpecConfig
+
+    trace = prefix_trace(cfg)
+    count_reset = counters()
+    launches, paged_launches, results = {}, {}, {}
+    for tag, spec, paged in PAGED_PATHS:
+        layout = PagedLayout(page_size=PAGE) if paged else None
+        engine = ServingEngine(
+            params, cfg, batch_size=8, cache_capacity=512,
+            prefill_threshold=8, fused=True, paged=layout,
+            speculative=(SpecConfig(ks=(SPEC_K,), min_accept_rate=0.0)
+                         if spec else None), device=device)
+        engine.warmup()
+        engine.set_admission_mode(engine.ctrl.modes[-1])
+        steps0 = {n: t.steps for n, t in engine.ctrl.telemetry.items()}
+        reqs = copy.deepcopy(trace)
+        for _, reset in count_reset.values():
+            reset()
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        while engine.queue or engine.n_active:
+            engine.step()
+            if paged:
+                engine.check_paged_invariants()
+        wall = time.perf_counter() - t0
+        run = {n: count() for n, (count, _) in count_reset.items()}
+        n_paged = {"fused_decode": FD.paged_launch_count(),
+                   "fused_verify": FD.paged_verify_launch_count()}
+        want, steps = expected_launches(torch, engine, steps0, True, device)
+        if run != want:
+            fail(f"{tag}: launches {run}, expected {want} for (plain, draft, "
+                 f"verify) layer steps (, prefill layers) {steps}")
+        if FD.route_counts()["tc"] != run["fused_decode"] or \
+                FD.verify_route_counts()["tc"] != run["fused_verify"]:
+            fail(f"{tag}: routes {FD.route_counts()} / "
+                 f"{FD.verify_route_counts()}; every launch over a bf16 "
+                 f"cache must take the tensor-core route")
+        want_paged = {k: run[k] if paged else 0 for k in n_paged}
+        if n_paged != want_paged:
+            fail(f"{tag}: paged launches {n_paged}, expected {want_paged}")
+        if spec and not engine.spec_verify_launches:
+            fail(f"{tag}: no speculative tick ran")
+        if engine.ctrl.stats["compiles"] != engine.compiles_after_warmup:
+            fail(f"{tag}: a step was built after warmup")
+        streams = {r.rid: list(r.generated) for r in reqs}
+        for r in reqs:
+            s = streams[r.rid]
+            if len(s) != r.max_new_tokens or not all(0 <= t < cfg.vocab_size
+                                                     for t in s):
+                fail(f"{tag}: request {r.rid} stream is malformed")
+        gen = sum(len(s) for s in streams.values())
+        res = dict(streams=streams, tokens_per_s=gen / wall, wall_s=wall)
+        note = ""
+        if paged:
+            st = engine.page_pool_stats()[cfg.n_groups]
+            if not st["radix_hits"] > 0:
+                fail(f"{tag}: no radix hit on a shared-prefix trace: {st}")
+            res["pages"] = {k: st[k] for k in ("n_pages", "peak_in_use",
+                                               "allocs", "radix_hits",
+                                               "radix_misses",
+                                               "radix_hit_rate")}
+            note = (f"; pool {st['n_pages']} pages, peak {st['peak_in_use']}"
+                    f" in use, {st['allocs']} allocations, radix hits "
+                    f"{st['radix_hits']} / misses {st['radix_misses']}, "
+                    f"page accounting checked after every tick")
+        h = engine._h_spec if spec else engine._h_decode
+        res.update(p50_ms=h.p50, p95_ms=h.p95)
+        log(f"  e2e {tag}: {gen} tokens, {len(reqs)} requests in {wall:.2f} "
+            f"s wall -> {gen / wall:.1f} tokens/s; {engine.decode_launches} "
+            f"decode steps, {engine.spec_verify_launches} speculative ticks, "
+            f"{engine.prefills} prefills; {'tick' if spec else 'step'} p50 "
+            f"{h.p50:.3f} ms p95 {h.p95:.3f} ms{note}")
+        log(f"    launches in this drive: " + ", ".join(
+            f"{n} {c}" for n, c in run.items())
+            + f" (paged: {n_paged}; as expected)")
+        launches[tag], paged_launches[tag], results[tag] = run, n_paged, res
+        del engine
+    for dense_tag, paged_tag in ((PAGED_PATHS[0][0], PAGED_PATHS[1][0]),
+                                 (PAGED_PATHS[2][0], PAGED_PATHS[3][0])):
+        a, b = results[dense_tag]["streams"], results[paged_tag]["streams"]
+        if a != b:
+            same = sum(u == w for r in a for u, w in zip(a[r], b[r]))
+            fail(f"{paged_tag} vs {dense_tag}: tokens differ ({same} of "
+                 f"{sum(len(s) for s in a.values())} agree position-wise)")
+        log(f"  {paged_tag} vs {dense_tag}: all {len(a)} streams identical "
+            f"({sum(len(s) for s in a.values())} tokens)")
+    return launches, paged_launches, results
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1722,6 +2085,7 @@ def main(argv=None) -> int:
         f"{mm64['ms'] / mm['ms']:.2f}x")
     fd = check_fused_decode(torch, cfg, timer)
     fv = check_fused_verify(torch, cfg, timer)
+    pg = check_paged(torch, cfg, timer)
     fa = check_flash_attention(torch, cfg, timer)
     fdk = check_flash_decode(torch, cfg, timer)
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
@@ -1730,13 +2094,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
-                for p in PATHS + SSM_PATHS + (("flash_decode_entry",),)}
+                for p in (PATHS + SSM_PATHS + PAGED_PATHS
+                          + (("flash_decode_entry",),))}
+    paged_launches = {p[0]: dict.fromkeys(("fused_decode", "fused_verify"))
+                      for p in PAGED_PATHS}
     if not args.skip_e2e:
         phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
         params = init_on_card(torch, cfg)
         # 12 requests: the Mamba2 drives below share the run's time
         launches, _ = end_to_end(torch, cfg, params, timer, n_requests=12)
+        phase("[phase 3] end to end: tinyllama-1.1b over a block-paged KV "
+              "cache, one card")
+        pl, paged_launches, _ = paged_end_to_end(torch, cfg, params)
+        launches.update(pl)
         prompt_pass_ms(torch, params, cfg)
         del params
         torch.cuda.empty_cache()
@@ -1767,6 +2138,12 @@ def main(argv=None) -> int:
 
     def by_path(name):
         return {p: c[name] for p, c in launches.items()}
+
+    def paged_summary(kind):
+        return {v: {m: r[kind][m] for m in ("ms", "dense_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "max_abs_err", "attention")}
+                for v, r in pg.items()}
 
     def others(res, main):
         return {k: {m: r[m] for m in ("ms", "plain_ms", "bound_ms",
@@ -1806,7 +2183,10 @@ def main(argv=None) -> int:
              bound_by=fd["bound_by"], library_ms=None,
              per_launch=fd["per_launch"],
              attention_plan=dict(splits=fd["splits"],
-                                 rows_per_split=fd["rows_per_split"])),
+                                 rows_per_split=fd["rows_per_split"]),
+             paged=paged_summary("decode"),
+             paged_launches_by_path={p: c["fused_decode"]
+                                     for p, c in paged_launches.items()}),
         dict(name="fused_verify", route="cuda", status=status,
              source="src/repro_torch/csrc/fused_verify.cu",
              replaces="src/repro/kernels/fused_decode.py:621",
@@ -1817,7 +2197,10 @@ def main(argv=None) -> int:
              bound_by=fv["bound_by"], library_ms=None,
              check_pass_ms=fv["check_pass_ms"], per_launch=fv["per_launch"],
              attention_plan=dict(splits=fv["splits"],
-                                 rows_per_split=fv["rows_per_split"])),
+                                 rows_per_split=fv["rows_per_split"]),
+             paged=paged_summary("verify"),
+             paged_launches_by_path={p: c["fused_verify"]
+                                     for p, c in paged_launches.items()}),
         dict(name="ssd_scan", route="cuda", status=status,
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:27",

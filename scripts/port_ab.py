@@ -12,6 +12,10 @@ checkout's ``chip_smoke.py``, so both trees are timed the same way.
 Compare two trees in turns (parent, change, change, parent) in one run on
 one card. It prints one JSON line with:
 
+* ``decode``: one fused decode layer at ``chip_smoke.py``'s phase-2 shape
+  (TinyLlama-1.1B, B = 8 slots, a 1024-row bf16 cache at mixed positions,
+  mixed widths) and over a 512-row cache, device ms by launch, each timed
+  twice in turns;
 * ``verify``: one fused verify layer at ``chip_smoke.py``'s phase-2 shape
   (TinyLlama-1.1B, B = 8 slots, S = 5, a 512-row bf16 cache at mixed
   committed counts, mixed widths), device ms by launch (QKV, attention:
@@ -25,7 +29,8 @@ one card. It prints one JSON line with:
 * with ``--spec``, ``spec_tick``: host and device ms of one fused
   TinyLlama-1.1B speculative tick (4 drafts at depth 16, verify at 22).
 
-Needs one CUDA card; weights are random from a seed.
+``--attention-only`` prints ``decode`` and ``verify`` alone. Needs one
+CUDA card; weights are random from a seed.
 """
 from __future__ import annotations
 
@@ -98,6 +103,39 @@ def verify_layer(torch, cs, timer, cfg):
     return res
 
 
+def decode_layer(torch, cs, timer, cfg):
+    from repro_torch.core import elastic
+    from repro_torch.kernels import fused_decode as FD
+
+    B = 8
+    dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = {
+        "wq": torch.randn(dm, H * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wk": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wv": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wo": torch.randn(H * hd, dm, generator=gen, device="cuda") / math.sqrt(H * hd),
+    }
+    act = elastic.active_widths_batch(
+        cfg, [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25], device="cuda")
+    x = torch.randn(B, 1, dm, generator=gen, device="cuda").to(torch.bfloat16)
+    res = {}
+    for S, pos in ((1024, [0, 1, 63, 64, 200, 511, 777, 1023]),
+                   (512, [0, 1, 63, 64, 200, 333, 450, 505])):
+        cache = {n: torch.randn(B, S, KV, hd, generator=gen, device="cuda")
+                 .to(torch.bfloat16) for n in ("k", "v")}
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+        def run():
+            return FD.fused_decode_step(params, x, cache, pos_t, cfg,
+                                        active=act)
+
+        for rep in ("first", "second"):
+            layer = timer.ms(run)
+            res[f"S={S} {rep}"] = dict(layer_ms=layer, **parts(timer.last))
+    return res
+
+
 def scans(torch, cs, timer, mcfg):
     from repro_torch.kernels import ops
 
@@ -162,6 +200,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="a name for the printed line")
     ap.add_argument("--spec", action="store_true",
                     help="also time a fused TinyLlama speculative tick")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="time the fused decode and verify layers only")
     args = ap.parse_args(argv)
     src = Path(args.src).resolve()
     if not (src / "repro_torch").is_dir():
@@ -183,9 +223,11 @@ def main(argv=None) -> int:
     cfg, mcfg = get_config("tinyllama-1.1b"), get_config("mamba2-370m")
     timer = cs.Timer(torch)
     res = dict(tag=args.tag, src=str(src), card=cs.card_line(),
-               verify=verify_layer(torch, cs, timer, cfg),
-               ssd_scan=scans(torch, cs, timer, mcfg),
-               mamba2_prompt=mamba2_prompt(torch, cs, mcfg))
+               decode=decode_layer(torch, cs, timer, cfg),
+               verify=verify_layer(torch, cs, timer, cfg))
+    if not args.attention_only:
+        res.update(ssd_scan=scans(torch, cs, timer, mcfg),
+                   mamba2_prompt=mamba2_prompt(torch, cs, mcfg))
     if args.spec:
         res["spec_tick"] = spec_tick(torch, cs, cfg)
     print(json.dumps(res), flush=True)

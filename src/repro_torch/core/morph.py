@@ -15,8 +15,10 @@ activate a subnetwork; nothing is reprogrammed. Here:
   width churn builds nothing new.
 
 ``MorphController`` records switch telemetry (build count, dispatch count,
-per-mode latency percentiles) and keeps the auxiliary speculative steps
-(``register_aux`` / ``aux_step``).
+per-mode latency percentiles) and keeps the auxiliary steps
+(``register_aux`` / ``aux_step``): the speculative draft and verify steps,
+and, over a block-paged cache, one decode step per (depth, page-table
+width bucket), keyed by ``paged_decode_compile_key``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,13 @@ import torch
 from repro_torch.configs.base import ModelConfig, MorphMode
 from repro_torch.core import elastic
 from repro_torch.models.model import decode_step
+
+
+def paged_decode_compile_key(depth: int, bucket: int) -> Tuple:
+    """Key of the paged one-token decode step for one (depth, page-table
+    width bucket); disjoint from the per-depth dense keys and the
+    speculative keys."""
+    return ("paged_decode", depth, bucket)
 
 
 def _block_until_ready(out) -> None:
@@ -236,6 +245,7 @@ def make_serve_controller(params, cfg: ModelConfig,
                           modes: Optional[Tuple[MorphMode, ...]] = None, *,
                           mesh=None, speculative=None,
                           paged_page_size: int = 0,
+                          paged_buckets: Tuple[int, ...] = (),
                           fused: bool = False) -> MorphController:
     """Serving controller: ONE decode step callable per *depth*.
 
@@ -251,17 +261,27 @@ def make_serve_controller(params, cfg: ModelConfig,
     ``ctrl.spec_plan``; they are built at warmup and advance
     ``trace_counter`` once each.
 
+    ``paged_page_size`` > 0 switches the serving surface to the block-paged
+    cache (``models.paged``): every step takes a trailing page-table
+    operand, the one-token decode is keyed ``("paged_decode", depth,
+    bucket)`` for every table width in ``paged_buckets`` (slots whose page
+    counts fall in one bucket share one step), and the draft and verify
+    steps read the pool through the full-width table. The per-depth dense
+    steps stay registered, but a paged engine dispatches the bucketed keys.
+    Every paged step plans the fused kernels' splits for the widest bucket
+    (a slot's full capacity), so each bucket visits a slot's rows as the
+    dense cache does.
+
     ``fused=True`` routes every attention decode and verify through the
     fused kernels; it is a closure flag, so compile keys are unchanged. Mesh
-    executors and paged caches arrive with later slices of the port and
-    raise here.
+    executors arrive with a later slice of the port and raise here.
     """
     if mesh is not None:
         raise NotImplementedError("mesh serving arrives with the multi-device "
                                   "slice of the port")
-    if paged_page_size:
-        raise NotImplementedError("paged KV serving arrives with the paged "
-                                  "slice of the port")
+    if paged_page_size and not paged_buckets:
+        raise ValueError("paged serving needs its page-table buckets")
+    plan_len = max(paged_buckets, default=0) * paged_page_size
     trace_counter = {"n": 0}
 
     def factory(mode: MorphMode):
@@ -277,6 +297,24 @@ def make_serve_controller(params, cfg: ModelConfig,
     ctrl = MorphController(cfg, factory, modes, compile_key=lambda m: m.depth)
     ctrl.trace_counter = trace_counter
     ctrl.spec_plan = {}
+    if paged_page_size:
+        def paged_factory(depth: int, bucket: int):
+            def build():
+                trace_counter["n"] += 1
+
+                def step(p, cache, tokens, active, pages):
+                    return decode_step(p, cache, tokens, cfg, depth=depth,
+                                       active=active, pages=pages,
+                                       page_size=paged_page_size,
+                                       plan_len=plan_len, fused=fused)
+
+                return step
+            return build
+
+        for d in sorted({m.depth for m in ctrl.modes}):
+            for b in paged_buckets:
+                ctrl.register_aux(paged_decode_compile_key(d, b),
+                                  paged_factory(d, b))
     if speculative is not None:
         # local import: the speculative module imports the model, and the
         # serving runtime imports this module
@@ -290,14 +328,16 @@ def make_serve_controller(params, cfg: ModelConfig,
             def build():
                 trace_counter["n"] += 1
                 return _spec.make_draft_step(cfg, draft_depth, k, top_k,
-                                             fused=fused)
+                                             page_size=paged_page_size,
+                                             plan_len=plan_len, fused=fused)
             return build
 
         def verify_factory(depth: int, k: int):
             def build():
                 trace_counter["n"] += 1
                 return _spec.make_verify_step(cfg, depth, k, top_k,
-                                              fused=fused)
+                                              page_size=paged_page_size,
+                                              plan_len=plan_len, fused=fused)
             return build
 
         for dd, k in sorted({(e.draft_depth, k) for e in plan.values()

@@ -109,6 +109,9 @@
 //          c), ext_value(ext, c, d)   the extension columns
 //   void store(r, d, v)              one output element
 //   void after_merge(ext, split, hg, t)  after the first cluster barrier
+// A problem whose cache is a page pool (the fused decode's and the
+// verify's) keeps a PageTable (below) and maps row(jj) through it; the core
+// never sees the table.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -163,6 +166,47 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = ptx::pack_bf16(x0 - hf.x, x1 - hf.y);
 }
+
+// A slot's page table, as the fused decode and verify problems read it.
+// With a table, cache row jj of slot b lies at physical row
+//   table[b * P + jj / ps] * ps + jj % ps
+// of the page pool (n_pages, ps, KV, hd); a null table is the dense cache,
+// whose rows the problem addresses itself. load() reads the entries that
+// cover the block's split range [rbeg, rbeg + rps) once, into shared
+// memory: every thread of the block calls it in begin(), where its loads
+// are in flight together with the problem's position read, and one barrier
+// follows (block-uniform: a dense launch skips it). A row outside that
+// range, or a range of more than kMaxBlockPages pages, reads its entry from
+// device memory. The problem's choice between table and none is a branch on
+// a uniform pointer, taken where rows are addressed, never around an MMA.
+constexpr int kMaxBlockPages = 64;
+static_assert(kMaxBlockPages <= kThreads, "one entry per thread");
+
+struct PageTable {
+  const int* table;  // (B, P) int32 physical page of each logical page; or null
+  int ps, P;         // rows per page, table width
+  const int* row_tbl;  // this slot's row of the table
+  const int* held;     // the block's entries, in shared memory
+  int page0, npg;      // first logical page held, pages held
+
+  __device__ void load(int b, int rbeg, int rps, int t) {
+    __shared__ int s_pages[kMaxBlockPages];
+    row_tbl = table + (size_t)b * P;
+    page0 = rbeg / ps;
+    const int pend = min(P, (rbeg + rps + ps - 1) / ps);
+    npg = pend > page0 && pend - page0 <= kMaxBlockPages ? pend - page0 : 0;
+    const int e = t < npg ? row_tbl[page0 + t] : 0;
+    if (t < npg) s_pages[t] = e;
+    held = s_pages;
+    __syncthreads();
+  }
+  __device__ size_t phys(int jj) const {
+    const int lp = jj / ps;
+    const unsigned i = (unsigned)(lp - page0);
+    const int pg = i < (unsigned)npg ? held[i] : row_tbl[lp];
+    return (size_t)pg * ps + (jj - lp * ps);
+  }
+};
 
 // m16 row tiles a block of problem P carries on cache type TC at hd padded
 // to HDP: P::kMTiles on the tensor cores, at most 256 / HDP (the

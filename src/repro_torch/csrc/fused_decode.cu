@@ -4,7 +4,8 @@
 // (pallas_call in _decode_pallas, called through fused_decode_step). Per slot
 // it computes the width-gated QKV projection in f32 from the f32 master
 // weights, RoPE, the optional int8 absmax round trip of the new K/V, an
-// online-softmax decode over the slot's dense cache rows,
+// online-softmax decode over the slot's cache rows (a dense cache, or a
+// page pool read through the slot's page table, the TPU kernel's tbl_ref),
 // the extension column for the new token, and the width-gated output
 // projection.
 //
@@ -23,8 +24,10 @@
 //       token's K/V (RoPE, the quantize round trip) while its first chunks
 //       load; the cluster merges the partials through distributed shared
 //       memory with the extension column; after the cluster's first barrier
-//       (every block has read its rows) the first block writes the new K/V
-//       and scales into the cache;
+//       (every block has read its rows) the block whose rows hold the
+//       slot's position writes the new K/V and scales into the cache
+//       (paged: at the physical row the slot's table maps that position to,
+//       da::PageTable);
 //   (c) the output projection through the morph_matmul kernel with
 //       active_k = a_q (launched by the Python wrapper).
 // Traps kept from the TPU kernel: the running max starts at -1e30 and masked
@@ -62,7 +65,7 @@ struct FusedAttnProb {
   // the core's interface (decode_attn.cuh)
   int units, hgroups, G, hd, rps, vec;
   float scale;
-  const void* kc;       // (B, S, KV, hd)
+  const void* kc;       // (B, S, KV, hd), or a page pool (n_pages, ps, KV, hd)
   const void* vc;
   static constexpr bool kQuant = QUANT;
   static constexpr bool kExt = true;
@@ -74,11 +77,12 @@ struct FusedAttnProb {
   const float* q;       // (B, H*hd) gated projections, before RoPE
   const float* k;       // (B, KV*hd)
   const float* v;       // (B, KV*hd)
-  __nv_bfloat16* ks;    // (B, S, KV, 1) scales, int8 caches only
+  __nv_bfloat16* ks;    // (B, S, KV, 1) scales (or pooled), int8 caches only
   __nv_bfloat16* vs;
   const int* pos;       // (B,) absolute position of the new token
   float* out;           // (B, H*hd) attention output, before the out proj
-  int H, KV, S, window, use_rope;
+  da::PageTable pt;     // the slot's pages; pt.table null: a dense cache
+  int H, KV, S, window, use_rope;  // S: positions a slot sees (paged: P * ps)
   float rope_coef;      // log(theta) / (hd / 2)
   int b, h, h0, nh, p, slot, p_div, p_mod;  // this block
 
@@ -88,6 +92,7 @@ struct FusedAttnProb {
     h0 = h0_;
     nh = nh_;
     p = pos[b];
+    if (pt.table) pt.load(b, (int)blockIdx.y * rps, rps, (int)threadIdx.x);
     p_div = p / S;
     p_mod = p % S;
     slot = window ? p_mod : min(p, S - 1);
@@ -103,7 +108,9 @@ struct FusedAttnProb {
     }
     return kp >= 0 && jj != slot && kp <= p && (!window || kp > p - window);
   }
-  __device__ size_t phys(int jj) const { return (size_t)b * S + jj; }
+  __device__ size_t phys(int jj) const {
+    return pt.table ? pt.phys(jj) : (size_t)b * S + jj;
+  }
   __device__ size_t row(int jj) const { return (phys(jj) * KV + h) * hd; }
   __device__ float kscale(int jj) const {
     return __bfloat162float(ks[phys(jj) * KV + h]);
@@ -205,9 +212,14 @@ struct FusedAttnProb {
   __device__ void store(int r, int d, float val) const {
     out[(size_t)b * H * hd + ((size_t)h * G + h0 + r) * hd + d] = val;
   }
-  // write-back: every block of (slot b, head h) has read its rows
+  // write-back: every block of (slot b, head h) has read its rows. The
+  // block whose split range holds the slot's row writes it: paged, that
+  // block holds the row's table entry in shared memory (any other block
+  // would wait on a table read at its end). A free slot's table row points
+  // at its scratch page, so a whole-batch launch writes a free slot's
+  // garbage there.
   __device__ void after_merge(float* ext, int split, int hg, int t) const {
-    if (split != 0 || hg != 0) return;
+    if (split != slot / rps || hg != 0) return;
     const size_t row = phys(slot);
     TC* kw = static_cast<TC*>(const_cast<void*>(kc));
     TC* vw = static_cast<TC*>(const_cast<void*>(vc));
@@ -225,8 +237,9 @@ struct FusedAttnProb {
 template <typename TC, bool QUANT>
 int launch_attn(const float* q, const float* k, const float* v, void* kc,
                 void* vc, void* ks, void* vs, const int* pos, float* out,
-                int B, int H, int KV, int hd, int S, int window, int use_rope,
-                int splits, int rows_per_split, float rope_coef, float scale,
+                int B, int H, int KV, int hd, int S, const int* table, int ps,
+                int P, int window, int use_rope, int splits,
+                int rows_per_split, float rope_coef, float scale,
                 cudaStream_t st, int* max_clusters, int* route) {
   FusedAttnProb<TC, QUANT> a = {};
   a.units = B * KV;
@@ -246,6 +259,9 @@ int launch_attn(const float* q, const float* k, const float* v, void* kc,
   a.vs = static_cast<__nv_bfloat16*>(vs);
   a.pos = pos;
   a.out = out;
+  a.pt.table = table;
+  a.pt.ps = ps;
+  a.pt.P = P;
   a.H = H;
   a.KV = KV;
   a.S = S;
@@ -260,22 +276,25 @@ int launch_attn(const float* q, const float* k, const float* v, void* kc,
 int dispatch_attn(const float* q, const float* k, const float* v, void* kc,
                   void* vc, void* ks, void* vs, int cache_dtype,
                   const int* pos, float* out, int B, int H, int KV, int hd,
-                  int S, int window, int use_rope, int splits,
-                  int rows_per_split, float rope_coef, float scale,
-                  cudaStream_t st, int* max_clusters, int* route) {
+                  int S, const int* table, int ps, int P, int window,
+                  int use_rope, int splits, int rows_per_split,
+                  float rope_coef, float scale, cudaStream_t st,
+                  int* max_clusters, int* route) {
   if (cache_dtype == da::kI8)
     return launch_attn<int8_t, true>(q, k, v, kc, vc, ks, vs, pos, out, B, H,
-                                     KV, hd, S, window, use_rope, splits,
-                                     rows_per_split, rope_coef, scale, st,
-                                     max_clusters, route);
+                                     KV, hd, S, table, ps, P, window,
+                                     use_rope, splits, rows_per_split,
+                                     rope_coef, scale, st, max_clusters,
+                                     route);
   if (cache_dtype == da::kBF16)
     return launch_attn<__nv_bfloat16, false>(
-        q, k, v, kc, vc, ks, vs, pos, out, B, H, KV, hd, S, window, use_rope,
-        splits, rows_per_split, rope_coef, scale, st, max_clusters, route);
+        q, k, v, kc, vc, ks, vs, pos, out, B, H, KV, hd, S, table, ps, P,
+        window, use_rope, splits, rows_per_split, rope_coef, scale, st,
+        max_clusters, route);
   return launch_attn<float, false>(q, k, v, kc, vc, ks, vs, pos, out, B, H,
-                                   KV, hd, S, window, use_rope, splits,
-                                   rows_per_split, rope_coef, scale, st,
-                                   max_clusters, route);
+                                   KV, hd, S, table, ps, P, window, use_rope,
+                                   splits, rows_per_split, rope_coef, scale,
+                                   st, max_clusters, route);
 }
 
 }  // namespace
@@ -306,25 +325,29 @@ extern "C" int fused_qkv_launch(const void* x, int x_dtype, const void* wq,
 }
 
 // (b) RoPE + decode attention split over cache rows + merge + quantize round
-// trip of the new K/V + cache write-back, over a dense (B, S, KV, hd) cache.
-// The splits of a (slot, head) form one cluster (1 <= splits <= 16); splits
-// * rows_per_split must cover the S cache rows, rows_per_split a multiple
-// of 64. cache_dtype: 0 f32, 1 bf16, 2 int8 (with bf16 scales). Writes the
-// route of the kernel launched (0 f32 FMAs, 1 tensor cores) to *route.
+// trip of the new K/V + cache write-back, over a dense (B, S, KV, hd) cache
+// (table null), or over a page pool (n_pages, ps, KV, hd) through the (B,
+// P) int32 page table `table`, S = P * ps. The splits of a (slot, head) form
+// one cluster (1 <= splits <= 16); splits * rows_per_split must cover the S
+// cache rows, rows_per_split a multiple of 64. cache_dtype: 0 f32, 1 bf16,
+// 2 int8 (with bf16 scales). Writes the route of the kernel launched (0 f32
+// FMAs, 1 tensor cores) to *route.
 extern "C" int fused_attn_launch(const float* q, const float* k, const float* v,
                                  void* kc, void* vc, void* ks, void* vs,
                                  int cache_dtype, const int* pos, float* out,
                                  int B, int H, int KV, int hd, int S,
-                                 int window, int use_rope, int splits,
-                                 int rows_per_split, float rope_coef,
-                                 float scale, int* route, void* stream) {
+                                 const int* table, int ps, int P, int window,
+                                 int use_rope, int splits, int rows_per_split,
+                                 float rope_coef, float scale, int* route,
+                                 void* stream) {
   if (KV < 1 || H % KV != 0 || hd < 1 || hd > da::kMaxHD || hd % 2 != 0 ||
-      (long long)splits * rows_per_split < S)
+      (long long)splits * rows_per_split < S ||
+      (table && (ps < 1 || P < 1 || (long long)P * ps != S)))
     return (int)cudaErrorInvalidValue;
   return dispatch_attn(q, k, v, kc, vc, ks, vs, cache_dtype, pos, out, B, H,
-                       KV, hd, S, window, use_rope, splits, rows_per_split,
-                       rope_coef, scale, static_cast<cudaStream_t>(stream),
-                       nullptr, route);
+                       KV, hd, S, table, ps, P, window, use_rope, splits,
+                       rows_per_split, rope_coef, scale,
+                       static_cast<cudaStream_t>(stream), nullptr, route);
 }
 
 // How many clusters of `splits` blocks of the attention kernel for this
@@ -334,6 +357,6 @@ extern "C" int fused_attn_max_clusters(int cache_dtype, int hd, int splits,
   if (hd < 1 || hd > da::kMaxHD) return (int)cudaErrorInvalidValue;
   return dispatch_attn(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                        nullptr, cache_dtype, nullptr, nullptr, 1, 1, 1, hd, 1,
-                       0, 0, splits, da::kChunk, 1.f, 1.f, nullptr, out,
-                       nullptr);
+                       nullptr, 1, 1, 0, 0, splits, da::kChunk, 1.f, 1.f,
+                       nullptr, out, nullptr);
 }

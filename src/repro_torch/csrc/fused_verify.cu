@@ -3,8 +3,10 @@
 // Replaces the TPU kernel src/repro/kernels/fused_decode.py:_verify_kernel
 // (pallas_call in _verify_pallas, called through fused_verify). Per slot it
 // scores S positions (the last committed token and its drafts, or the nodes
-// of a token tree) at absolute positions pos + offs[s]: the width-gated QKV
-// projection in f32 from the f32 master weights, RoPE, an online softmax
+// of a token tree) at absolute positions pos + offs[s] over its cache rows
+// (a dense cache, or a page pool read through the slot's page table, the
+// TPU kernel's tbl_ref; da::PageTable): the width-gated QKV projection in
+// f32 from the f32 master weights, RoPE, an online softmax
 // over the cache rows with kpos <= pos + offs[s] (and inside the sliding
 // window), then the S extension columns of the new keys under the (S, S)
 // mask ext_ok, then the width-gated output projection. The cache is read,
@@ -68,7 +70,7 @@ struct VerifyProb {
   // the core's interface (decode_attn.cuh)
   int units, hgroups, G, hd, rps, vec;  // G: query rows per unit, Gq * S
   float scale;
-  const void* kc;       // (B, Sc, KV, hd)
+  const void* kc;       // (B, Sc, KV, hd), or a page pool (n_pages, ps, KV, hd)
   const void* vc;
   static constexpr bool kQuant = QUANT;
   static constexpr bool kExt = true;
@@ -86,7 +88,9 @@ struct VerifyProb {
   float* out;           // (B*S, H*hd) attention output, before the out proj
   void* k_new;          // (B, S, KV, hd) raw candidates, x's dtype
   void* v_new;
-  int x_dtype, H, KV, Gq, S, Sc, window, use_rope, rows;  // rows: <= MR
+  da::PageTable pt;     // the slot's pages; pt.table null: a dense cache
+  // rows: <= MR; Sc: cache positions a slot sees (paged: P * ps)
+  int x_dtype, H, KV, Gq, S, Sc, window, use_rope, rows;
   float rope_coef;      // log(theta) / (hd / 2)
   int b, h, h0, nh, p, last_div, last_mod;  // this block
 
@@ -106,6 +110,7 @@ struct VerifyProb {
     h0 = h0_;
     nh = nh_;
     p = pos[b];
+    if (pt.table) pt.load(b, (int)blockIdx.y * rps, rps, (int)threadIdx.x);
     if (WINDOW) {
       const int last = max(p - 1, 0);  // newest committed position
       last_div = last / Sc;
@@ -128,7 +133,9 @@ struct VerifyProb {
     return p + reinterpret_cast<const int*>(ext + e_off())[s] - window;
   }
   __device__ bool ok_row(int key, int jj) const { return kpos(jj) > key; }
-  __device__ size_t phys(int jj) const { return (size_t)b * Sc + jj; }
+  __device__ size_t phys(int jj) const {
+    return pt.table ? pt.phys(jj) : (size_t)b * Sc + jj;
+  }
   __device__ size_t row(int jj) const { return (phys(jj) * KV + h) * hd; }
   __device__ float kscale(int jj) const {
     return __bfloat162float(ks[phys(jj) * KV + h]);
@@ -318,6 +325,8 @@ struct VerifyLaunch {
   void *k_new, *v_new;
   int x_dtype, B, H, KV, hd, S, Sc, window, use_rope, splits, rows_per_split;
   float rope_coef, scale;
+  const int* table;  // (B, P) page table, or null: a dense cache
+  int ps, P;
 };
 
 template <typename TC, bool QUANT, bool WINDOW>
@@ -352,6 +361,9 @@ VerifyProb<TC, QUANT, WINDOW> make_prob(const VerifyLaunch& a) {
   p.window = a.window;
   p.use_rope = a.use_rope;
   p.rope_coef = a.rope_coef;
+  p.pt.table = a.table;
+  p.pt.ps = a.ps;
+  p.pt.P = a.P;
   return p;
 }
 
@@ -425,13 +437,14 @@ extern "C" int verify_qkv_launch(const void* x, int x_dtype, const void* wq,
                                 static_cast<cudaStream_t>(stream));
 }
 
-// (b) RoPE + attention over the dense (B, Sc, KV, hd) cache split into row
-// ranges (one cluster of 1..16 splits per (slot, KV head) and row group) +
-// the S extension columns under ext_ok + raw candidates out. splits *
-// rows_per_split must cover the Sc cache rows, rows_per_split a multiple of
-// 64; 1 <= S <= 64. cache_dtype: 0 f32, 1 bf16, 2 int8 (with bf16 scales);
-// x_dtype: 0 f32, 1 bf16. Writes the route of the kernel launched (0 f32
-// FMAs, 1 tensor cores) to *route.
+// (b) RoPE + attention over the dense (B, Sc, KV, hd) cache (table null), or
+// over a page pool (n_pages, ps, KV, hd) through the (B, P) int32 page table
+// `table`, Sc = P * ps, split into row ranges (one cluster of 1..16 splits
+// per (slot, KV head) and row group) + the S extension columns under ext_ok
+// + raw candidates out. splits * rows_per_split must cover the Sc cache
+// rows, rows_per_split a multiple of 64; 1 <= S <= 64. cache_dtype: 0 f32,
+// 1 bf16, 2 int8 (with bf16 scales); x_dtype: 0 f32, 1 bf16. Writes the
+// route of the kernel launched (0 f32 FMAs, 1 tensor cores) to *route.
 extern "C" int verify_attn_launch(const float* q, const float* k, const float* v,
                                   const void* kc, const void* vc, const void* ks,
                                   const void* vs, int cache_dtype,
@@ -439,17 +452,19 @@ extern "C" int verify_attn_launch(const float* q, const float* k, const float* v
                                   const int8_t* ext_ok, float* out,
                                   void* k_new, void* v_new, int x_dtype, int B,
                                   int H, int KV, int hd, int S, int Sc,
+                                  const int* table, int ps, int P,
                                   int window, int use_rope, int splits,
                                   int rows_per_split, float rope_coef,
                                   float scale, int* route, void* stream) {
   if (KV < 1 || H % KV != 0 || hd < 1 || hd > da::kMaxHD || hd % 2 != 0 ||
-      S < 1 || S > 64 || (long long)splits * rows_per_split < Sc)
+      S < 1 || S > 64 || (long long)splits * rows_per_split < Sc ||
+      (table && (ps < 1 || P < 1 || (long long)P * ps != Sc)))
     return (int)cudaErrorInvalidValue;
   const VerifyLaunch a = {q,     k,      v,      kc,     vc,     ks,
                         vs,    pos,    offs,   ext_ok, out,    k_new,
                         v_new, x_dtype, B,     H,      KV,     hd,
                         S,     Sc,     window, use_rope, splits, rows_per_split,
-                        rope_coef, scale};
+                        rope_coef, scale, table, ps, P};
   return dispatch(a, cache_dtype, static_cast<cudaStream_t>(stream), nullptr,
                   route);
 }

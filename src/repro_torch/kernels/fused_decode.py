@@ -23,8 +23,16 @@ decode-attention core shared with ``flash_decode`` (``csrc/decode_attn.cuh``,
 split plan in ``decode_attn``): bf16 and int8 caches on the tensor cores
 (route ``"tc"``), f32 caches on f32 FMAs (route ``"fma"``), counted by
 ``route_counts()`` from the route the kernel reports it launched. It reads
-the dense (B, S, KV, hd) cache in place, so any capacity works; paged
-caches arrive with the paged slice.
+the dense (B, S, KV, hd) cache in place, so any capacity works, or a page
+pool (n_pages, page_size, KV, hd) through a (B, P) int32 page table
+(``pages``, the TPU kernel's ``tbl_ref``), counted apart by
+``paged_launch_count()``.
+
+A paged launch sizes its split plan from ``plan_len`` positions (the
+engine passes a slot's full capacity, the dense cache's S), not from the
+table's width: every table width then visits a slot's rows in the dense
+launch's splits and order, so paged and dense launches over the same
+contents give bit-identical outputs.
 
 ``fused_verify`` is the same layer over S positions per slot (speculative
 verify, linear or token tree), with the contract of ``layers.mha_verify``:
@@ -33,7 +41,8 @@ CPU tensor it runs ``fused_verify_plain``; on CUDA tensors the three
 launches of ``csrc/fused_verify.cu``, counted by ``verify_launch_count()``.
 Its attention launch runs on the same decode-attention core, each (slot,
 KV head)'s G*S query rows in one block (up to four m16 row tiles), counted
-per route by ``verify_route_counts()``.
+per route by ``verify_route_counts()``; paged launches also by
+``paged_verify_launch_count()``.
 """
 from __future__ import annotations
 
@@ -48,10 +57,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
 from repro_torch.models.layers import _cache_kpos
+from repro_torch.models.paged import cache_rows, paged_view
 
 KERNEL_NEG_INF = -1e30  # running-max init (flash_decode convention)
 
-_LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
+_LAUNCHES = {"n": 0, "tc": 0, "fma": 0, "paged": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -62,6 +72,12 @@ _MAX_VERIFY_ROWS = 64  # positions the verify kernel scores per slot
 def launch_count() -> int:
     """fused_decode_step calls that launched the kernels (3 launches each)."""
     return _LAUNCHES["n"]
+
+
+def paged_launch_count() -> int:
+    """fused_decode_step calls that launched the kernels over a page pool
+    (also counted in ``launch_count``)."""
+    return _LAUNCHES["paged"]
 
 
 def route_counts() -> dict:
@@ -119,8 +135,12 @@ def _rope_rows(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def fused_decode_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None):
-    """Plain PyTorch mirror of the kernels (f32 math, one softmax pass)."""
+def fused_decode_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None,
+                       pages=None, page_size=0):
+    """Plain PyTorch mirror of the kernels (f32 math, one softmax pass).
+    With ``pages`` (B, P) the cache leaves are page pools, read through the
+    gathered per-slot view and written at the physical row of each slot's
+    position."""
     dt = x.dtype
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -135,6 +155,9 @@ def fused_decode_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None):
             cols = torch.arange(y.shape[-1], device=dev)[None, :]
             y = torch.where(cols < a[:, None], y, torch.zeros((), device=dev))
         return y
+
+    def view(buf):
+        return paged_view(buf, pages, page_size)
 
     q = proj(params["wq"], a_q).view(B, H, hd)
     kn = proj(params["wk"], a_kv).view(B, KV, hd)
@@ -151,13 +174,13 @@ def fused_decode_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None):
         k_st, v_st = kq.to(torch.int8), vq.to(torch.int8)
         ks_st, vs_st = ksc.to(torch.bfloat16), vsc.to(torch.bfloat16)
         ke, ve = kq * ks_st.float(), vq * vs_st.float()
-        kc = cache["k"].float() * cache["k_scale"].float()
-        vc = cache["v"].float() * cache["v_scale"].float()
+        kc = view(cache["k"]).float() * view(cache["k_scale"]).float()
+        vc = view(cache["v"]).float() * view(cache["v_scale"]).float()
     else:
         k_st, v_st = kn.to(cache["k"].dtype), vn.to(cache["v"].dtype)
         ke, ve = k_st.float(), v_st.float()
-        kc, vc = cache["k"].float(), cache["v"].float()
-    S = cache["k"].shape[1]
+        kc, vc = view(cache["k"]).float(), view(cache["v"]).float()
+    S = kc.shape[1]
     window = cfg.sliding_window
     slot, kpos = _slot_kpos(pos, S, window)
     p = pos.long()[:, None]
@@ -180,12 +203,12 @@ def fused_decode_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None):
         cols = torch.arange(H * hd, device=dev)[None, :]
         o = torch.where(cols < a_q[:, None], o, torch.zeros((), device=dev))
     out = (o @ params["wo"].float()).to(dt)[:, None, :]
-    bix = torch.arange(B, device=dev)
-    cache["k"][bix, slot] = k_st
-    cache["v"][bix, slot] = v_st
+    rows = cache_rows(pages, slot, page_size)
+    cache["k"][rows] = k_st
+    cache["v"][rows] = v_st
     if quant:
-        cache["k_scale"][bix, slot] = ks_st
-        cache["v_scale"][bix, slot] = vs_st
+        cache["k_scale"][rows] = ks_st
+        cache["v_scale"][rows] = vs_st
     return out, cache
 
 
@@ -195,8 +218,8 @@ def _lib():
     if qkv.argtypes is None:
         qkv.argtypes = [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 6 + [_P]
         qkv.restype = _I
-        attn.argtypes = [_P] * 7 + [_I] + [_P] * 2 + [_I] * 9 + [_F, _F,
-                                                                 _P, _P]
+        attn.argtypes = ([_P] * 7 + [_I] + [_P] * 2 + [_I] * 5 + [_P]
+                         + [_I] * 6 + [_F, _F, _P, _P])
         attn.restype = _I
     return qkv, attn
 
@@ -211,21 +234,30 @@ def attn_plan(B: int, H: int, KV: int, hd: int, S: int,
                     device)
 
 
-def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
-    dev = x.device
-    B, _, dm = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
-    for name, t in (("x", x), ("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
-        _mm._check(t, name, dev)
-    if not (wq.dtype == wk.dtype == wv.dtype):
-        raise TypeError("wq, wk and wv must share one dtype")
+def _cache_operands(cache, B, KV, hd, pages, page_size, quant, dev):
+    """Checks the cache operands of a CUDA launch. Returns (S, table
+    pointer, page size, table width, scale pointers): S the positions a slot
+    sees, a dense cache's length or ``P * page_size`` through the (B, P)
+    page table ``pages`` over a page pool (n_pages, page_size, KV, hd)."""
     kc, vc = cache["k"], cache["v"]
-    S = kc.shape[1]
-    if tuple(kc.shape) != (B, S, KV, hd) or kc.shape != vc.shape:
-        raise ValueError(f"dense cache must be (B, S, KV, hd) = "
-                         f"{(B, S, KV, hd)}, got {tuple(kc.shape)}")
-    quant = bool(cfg.kv_quant)
+    if pages is None:
+        S = kc.shape[1]
+        want = (B, S, KV, hd)
+        table, ps, P = None, 1, 1
+    else:
+        _mm._check(pages, "page table", dev, (torch.int32,))
+        ps, P = int(page_size), pages.shape[1]
+        if pages.dim() != 2 or pages.shape[0] != B or ps < 1:
+            raise ValueError(f"page table must be (B, P) = ({B}, P) with a "
+                             f"positive page size, got {tuple(pages.shape)} "
+                             f"and page_size {page_size}")
+        S = P * ps
+        want = (kc.shape[0], ps, KV, hd)
+        table = pages.data_ptr()
+    if kc.dim() != 4 or tuple(kc.shape) != want or kc.shape != vc.shape:
+        raise ValueError(f"cache must be {'a page pool (n_pages, page_size, '
+                         'KV, hd)' if pages is not None else '(B, S, KV, hd)'}"
+                         f" = {want}, got {tuple(kc.shape)}")
     for name, t in (("k", kc), ("v", vc)):
         _mm._check(t, f"cache {name}", dev, tuple(_CACHE_CODE))
     if (kc.dtype == torch.int8) != quant or vc.dtype != kc.dtype:
@@ -235,9 +267,34 @@ def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
         ks, vs = cache["k_scale"], cache["v_scale"]
         for name, t in (("k_scale", ks), ("v_scale", vs)):
             _mm._check(t, name, dev, (torch.bfloat16,))
-        ks_p, vs_p = ks.data_ptr(), vs.data_ptr()
+        scales = (ks.data_ptr(), vs.data_ptr())
     else:
-        ks_p = vs_p = None
+        scales = (None, None)
+    return S, table, ps, P, scales
+
+
+def _plan_len(S: int, plan_len: int) -> int:
+    """Positions a launch's split plan is sized for: ``plan_len`` (a paged
+    slot's full capacity) or the launch's own S."""
+    if plan_len and plan_len < S:
+        raise ValueError(f"plan_len {plan_len} is shorter than the {S} "
+                         f"positions the launch sees")
+    return plan_len or S
+
+
+def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv, pages,
+                       page_size, plan_len):
+    dev = x.device
+    B, _, dm = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
+    for name, t in (("x", x), ("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+        _mm._check(t, name, dev)
+    if not (wq.dtype == wk.dtype == wv.dtype):
+        raise TypeError("wq, wk and wv must share one dtype")
+    kc, vc = cache["k"], cache["v"]
+    S, table, ps, P, (ks_p, vs_p) = _cache_operands(
+        cache, B, KV, hd, pages, page_size, bool(cfg.kv_quant), dev)
     if pos.dim() == 0:
         pos = pos.expand(B)
     pos = pos.contiguous()
@@ -262,14 +319,15 @@ def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
         raise RuntimeError(f"fused QKV kernel launch failed: CUDA error {err}")
     att = torch.empty((B, qd), dtype=torch.float32, device=dev)
     rope_coef = float(np.float32(math.log(cfg.rope_theta) / (hd // 2)))
-    splits, rows = attn_plan(B, H, KV, hd, S, kc.dtype, dev)
+    splits, rows = attn_plan(B, H, KV, hd, _plan_len(S, plan_len), kc.dtype,
+                             dev)
     route = ctypes.c_int(-1)
     err = attn_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kc.data_ptr(),
                   vc.data_ptr(), ks_p, vs_p, _CACHE_CODE[kc.dtype],
-                  pos.data_ptr(), att.data_ptr(), B, H, KV, hd, S,
-                  int(cfg.sliding_window), int(bool(cfg.use_rope)), splits,
-                  rows, rope_coef, 1.0 / math.sqrt(hd), ctypes.byref(route),
-                  stream)
+                  pos.data_ptr(), att.data_ptr(), B, H, KV, hd, S, table, ps,
+                  P, int(cfg.sliding_window), int(bool(cfg.use_rope)),
+                  splits, rows, rope_coef, 1.0 / math.sqrt(hd),
+                  ctypes.byref(route), stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: "
                            f"CUDA error {err}")
@@ -279,22 +337,27 @@ def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv):
 
 
 def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
-                      page_size=0):
+                      page_size=0, plan_len=0):
     """Fused one-token decode of one attention layer: (out (B,1,d), cache),
     with ``cache`` updated in place. ``pos``: (B,) int32 per-slot positions
-    (or a scalar shared by every slot)."""
-    if pages is not None:
-        raise NotImplementedError("paged KV caches arrive with the paged "
-                                  "slice of the port")
+    (or a scalar shared by every slot). With ``pages`` (B, P) int32 the
+    cache leaves are page pools (n_pages, page_size, KV, hd) read and
+    written through the table; ``plan_len`` sizes the kernel's split plan
+    (a slot's full capacity; 0: ``P * page_size``)."""
     B = x.shape[0]
     a_q, a_kv = _gates(active, B, x.device)
+    if pages is not None and torch.as_tensor(pos).dim() == 0:
+        raise ValueError("paged decode needs per-slot positions (pos (B,))")
     if x.device.type == "cpu":
-        return fused_decode_plain(params, x, cache, pos, cfg, a_q, a_kv)
+        return fused_decode_plain(params, x, cache, pos, cfg, a_q, a_kv,
+                                  pages, page_size)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     out, cache, route = _fused_decode_cuda(params, x.contiguous(), cache,
-                                           pos, cfg, a_q, a_kv)
+                                           pos, cfg, a_q, a_kv, pages,
+                                           page_size, plan_len)
     _LAUNCHES["n"] += 1
     _LAUNCHES[route] += 1
+    _LAUNCHES["paged"] += pages is not None
     return out, cache
 
 
@@ -302,7 +365,7 @@ def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
 # verify: S positions per slot, read-only cache, raw K/V candidates out
 # ---------------------------------------------------------------------------
 
-_VERIFY_LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
+_VERIFY_LAUNCHES = {"n": 0, "tc": 0, "fma": 0, "paged": 0}
 _VERIFY_OPERANDS: Dict[tuple, tuple] = {}
 
 
@@ -310,6 +373,12 @@ def verify_launch_count() -> int:
     """fused_verify calls that launched the verify kernels (3 launches
     each: QKV, attention, output projection)."""
     return _VERIFY_LAUNCHES["n"]
+
+
+def paged_verify_launch_count() -> int:
+    """fused_verify calls that launched the verify kernels over a page pool
+    (also counted in ``verify_launch_count``)."""
+    return _VERIFY_LAUNCHES["paged"]
 
 
 def verify_route_counts() -> dict:
@@ -356,12 +425,14 @@ def verify_operands(S: int, node_depth, tree_bias, window: int, device):
 
 
 def fused_verify_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None,
-                       node_depth=None, tree_bias=None):
+                       node_depth=None, tree_bias=None, pages=None,
+                       page_size=0):
     """Plain PyTorch mirror of the verify kernels (f32 math, one softmax
     over [cache, extension]): returns (out (B, S, d) in x's dtype,
     {"k", "v"} raw candidates (B, S, KV, hd) in x's dtype). The cache is
-    read only. Non-quantized extension keys are attended in f32; with an
-    int8 cache through the absmax round trip (bf16 scale), as the TPU
+    read only; with ``pages`` (B, P) through the gathered per-slot view of
+    its page pools. Non-quantized extension keys are attended in f32; with
+    an int8 cache through the absmax round trip (bf16 scale), as the TPU
     kernel does (``fused_decode.py:660-673``)."""
     dt = x.dtype
     B, S, _ = x.shape
@@ -390,6 +461,9 @@ def fused_verify_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None,
                        cfg.rope_theta).view(B, S, H, hd)
         kn = _rope_rows(kn.view(B * S, KV, hd), qpos.reshape(-1),
                         cfg.rope_theta).view(B, S, KV, hd)
+    def view(buf):
+        return paged_view(buf, pages, page_size)
+
     quant = bool(cfg.kv_quant)
     if quant:
         def trip(t):
@@ -397,11 +471,11 @@ def fused_verify_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None,
             return (torch.round(t / torch.clamp(sc, min=1e-8))
                     * sc.to(torch.bfloat16).float())
         ke, ve = trip(kn), trip(vn)
-        kc = cache["k"].float() * cache["k_scale"].float()
-        vc = cache["v"].float() * cache["v_scale"].float()
+        kc = view(cache["k"]).float() * view(cache["k_scale"]).float()
+        vc = view(cache["v"]).float() * view(cache["v_scale"]).float()
     else:
         ke, ve = kn, vn
-        kc, vc = cache["k"].float(), cache["v"].float()
+        kc, vc = view(cache["k"]).float(), view(cache["v"]).float()
     Sc = kc.shape[1]
     window = cfg.sliding_window
     kpos = _cache_kpos(pos, Sc, window)  # (B, Sc)
@@ -441,8 +515,8 @@ def _verify_lib():
         lib.verify_qkv_launch.argtypes = (
             [_P, _I, _P, _P, _P, _I] + [_P] * 5 + [_I] * 7 + [_P])
         lib.verify_qkv_launch.restype = _I
-        fn.argtypes = ([_P] * 7 + [_I] + [_P] * 6 + [_I] * 11
-                       + [_F, _F, _P, _P])
+        fn.argtypes = ([_P] * 7 + [_I] + [_P] * 6 + [_I] * 7 + [_P]
+                       + [_I] * 6 + [_F, _F, _P, _P])
         fn.restype = _I
         lib.verify_attn_block_rows.argtypes = [_I, _I]
         lib.verify_attn_block_rows.restype = _I
@@ -466,7 +540,7 @@ def verify_attn_plan(B: int, H: int, KV: int, hd: int, S: int, Sc: int,
 
 
 def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
-                       tree_bias):
+                       tree_bias, pages, page_size, plan_len):
     dev = x.device
     B, S, dm = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -476,23 +550,8 @@ def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
     if not (wq.dtype == wk.dtype == wv.dtype):
         raise TypeError("wq, wk and wv must share one dtype")
     kc, vc = cache["k"], cache["v"]
-    Sc = kc.shape[1]
-    if tuple(kc.shape) != (B, Sc, KV, hd) or kc.shape != vc.shape:
-        raise ValueError(f"dense cache must be (B, S, KV, hd) = "
-                         f"{(B, Sc, KV, hd)}, got {tuple(kc.shape)}")
-    quant = bool(cfg.kv_quant)
-    for name, t in (("k", kc), ("v", vc)):
-        _mm._check(t, f"cache {name}", dev, tuple(_CACHE_CODE))
-    if (kc.dtype == torch.int8) != quant or vc.dtype != kc.dtype:
-        raise TypeError(f"cache dtype {kc.dtype} does not match "
-                        f"kv_quant={quant}")
-    if quant:
-        ks, vs = cache["k_scale"], cache["v_scale"]
-        for name, t in (("k_scale", ks), ("v_scale", vs)):
-            _mm._check(t, name, dev, (torch.bfloat16,))
-        ks_p, vs_p = ks.data_ptr(), vs.data_ptr()
-    else:
-        ks_p = vs_p = None
+    Sc, table, ps, P, (ks_p, vs_p) = _cache_operands(
+        cache, B, KV, hd, pages, page_size, bool(cfg.kv_quant), dev)
     pos = pos.expand(B).contiguous() if pos.dim() == 0 else pos.contiguous()
     _mm._check(pos, "pos", dev, (torch.int32,))
     if not 0 < S <= _MAX_VERIFY_ROWS:
@@ -524,15 +583,15 @@ def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
     v_new = torch.empty_like(k_new)
     rope_coef = float(np.float32(math.log(cfg.rope_theta) / (hd // 2)))
     window = int(cfg.sliding_window)
-    splits, rows = verify_attn_plan(B, H, KV, hd, S, Sc, kc.dtype, window,
-                                    dev)
+    splits, rows = verify_attn_plan(B, H, KV, hd, S, _plan_len(Sc, plan_len),
+                                    kc.dtype, window, dev)
     route = ctypes.c_int(-1)
     err = attn_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kc.data_ptr(),
                   vc.data_ptr(), ks_p, vs_p, _CACHE_CODE[kc.dtype],
                   pos.data_ptr(), offs.data_ptr(), ext_ok.data_ptr(),
                   att.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                  _mm._DTYPE_CODE[x.dtype], B, H, KV, hd, S, Sc, window,
-                  int(bool(cfg.use_rope)), splits, rows, rope_coef,
+                  _mm._DTYPE_CODE[x.dtype], B, H, KV, hd, S, Sc, table, ps, P,
+                  window, int(bool(cfg.use_rope)), splits, rows, rope_coef,
                   1.0 / math.sqrt(hd), ctypes.byref(route), stream)
     if err != 0:
         raise RuntimeError(f"verify attention kernel launch failed: "
@@ -543,27 +602,29 @@ def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
 
 
 def fused_verify(params, x, cache, pos, cfg, *, active=None, node_depth=None,
-                 tree_bias=None, pages=None, page_size=0):
+                 tree_bias=None, pages=None, page_size=0, plan_len=0):
     """Fused verify of one attention layer over S positions per slot: same
     contract as ``layers.mha_verify`` — returns (out (B, S, d), {"k", "v"}
     raw candidates (B, S, KV, hd)); the cache is read, never written.
     ``node_depth`` (S,) / ``tree_bias`` (S, S) select a token tree's
     positions and ancestor mask (numpy); both default to the linear window.
+    With ``pages`` (B, P) int32 the cache leaves are page pools read
+    through the table; ``plan_len`` sizes the attention kernel's split plan
+    (a slot's full capacity; 0: ``P * page_size``).
 
     On CPU tensors it runs ``fused_verify_plain``; on CUDA tensors the
     three launches of ``csrc/fused_verify.cu`` (QKV, attention, output
     projection through the morph_matmul kernel), or it raises."""
-    if pages is not None:
-        raise NotImplementedError("paged KV caches arrive with the paged "
-                                  "slice of the port")
     B = x.shape[0]
     a_q, a_kv = _gates(active, B, x.device)
     if x.device.type == "cpu":
         return fused_verify_plain(params, x, cache, pos, cfg, a_q, a_kv,
-                                  node_depth, tree_bias)
+                                  node_depth, tree_bias, pages, page_size)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     out, kv, route = _fused_verify_cuda(params, x.contiguous(), cache, pos,
-                                        cfg, a_q, a_kv, node_depth, tree_bias)
+                                        cfg, a_q, a_kv, node_depth, tree_bias,
+                                        pages, page_size, plan_len)
     _VERIFY_LAUNCHES["n"] += 1
     _VERIFY_LAUNCHES[route] += 1
+    _VERIFY_LAUNCHES["paged"] += pages is not None
     return out, kv

@@ -17,7 +17,9 @@ Two traffic shapes:
 ``--spec-k K`` turns on linear self-speculative decoding (shallow exits
 draft K tokens, one full-depth pass verifies K+1 positions) and prints the
 acceptance telemetry; ``--temperature`` / ``--top-k`` sample instead of
-taking the argmax. ``--trace-out trace.json`` writes Chrome trace-event JSON
+taking the argmax. ``--kv-page-size N`` serves from a block-paged KV cache
+(N tokens per page; shared prompt prefixes reuse pages through the radix
+cache), ``--kv-pages`` sizes its pool. ``--trace-out trace.json`` writes Chrome trace-event JSON
 of every launch and request; ``--metrics-dump`` prints the metrics
 registry. Runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
@@ -27,6 +29,8 @@ Examples:
       --batch 8 --tokens 256 --switch-every 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --batch 8 --tokens 256 --spec-k 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --kv-page-size 4 --fused --spec-k 2
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import elastic
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
+from repro_torch.models.paged import PagedLayout
 from repro_torch.runtime.observability import Observability
 from repro_torch.runtime.serving import Request, ServingEngine, SLOPolicy
 from repro_torch.runtime.speculative import SpecConfig
@@ -76,6 +81,17 @@ def main(argv=None):
     ap.add_argument("--spec-tree", default="",
                     help="token-tree speculative decoding: arrives with the "
                          "tree slice of the port")
+    ap.add_argument("--kv-page-size", type=int, default=0,
+                    help="block-paged KV cache: tokens per physical page "
+                         "(0 = dense per-slot buffers). Must divide the "
+                         "cache capacity, and the sliding window when the "
+                         "arch uses one; shared prompt prefixes then reuse "
+                         "physical pages through the radix cache")
+    ap.add_argument("--kv-pages", type=int, default=0,
+                    help="physical page-pool size (0 = worst case: every "
+                         "slot at full length + scratch). Requires "
+                         "--kv-page-size; undersizing trades admission "
+                         "deferrals for memory")
     ap.add_argument("--trace-out", default="",
                     help="write Chrome trace-event JSON to this path")
     ap.add_argument("--metrics-dump", action="store_true",
@@ -99,6 +115,20 @@ def main(argv=None):
     per_req = max(4, args.tokens // (2 * args.batch))
     n_requests = max(args.batch, (args.tokens + per_req - 1) // per_req)
     capacity = per_req + 8 + args.spec_k  # drafted-window headroom
+    paged = None
+    if args.kv_pages and not args.kv_page_size:
+        ap.error("--kv-pages requires --kv-page-size (a pool needs a page "
+                 "geometry)")
+    if args.kv_page_size:
+        # round the derived capacity up to a page boundary so the layout
+        # validates for any --tokens / --batch
+        capacity += (-capacity) % args.kv_page_size
+        paged = PagedLayout(page_size=args.kv_page_size,
+                            n_pages=args.kv_pages or None)
+        try:
+            paged.validate(cfg, capacity)
+        except ValueError as e:
+            ap.error(str(e))
     speculative = None
     if args.spec_k > 0:
         speculative = SpecConfig(ks=(args.spec_k,),
@@ -110,10 +140,15 @@ def main(argv=None):
                            prefill_threshold=args.prefill_threshold,
                            speculative=speculative,
                            temperature=args.temperature, top_k=args.top_k,
-                           fused=args.fused, observability=obs, device=device)
+                           paged=paged, fused=args.fused, observability=obs,
+                           device=device)
+    paged_note = ""
+    if paged is not None:
+        pool = paged.pool_pages(cfg, args.batch, capacity)
+        paged_note = f" kv=paged({args.kv_page_size} tok/page, {pool} pages)"
     print(f"[serve] {cfg.name} on {device}: modes = {[m.name for m in modes]} "
           f"requests={n_requests} x {per_req} tokens, batch={args.batch}"
-          f"{' fused' if args.fused else ''}"
+          f"{paged_note}{' fused' if args.fused else ''}"
           f"{f' spec_k={args.spec_k}' if args.spec_k else ''}"
           f"{f' temperature={args.temperature}' if args.temperature else ''}")
     engine.warmup()
@@ -162,6 +197,14 @@ def main(argv=None):
               f"launches {t['launches']}")
     if engine.spec_fallback_log:
         print(f"  spec fallbacks: {list(engine.spec_fallback_log)}")
+    if paged is not None:
+        engine.check_paged_invariants()
+        for depth, st in sorted(engine.page_pool_stats().items()):
+            radix = (f"radix hit-rate {st['radix_hit_rate'] * 100:.0f}% "
+                     f"({st['radix_nodes']} nodes)"
+                     if "radix_hit_rate" in st else "fixed pages (window)")
+            print(f"  pages depth={depth}: pool {st['n_pages']} "
+                  f"peak {st['peak_in_use']} allocs {st['allocs']} {radix}")
     if args.trace_out:
         obs.recorder.write(args.trace_out)
         print(f"[serve] wrote {len(obs.recorder.events)} trace events to "

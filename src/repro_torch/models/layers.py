@@ -341,7 +341,8 @@ def _decode_kpos(pos_b, S: int, window: int):
 
 
 def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
-               active=None, pages=None, page_size=0, fused=False):
+               active=None, pages=None, page_size=0, plan_len=0,
+               fused=False):
     """One-token decode. x: (B,1,d); cache dict; pos: scalar int32 or (B,)
     per-slot positions.
 
@@ -354,16 +355,24 @@ def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
     rolling for sliding windows) and attention then reads the updated cache;
     returns (out, cache). ``fused=True`` routes through
     ``kernels.fused_decode_step`` instead.
+
+    ``pages`` (B, P) int32 switches the cache to the block-paged layout
+    (``models.paged``): the K/V leaves are page pools ``(n_pages,
+    page_size, KV, hd)``, the new K/V is written at the physical row
+    ``table[b, slot // page_size] * page_size + slot % page_size`` and the
+    attention reads the gathered per-slot view of ``P * page_size``
+    positions, whose columns past a slot's length are masked. Needs
+    per-slot positions. ``plan_len`` reaches the fused kernel only (its
+    split plan; ``kernels.fused_decode``).
     """
     if cross:
         raise NotImplementedError("cross-attention decode arrives with the "
                                   "encoder-decoder slice of the port")
-    if pages is not None:
-        raise NotImplementedError("paged KV caches arrive with the paged "
-                                  "slice of the port")
     if fused:
         from repro_torch.kernels.fused_decode import fused_decode_step
-        return fused_decode_step(params, x, cache, pos, cfg, active=active)
+        return fused_decode_step(params, x, cache, pos, cfg, active=active,
+                                 pages=pages, page_size=page_size,
+                                 plan_len=plan_len)
     dt = x.dtype
     B = x.shape[0]
     a_q = active.get("q_dim") if active else None
@@ -382,14 +391,24 @@ def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
     if cfg.use_rope:
         k_new = rope(k_new, qpos, cfg.rope_theta)
 
+    from repro_torch.models.paged import cache_rows, paged_view
+
     window = cfg.sliding_window
-    S = cache["k"].shape[1]
+    if pages is not None:
+        if pos.dim() == 0:
+            raise ValueError("paged decode needs per-slot positions (pos (B,))")
+        S = pages.shape[1] * page_size  # positions visible through the table
+    else:
+        S = cache["k"].shape[1]
     slot = (torch.remainder(pos_b.long(), S) if window
             else torch.clamp(pos_b.long(), max=S - 1))
-    bix = torch.arange(B, device=x.device)
+    rows = cache_rows(pages, slot, page_size)
 
     def write(buf, new):
-        buf[bix, slot] = new[:, 0].to(buf.dtype)
+        buf[rows] = new[:, 0].to(buf.dtype)
+
+    def view(buf):
+        return paged_view(buf, pages, page_size)
 
     if cfg.kv_quant:
         kq, ks = quantize_kv(k_new)
@@ -398,12 +417,12 @@ def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
         write(cache["v"], vq)
         write(cache["k_scale"], ks)
         write(cache["v_scale"], vs)
-        k = dequantize_kv(cache["k"], cache["k_scale"], dt)
-        v = dequantize_kv(cache["v"], cache["v_scale"], dt)
+        k = dequantize_kv(view(cache["k"]), view(cache["k_scale"]), dt)
+        v = dequantize_kv(view(cache["v"]), view(cache["v_scale"]), dt)
     else:
         write(cache["k"], k_new)
         write(cache["v"], v_new)
-        k, v = cache["k"].to(dt), cache["v"].to(dt)
+        k, v = view(cache["k"]).to(dt), view(cache["v"]).to(dt)
 
     kpos = _decode_kpos(pos_b, S, window)
     out = attention_full(q, k, v, cfg, qpos, kpos, causal=True)
@@ -431,7 +450,7 @@ def _cache_kpos(pos, n_slots: int, window: int):
 
 def mha_verify(params, x, cache, pos, cfg: ModelConfig, *, active=None,
                node_depth=None, tree_bias=None, pages=None, page_size=0,
-               fused=False):
+               plan_len=0, fused=False):
     """Speculative verify attention: score S positions in one pass.
 
     x: (B, S, d) — the last committed token followed by S-1 draft tokens at
@@ -447,14 +466,16 @@ def mha_verify(params, x, cache, pos, cfg: ModelConfig, *, active=None,
 
     Returns (out (B, S, d), {"k": k_new, "v": v_new} (B, S, KV, hd)).
     ``fused=True`` routes through ``kernels.fused_decode.fused_verify``.
+    With ``pages`` (B, P) int32 the cache leaves are page pools and the
+    committed K/V (and int8 scales) are read through the gathered per-slot
+    view, as in ``mha_decode``.
     """
-    if pages is not None:
-        raise NotImplementedError("paged KV caches arrive with the paged "
-                                  "slice of the port")
     if fused:
         from repro_torch.kernels.fused_decode import fused_verify
         return fused_verify(params, x, cache, pos, cfg, active=active,
-                            node_depth=node_depth, tree_bias=tree_bias)
+                            node_depth=node_depth, tree_bias=tree_bias,
+                            pages=pages, page_size=page_size,
+                            plan_len=plan_len)
     dt = x.dtype
     B, S, _ = x.shape
     a_q = active.get("q_dim") if active else None
@@ -473,16 +494,22 @@ def mha_verify(params, x, cache, pos, cfg: ModelConfig, *, active=None,
     if cfg.use_rope:
         q = rope(q, qpos, cfg.rope_theta)
         k_new = rope(k_new, qpos, cfg.rope_theta)
+    from repro_torch.models.paged import paged_view
+
     quant = cfg.kv_quant and "k_scale" in cache
+
+    def view(buf):
+        return paged_view(buf, pages, page_size)
+
     if quant:
-        kc = dequantize_kv(cache["k"], cache["k_scale"], dt)
-        vc = dequantize_kv(cache["v"], cache["v_scale"], dt)
+        kc = dequantize_kv(view(cache["k"]), view(cache["k_scale"]), dt)
+        vc = dequantize_kv(view(cache["v"]), view(cache["v_scale"]), dt)
         # candidates stay raw; commit re-quantizes them to these same values
         kq, ks_ = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
         k_att, v_att = dequantize_kv(kq, ks_, dt), dequantize_kv(vq, vs, dt)
     else:
-        kc, vc = cache["k"].to(dt), cache["v"].to(dt)
+        kc, vc = view(cache["k"]).to(dt), view(cache["v"]).to(dt)
         k_att, v_att = k_new, v_new
     Sc = kc.shape[1]
     kpos = torch.cat([_cache_kpos(pos, Sc, cfg.sliding_window), qpos], dim=1)

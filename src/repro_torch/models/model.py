@@ -12,10 +12,12 @@ zero.
 
 Linear speculative decoding has ``verify_step`` (read-only scoring of K+1
 positions) and ``commit_verify`` (in-place masked commit of K/V, a
-gather of each SSM layer's candidate at ``n_accepted``). MoE, encoder-decoder and frontend
-families, absolute-position models, paged caches, and the token-tree paths
-raise ``NotImplementedError`` naming the slice of the port they arrive
-with.
+gather of each SSM layer's candidate at ``n_accepted``). ``decode_step``,
+``verify_step`` and ``commit_verify`` also take a block-paged cache
+(``models.paged``) through ``pages`` / ``page_size``. MoE,
+encoder-decoder and frontend families, absolute-position models and the
+token-tree paths raise ``NotImplementedError`` naming the slice of the
+port they arrive with.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.models.paged import cache_rows
 
 Params = Dict
 Cache = Dict
@@ -264,14 +267,16 @@ def adopt_cache_slot(cache: Cache, pre: Cache, slot) -> Cache:
 
 
 def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
-                  active=None, fused=False):
+                  active=None, pages=None, page_size=0, plan_len=0,
+                  fused=False):
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
         cp = group_cache[f"pos{p}"]
         hn = L.apply_norm(lp["norm1"], h, cfg)
         if cfg.layer_kind(p) == "attn":
             mix, _ = L.mha_decode(lp["attn"], hn, cp, pos, cfg, active=active,
-                                  fused=fused)
+                                  pages=pages, page_size=page_size,
+                                  plan_len=plan_len, fused=fused)
         else:  # no fused path: ``fused`` reaches attention layers only
             mix, _ = SSM.ssm_decode_step(lp["ssm"], hn, cp, cfg,
                                          active=active)
@@ -285,17 +290,21 @@ def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
 
 def decode_step(params, cache, tokens, cfg: ModelConfig, *,
                 depth: Optional[int] = None, active=None, pages=None,
-                page_size=0, fused=False):
+                page_size=0, plan_len=0, fused=False):
     """One-token decode. tokens: (B, 1). Returns (logits (B,1,Vp), cache).
 
     ``cache`` is updated in place: each group's K/V slice gets the new
     token and ``cache["pos"]`` advances by one. ``active`` is the runtime
     width operand (``elastic.active_widths_batch``: per-slot (B,) tensors)
     over full params and a full-width cache; ``depth`` truncates the layer
-    loop at an exit and reads logits through that exit's norm."""
-    if pages is not None:
-        raise NotImplementedError("paged KV caches arrive with the paged "
-                                  "slice of the port")
+    loop at an exit and reads logits through that exit's norm.
+
+    ``pages`` (B, P) int32 / ``page_size`` switch the attention cache to
+    the block-paged layout (``models.paged``): its K/V leaves are page
+    pools read and written through the table; SSM leaves stay per slot.
+    ``plan_len`` (a slot's full capacity in positions) sizes the fused
+    kernels' split plan so that every table width visits rows as the dense
+    cache does; the unfused path ignores it."""
     depth = depth if depth is not None else cfg.n_groups
     dt = dtype_of(cfg.dtype)
     pos = cache["pos"]
@@ -303,7 +312,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *,
     for g in range(depth):
         h = _group_decode(_tree_index(params["stack"], g),
                           _tree_index(cache["stack"], g), h, pos, cfg,
-                          active=active, fused=fused)
+                          active=active, pages=pages, page_size=page_size,
+                          plan_len=plan_len, fused=fused)
     logits = _logits(params, h, cfg, _exit_norm(params, cfg, depth))
     pos.add_(1)
     return logits, cache
@@ -315,7 +325,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *,
 
 
 def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
-                  active=None, fused=False):
+                  active=None, pages=None, page_size=0, plan_len=0,
+                  fused=False):
     """One period of layers over S speculative positions (read-only cache).
     Returns (h, per-layer K/V candidates for ``commit_verify``)."""
     cand = {}
@@ -325,7 +336,8 @@ def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
         if cfg.layer_kind(p) == "attn":
             mix, cand[f"pos{p}"] = L.mha_verify(
                 lp["attn"], hn, group_cache[f"pos{p}"], pos, cfg,
-                active=active, fused=fused)
+                active=active, pages=pages, page_size=page_size,
+                plan_len=plan_len, fused=fused)
         else:
             mix, cand[f"pos{p}"] = SSM.ssm_verify_step(
                 lp["ssm"], hn, group_cache[f"pos{p}"], cfg, active=active)
@@ -339,7 +351,7 @@ def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
 
 def verify_step(params, cache, tokens, cfg: ModelConfig, *,
                 depth: Optional[int] = None, active=None, pages=None,
-                page_size=0, fused=False):
+                page_size=0, plan_len=0, fused=False):
     """Speculative verifier: score S = K+1 positions in one pass.
 
     ``tokens`` (B, S) is each slot's last committed token followed by its K
@@ -350,10 +362,8 @@ def verify_step(params, cache, tokens, cfg: ModelConfig, *,
     (d, B, S, KV, hd), "v": ...}}}`` the raw K/V candidates of the first
     ``depth`` groups, for ``commit_verify``; SSM layers give per-step
     ``conv_x`` / ``conv_bc`` (d, B, S, K-1, C) and ``state``
-    (d, B, S, nh, hp, n), entry j the value after consuming token j."""
-    if pages is not None:
-        raise NotImplementedError("paged KV caches arrive with the paged "
-                                  "slice of the port")
+    (d, B, S, nh, hp, n), entry j the value after consuming token j.
+    ``pages`` / ``page_size`` / ``plan_len`` as in ``decode_step``."""
     depth = depth if depth is not None else cfg.n_groups
     pos = cache["pos"]
     if pos.dim() != 1:
@@ -370,7 +380,8 @@ def verify_step(params, cache, tokens, cfg: ModelConfig, *,
     for g in range(depth):
         h, c = _group_verify(_tree_index(params["stack"], g),
                              _tree_index(cache["stack"], g), h, pos, cfg,
-                             active=active, fused=fused)
+                             active=active, pages=pages, page_size=page_size,
+                             plan_len=plan_len, fused=fused)
         cands.append(c)
     pend = {pn: {k: torch.stack([c[pn][k] for c in cands]) for k in cands[0][pn]}
             for pn in cands[0]}
@@ -403,13 +414,17 @@ def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
     buffer contents, which the advanced position counter then masks. int8
     caches re-quantize the raw candidates. SSM layers take the per-step
     candidate at index ``n_accepted`` (an exact gather on the device).
-    Groups past the verify depth are untouched; ``pos += n_accepted + 1``."""
+    Groups past the verify depth are untouched; ``pos += n_accepted + 1``.
+
+    With ``pages`` (B, P) int32 the K/V leaves are page pools: position
+    ``pos[b] + j`` resolves through the table to its physical (page,
+    offset), and a rejected position writes the pool's own contents back,
+    as in the dense scatter (a boolean-mask write would read the accepted
+    count back to the host once per leaf); the host then frees the tail
+    pages speculation reached past the commit."""
     if path_nodes is not None:
         raise NotImplementedError("token-tree commits (path_nodes) arrive "
                                   "with the tree slice of the port")
-    if pages is not None:
-        raise NotImplementedError("paged KV caches arrive with the paged "
-                                  "slice of the port")
     pos = cache["pos"]
     n_acc = torch.as_tensor(n_accepted, device=pos.device).long()
     pend = pending["stack"]
@@ -418,16 +433,17 @@ def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
     j = torch.arange(S, device=pos.device)
     acc = j[None, :] <= n_acc[:, None]  # (B, S)
     tgt = pos.long()[:, None] + j[None, :]
-    bix = torch.arange(B, device=pos.device)[:, None]
 
     def scatter(full, new):
-        Sc = full.shape[2]
+        sub = full[:d]
+        Sc = (pages.shape[1] * page_size if pages is not None
+              else full.shape[2])
         slot = (torch.remainder(tgt, Sc) if cfg.sliding_window
                 else torch.clamp(tgt, max=Sc - 1))
-        sub = full[:d]
-        old = sub[:, bix, slot]  # (d, B, S, ...)
+        rows = cache_rows(pages, slot, page_size)
+        old = sub[(slice(None),) + rows]  # (d, B, S, ...)
         m = acc.reshape((1, B, S) + (1,) * (new.dim() - 3))
-        sub[:, bix, slot] = torch.where(m, new.to(full.dtype), old)
+        sub[(slice(None),) + rows] = torch.where(m, new.to(full.dtype), old)
 
     def select_step(full, new):
         """full (G, B, ...) <- candidate n_accepted of new (d, B, S, ...)."""

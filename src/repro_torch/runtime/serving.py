@@ -34,11 +34,23 @@ observability.
 * **Sampling.** ``temperature > 0`` (and ``top_k``) sample from per-slot
   keys folded with the tick count (``runtime.sampling``).
 
+* **Block-paged KV cache.** With ``paged=PagedLayout(...)`` each depth
+  group keeps one physical page pool instead of per-slot buffers
+  (``models.paged``) and a host-side ``_GroupPaging``: a ``BlockAllocator``
+  over the pool, the ``(n_slots, cap_pages)`` page table, a scratch page
+  per slot that free slots' rows point at, worst-case page reservations at
+  admission, copy-on-write before any write into a shared page, and a
+  ``RadixCache`` through which prompts that share full-page prefixes map
+  the same physical pages. Plain ticks run the ``("paged_decode", depth,
+  bucket)`` step of the smallest table-width bucket covering every active
+  slot; speculative ticks read the pool through the full-width table and
+  trim the pages of rejected drafts. Paged serving gives the dense
+  engine's tokens.
+
 ``fused=True`` routes every attention layer through the fused decode and
 verify kernels (a closure flag on the step callables; SSM layers have no
-fused path and ignore it). Paged caches,
-token trees, snapshot/restore and mesh executors arrive with later slices
-of the port and raise here.
+fused path and ignore it). Token trees, snapshot/restore and mesh
+executors arrive with later slices of the port and raise here.
 """
 from __future__ import annotations
 
@@ -53,15 +65,20 @@ import torch
 from repro_torch.configs.base import ModelConfig, MorphMode, ShapeCell
 from repro_torch.core import elastic
 from repro_torch.core.morph import (MorphController, _block_until_ready,
-                                    make_serve_controller, policy_for_budget)
+                                    make_serve_controller,
+                                    paged_decode_compile_key,
+                                    policy_for_budget)
 from repro_torch.core.neuroforge.analytical import estimate_mode
 from repro_torch.core.neuroforge.hw import DEFAULT_HW, HardwareSpec
 from repro_torch.core.neuroforge.space import DesignPoint
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (adopt_cache_slot, init_decode_cache,
                                       prefill, reset_cache_slots)
+from repro_torch.models.paged import (PagedLayout, adopt_paged_slot,
+                                      copy_page, init_paged_cache)
 from repro_torch.runtime import sampling
 from repro_torch.runtime.observability import Observability, _TupleView
+from repro_torch.runtime.paged_cache import BlockAllocator, RadixCache
 from repro_torch.runtime.speculative import (SpecConfig, SpecTelemetry,
                                              draft_compile_key,
                                              expected_tokens_per_launch,
@@ -279,13 +296,12 @@ class LocalExecutor:
             self.launch_hook(site)
 
     def bind(self, cfg: ModelConfig, batch_size: int, cache_capacity: int,
-             paged=None, fused: bool = False) -> "LocalExecutor":
-        if paged is not None:
-            raise NotImplementedError("paged KV serving arrives with the paged "
-                                      "slice of the port")
+             paged: Optional[PagedLayout] = None,
+             fused: bool = False) -> "LocalExecutor":
         self._cfg = cfg
         self._batch = batch_size
         self._cap = cache_capacity
+        self._paged = paged
         self._fused = fused
         return self
 
@@ -304,13 +320,23 @@ class LocalExecutor:
 
     # -- device ops ---------------------------------------------------------
 
+    def _paged_kwargs(self, cfg: ModelConfig) -> Dict:
+        if self._paged is None:
+            return {}
+        return dict(paged_page_size=self._paged.page_size,
+                    paged_buckets=self._paged.buckets(cfg, self._cap))
+
     def make_controller(self, params, cfg: ModelConfig, modes,
                         speculative=None) -> MorphController:
         return make_serve_controller(params, cfg, modes,
                                      speculative=speculative,
-                                     fused=self._fused)
+                                     fused=self._fused,
+                                     **self._paged_kwargs(cfg))
 
     def init_cache(self):
+        if self._paged is not None:
+            return init_paged_cache(self._cfg, self._batch, self._cap,
+                                    self._paged, device=self.device)
         return init_decode_cache(self._cfg, self._batch, self._cap,
                                  per_slot=True, device=self.device)
 
@@ -333,6 +359,216 @@ class LocalExecutor:
 
         return pf
 
+    def prefill_adopt_fn(self, prompt_len: int, depth: int, ncp: int):
+        """Whole-prompt consume + paged adoption: (params, (1, L) tokens,
+        slot, cache, (ncp,) physical pages, (ncp,) write mask) -> (last-token
+        logits, cache with the prompt written into the pool in place). The
+        prefill runs over ``ncp * page_size`` positions; pages masked False
+        are resident through the shared-prefix radix and not rewritten."""
+        cfg, n_slots = self._cfg, self._batch
+        ps = self._paged.page_size
+
+        def pf(params, tokens, slot, cache, pages, wmask):
+            logits, pre = prefill(params, {"tokens": tokens}, cfg,
+                                  cache_extra=max(ncp * ps - prompt_len, 0),
+                                  per_slot=True, slot=slot, n_slots=n_slots,
+                                  depth=depth)
+            return logits, adopt_paged_slot(cache, pre, slot, pages, wmask,
+                                            ps)
+
+        return pf
+
+    def copy_page_fn(self):
+        """The copy-on-write page copy, in place on the cache."""
+        return copy_page
+
+
+class _GroupPaging:
+    """Host-side page bookkeeping for ONE depth group's paged cache.
+
+    Port of the JAX engine's ``_GroupPaging``. Owns the group's
+    ``BlockAllocator`` (free list + refcounts over the physical pool), the
+    ``(n_slots, cap_pages)`` page table shipped to every launch, a host
+    mirror of the device position counter (``host_pos``, advanced exactly
+    as the steps advance ``cache['pos']``), and, for full attention only,
+    the shared-prefix ``RadixCache`` plus one permanently owned scratch page
+    per slot that free slots' table rows point at (whole-batch launches
+    write their garbage somewhere harmless).
+
+    Sliding-window groups are ``fixed``: the rolling buffer is always
+    ``window // page_size`` pages, so every slot permanently owns its pages
+    (no allocator churn, no prefix sharing, no scratch).
+    """
+
+    def __init__(self, layout: PagedLayout, cfg: ModelConfig, n_slots: int,
+                 capacity: int):
+        self.layout = layout
+        self.ps = layout.page_size
+        self.cap_pages = layout.cap_pages(cfg, capacity)
+        self.fixed = bool(cfg.sliding_window)
+        self.n_slots = n_slots
+        self.alloc = BlockAllocator(layout.pool_pages(cfg, n_slots, capacity))
+        self.table = np.zeros((n_slots, self.cap_pages), np.int32)
+        self.host_pos = np.zeros((n_slots,), np.int64)
+        self.pages: List[List[int]] = [[] for _ in range(n_slots)]
+        self.scratch: List[int] = []
+        self.radix: Optional[RadixCache] = None
+        # admission control: worst-case page reservation per slot, booked
+        # when a request is admitted and released with the slot; admissions
+        # that would overbook the pool are deferred (backpressure) instead
+        # of hitting the mid-flight exhaustion hard error
+        self.budget: List[int] = [0] * n_slots
+        self.budgeted = 0
+        if self.fixed:
+            for i in range(n_slots):
+                self.pages[i] = [self.alloc.alloc()
+                                 for _ in range(self.cap_pages)]
+                self.table[i, :] = self.pages[i]
+        else:
+            self.radix = RadixCache(self.alloc)
+            for i in range(n_slots):
+                s = self.alloc.alloc()
+                self.scratch.append(s)
+                self.table[i, :] = s
+
+    def _alloc_page(self) -> int:
+        """Allocate one page, evicting LRU radix prefixes while the pool is
+        dry. Evicting a node frees its page only when no live slot still
+        maps it, so the loop evicts until a page frees or the tree is empty;
+        then exhaustion is a hard error (live slots alone exceed the pool)."""
+        while not self.alloc.can_alloc():
+            if self.radix is None or not self.radix.evict_lru(1):
+                raise RuntimeError(
+                    "kv page pool exhausted: live slots reference every "
+                    "page (raise --kv-pages or lower concurrency)")
+        return self.alloc.alloc()
+
+    def ensure_slot(self, i: int, last_pos: int) -> None:
+        """Grow slot ``i``'s mapping to cover a write at ``last_pos``."""
+        if self.fixed:
+            return
+        need = min(last_pos // self.ps + 1, self.cap_pages)
+        while len(self.pages[i]) < need:
+            p = self._alloc_page()
+            self.table[i, len(self.pages[i])] = p
+            self.pages[i].append(p)
+
+    @property
+    def reservable(self) -> int:
+        """Pages admissions may budget against: the pool minus scratch
+        (radix-held pages are slack: eviction reclaims them on demand)."""
+        return self.alloc.n_pages - len(self.scratch)
+
+    def can_reserve(self, need: int) -> bool:
+        return self.fixed or self.budgeted + need <= self.reservable
+
+    def reserve(self, i: int, need: int) -> None:
+        """Book slot ``i``'s worst-case page demand against the pool."""
+        if self.fixed:
+            return  # fixed groups permanently own their pages
+        self.budgeted += need - self.budget[i]
+        self.budget[i] = need
+
+    def release(self, i: int) -> None:
+        """Drop slot ``i``'s references; its table row falls back to scratch."""
+        self.host_pos[i] = 0
+        self.budgeted -= self.budget[i]
+        self.budget[i] = 0
+        if self.fixed:
+            return
+        for p in self.pages[i]:
+            self.alloc.decref(p)
+        self.pages[i] = []
+        self.table[i, :] = self.scratch[i]
+
+    def trim(self, i: int) -> None:
+        """Free tail pages past the committed position (speculative
+        rollback: pages grown for rejected drafts go back to the pool)."""
+        if self.fixed:
+            return
+        keep = min(int(self.host_pos[i]) // self.ps + 1, self.cap_pages)
+        while len(self.pages[i]) > keep:
+            p = self.pages[i].pop()
+            self.alloc.decref(p)
+            self.table[i, len(self.pages[i])] = self.scratch[i]
+
+    def cow_pairs(self, i: int, first_pos: int,
+                  last_pos: int) -> List[Tuple[int, int]]:
+        """Copy-on-write: privatize shared pages in slot ``i``'s write range.
+
+        Returns (src, dst) physical pairs for the engine to copy on the
+        device before launching. Shared pages come only from full-page
+        prompt prefixes and writes start at or past the prompt length, so
+        this normally returns []: it guarantees that a slot never writes a
+        page another slot or the radix tree can see."""
+        if self.fixed:
+            return []
+        out: List[Tuple[int, int]] = []
+        first = first_pos // self.ps
+        last = min(last_pos // self.ps, self.cap_pages - 1)
+        for j in range(first, min(last + 1, len(self.pages[i]))):
+            p = self.pages[i][j]
+            if self.alloc.refcount[p] > 1:
+                q = self._alloc_page()
+                self.pages[i][j] = q
+                self.table[i, j] = q
+                self.alloc.decref(p)
+                out.append((p, q))
+        return out
+
+    # -- accounting (engine invariants / telemetry) -------------------------
+
+    def check_invariants(self) -> None:
+        """Exact page accounting: slot refs + scratch + radix == refcounts,
+        free-list size matches zero-refcount pages, and every table row maps
+        only pages its slot owns (or its scratch). AssertionError on drift."""
+        refs = [0] * self.alloc.n_pages
+        for i in range(self.n_slots):
+            for p in self.pages[i]:
+                refs[p] += 1
+        for s in self.scratch:
+            refs[s] += 1
+        if self.radix is not None:
+            for p in self.radix.held_pages():
+                refs[p] += 1
+        assert refs == self.alloc.refcount, (
+            f"page refcount drift: expected {refs}, "
+            f"allocator has {self.alloc.refcount}")
+        n_zero = sum(1 for r in self.alloc.refcount if r == 0)
+        assert n_zero == self.alloc.n_free, (
+            f"free-list drift: {self.alloc.n_free} free vs "
+            f"{n_zero} zero-refcount pages")
+        for i in range(self.n_slots):
+            own = self.pages[i]
+            row = self.table[i]
+            assert list(row[: len(own)]) == own, \
+                f"slot {i}: table row disagrees with owned pages"
+            if not self.fixed:
+                tail = {int(x) for x in row[len(own):]}
+                assert tail <= {self.scratch[i]}, \
+                    f"slot {i}: tail maps non-scratch pages {tail}"
+        assert self.budgeted == sum(self.budget), (
+            f"admission budget drift: {self.budgeted} booked vs "
+            f"per-slot sum {sum(self.budget)}")
+        if not self.fixed:
+            assert self.budgeted <= self.reservable, (
+                f"admission overbooked: {self.budgeted} > "
+                f"{self.reservable} reservable pages")
+            for i in range(self.n_slots):
+                assert self.budget[i] == 0 \
+                    or len(self.pages[i]) <= self.budget[i], \
+                    f"slot {i} maps {len(self.pages[i])} pages over its " \
+                    f"admission budget {self.budget[i]}"
+
+    def stats(self) -> Dict[str, float]:
+        out = dict(self.alloc.metric_values())
+        out["budgeted"] = self.budgeted
+        out["reservable"] = self.reservable
+        if self.radix is not None:
+            out.update({f"radix_{k}": v
+                        for k, v in self.radix.metric_values().items()})
+        return out
+
 
 @dataclass
 class _DepthGroup:
@@ -349,6 +585,7 @@ class _DepthGroup:
     spec_k: int = 0
     spec_off_until: int = -1  # tick until which speculation cools off
     accept_window: Optional[Deque[float]] = None
+    paging: Optional[_GroupPaging] = None  # block-paged cache bookkeeping
 
     @property
     def n_active(self) -> int:
@@ -380,6 +617,7 @@ class ServingEngine:
         "spec_draft_launches": "engine_spec_draft_launches",
         "spec_verify_launches": "engine_spec_verify_launches",
         "spec_generated_tokens": "engine_spec_generated_tokens",
+        "backpressure_events": "engine_backpressure_events",
     }
 
     def __init__(self, params, cfg: ModelConfig, *, batch_size: int = 4,
@@ -414,8 +652,12 @@ class ServingEngine:
             # one truncation everywhere: draft, acceptance and plain steps
             speculative = replace(speculative, top_k=top_k)
         if paged is not None:
-            raise NotImplementedError("paged KV serving arrives with the paged "
-                                      "slice of the port")
+            if cfg.is_encdec or cfg.frontend:
+                raise ValueError(
+                    "paged KV serving needs a token-only decoder (enc-dec / "
+                    "frontend archs carry cross-attention state the page "
+                    "pool does not cover)")
+            paged.validate(cfg, cache_capacity)
         if executor is not None and executor.mesh is not None:
             raise NotImplementedError("mesh executors arrive with the "
                                       "multi-device slice of the port")
@@ -426,6 +668,7 @@ class ServingEngine:
         self.temperature = float(temperature)
         self.top_k = top_k or (speculative.top_k if speculative else 0)
         self.sample_seed = sample_seed
+        self.paged = paged
         # route every attention decode and verify through the fused kernels
         # — a closure flag on the step callables: same compile keys
         self.fused = bool(fused)
@@ -439,7 +682,7 @@ class ServingEngine:
         self._h_decode = self.metrics.histogram("engine_decode_step_ms")
         self._h_spec = self.metrics.histogram("engine_spec_tick_ms")
         self.executor = (executor or LocalExecutor(device)).bind(
-            cfg, batch_size, cache_capacity, fused=self.fused)
+            cfg, batch_size, cache_capacity, paged=paged, fused=self.fused)
         self.device = self.executor.device
         self.params = self.executor.place_params(params)
         self.ctrl = controller or self.executor.make_controller(
@@ -455,6 +698,9 @@ class ServingEngine:
             g = _DepthGroup(d, self.executor.init_cache(),
                             [None] * batch_size, [1.0] * batch_size,
                             keys=sampling.fold_in(base_keys, d))
+            if paged is not None:
+                g.paging = _GroupPaging(paged, cfg, batch_size,
+                                        cache_capacity)
             plan = self._spec_plan.get(d)
             if plan is not None:
                 g.spec_k = max(plan.ks)
@@ -466,6 +712,9 @@ class ServingEngine:
         reg = self.metrics
         self._ev_spec_fallback = reg.events(
             "engine_spec_fallback", ("step", "depth", "rate", "off_until"))
+        self._ev_backpressure = reg.events(
+            "engine_backpressure",
+            ("step", "rid", "need", "budgeted", "reservable"))
         self._ev_admission_switch = reg.events(
             "engine_admission_switch",
             ("step", "from_mode", "to_mode", "queued_interactive",
@@ -479,7 +728,12 @@ class ServingEngine:
         reg.register_callback(self._metric_gauges, key="engine")
         self._reset = self.executor.reset_fn()
         self._adopt = self.executor.adopt_fn()
-        self._prefills: Dict[Tuple[int, int], Callable] = {}
+        self._copy_page = (self.executor.copy_page_fn()
+                           if paged is not None else None)
+        # page-table widths with a built step (the widest always has one)
+        self._buckets = (paged.buckets(cfg, cache_capacity)
+                         if paged is not None else ())
+        self._prefills: Dict[Tuple, Callable] = {}
         self.prefill_threshold = prefill_threshold
         self.prefills = 0
         self.prefill_s = 0.0
@@ -497,6 +751,7 @@ class ServingEngine:
         self.spec_draft_launches = 0
         self.spec_verify_launches = 0
         self.spec_generated_tokens = 0
+        self.backpressure_events = 0
         # per-slot width tensors memoized by widths tuple: widths only change
         # on admission, so a steady tick makes no host-to-device copy for them
         self._active_cache: Dict[Tuple[float, ...], Dict] = {}
@@ -533,6 +788,11 @@ class ServingEngine:
         return _TupleView(self._ev_spec_fallback)
 
     @property
+    def backpressure_log(self):
+        """Pool-exhaustion deferral events (dict rows)."""
+        return self._ev_backpressure
+
+    @property
     def admission_switch_log(self):
         """(step, from, to, queued interactive, queued batch) tuples."""
         return _TupleView(self._ev_admission_switch,
@@ -559,6 +819,9 @@ class ServingEngine:
                 out[f"mode_{name}_p50_ms"] = t.p50_s * 1e3
                 out[f"mode_{name}_p95_ms"] = t.p95_s * 1e3
                 out[f"mode_{name}_p99_ms"] = t.p99_s * 1e3
+        for d, stats in self.page_pool_stats().items():
+            out.update({f"kv_pool_d{d}_{k}": float(v)
+                        for k, v in stats.items()})
         for (d, dd, k), t in self.spec_telemetry.items():
             if t.launches:
                 out.update(t.metric_values(f"spec_d{d}_k{k}"))
@@ -578,7 +841,8 @@ class ServingEngine:
 
         After this, ``self.ctrl.stats['compiles']`` is frozen at
         ``len(depths)`` plus one draft per (draft_depth, K) and one verify
-        per (depth, K): width and depth churn, K switches and the fallback
+        per (depth, K) (and, paged, one decode step per (depth, bucket)):
+        width and depth churn, K switches, bucket changes and the fallback
         to plain stepping re-dispatch these steps. The first draft call also
         allocates the draft's scratch cache."""
         self.ctrl.warmup()
@@ -586,8 +850,22 @@ class ServingEngine:
         active = self._active_for([1.0] * self.batch_size)
         mask = self.executor.put(np.ones((self.batch_size,), bool))
         for d, g in self.groups.items():
-            step = self.ctrl.step_for(self._any_mode_at(d))
-            logits, cache = step(self.params, g.cache, tok, active)
+            extra = ()
+            if g.paging is not None:
+                # a paged engine never dispatches the dense per-depth steps:
+                # run the step of every table-width bucket and the page copy
+                # (free slots' rows point at scratch, so the garbage these
+                # launches write is harmless)
+                cache = g.cache
+                for b in self._buckets:
+                    fn = self.ctrl.aux_step(paged_decode_compile_key(d, b))
+                    logits, cache = fn(self.params, cache, tok, active,
+                                       self._table_op(g.paging, b))
+                cache = self._copy_page(cache, 0, 0)
+                extra = (self._table_op(g.paging, g.paging.cap_pages),)
+            else:
+                step = self.ctrl.step_for(self._any_mode_at(d))
+                logits, cache = step(self.params, g.cache, tok, active)
             if self.temperature > 0:
                 self._sample(logits[:, 0], g.keys)
             plan = self._spec_plan.get(d)
@@ -596,14 +874,22 @@ class ServingEngine:
                                                              k))
                 verify = self.ctrl.aux_step(verify_compile_key(d, k))
                 dtoks, dlg = draft(self.params, cache, tok, active, g.keys,
-                                   self.temperature, 0)
+                                   self.temperature, 0, *extra)
                 _, _, cache = verify(self.params, cache,
                                      torch.cat([tok, dtoks], dim=1), dlg,
-                                     active, g.keys, self.temperature, 0)
+                                     active, g.keys, self.temperature, 0,
+                                     *extra)
             cache = self._reset(cache, mask)
             _block_until_ready(cache)
             g.cache = self.executor.init_cache()  # warmup wrote pos 0
+            if g.paging is not None:
+                g.paging.host_pos[:] = 0
         self.compiles_after_warmup = self.ctrl.stats["compiles"]
+
+    def _table_op(self, pg: _GroupPaging, width: int) -> torch.Tensor:
+        """The first ``width`` columns of a group's page table, on the
+        device."""
+        return self.executor.put(np.ascontiguousarray(pg.table[:, :width]))
 
     def _any_mode_at(self, depth: int) -> MorphMode:
         return next(m for m in self.ctrl.modes if m.depth == depth)
@@ -625,11 +911,53 @@ class ServingEngine:
         if need > self.cache_capacity:
             raise ValueError(f"request {req.rid} needs {need} cache slots, "
                              f"capacity is {self.cache_capacity}")
+        if self.paged is not None:
+            # reject at submit: a request whose worst case overflows the
+            # page budget of every depth group could never be admitted, and
+            # deferring it would starve it forever (a transient shortage is
+            # deferred at admission instead)
+            dyn = [g for g in self.groups.values()
+                   if g.paging is not None and not g.paging.fixed]
+            if dyn:
+                needs = [self._worst_case_pages(g, req) for g in dyn]
+                resv = min(g.paging.reservable for g in dyn)
+                if min(needs) > resv:
+                    raise ValueError(
+                        f"request {req.rid} can never be admitted: its "
+                        f"worst case needs {min(needs)} kv pages but only "
+                        f"{resv} are reservable (raise --kv-pages or shrink "
+                        f"the request)")
         self._queues[req.slo_class].append(req)
         if self._rec.enabled:
             self._rec.request_begin(req.rid, slo_class=req.slo_class,
                                     prompt_len=len(req.prompt),
                                     max_new_tokens=req.max_new_tokens)
+
+    def _worst_case_pages(self, g: _DepthGroup, req: Request) -> int:
+        """Pages admitting ``req`` into ``g`` can ever map at once: up to
+        the highest decode write position (``prompt + new - 2``) plus the
+        longest draft the group may speculate past it; a prefill maps
+        ``plen // page_size + 1`` pages up front."""
+        pg = g.paging
+        plan = self._spec_plan.get(g.depth)
+        headroom = (max(plan.ks, default=0)
+                    if self.speculative is not None and plan is not None
+                    else 0)
+        last = len(req.prompt) + req.max_new_tokens - 2 + headroom
+        need = max(last, len(req.prompt)) // pg.ps + 1
+        return min(need, pg.cap_pages)
+
+    def _reserve_pages(self, g: _DepthGroup, slot: int, req: Request) -> bool:
+        """Book ``req``'s worst-case page demand for ``slot``; False: the
+        pool cannot cover it now (the caller defers the admission)."""
+        pg = g.paging
+        if pg is None or pg.fixed:
+            return True
+        need = self._worst_case_pages(g, req)
+        if not pg.can_reserve(need):
+            return False
+        pg.reserve(slot, need)
+        return True
 
     def _pop_next(self) -> Optional[Request]:
         for cls in SLO_CLASSES:
@@ -680,6 +1008,18 @@ class ServingEngine:
             req = self._pop_next()
             if req is None:
                 break
+            if not self._reserve_pages(g, slot, req):
+                # the page pool cannot cover this request's worst case now:
+                # defer it (back to the head of its queue) and log the
+                # backpressure; completions release budget
+                self._queues[req.slo_class].appendleft(req)
+                pg = g.paging
+                self.backpressure_log.append(dict(
+                    step=self.step_count, rid=req.rid,
+                    need=self._worst_case_pages(g, req),
+                    budgeted=pg.budgeted, reservable=pg.reservable))
+                self.backpressure_events += 1
+                break
             g.slots[slot] = req
             g.widths[slot] = self.admission_mode.width
             req.status = "active"
@@ -697,6 +1037,8 @@ class ServingEngine:
         if mask.any():
             # ONE batched reset per tick, however large the admission burst
             g.cache = self._reset(g.cache, self.executor.put(mask))
+            if g.paging is not None:
+                g.paging.host_pos[mask] = 0  # mirror the device counters
         for slot, req in prefills:
             self._admit_prefill(g, slot, req, now_s)
 
@@ -706,6 +1048,8 @@ class ServingEngine:
         req.status = "done"
         self.completed.append(req)
         g.slots[slot] = None
+        if g.paging is not None:
+            g.paging.release(slot)
         if self._rec.enabled:
             self._rec.request_end(req.rid, "done", tokens=len(req.generated))
 
@@ -725,12 +1069,69 @@ class ServingEngine:
         g.cache = self._adopt(g.cache, pre, slot)
         return logits
 
+    def _prefill_launch_paged(self, g: _DepthGroup, slot: int,
+                              prompt: Tuple[int, ...]):
+        """Paged whole-prompt consume with shared-prefix page reuse.
+
+        The prompt's full pages are matched in the radix under (depth,
+        width): a resident prefix is mapped into the slot's table (incref'd
+        and write-masked: the prefill recomputes the same K/V for those
+        positions but does not write them, so many slots share one physical
+        page). Fresh pages cover the rest; then the prompt's full pages are
+        inserted into the tree for the next arrival. Returns the prompt's
+        last-position logits."""
+        pg = g.paging
+        ps = pg.ps
+        plen = len(prompt)
+        rkey = (g.depth, g.widths[slot])
+        if pg.fixed:
+            # sliding window: the dense prefill already emits the rolled
+            # lane (token t at t % window), the fixed page row's layout;
+            # adopt all cap_pages pages, no sharing
+            ncp = pg.cap_pages
+            chunks, n_full = [], 0
+            pages_list = list(pg.pages[slot])
+            wmask = np.ones(ncp, bool)
+        else:
+            ncp = min(plen // ps + 1, pg.cap_pages)
+            n_full = min(plen // ps, ncp)
+            chunks = [tuple(prompt[j * ps:(j + 1) * ps])
+                      for j in range(n_full)]
+            shared = pg.radix.match(rkey, chunks)
+            for p in shared:
+                pg.alloc.incref(p)
+            pages_list = shared + [pg._alloc_page()
+                                   for _ in range(ncp - len(shared))]
+            pg.pages[slot] = list(pages_list)
+            pg.table[slot, :] = pg.scratch[slot]
+            pg.table[slot, :ncp] = pages_list
+            wmask = np.arange(ncp) >= len(shared)
+        pg.host_pos[slot] = plen
+        key = ("paged", plen, g.depth)
+        fn = self._prefills.get(key)
+        if fn is None:
+            if len(self._prefills) > 256:
+                self._prefills.clear()
+            fn = self.executor.prefill_adopt_fn(plen, g.depth, ncp)
+            self._prefills[key] = fn
+        toks = self.executor.put(np.asarray([prompt], np.int64))
+        logits, g.cache = fn(self.params, toks, slot, g.cache,
+                             self.executor.put(np.asarray(pages_list,
+                                                          np.int64)),
+                             self.executor.put(wmask))
+        if not pg.fixed:
+            pg.radix.insert(rkey, chunks, pages_list[:n_full])
+        return logits
+
     def _admit_prefill(self, g: _DepthGroup, slot: int, req: Request,
                        now_s: float) -> None:
         """Consume the whole prompt in one prefill + adoption."""
         self.executor.launch("prefill")
         t0 = self._clock()
-        logits = self._prefill_launch(g, slot, req.prompt)
+        if g.paging is not None:
+            logits = self._prefill_launch_paged(g, slot, req.prompt)
+        else:
+            logits = self._prefill_launch(g, slot, req.prompt)
         req.prefilled = True
         # the prefill's last-position logits yield the first generated token,
         # from the slot's own sample stream when sampling
@@ -787,13 +1188,25 @@ class ServingEngine:
             toks[i, 0] = g.slots[i].next_input()
         active = self._active_for(g.widths)
         tok_op = self.executor.put(toks)
+        pg = g.paging
+        extra = ()
+        if pg is not None:
+            # grow every active slot's mapping to cover the deepest draft
+            # write (root + K positions) and privatize any shared page in
+            # that range; draft and verify read the full-width table
+            for i in active_ix:
+                pos = int(pg.host_pos[i])
+                pg.ensure_slot(i, pos + k)
+                for src, dst in pg.cow_pairs(i, pos, pos + k):
+                    g.cache = self._copy_page(g.cache, src, dst)
+            extra = (self._table_op(pg, pg.cap_pages),)
         t0 = self._clock()
         dtoks, dlg = draft(self.params, g.cache, tok_op, active, g.keys,
-                           self.temperature, self.step_count)
+                           self.temperature, self.step_count, *extra)
         out, n_acc, g.cache = verify(self.params, g.cache,
                                      torch.cat([tok_op, dtoks], dim=1), dlg,
                                      active, g.keys, self.temperature,
-                                     self.step_count)
+                                     self.step_count, *extra)
         both = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
         out_h, n_acc_h = both[:, :-1], both[:, -1]
         _block_until_ready(g.cache)
@@ -802,6 +1215,10 @@ class ServingEngine:
         self.ctrl.last_step_s = dt
         self.spec_draft_launches += 1
         self.spec_verify_launches += 1
+        if pg is not None:
+            # mirror commit_verify: pos += n_accepted + 1 for every slot
+            # (free slots drift harmlessly; admission resets both counters)
+            pg.host_pos += np.asarray(n_acc_h, np.int64) + 1
 
         rec_on = self._rec.enabled
         rids = [g.slots[i].rid for i in active_ix] if rec_on else None
@@ -819,6 +1236,8 @@ class ServingEngine:
                         self._rec.request_event(req.rid, "first_token")
             if req.done:
                 self._complete(g, i, req, now_s)
+            elif pg is not None:
+                pg.trim(i)  # rollback: pages grown for rejected drafts free
         self.spec_generated_tokens += produced
         self._h_spec.observe(dt * 1e3)
         if rec_on:
@@ -863,6 +1282,9 @@ class ServingEngine:
             if k:
                 spent += self._spec_tick(g, k, active_ix, now_s)
                 continue
+            if g.paging is not None:
+                spent += self._paged_tick(g, active_ix, now_s)
+                continue
             self.executor.launch("decode")
             toks = np.zeros((self.batch_size, 1), np.int64)
             for i in active_ix:
@@ -906,6 +1328,81 @@ class ServingEngine:
         self.ticks_with_work += ticked
         self.step_count += 1
         return spent
+
+    def _paged_tick(self, g: _DepthGroup, active_ix: List[int],
+                    now_s: float) -> float:
+        """One plain decode tick through the bucketed paged step: host page
+        bookkeeping first (grow each active slot's mapping to its write
+        position, copy any shared page in range), then ONE call of the
+        ``("paged_decode", depth, bucket)`` step, bucket the smallest table
+        width covering every active slot."""
+        self.executor.launch("paged_decode")
+        pg = g.paging
+        needed = 1
+        for i in active_ix:
+            pos = int(pg.host_pos[i])
+            pg.ensure_slot(i, pos)
+            for src, dst in pg.cow_pairs(i, pos, pos):
+                g.cache = self._copy_page(g.cache, src, dst)
+            needed = max(needed, min(pos // pg.ps + 1, pg.cap_pages))
+        bucket = min(b for b in self._buckets if b >= needed)
+        pages_op = self._table_op(pg, bucket)
+        toks = np.zeros((self.batch_size, 1), np.int64)
+        for i in active_ix:
+            toks[i, 0] = g.slots[i].next_input()
+        active = self._active_for(g.widths)
+        w_max = max(g.widths[i] for i in active_ix)
+        mode = self._mode_by_dw[(g.depth, w_max)]
+        fn = self.ctrl.aux_step(paged_decode_compile_key(g.depth, bucket))
+        self.ctrl.stats["dispatches"] += 1
+        rec_on = self._rec.enabled
+        rids = [g.slots[i].rid for i in active_ix] if rec_on else None
+        t0 = self._clock()
+        logits, g.cache = fn(self.params, g.cache, self.executor.put(toks),
+                             active, pages_op)
+        _block_until_ready((logits, g.cache))
+        dt = self._clock() - t0
+        self.ctrl.telemetry[mode.name].record(dt, len(active_ix))
+        self.ctrl.last_step_s = dt
+        self._h_decode.observe(dt * 1e3)
+        pg.host_pos += 1  # mirror the device counter (every slot advances)
+        self.decode_launches += 1
+        self.per_mode_launch_equiv += len(
+            {(g.depth, g.widths[i]) for i in active_ix})
+        nxt = self._sample(logits[:, 0], g.keys)
+        produced = 0
+        for i in active_ix:
+            req = g.slots[i]
+            req.fed += 1
+            if req.fed >= len(req.prompt) and not req.done:
+                req.generated.append(int(nxt[i]))
+                produced += 1
+                if rec_on and len(req.generated) == 1:
+                    self._rec.request_event(req.rid, "first_token")
+            if req.done:
+                self._complete(g, i, req, now_s)
+        if rec_on:
+            self._rec.launch(
+                "paged_decode", t0, t0 + dt, depth=g.depth, rids=rids,
+                occupancy=len(active_ix), tokens=produced, bucket=bucket,
+                widths=[g.widths[i] for i in active_ix],
+                key=list(paged_decode_compile_key(g.depth, bucket)))
+        return dt
+
+    # -- page-pool accounting ----------------------------------------------
+
+    def check_paged_invariants(self) -> None:
+        """Assert exact page accounting in every depth group (no leaks, no
+        double assignment, no refcount drift). A no-op for dense engines."""
+        for g in self.groups.values():
+            if g.paging is not None:
+                g.paging.check_invariants()
+
+    def page_pool_stats(self) -> Dict[int, Dict[str, float]]:
+        """Per-depth-group pool occupancy and radix telemetry (empty when
+        dense)."""
+        return {d: g.paging.stats() for d, g in self.groups.items()
+                if g.paging is not None}
 
     # -- driving loops ------------------------------------------------------
 

@@ -13,7 +13,9 @@ and token for token identical under greedy decoding.
   in place, so the draft runs on a SCRATCH copy of the first
   ``draft_depth`` groups' K/V and ``pos``, allocated once (at the first
   call, which the engine's warmup makes) and refilled with ``copy_`` per
-  draft. The committed cache is never touched.
+  draft. The committed cache is never touched; over a block-paged cache
+  the scratch holds a copy of the page pools, so draft writes never reach
+  the committed pool.
 * ``make_verify_step`` — ``verify_step`` + the acceptance rule +
   ``commit_verify``; ``n_accepted`` stays on the device from logits to the
   commit, so a tick reads ``(out_tokens, n_accepted)`` back once.
@@ -176,16 +178,21 @@ def accept_speculative(logits, draft_logits, tokens, keys, temperature: float,
 class DraftStep:
     """K-token drafting at one exit depth, on a scratch copy of the cache.
 
-    ``draft(params, cache, tok0, active, keys, temperature, step) ->
-    (draft_tokens (B, K), draft_logits (B, K, Vp))``. ``load_scratch``
-    copies the first ``draft_depth`` groups of every cache leaf (K/V, or
-    an SSM layer's conv tails and state) and ``pos`` of ``cache`` into the
-    scratch (allocated at the first call) and returns it."""
+    ``draft(params, cache, tok0, active, keys, temperature, step[, pages])
+    -> (draft_tokens (B, K), draft_logits (B, K, Vp))``. ``load_scratch``
+    copies the first ``draft_depth`` groups of every cache leaf (K/V or
+    their page pools, or an SSM layer's conv tails and state) and ``pos`` of
+    ``cache`` into the scratch (allocated at the first call) and returns
+    it. With ``page_size`` > 0 the cache is block-paged and ``pages`` is
+    the (B, P) page table the draft reads and writes the scratch pool
+    through."""
 
     def __init__(self, cfg: ModelConfig, draft_depth: int, k: int,
-                 top_k: int = 0, fused: bool = False):
+                 top_k: int = 0, page_size: int = 0, plan_len: int = 0,
+                 fused: bool = False):
         self.cfg, self.draft_depth, self.k = cfg, draft_depth, k
         self.top_k, self.fused = top_k, fused
+        self.page_size, self.plan_len = page_size, plan_len
         self.scratch: Optional[Dict] = None
         self._layout = None  # (shape, dtype, device) of every cache leaf
 
@@ -208,7 +215,7 @@ class DraftStep:
         return sc
 
     def __call__(self, params, cache, tok0, active, keys, temperature: float,
-                 step):
+                 step, pages=None):
         cfg = self.cfg
         sc = self.load_scratch(cache)
         kd = sampling.fold_in(sampling.fold_step(keys, step), _STREAM_DRAFT)
@@ -216,7 +223,8 @@ class DraftStep:
         for j in range(self.k):
             logits, _ = decode_step(params, sc, tok, cfg,
                                     depth=self.draft_depth, active=active,
-                                    fused=self.fused)
+                                    pages=pages, page_size=self.page_size,
+                                    plan_len=self.plan_len, fused=self.fused)
             lg = logits[:, 0]
             nxt = sampling.sample_tokens(lg, sampling.fold_in(kd, j),
                                          temperature, cfg.vocab_size,
@@ -228,26 +236,35 @@ class DraftStep:
 
 
 def make_draft_step(cfg: ModelConfig, draft_depth: int, k: int,
-                    top_k: int = 0, fused: bool = False) -> DraftStep:
-    """The K-token drafting function for one (draft_depth, K)."""
-    return DraftStep(cfg, draft_depth, k, top_k, fused)
+                    top_k: int = 0, page_size: int = 0, plan_len: int = 0,
+                    fused: bool = False) -> DraftStep:
+    """The K-token drafting function for one (draft_depth, K); with
+    ``page_size`` > 0 it takes a trailing page-table operand."""
+    return DraftStep(cfg, draft_depth, k, top_k, page_size, plan_len, fused)
 
 
 def make_verify_step(cfg: ModelConfig, depth: int, k: int, top_k: int = 0,
+                     page_size: int = 0, plan_len: int = 0,
                      fused: bool = False):
     """The verify + accept + commit function for one (depth, K):
     ``verify(params, cache, tokens (B, K+1), draft_logits, active, keys,
-    temperature, step) -> (out_tokens (B, K+1), n_accepted (B,), cache)``,
-    with ``cache`` committed in place."""
+    temperature, step[, pages]) -> (out_tokens (B, K+1), n_accepted (B,),
+    cache)``, with ``cache`` committed in place. With ``page_size`` > 0 a
+    trailing page table routes both the verify's reads and the commit's
+    writes; the host frees the tail pages speculation reached past the
+    commit."""
 
     def verify(params, cache, tokens, draft_logits, active, keys,
-               temperature: float, step):
+               temperature: float, step, pages=None):
         logits, pending = verify_step(params, cache, tokens, cfg,
-                                      depth=depth, active=active, fused=fused)
+                                      depth=depth, active=active,
+                                      pages=pages, page_size=page_size,
+                                      plan_len=plan_len, fused=fused)
         out, n_acc = accept_speculative(
             logits, draft_logits, tokens, sampling.fold_step(keys, step),
             temperature, cfg.vocab_size, top_k)
-        return out, n_acc, commit_verify(cache, pending, n_acc, cfg)
+        return out, n_acc, commit_verify(cache, pending, n_acc, cfg,
+                                         pages=pages, page_size=page_size)
 
     return verify
 

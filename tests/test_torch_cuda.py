@@ -750,3 +750,207 @@ def test_verify_and_scan_kernels_are_deterministic(cuda, kernel):
     first = run().clone()
     for _ in range(3):
         assert torch.equal(run(), first)
+
+
+# ---------------------------------------------------------------------------
+# the block-paged cache: the page-table half of fused_decode / fused_verify
+# ---------------------------------------------------------------------------
+
+
+def _paged_twin(cuda, cache, window=0, S=512, ps=16, seed=40):
+    """Full-width TinyLlama attention weights, B = 8 slots at mixed widths
+    over a dense cache of ``S`` rows (the window's, under one) and its paged
+    twin: the same rows scattered into shuffled pages of a worst-case pool
+    (one scratch page per slot without a window), slots 6 and 7 sharing
+    their first 4 pages and the rows in them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import elastic
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              kv_quant=cache == "int8", sliding_window=window)
+    dm, H, KV, hd, B = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 8
+    Sc = window or S
+    P = Sc // ps
+    n_pages = B * (P + (0 if window else 1))
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    params = {n: torch.randn(*s, generator=g, device=cuda) / np.sqrt(s[0])
+              for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
+                           ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
+    k, v, ks, vs = _serving_cache(g, cuda, (B, Sc, KV, hd), cache)
+    dense = {"k": k, "v": v}
+    if cache == "int8":
+        dense.update(k_scale=ks, v_scale=vs)
+    table = torch.randperm(n_pages, generator=g, device=cuda)[:B * P]
+    table = table.view(B, P).to(torch.int32)
+    if not window:
+        for t in dense.values():
+            t[7, :4 * ps] = t[6, :4 * ps]
+        table[7, :4] = table[6, :4]
+    pool = {}
+    for n, t in dense.items():
+        pool[n] = torch.zeros((n_pages, ps) + tuple(t.shape[2:]),
+                              dtype=t.dtype, device=cuda)
+        pool[n][table.long().flatten()] = t.reshape(
+            (B * P, ps) + tuple(t.shape[2:]))
+    act = elastic.active_widths_batch(
+        cfg, [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25], device=cuda)
+    xdt = torch.float32 if cache == "f32" else torch.bfloat16
+    return cfg, params, dense, pool, table, act, xdt, g
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("window", [0, 64], ids=["full", "window64"])
+def test_paged_fused_kernels_match_plain(cuda, cache, window):
+    """One full-width TinyLlama attention layer over a page pool (page 16,
+    shuffled pages, two slots sharing four), B = 8 at mixed positions: the
+    decode launch against ``fused_decode_plain`` (output and the pool after
+    its write: int8 values within 1, as the dense test allows) and the
+    linear verify launch (S = 5) against ``fused_verify_plain`` (output,
+    candidates, the pool left as it was), each counted as paged and on its
+    dtype's route."""
+    cfg, params, _, pool, table, act, xdt, g = _paged_twin(cuda, cache,
+                                                           window)
+    ps = 16
+    dm = cfg.d_model
+    pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 505], dtype=torch.int32,
+                       device=cuda)
+    route = "fma" if cache == "f32" else "tc"
+    x = torch.randn(8, 1, dm, generator=g, device=cuda).to(xdt)
+    c_k = {n: t.clone() for n, t in pool.items()}
+    c_p = {n: t.clone() for n, t in pool.items()}
+    n0, r0 = FD.paged_launch_count(), FD.route_counts()
+    o_k, _ = FD.fused_decode_step(params, x, c_k, pos, cfg, active=act,
+                                  pages=table, page_size=ps)
+    assert FD.paged_launch_count() == n0 + 1
+    assert FD.route_counts()[route] == r0[route] + 1
+    o_p, _ = FD.fused_decode_plain(params, x, c_p, pos, cfg, act["q_dim"],
+                                   act["kv_dim"], table, ps)
+    torch.cuda.synchronize()
+    _close(o_k, o_p, xdt)
+    for n in pool:
+        if pool[n].dtype == torch.int8:
+            assert int((c_k[n].int() - c_p[n].int()).abs().max()) <= 1, n
+        else:
+            _close(c_k[n], c_p[n], pool[n].dtype)
+    x = torch.randn(8, 5, dm, generator=g, device=cuda).to(xdt)
+    before = {n: t.clone() for n, t in pool.items()}
+    n0, r0 = FD.paged_verify_launch_count(), FD.verify_route_counts()
+    o_k, kv_k = FD.fused_verify(params, x, pool, pos, cfg, active=act,
+                                pages=table, page_size=ps)
+    assert FD.paged_verify_launch_count() == n0 + 1
+    assert FD.verify_route_counts()[route] == r0[route] + 1
+    o_p, kv_p = FD.fused_verify_plain(params, x, pool, pos, cfg,
+                                      act["q_dim"], act["kv_dim"],
+                                      pages=table, page_size=ps)
+    torch.cuda.synchronize()
+    _close(o_k, o_p, xdt)
+    for n in ("k", "v"):
+        _close(kv_k[n], kv_p[n], xdt)
+    for n in pool:  # the pool is read only
+        assert torch.equal(pool[n], before[n]), n
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_paged_launch_bit_identical_to_dense(cuda, cache):
+    """A paged launch through a bucketed table (8 of a slot's 32 pages) and
+    its dense twin over the same contents give bit-identical outputs when
+    the paged launch plans its splits from the slot's full capacity
+    (``plan_len`` = 512, the dense cache's S): both visit the same rows in
+    the same splits and order. Decode (output and the written rows) and
+    linear verify (output and candidates)."""
+    cfg, params, dense, pool, table, act, xdt, g = _paged_twin(cuda, cache)
+    ps, S = 16, 512
+    pos = torch.tensor([0, 1, 17, 40, 64, 90, 100, 126], dtype=torch.int32,
+                       device=cuda)
+    bucket = table[:, :8].contiguous()
+    x = torch.randn(8, 1, cfg.d_model, generator=g, device=cuda).to(xdt)
+    o_d, _ = FD.fused_decode_step(params, x, dense, pos, cfg, active=act)
+    o_p, _ = FD.fused_decode_step(params, x, pool, pos, cfg, active=act,
+                                  pages=bucket, page_size=ps, plan_len=S)
+    torch.cuda.synchronize()
+    assert torch.equal(o_d, o_p)
+    pl = pos.long()
+    rows = (bucket.long()[torch.arange(8, device=cuda), pl // ps], pl % ps)
+    for n in dense:
+        assert torch.equal(dense[n][torch.arange(8, device=cuda), pl],
+                           pool[n][rows]), n
+    x = torch.randn(8, 5, cfg.d_model, generator=g, device=cuda).to(xdt)
+    o_d, kv_d = FD.fused_verify(params, x, dense, pos, cfg, active=act)
+    o_p, kv_p = FD.fused_verify(params, x, pool, pos, cfg, active=act,
+                                pages=bucket, page_size=ps, plan_len=S)
+    torch.cuda.synchronize()
+    assert torch.equal(o_d, o_p)
+    assert torch.equal(kv_d["k"], kv_p["k"]) and torch.equal(kv_d["v"],
+                                                             kv_p["v"])
+
+
+def test_engine_on_card_paged_fused_equals_dense(cuda):
+    """Full-width TinyLlama-1.1B (seeded random weights), fused: the paged
+    engine (page 16, worst-case pool) emits the dense engine's tokens on
+    six requests whose prompts share a 48-token (three-page) prefix, with
+    radix hits, exact page accounting and nothing built after warmup."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.runtime.serving import Request, ServingEngine
+
+    cfg = get_config("tinyllama-1.1b")
+    params = init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(3)
+    prefix = tuple(int(t) for t in rng.integers(1, cfg.vocab_size, 48))
+    reqs = [(prefix + tuple(int(t) for t in rng.integers(
+        1, cfg.vocab_size, int(rng.integers(1, 20)))), 12) for _ in range(6)]
+    streams = []
+    for paged in (None, PagedLayout(page_size=16)):
+        eng = ServingEngine(params, cfg, batch_size=4, cache_capacity=256,
+                            prefill_threshold=8, fused=True, paged=paged,
+                            device=cuda)
+        eng.warmup()
+        for i, (prompt, new) in enumerate(reqs):
+            eng.submit(Request(rid=i, prompt=prompt, max_new_tokens=new))
+        while eng.queue or eng.n_active:
+            eng.step()
+            eng.check_paged_invariants()
+        assert eng.ctrl.stats["compiles"] == eng.compiles_after_warmup
+        streams.append({r.rid: r.generated for r in eng.completed})
+        if paged is not None:
+            st = eng.page_pool_stats()[cfg.n_groups]
+            assert st["radix_hits"] > 0, st
+    assert len(streams[0]) == 6
+    assert streams[0] == streams[1]
+
+
+def test_smoke_paged_unfused_decode_on_card_matches_dense(cuda):
+    """The f32 smoke model, unfused, on the card: twelve decode steps over
+    a paged cache (page 4, a shuffled table cut to the bucket that covers
+    every slot) give the dense cache's logits within 1e-5. The attention
+    is a PyTorch reduction over the bucket's positions rather than the
+    dense cache's, so bit identity is not promised."""
+    from repro_torch.core import elastic
+    from repro_torch.models import model as TM
+    from repro_torch.models.paged import PagedLayout, init_paged_cache
+
+    cfg = smoke_config("tinyllama-1.1b")
+    params = TM.init_params(cfg, seed=1, device=cuda)
+    B, cap, ps = 3, 32, 4
+    layout = PagedLayout(page_size=ps)
+    act = elastic.active_widths_batch(cfg, [0.5, 1.0, 1.0], device=cuda)
+    dense = TM.init_decode_cache(cfg, B, cap, per_slot=True, device=cuda)
+    paged = init_paged_cache(cfg, B, cap, layout, device=cuda)
+    for c in (dense, paged):
+        c["pos"].copy_(torch.tensor([0, 3, 7], dtype=torch.int32))
+    g = torch.Generator().manual_seed(2)
+    n_pages = layout.pool_pages(cfg, B, cap)
+    table = torch.randperm(n_pages, generator=g)[:B * cap // ps].view(
+        B, cap // ps).to(dtype=torch.int32, device=cuda)
+    for step in range(12):
+        tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=g).to(cuda)
+        need = int(paged["pos"].max()) // ps + 1
+        bucket = layout.bucket_for(cfg, cap, need)
+        l_d, _ = TM.decode_step(params, dense, tok, cfg, active=act)
+        l_p, _ = TM.decode_step(params, paged, tok, cfg, active=act,
+                                pages=table[:, :bucket].contiguous(),
+                                page_size=ps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(l_p, l_d, atol=1e-5, rtol=0,
+                                   msg=f"step {step}")

@@ -247,12 +247,30 @@ def test_fused_verify_plain_matches_pallas_and_ref(variant):
 
 
 def test_fused_verify_raises_until_its_slice():
-    """Paged caches are not in this slice: fused_verify names the paged
-    slice instead of falling back."""
-    with pytest.raises(NotImplementedError, match="paged"):
-        FD.fused_verify(None, torch.zeros(1, 2, 4), None, None, None,
-                        pages=torch.zeros(1, 1, dtype=torch.int32),
-                        page_size=4)
+    """The paged slice has landed: fused_verify over a page pool read
+    through an identity table equals it over the dense cache with the same
+    contents (``tests/test_torch_paged.py`` holds shuffled tables to the
+    Pallas kernel), and a table of the wrong width for the pool raises."""
+    jcfg, tcfg, params, x, cache, pos, a_q, a_kv, nd, tb = _fv_operands(
+        "linear_f32")
+    B, Sc = cache["k"].shape[:2]
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    act = {"q_dim": torch.from_numpy(a_q), "kv_dim": torch.from_numpy(a_kv)}
+    dense = {k: torch.from_numpy(np.array(v)) for k, v in cache.items()}
+    ps = 4
+    pool = {k: v.reshape((B * Sc // ps, ps) + tuple(v.shape[2:]))
+            for k, v in dense.items()}
+    table = torch.arange(B * Sc // ps, dtype=torch.int32).view(B, Sc // ps)
+    o_d, kv_d = FD.fused_verify(tp, torch.from_numpy(x), dense,
+                                torch.from_numpy(pos), tcfg, active=act)
+    o_p, kv_p = FD.fused_verify(tp, torch.from_numpy(x), pool,
+                                torch.from_numpy(pos), tcfg, active=act,
+                                pages=table, page_size=ps)
+    assert torch.equal(o_d, o_p)
+    assert all(torch.equal(kv_d[k], kv_p[k]) for k in kv_d)
+    with pytest.raises(IndexError):
+        FD.fused_verify(tp, torch.from_numpy(x), pool, torch.from_numpy(pos),
+                        tcfg, active=act, pages=table + B * Sc, page_size=ps)
 
 
 def test_ext_mask_matches_jax():

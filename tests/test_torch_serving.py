@@ -121,14 +121,18 @@ def test_slo_policy_run_and_metrics():
 
 
 def test_unported_options_raise():
-    """Paged caches and mesh executors are later slices and raise; token
-    trees raise naming the tree slice. (Sampling and linear speculation
-    arrived with the speculative slice: ``test_torch_speculative.py``.)"""
+    """Mesh executors are a later slice and raise; token trees raise naming
+    the tree slice. (Sampling and linear speculation arrived with the
+    speculative slice, ``test_torch_speculative.py``; paged caches with the
+    paged slice, ``test_torch_paged.py``: a page size that does not divide
+    the capacity is refused before anything is built.)"""
+    from repro_torch.models.paged import PagedLayout
     from repro_torch.runtime.speculative import SpecConfig
 
     cfg = smoke_config("tinyllama-1.1b")
-    with pytest.raises(NotImplementedError, match="paged"):
-        TS.ServingEngine({}, cfg, device="cpu", paged=object())
+    with pytest.raises(ValueError, match="capacity"):
+        TS.ServingEngine({}, cfg, device="cpu", cache_capacity=16,
+                         paged=PagedLayout(page_size=5))
     mesh_exec = TS.LocalExecutor("cpu")
     mesh_exec.mesh = object()
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -3,8 +3,8 @@
 
 Phases (any failure exits non-zero; nothing is caught into a pass):
 
-1. Device and build: print the card's name and power limit, build all six
-   CUDA kernels from ``src/repro_torch/csrc`` for sm_90a
+1. Device and build: print the card's name and power limit, build all
+   seven CUDA kernel libraries from ``src/repro_torch/csrc`` for sm_90a
    (one nvcc per source, started together) and print the build seconds,
    each kernel's ptxas registers and spills, and the tensor-core (HMMA)
    instructions in the SASS of ``morph_matmul``, ``flash_attention``,
@@ -91,14 +91,33 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    each smoke model on the card against the plain versions on the CPU
    (decode, prefill and verify, and for TinyLlama a chunked prefill
    through the flash kernel; a small-input reference).
-4. A ``{"kernels": [...]}`` JSON line (``fused_decode`` and
+4. Training, one card. The scan's backward kernel (``ssd_scan_bwd``, on
+   the forward kernel's kept workspace) against ``ssd_scan_bwd_plain`` at
+   the Mamba2-370M training shape (B = 8, S = 256, 32 heads of 64,
+   n = 128) with x in f32 and in bf16, at width 0.5, at a ragged S = 200
+   and with a tile decay past 88, each gradient's error printed against its
+   tolerance, timed (profiler, cold L2) beside its plain version and its
+   bound. Then full-width Mamba2-370M cut to 4 layers (f32, B = 2,
+   S = 256): ``loss_fn`` gradients on the card against the CPU plain route.
+   Then full-width, full-depth Mamba2-370M from seeded random weights: 20
+   ``make_train_step`` steps (B = 8, S = 256, AdamW, over 4 batches; the
+   loss must fall), DistillCycle over ``default_schedule`` (6 stages, 2
+   teacher + 2 student steps each) and ``eval_modes(with_agreement=True)``,
+   every step's forward and backward scan launches checked (a base step:
+   48 and 48; a teacher step at grown depth D: D and D; a student step at
+   depth d: D + d and d); and 5 TinyLlama-1.1B train steps (no hand kernel
+   on its path). Step ms (wall and device), idle share, peak memory,
+   history and agreement per path are printed.
+5. A ``{"kernels": [...]}`` JSON line (``fused_decode`` and
    ``fused_verify`` add their paged timings under ``paged`` and the paged
-   drives' counts under ``paged_launches_by_path``), then the last line
+   drives' counts under ``paged_launches_by_path``; ``ssd_scan_bwd`` is the
+   port's kernel with no Pallas counterpart), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card; exits non-zero without one, and outside a checkout of the repository.
-``--skip-e2e`` stops after phase 2 (for a quick kernel check).
+``--skip-e2e`` stops after the kernel checks (phase 2 and the backward
+kernel of phase 4).
 """
 from __future__ import annotations
 
@@ -1537,7 +1556,7 @@ def expected_launches_ssm(torch, engine, steps0, fused: bool, device):
 
 
 KERNEL_NAMES = ("morph_matmul", "fused_decode", "fused_verify", "ssd_scan",
-                "flash_attention", "flash_decode")
+                "ssd_scan_bwd", "flash_attention", "flash_decode")
 # path name -> (fused, speculative, temperature, top_k, attn_impl or None
 # for the config's own)
 PATHS = (("unfused", False, False, 0.0, 0, None),
@@ -1571,6 +1590,7 @@ def counters():
             "fused_verify": (FD.verify_launch_count,
                              FD.reset_verify_launch_count),
             "ssd_scan": (SSD.launch_count, SSD.reset_launch_count),
+            "ssd_scan_bwd": (SSD.bwd_launch_count, SSD.reset_launch_count),
             "flash_attention": (FA.launch_count, FA.reset_launch_count),
             "flash_decode": (FDK.launch_count, FDK.reset_launch_count)}
 
@@ -2035,6 +2055,345 @@ def flash_decode_drive(torch, cfg, calls: int = 0):
     return run_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training on the card
+# ---------------------------------------------------------------------------
+
+# ssd_scan backward vs its plain version on the card, f32: C.B^T comes from
+# the forward's 3xTF32 products, the kernel restarts no sum the plain
+# version keeps, and both sum in other orders; each gradient is held to
+# 1e-3 of its own largest magnitude plus 1e-3 relative (the forward's
+# tolerance), a bf16 dx to one bf16 rounding step more
+RTOL_BWD = 1e-3
+ATOL_BWD = 1e-3  # times the gradient's max |plain|
+# whole-model gradients, card (scan kernels) vs the CPU plain route, f32:
+# the relative error norm of each parameter's gradient
+GRAD_REL = 1e-3
+# distinct batches the base training steps cycle over
+BASE_BATCHES = 4
+
+
+def scan_bwd_ops(s, h, p, n, tile):
+    """f32 operations of one batch row's backward scan carried every
+    ``tile`` steps, counted as ``scan_ops`` counts the forward's: per tile of
+    q steps and head, the lower triangles of C.B^T and dY.U^T (q(q+1)(n +
+    p)), the in-tile products into du, dB and dC (q(q+1)(p + 2n)), the four
+    products with a state (the carried gradient's term, G B, U G, dY h:
+    8qnp) and the carry (2pn)."""
+    ops = 0
+    for c0 in range(0, s, tile):
+        q = min(tile, s - c0)
+        ops += h * (q * (q + 1) * (3 * n + 2 * p) + 8 * q * n * p + 2 * p * n)
+    return ops
+
+
+def scan_bwd_bound(b, s, h, p, g, n, x_bytes):
+    """(ms, bound_by, bytes, ops) of one backward scan at the card's peaks:
+    the least f32 work over every tile length; x, dy, dt, A, B, C and the
+    final state's gradient read once, dx, ddt, dA, dB and dC written once."""
+    tile = min(range(1, s + 1), key=lambda q: scan_bwd_ops(s, h, p, n, q))
+    ops = b * scan_bwd_ops(s, h, p, n, tile)
+    nbytes = (3 * x_bytes * b * s * h * p
+              + 4 * (2 * b * s * h + 2 * h + 4 * b * s * g * n + b * h * p * n))
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, ops)
+
+
+def check_ssd_scan_bwd(torch, cfg, timer):
+    """The scan's backward kernel against ``ssd_scan_bwd_plain`` on the
+    card, on the forward kernel's kept workspace: at the Mamba2-370M
+    training shape (B = 8, S = 256, 32 heads of 64, n = 128, one group) with
+    x in f32 and in bf16, at width 0.5 (16 heads), at a ragged S = 200, and
+    with dt = 0.5 so that a 64-step tile's decay (32 |A|, A in -[1, 16))
+    passes 88. Each gradient's max |kernel - plain| against its tolerance;
+    the kernel timed beside its plain version and its bound."""
+    from repro_torch.kernels import ssd_scan as SSD
+
+    h, p, g, n = (cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_ngroups,
+                  cfg.ssm_state)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    res = {}
+    for tag, (b, s, hh), xdt, big in (
+            ("train f32", (8, 256, h), torch.float32, False),
+            ("train bf16 x", (8, 256, h), torch.bfloat16, False),
+            ("width 0.5", (8, 256, h // 2), torch.float32, False),
+            ("ragged S=200", (8, 200, h), torch.float32, False),
+            ("large decay", (2, 256, h), torch.float32, True)):
+        x, dt, A, B, C = scan_inputs(torch, gen, b, s, hh, p, g, n)
+        if big:
+            dt = torch.full_like(dt, 0.5)
+        x = x.to(xdt)
+        A_bh = A.expand(b, hh).contiguous()
+        dy = torch.randn(b, s, hh, p, generator=gen, device="cuda").to(xdt)
+        ds = torch.randn(b, hh, p, n, generator=gen, device="cuda")
+        _, _, ws = SSD.launch_bshn(x, dt, A_bh, B, C, keep_workspace=True)
+
+        def kern():
+            return SSD.launch_bwd(x, dt, A_bh, B, C, ws, dy, ds)
+
+        def plain():
+            return SSD.ssd_scan_bwd_plain(x, dt, A_bh, B, C, dy, ds)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        errs, worst = [], 0.0
+        for name, gk, gp in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+            gk, gp = gk.float(), gp.float()
+            scale = float(gp.abs().max())
+            rtol = RTOL_BWD + (2.0 ** -7 if name == "dx"
+                               and xdt == torch.bfloat16 else 0.0)
+            err = (gk - gp).abs()
+            e = float(err.max())
+            if not (bool(torch.isfinite(gk).all())
+                    and bool((err <= ATOL_BWD * scale + rtol * gp.abs()).all())):
+                fail(f"ssd_scan_bwd {tag} {name}: max |err| {e:.3e} beyond "
+                     f"atol {ATOL_BWD:.0e} x {scale:.3e} + rtol {rtol:.1e}")
+            errs.append(f"{name} {e:.2e} (scale {scale:.2e})")
+            worst = max(worst, e)
+        t_k = timer.ms(kern)
+        parts = {"carry": 0.0, "pass": 0.0, "tile": 0.0, "sum": 0.0}
+        for name, t in timer.last.items():
+            for part in parts:
+                if f"ssd_bwd_{part}_kernel" in name:
+                    parts[part] += t
+        t_kw = timer.wall_ms(kern)
+        t_p = timer.ms(plain)
+        bound, by, nbytes, nops = scan_bwd_bound(b, s, hh, p, g, n,
+                                                 x.element_size())
+        log(f"  ssd_scan_bwd {tag} (b={b}, s={s}, h={hh}, p={p}, g={g}, "
+            f"n={n}, x {str(xdt)[6:]}): max|kernel - plain| " + ", ".join(errs)
+            + f" (atol {ATOL_BWD:.0e} x scale + rtol {RTOL_BWD:.0e}); kernel "
+            f"{t_k:.4f} ms (call, event-timed {t_kw:.4f} ms) = tile-state "
+            f"carry terms {parts['carry']:.4f} + reverse carry "
+            f"{parts['pass']:.4f} + tile gradients {parts['tile']:.4f} + "
+            f"group sums {parts['sum']:.4f}; plain {t_p:.4f} ms; bound "
+            f"{bound:.4f} ms ({by}; {nbytes / 1e6:.2f} MB, {nops / 1e9:.3f} "
+            f"GFLOP f32 at {PEAK_F32 / 1e12:.0f} TFLOP/s); library: none")
+        res[tag] = dict(max_abs_err=worst, ms=t_k, wall_ms=t_kw, plain_ms=t_p,
+                        bound_ms=bound, bound_by=by, per_launch=parts)
+    return res
+
+
+def check_model_grads(torch, mcfg, layers=4, b=2, s=256):
+    """Full-width Mamba2-370M cut to ``layers`` layers, f32 activations:
+    ``loss_fn`` gradients on the card (the scan kernel forward and
+    backward) against the same params and batch through the plain route on
+    the CPU (autograd through ``ssd_chunked``). Each parameter's relative
+    error norm must stay within GRAD_REL, every gradient finite."""
+    import dataclasses
+
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim import grads_of, trainable
+    from repro_torch.optim.optimizer import leaves_with_path
+
+    cfg = mcfg.scaled(n_layers=layers, dtype="float32",
+                      elastic=dataclasses.replace(mcfg.elastic,
+                                                  exit_layers=(layers // 2,)))
+    p_cpu = init_params(cfg, seed=5, device="cpu")
+    batch = make_batch(cfg, DataConfig(seed=5, global_batch=b, seq_len=s), 0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = trainable(_move(p_cpu, dev))
+        f0, b0 = SSD.launch_count(), SSD.bwd_launch_count()
+        loss, _ = loss_fn(p, to_device(batch, dev), cfg)
+        g = grads_of(loss, p)
+        sync(torch, dev)
+        if dev == "cuda" and (SSD.launch_count() - f0, SSD.bwd_launch_count()
+                              - b0) != (layers, layers):
+            fail(f"model gradients on the card: {SSD.launch_count() - f0} "
+                 f"forward and {SSD.bwd_launch_count() - b0} backward scans, "
+                 f"expected {layers} each")
+        out[dev] = (loss.item(), {k: t.detach().float().cpu()
+                                  for k, t in leaves_with_path(g)})
+    worst, where = 0.0, ""
+    for k, gp in out["cpu"][1].items():
+        gc = out["cuda"][1][k]
+        if not bool(torch.isfinite(gc).all()):
+            fail(f"model gradient {k} on the card is not finite")
+        ref = float(gp.norm())
+        d = float((gc - gp).norm())
+        rel = d / ref if ref > 0 else d
+        if rel > GRAD_REL:
+            fail(f"model gradient {k}: card vs CPU relative error norm "
+                 f"{rel:.3e} > {GRAD_REL:.0e}")
+        if rel >= worst:
+            worst, where = rel, k
+    log(f"  mamba2-370m full width, {layers} layers, f32, B={b}, S={s}: "
+        f"loss card {out['cuda'][0]:.6f} / CPU {out['cpu'][0]:.6f}; "
+        f"{len(out['cpu'][1])} gradients, largest relative error norm "
+        f"{worst:.3e} ({where}; bound {GRAD_REL:.0e}), all finite")
+    return worst
+
+
+def _ms(xs):
+    return sum(xs) / len(xs) if xs else float("nan")
+
+
+def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
+    """Full-width, full-depth training of ``cfg`` on the card from seeded
+    random weights: ``n_steps`` base ``make_train_step`` steps (B = 8,
+    S = 256, AdamW, cycling over BASE_BATCHES batches), then with
+    ``distill`` DistillCycle over ``default_schedule`` (one epoch of 2
+    teacher + 2 student steps a stage) and
+    ``eval_modes(with_agreement=True)``. Every kernel count is zeroed
+    just before the drive and read just after; each step's scan launches
+    are checked as they come: a base step, as many forward and backward
+    scans as SSM layers; a teacher step at the grown depth D, D and D; a
+    student step at depth d, D + d forward (the teacher's no-grad forward
+    and the student's) and d backward. Returns (launches, results)."""
+    from repro_torch.core.distillcycle import (DistillCycle,
+                                               DistillCycleConfig)
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import OptimizerConfig, warmup_cosine
+
+    ssm = "ssm" in cfg.layer_pattern
+    per_group = sum(k == "ssm" for k in cfg.layer_pattern)
+    ocfg = OptimizerConfig(**ocfg_kw)
+    dc = DataConfig(seed=seed, global_batch=8, seq_len=256)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, ocfg, seed=seed, device="cuda")
+    step = make_train_step(cfg, ocfg, remat="none",
+                           lr_schedule=warmup_cosine(1.0, 2, n_steps))
+    # the base steps cycle over BASE_BATCHES batches: in 20 steps of 2048
+    # fresh tokens a model cannot learn a bigram table over a ~50 K vocab
+    # (a token comes up about once), so fresh batches leave the loss at
+    # log V; revisited batches show the optimizer lowering it
+    batches = [to_device(make_batch(cfg, dc, i), "cuda")
+               for i in range(BASE_BATCHES)]
+    torch.cuda.synchronize()
+    count_reset = counters()
+    for _, reset in count_reset.values():
+        reset()
+    last = [SSD.launch_count(), SSD.bwd_launch_count(), time.perf_counter()]
+
+    def scans_since(want_f, want_b, what):
+        torch.cuda.synchronize()
+        f, b_, t = SSD.launch_count(), SSD.bwd_launch_count(), \
+            time.perf_counter()
+        got = (f - last[0], b_ - last[1])
+        ms = (t - last[2]) * 1e3
+        last[:] = [f, b_, t]
+        if got != (want_f, want_b):
+            fail(f"{cfg.name} {what}: {got[0]} forward and {got[1]} backward "
+                 f"scans, expected {want_f} and {want_b}")
+        return ms
+
+    L = cfg.n_groups * per_group
+    losses, wall = [], []
+    n_prof = 2
+    for i in range(n_steps - n_prof):
+        state, m = step(state, batches[i % BASE_BATCHES])
+        wall.append(scans_since(L, L, f"base step {i}"))
+        losses.append(m["loss"].item())
+    prof_steps = iter(range(n_steps - n_prof, n_steps))
+
+    def profiled():
+        nonlocal state
+        state, m = step(state, batches[next(prof_steps) % BASE_BATCHES])
+        losses.append(m["loss"].item())
+
+    per = kernel_us(torch, profiled, n_prof)
+    scans_since(n_prof * L, n_prof * L, "profiled base steps")
+    dev_ms = sum(per.values()) / n_prof / 1e3
+    host_ms = _ms(wall[1:])
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{cfg.name} base training: a loss is not finite: {losses}")
+    first, tail = _ms(losses[:5]), _ms(losses[-5:])
+    res = dict(base_losses=losses, base_step_ms=host_ms, base_device_ms=dev_ms,
+               base_idle_share=1 - dev_ms / host_ms)
+    log(f"  {cfg.name} base training, B=8, S=256, {n_steps} steps, AdamW lr "
+        f"{ocfg.lr:g}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
+        f"first 5 {first:.4f}, of the last 5 {tail:.4f}); step {host_ms:.1f} "
+        f"ms wall (steps 1..{n_steps - n_prof - 1}), {dev_ms:.1f} ms device "
+        f"(profiled steps), idle share {1 - dev_ms / host_ms:.3f}; heaviest: "
+        + "; ".join(f"{v / n_prof / 1e3:.2f} ms {k[:48]}" for k, v in top))
+    if distill and not tail < first:
+        fail(f"{cfg.name} base loss did not fall: first 5 {first:.4f}, last 5 "
+             f"{tail:.4f}")
+    if distill:
+        dcfg = DistillCycleConfig(epochs_per_stage=1, steps_per_epoch=2,
+                                  epoch_lr_decay=1.0)
+        cyc = DistillCycle(cfg, ocfg, dc, dcfg=dcfg)
+        kind_ms = {"teacher": [], "student": []}
+
+        def on_step(kind, mode, depth):
+            d = mode.depth
+            want = (depth, depth) if kind == "teacher" else (depth + d, d)
+            kind_ms[kind].append(scans_since(
+                want[0] * per_group, want[1] * per_group,
+                f"{kind} step of {mode.name} (grown depth {depth})"))
+
+        last[2] = time.perf_counter()
+        params, _ = cyc.run(state["params"], state["opt"], on_step=on_step)
+        ev = cyc.eval_modes(params, with_agreement=True)
+        n_eval = 4 * (cfg.n_groups + sum(m.depth for m in cyc.schedule))
+        scans_since(n_eval * per_group, 0, "eval_modes")
+        hist = [{k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in h.items()} for h in cyc.history]
+        vals = [v for h in cyc.history for k, v in h.items()
+                if k.endswith(("loss", "ce", "kd"))]
+        vals += [v["ce"] for v in ev.values()]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"{cfg.name} DistillCycle: a loss is not finite: {hist} {ev}")
+        log(f"  DistillCycle, {len(cyc.schedule)} stages "
+            f"({', '.join(m.name for m in cyc.schedule)}), 2 teacher + 2 "
+            f"student steps a stage, {cyc.builds} step callables built: "
+            f"teacher step {_ms(kind_ms['teacher']):.1f} ms, student step "
+            f"{_ms(kind_ms['student']):.1f} ms wall (batch making included)")
+        for h in hist:
+            log(f"    {h}")
+        log("  eval_modes(with_agreement=True): " + "; ".join(
+            f"{k} CE {v['ce']:.4f} agreement {v['agreement']:.3f}"
+            for k, v in ev.items()))
+        res.update(history=hist, eval=ev,
+                   teacher_step_ms=_ms(kind_ms["teacher"]),
+                   student_step_ms=_ms(kind_ms["student"]))
+    torch.cuda.synchronize()
+    launches = {n_: count() for n_, (count, _) in count_reset.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res["peak_gib"] = peak
+    want_zero = [k for k in KERNEL_NAMES
+                 if k not in (("ssd_scan", "ssd_scan_bwd") if ssm else ())]
+    if any(launches[k] for k in want_zero):
+        fail(f"{cfg.name} training launched {launches}; only the scan "
+             f"kernels belong to its path")
+    log(f"  {cfg.name} training drive: launches " + ", ".join(
+        f"{k} {v}" for k, v in launches.items())
+        + f" (each step as expected); peak device memory {peak:.2f} GiB")
+    del state
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def training_phase(torch, cfg, mcfg, timer, full=True):
+    """Phase 4: the scan's backward kernel against its plain version; with
+    ``full``, the 4-layer full-width Mamba2 gradients against the CPU, the
+    full-depth Mamba2-370M DistillCycle and TinyLlama-1.1B's train steps.
+    Returns (backward kernel results, launches per path, results)."""
+    phase("[phase 4] training: the ssd_scan backward kernel vs its plain "
+          "version (Mamba2-370M training shapes)")
+    bwd = check_ssd_scan_bwd(torch, mcfg, timer)
+    torch.cuda.empty_cache()
+    if not full:
+        return bwd, {}, {}
+    phase("[phase 4] training: full-width Mamba2-370M gradients, card vs CPU")
+    check_model_grads(torch, mcfg)
+    phase("[phase 4] training: full-width, full-depth Mamba2-370M base steps "
+          "and DistillCycle, one card")
+    ml, mres = train_drive(torch, mcfg, 20, True, dict(lr=2e-3))
+    phase("[phase 4] training: full-width TinyLlama-1.1B train steps, one card")
+    tl, tres = train_drive(torch, cfg, 5, False, dict(lr=2e-3))
+    return (bwd, {"mamba2_train": ml, "tinyllama_train": tl},
+            {"mamba2-370m": mres, "tinyllama-1.1b": tres})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-e2e", action="store_true",
@@ -2095,7 +2454,8 @@ def main(argv=None) -> int:
 
     launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
                 for p in (PATHS + SSM_PATHS + PAGED_PATHS
-                          + (("flash_decode_entry",),))}
+                          + (("flash_decode_entry",), ("mamba2_train",),
+                             ("tinyllama_train",)))}
     paged_launches = {p[0]: dict.fromkeys(("fused_decode", "fused_verify"))
                       for p in PAGED_PATHS}
     if not args.skip_e2e:
@@ -2124,6 +2484,10 @@ def main(argv=None) -> int:
         launches.update(ssm_launches)
         phase("[phase 3] a full-depth Mamba2-370M prompt pass")
         prompt_pass_ms(torch, mparams, mcfg, impls=(None,))
+        del mparams
+    bwd, train_launches, train_res = training_phase(
+        torch, cfg, mcfg, timer, full=not args.skip_e2e)
+    launches.update(train_launches)
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
@@ -2241,7 +2605,29 @@ def main(argv=None) -> int:
              skeleton_ms={k: r["skeleton_ms"] for k, r in fdk.items()
                           if "skeleton_ms" in r}),
     ]
-    phase("[phase 4] summary")
+    bwd_main = bwd["train f32"]
+    kernels.append(dict(
+        name="ssd_scan_bwd", route="cuda", status=status,
+        source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan.py:27",
+        replaces_note="the backward of that kernel's function, which has no "
+                      "Pallas backward: the reference differentiates "
+                      "ssd_chunked (src/repro/models/ssm.py:78) with XLA",
+        launches=launches["mamba2_train"]["ssd_scan_bwd"],
+        launches_by_path=by_path("ssd_scan_bwd"),
+        max_abs_err=max(r["max_abs_err"] for r in bwd.values()),
+        ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
+        bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
+        library_ms=None, per_launch=bwd_main["per_launch"],
+        other_shapes={k: {m: r[m] for m in ("ms", "plain_ms", "bound_ms",
+                                             "max_abs_err")}
+                      for k, r in bwd.items() if r is not bwd_main}))
+    phase("[phase 5] summary")
+    if train_res:
+        log("  training: " + json.dumps(
+            {k: {m: v for m, v in r.items() if m not in ("history",
+                                                          "base_losses")}
+             for k, r in train_res.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 ``jax.device_get`` turns a JAX pytree into nested dicts of numpy arrays; the
 functions here turn those into the port's tensors with the same keys, so
-both packages can compute on the same weights and the same cache. This
-module never imports JAX: it takes numpy (or anything ``np.asarray``
-accepts, bfloat16 arrays from ``ml_dtypes`` included).
+both packages can compute on the same weights, the same cache and the same
+optimizer state. This module never imports JAX: it takes numpy (or
+anything ``np.asarray`` accepts, bfloat16 arrays from ``ml_dtypes``
+included).
 """
 from __future__ import annotations
 
@@ -46,6 +47,19 @@ def cache_from_jax(tree: Dict, device=None) -> Dict:
     if "pos" in out:
         out["pos"] = out["pos"].to(torch.int32)
     return out
+
+
+def opt_state_from_jax(state: Any, device=None):
+    """A JAX ``OptState`` (or its ``(step, mu, nu)`` tuple) fetched with
+    ``jax.device_get`` -> the port's ``optim.OptState``: moments as tensors
+    with the param tree's keys, the step as a 0-d int32 tensor."""
+    from repro_torch.optim.optimizer import OptState
+
+    dev = resolve_device(device)
+    step, mu, nu = state
+    return OptState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                      device=dev),
+                    mu=_convert(mu, dev), nu=_convert(nu, dev))
 
 
 def to_numpy(tree: Any) -> Any:

@@ -15,7 +15,25 @@
   cache (``csrc/flash_decode.cu``); its own entry point, as in the
   reference, which has no model caller for it.
 
-Every Pallas kernel of the reference has its counterpart here. The
-submodules are not re-exported: a function named like its module would
-shadow the module.
+Every Pallas kernel of the reference has its counterpart here, and the scan
+has its backward (``csrc/ssd_scan_bwd.cu``, through ``ssd_scan.ScanFunction``).
+The other kernels have no backward: their launches call ``refuse_grad``,
+which raises under autograd rather than let a loss drop the gradients
+through them. The submodules are not re-exported: a function named like
+its module would shadow the module.
 """
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and any of ``tensors`` requires grad:
+    ``kernel``'s launch has no backward, so its outputs would carry no
+    ``grad_fn`` and every gradient through it would be dropped without an
+    error."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            f"requires grad; run it under torch.no_grad(), or train through "
+            f"a path without this kernel")

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("morph_matmul", "fused_decode", "fused_verify", "ssd_scan",
-           "flash_attention", "flash_decode")
+           "ssd_scan_bwd", "flash_attention", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

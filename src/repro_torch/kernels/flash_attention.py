@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 NEG_INF = -1e30
 _LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
@@ -123,6 +123,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous in all four; f32 or bf16, one dtype, one CUDA device.
     bf16 goes to the tensor-core kernel, f32 to the FMA kernel. Writes
     ``out`` and returns it. Counted, in all and by route."""
+    refuse_grad("flash_attention", q, k, v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")

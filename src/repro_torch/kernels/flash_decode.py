@@ -33,7 +33,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
 
@@ -143,6 +143,7 @@ _PROBES = ("empty", "skeleton")
 def _launch(q, k, v, kv_len, k_scale, v_scale, group, probe=None):
     """Launch the kernel and return (out, route), or with ``probe`` one of
     ``_PROBES`` at the kernel's launch shape and return (out, None)."""
+    refuse_grad("flash_decode", q, k, v, k_scale, v_scale)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")

@@ -53,7 +53,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
 from repro_torch.models.layers import _cache_kpos
@@ -284,6 +284,8 @@ def _plan_len(S: int, plan_len: int) -> int:
 
 def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv, pages,
                        page_size, plan_len):
+    refuse_grad("fused_decode", x,
+                *(params[k] for k in ("wq", "wk", "wv", "wo")))
     dev = x.device
     B, _, dm = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -541,6 +543,8 @@ def verify_attn_plan(B: int, H: int, KV: int, hd: int, S: int, Sc: int,
 
 def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
                        tree_bias, pages, page_size, plan_len):
+    refuse_grad("fused_verify", x,
+                *(params[k] for k in ("wq", "wk", "wv", "wo")))
     dev = x.device
     B, S, dm = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 ActiveDim = Union[int, torch.Tensor, None]
 
@@ -179,6 +179,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     CUDA tensors or None (full width). Not counted: callers that are
     themselves kernels of another name (the fused decode's output
     projection) use this directly; ``morph_matmul`` counts its own."""
+    refuse_grad("morph_matmul", x, w)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")

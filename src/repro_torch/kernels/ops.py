@@ -51,11 +51,15 @@ def ssd_scan_bshn(x, dt, A, B_, C_, *, chunk: int = 128
     the padding copy. Either way a padded step has dt = 0 and x = 0: it
     decays by 1 and adds nothing, so y at the real positions and the final
     state are unchanged. On a card B and C go to the kernel once per group,
-    never repeated per head. ``chunk`` selects only the CPU route's
+    never repeated per head, and the call is differentiable through
+    ``ssd_scan.ScanFunction`` (the backward kernel); on the CPU autograd
+    differentiates ``ssd_chunked``. ``chunk`` selects only the CPU route's
     chunking (rounding only); the kernel's tiling is its own."""
     if x.device.type == "cpu":
         return _ssd.ssd_chunked(x, dt, A, B_, C_, chunk)
     b, _, h, _ = x.shape
+    # expanded inside the graph, so that autograd sums dA over the batch
     A_bh = A.float().expand(b, h).contiguous()
-    return _ssd.launch_bshn(x.contiguous(), dt.float().contiguous(), A_bh,
-                            B_.float().contiguous(), C_.float().contiguous())
+    return _ssd.ScanFunction.apply(x.contiguous(), dt.float().contiguous(),
+                                   A_bh, B_.float().contiguous(),
+                                   C_.float().contiguous())

@@ -19,6 +19,16 @@ Every chunk size gives the same function up to rounding, so ``chunk``
 selects only the plain version's chunking, and is kept for the reference's
 signature. ``launch_count()`` counts the scans launched (three kernel
 launches each), from either entry point.
+
+The backward (``csrc/ssd_scan_bwd.cu``, a port kernel with no Pallas
+counterpart: the reference differentiates ``ssd_chunked`` with XLA) works
+on the forward's 64-step tiles and reads the workspace the forward kept
+(``ScanFunction``, which ``ops.ssd_scan_bshn`` runs on a card): the
+gradient of each tile's state (launch 1), its reverse carry over the tiles
+(launch 2), every input's gradient per tile (launch 3) and the sums over a
+group's heads (launch 4). ``ssd_scan_bwd_plain`` is its plain version; on
+the CPU the model differentiates ``ssd_chunked`` with autograd.
+``bwd_launch_count()`` counts the backward scans.
 """
 from __future__ import annotations
 
@@ -28,10 +38,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LAUNCHES = {"n": 0}
+_LAUNCHES = {"n": 0, "bwd": 0}
 _MAX_STATE = 256  # kMaxN in csrc/ssd_scan.cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,8 +52,14 @@ def launch_count() -> int:
     return _LAUNCHES["n"]
 
 
+def bwd_launch_count() -> int:
+    """Backward scans launched (four kernel launches each)."""
+    return _LAUNCHES["bwd"]
+
+
 def reset_launch_count() -> None:
-    _LAUNCHES["n"] = 0
+    """Zero both counts, forward and backward."""
+    _LAUNCHES["n"] = _LAUNCHES["bwd"] = 0
 
 
 def ssd_chunked(x, dt, A, B_, C_, chunk: int):
@@ -76,10 +92,13 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int):
     # intra-chunk: y_q += C_q . sum_{s<=q} exp(dA_cs[q]-dA_cs[s]) dt_s B_s x_s
     CB = torch.einsum("bcqhn,bcshn->bchqs", Ch, Bh)
     t = dA_cs.permute(0, 1, 3, 2)  # (b,nc,h,Q)
-    Lm = torch.exp(t[..., :, None] - t[..., None, :])  # (b,nc,h,Q,Q)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    Lm = torch.where(tri, Lm, torch.zeros((), device=x.device))
+    # masked before exp: above the diagonal the exponent is positive and
+    # overflows once a chunk's decay passes ~88, and 0 * inf would make the
+    # gradient NaN
+    Lm = torch.exp(torch.where(tri, t[..., :, None] - t[..., None, :],
+                               float("-inf")))  # (b,nc,h,Q,Q)
     u = xc * dtc[..., None]  # (b,nc,Q,h,p)
     y_diag = torch.einsum("bchqs,bcshp->bcqhp", CB * Lm, u)
 
@@ -126,41 +145,56 @@ def _lib():
     return lib
 
 
-def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
-                B: torch.Tensor, C: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernels in the model layout: x (b, s, h, p) f32 or bf16;
-    dt (b, s, h), A_bh (b, h), B and C (b, s, g, n), all f32, contiguous
-    and on one CUDA device. Returns (y (b, s, h, p) in x's dtype, state
-    (b, h, p, n) f32). Counted once."""
+def _check_operands(x, dt, A_bh, B, C, extra=()):
+    """Device, dtype, shape and contiguity of the scan's model-layout
+    operands (and of ``extra``: (name, tensor, shape, dtype or None for
+    x's dtype)). Returns (b, s, h, p, g, n)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")
     if x.dim() != 4:
         raise ValueError(f"x must be (b, s, h, p), got {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x has dtype {x.dtype}; the kernel takes "
+                        f"{tuple(_DTYPE_CODE)}")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    want = {"dt": (b, s, h), "A": (b, h), "B": (b, s, g, n),
-            "C": (b, s, g, n)}
-    for name, t in (("x", x), ("dt", dt), ("A", A_bh), ("B", B), ("C", C)):
+    ops = [("x", x, (b, s, h, p), x.dtype),
+           ("dt", dt, (b, s, h), torch.float32),
+           ("A", A_bh, (b, h), torch.float32),
+           ("B", B, (b, s, g, n), torch.float32),
+           ("C", C, (b, s, g, n), torch.float32)]
+    for name, t, shape, dtype in ops + [(nm, t, sh, dty or x.dtype)
+                                        for nm, t, sh, dty in extra]:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if name == "x":
-            if x.dtype not in _DTYPE_CODE:
-                raise TypeError(f"x has dtype {x.dtype}; the kernel takes "
-                                f"{tuple(_DTYPE_CODE)}")
-            continue
-        if t.dtype != torch.float32:
+        if t.dtype != dtype:
             raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
-                            f"float32")
-        if tuple(t.shape) != want[name]:
+                            f"{dtype}")
+        if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{want[name]}")
+                             f"{shape}")
     if g < 1 or h % g or not 1 <= n <= _MAX_STATE:
         raise ValueError(f"need heads ({h}) a multiple of groups ({g}) and "
                          f"1 <= n <= {_MAX_STATE}, got n = {n}")
+    return b, s, h, p, g, n
+
+
+def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, *, keep_workspace=False):
+    """Launch the kernels in the model layout: x (b, s, h, p) f32 or bf16;
+    dt (b, s, h), A_bh (b, h), B and C (b, s, g, n), all f32, contiguous
+    and on one CUDA device. Returns (y (b, s, h, p) in x's dtype, state
+    (b, h, p, n) f32), and with ``keep_workspace`` the workspace too: it
+    then holds the state before each 64-step tile, C.B^T per (batch, group,
+    tile) and each tile's decay, which the backward reads. Counted once."""
+    refuse_grad("ssd_scan.launch_bshn (differentiate through "
+                "ops.ssd_scan_bshn, whose autograd Function runs the "
+                "backward kernel)", x, dt, A_bh, B, C)
+    b, s, h, p, g, n = _check_operands(x, dt, A_bh, B, C)
+    dev = x.device
     lib = _lib()
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
@@ -174,7 +208,169 @@ def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     _LAUNCHES["n"] += 1
-    return y, state
+    return (y, state, ws) if keep_workspace else (y, state)
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan_bwd_plain(x, dt, A_bh, B_, C_, dy, dstate=None, *,
+                       tile: int = 64):
+    """The backward kernel's plain PyTorch version, in the model layout:
+    the same tile algorithm, every exponent masked to <= 0 before ``exp``.
+
+    x, dy: (b, s, h, p); dt: (b, s, h); A_bh: (b, h); B_, C_: (b, s, g, n);
+    dstate: (b, h, p, n) or None (zero), the gradient into the final state.
+    Returns (dx in x's dtype, ddt, dA_bh, dB, dC) in f32. Per tile, with cs
+    the inclusive cumsum of a = dt A, u = dt x, h_prev the state before the
+    tile and G the gradient into the state after it:
+    du_s = sum_{t>=s} M_ts (C_t.B_s) dy_t + w_s G B_s,
+    dB_s = sum_{t>=s} M_ts (dy_t.u_s) C_t + w_s G^T u_s,
+    dC_t = sum_{s<=t} M_ts (dy_t.u_s) B_s + e_t h_prev^T dy_t,
+    G_prev = E G + sum_t e_t dy_t (x) C_t, with M_ts = exp(cs_t - cs_s),
+    w_s = exp(cs_last - cs_s), e_t = exp(cs_t), E = exp(cs_last); the
+    decay gradient dcs is reverse-summed into da, then ddt = A da + <du, x>,
+    dx = dt du, dA = sum dt da. B and C are shared per group, so dB and dC
+    sum over the group's heads."""
+    b, s, h, p = x.shape
+    g, n = B_.shape[2], B_.shape[3]
+    rep = h // g
+    L = tile
+    pad = (-s) % L
+    f = torch.float32
+
+    def padded(t):
+        t = t.to(f)
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+
+    xf, dtf, Bf, Cf, dyf = (padded(t) for t in (x, dt, B_, C_, dy))
+    T = (s + pad) // L
+    xc = xf.reshape(b, T, L, h, p)
+    dyc = dyf.reshape(b, T, L, h, p)
+    dtc = dtf.reshape(b, T, L, h)
+    Bh = Bf.reshape(b, T, L, g, n).repeat_interleave(rep, dim=3)
+    Ch = Cf.reshape(b, T, L, g, n).repeat_interleave(rep, dim=3)
+    A = A_bh.to(f)
+    cs = torch.cumsum(dtc * A[:, None, None, :], dim=2)  # (b,T,L,h)
+    cs_last = cs[:, :, -1]  # (b,T,h)
+    e = torch.exp(cs)
+    w = torch.exp(cs_last[:, :, None] - cs)
+    E = torch.exp(cs_last)
+    u = xc * dtc[..., None]
+    # the states before each tile, then the reverse carry of the gradient
+    contrib = torch.einsum("bclhn,bclh,bclhp->bchpn", Bh, w, u)
+    carry = torch.einsum("bclh,bclhp,bclhn->bchpn", e, dyc, Ch)
+    hs, gs = [], [None] * T
+    st = torch.zeros((b, h, p, n), dtype=f, device=x.device)
+    for c in range(T):
+        hs.append(st)
+        st = st * E[:, c, :, None, None] + contrib[:, c]
+    gr = (torch.zeros((b, h, p, n), dtype=f, device=x.device)
+          if dstate is None else dstate.to(f))
+    for c in reversed(range(T)):
+        gs[c] = gr
+        gr = gr * E[:, c, :, None, None] + carry[:, c]
+    Hp = torch.stack(hs, dim=1)  # (b,T,h,p,n)
+    Gc = torch.stack(gs, dim=1)
+    # the tile's own terms, M_ts for s <= t only
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    cst = cs.permute(0, 1, 3, 2)  # (b,T,h,L)
+    M = torch.exp(torch.where(tri, cst[..., :, None] - cst[..., None, :],
+                              float("-inf")))  # (b,T,h,t,s)
+    CB = torch.einsum("bcthn,bcshn->bchts", Ch, Bh)
+    D = torch.einsum("bcthp,bcshp->bchts", dyc, u)
+    P, Q = M * CB, M * D
+    GB = torch.einsum("bcshn,bchpn->bcshp", Bh, Gc)  # G B_s
+    du = torch.einsum("bchts,bcthp->bcshp", P, dyc) + w[..., None] * GB
+    dBh = (torch.einsum("bchts,bcthn->bcshn", Q, Ch)
+           + w[..., None] * torch.einsum("bcshp,bchpn->bcshn", u, Gc))
+    dYH = torch.einsum("bcthp,bchpn->bcthn", dyc, Hp)
+    dCh = torch.einsum("bchts,bcshn->bcthn", Q, Bh) + e[..., None] * dYH
+    # the decay gradient: d/dcs of every exp above
+    V = Q * CB
+    dcs = (V.sum(-1) - V.sum(-2)).permute(0, 1, 3, 2)  # (b,T,L,h)
+    dcs = dcs + e * (Ch * dYH).sum(-1)
+    z = w * (u * GB).sum(-1)  # (b,T,L,h)
+    dcs = dcs - z
+    last = z.sum(2) + E * (Gc * Hp).sum((-1, -2))  # (b,T,h)
+    dcs = torch.cat([dcs[:, :, :-1], dcs[:, :, -1:] + last[:, :, None]], 2)
+    da = torch.flip(torch.cumsum(torch.flip(dcs, [2]), 2), [2])
+    ddt = A[:, None, None, :] * da + (du * xc).sum(-1)
+    dx = dtc[..., None] * du
+    dA = (dtc * da).sum((1, 2))
+    dB = dBh.reshape(b, T, L, g, rep, n).sum(4)
+    dC = dCh.reshape(b, T, L, g, rep, n).sum(4)
+    S = T * L
+    return (dx.reshape(b, S, h, p)[:, :s].to(x.dtype),
+            ddt.reshape(b, S, h)[:, :s], dA,
+            dB.reshape(b, S, g, n)[:, :s], dC.reshape(b, S, g, n)[:, :s])
+
+
+def _bwd_lib():
+    lib = _build.load("ssd_scan_bwd")
+    fn = lib.ssd_scan_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _I] + [_P] * 13 + [_I] * 6 + [_P]
+        fn.restype = _I
+        lib.ssd_scan_bwd_workspace.argtypes = [_I] * 6
+        lib.ssd_scan_bwd_workspace.restype = ctypes.c_longlong
+    return lib
+
+
+def launch_bwd(x, dt, A_bh, B, C, fws, dy, dstate):
+    """Launch the backward kernels (``csrc/ssd_scan_bwd.cu``) on the
+    forward's operands and its kept workspace ``fws``; dy (b, s, h, p) in
+    x's dtype, dstate (b, h, p, n) f32, all contiguous. Returns (dx in x's
+    dtype, ddt, dA_bh, dB, dC) f32. Counted once in ``bwd_launch_count``."""
+    b, s, h, p = x.shape
+    b, s, h, p, g, n = _check_operands(
+        x, dt, A_bh, B, C,
+        extra=(("dy", dy, (b, s, h, p), None),
+               ("dstate", dstate, (b, h, p, B.shape[3]), torch.float32)))
+    dev = x.device
+    lib = _bwd_lib()
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A_bh)
+    dB = torch.empty_like(B)
+    dC = torch.empty_like(C)
+    ws = torch.empty(max(1, lib.ssd_scan_bwd_workspace(b, s, h, p, g, n)),
+                     dtype=torch.float32, device=dev)
+    err = lib.ssd_scan_bwd_launch(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], dt.data_ptr(), A_bh.data_ptr(),
+        B.data_ptr(), C.data_ptr(), fws.data_ptr(), dy.data_ptr(),
+        dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+        dB.data_ptr(), dC.data_ptr(), ws.data_ptr(), b, s, h, p, g, n,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+    _LAUNCHES["bwd"] += 1
+    return dx, ddt, dA, dB, dC
+
+
+class ScanFunction(torch.autograd.Function):
+    """The scan on a card, differentiable: the forward kernel keeps its
+    workspace (the state before each tile, C.B^T, the tiles' decays), and
+    the backward kernel reads it, so nothing is recomputed. Gradients for
+    x, dt, A_bh, B and C; the final state's gradient starts the reverse
+    carry (zero when the state is unused)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A_bh, B, C):
+        with torch.no_grad():
+            y, state, ws = launch_bshn(x, dt, A_bh, B, C,
+                                       keep_workspace=True)
+        ctx.save_for_backward(x, dt, A_bh, B, C, ws)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A_bh, B, C, ws = ctx.saved_tensors
+        return launch_bwd(x, dt, A_bh, B, C, ws, dy.contiguous(),
+                          dstate.float().contiguous())
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Decoder models: init / prefill / decode over a per-slot cache.
+"""Decoder models: init / forward and loss / prefill / decode over a per-slot
+cache.
 
 Port of ``repro.models.model`` for the dense family (attention + MLP) and
 the SSM family (mamba2 blocks, ``models.ssm``). Layer stacks keep the JAX
@@ -9,6 +10,12 @@ through those views (JAX donates the cache buffer for the same effect).
 Attention layers cache K/V; SSM layers cache the recurrent state (conv
 tails ``conv_x`` / ``conv_bc`` and the SSD ``state``), which slot resets
 zero.
+
+Training runs ``forward`` (``depth``, ``collect_exits`` with their exit
+norms, ``remat`` per group: ``torch.utils.checkpoint``, or selective
+checkpointing that keeps the matrix products), ``cross_entropy`` (padded
+vocab masked) and ``loss_fn``. Each leaf of the group stack is unbound once
+per pass, so that its gradient is one stack of the groups' parts.
 
 Linear speculative decoding has ``verify_step`` (read-only scoring of K+1
 positions) and ``commit_verify`` (in-place masked commit of K/V, a
@@ -21,7 +28,7 @@ port they arrive with.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -167,14 +174,64 @@ def _pack_kv_cache(k, v, cfg: ModelConfig, extra: int = 0):
     return {"k": k, "v": v}
 
 
+def _group_views(tree):
+    """One tree of views per group: ``a.unbind(0)`` once per leaf, so that
+    under autograd every leaf's groups share one backward node (a stack of
+    the group gradients), where indexing each group would build a
+    full-size gradient per group and sum them."""
+    leaves = {k: _group_views(v) if isinstance(v, dict) else v.unbind(0)
+              for k, v in tree.items()}
+    n = len(next(iter(leaves.values())))
+    return [{k: v[g] for k, v in leaves.items()} for g in range(n)]
+
+
+def _remat_wrap(fn, policy: str):
+    """Activation checkpointing of one group: ``"full"`` keeps nothing but
+    the group's input (``torch.utils.checkpoint``); ``"dots"`` also keeps
+    every matrix product's output (selective checkpointing), the port's
+    ``dots_with_no_batch_dims_saveable``."""
+    if policy == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+
+    if policy == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if policy != "dots":
+        raise ValueError(f"remat policy {policy!r}; expected none | dots | "
+                         f"full")
+    aten = torch.ops.aten
+    saved = {aten.mm.default, aten.bmm.default, aten.addmm.default}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in saved
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+    def ctx_fn():
+        return ckpt.create_selective_checkpoint_contexts(policy_fn)
+
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False,
+                                      context_fn=ctx_fn)
+
+
 def _scan_groups(stack, h, cfg: ModelConfig, positions, *, start: int,
-                 stop: int, want_cache: bool = False, cache_extra: int = 0):
+                 stop: int, remat: str = "none", want_cache: bool = False,
+                 cache_extra: int = 0):
     """Run groups [start, stop). Returns (h, caches stacked on a leading
-    group axis, or None)."""
+    group axis, or None). ``remat`` checkpoints each group (training; no
+    caches then)."""
+    if remat != "none" and want_cache:
+        raise ValueError("remat applies to the training forward, which "
+                         "keeps no caches")
+    groups = _group_views(stack)
     per_group = []
     for g in range(start, stop):
-        h, c = _group_fwd(_tree_index(stack, g), h, cfg, positions,
-                          want_cache=want_cache, cache_extra=cache_extra)
+        if remat != "none":
+            def body(x, gp=groups[g]):
+                return _group_fwd(gp, x, cfg, positions)[0]
+            h, c = _remat_wrap(body, remat)(h), None
+        else:
+            h, c = _group_fwd(groups[g], h, cfg, positions,
+                              want_cache=want_cache, cache_extra=cache_extra)
         per_group.append(c)
     if not want_cache:
         return h, None
@@ -204,6 +261,75 @@ def _exit_norm(params, cfg: ModelConfig, depth: int):
     if depth < cfg.n_groups:
         norm_p = params.get("exit_norms", {}).get(f"g{depth}", norm_p)
     return norm_p
+
+
+def forward(params, batch, cfg: ModelConfig, *, depth: Optional[int] = None,
+            collect_exits: Tuple[int, ...] = (), remat: str = "none"):
+    """Full-sequence forward (training and evaluation).
+
+    Returns (outputs, aux) where outputs maps "final" -> logits and
+    "exit_g{i}" -> logits for each requested exit group below ``depth``
+    (through that exit's norm); aux is the MoE load-balancing loss, 0 for
+    the families the port runs. ``remat`` ("none" | "dots" | "full")
+    checkpoints each layer group."""
+    _check_family(cfg)
+    depth = depth if depth is not None else cfg.n_groups
+    h, positions = _embed_inputs(params, batch, cfg)
+    boundaries = sorted([g for g in collect_exits if g < depth]) + [depth]
+    outputs = {}
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    start = 0
+    for b in boundaries:
+        if b > start:
+            h, _ = _scan_groups(params["stack"], h, cfg, positions,
+                                start=start, stop=b, remat=remat)
+        if b < depth:
+            np_ = params.get("exit_norms", {}).get(f"g{b}",
+                                                   params["final_norm"])
+            outputs[f"exit_g{b}"] = _logits(params, h, cfg, np_)
+        start = b
+    outputs["final"] = _logits(params, h, cfg, _exit_norm(params, cfg, depth))
+    return outputs, aux
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+
+def _mask_pad(logits, cfg: ModelConfig):
+    """f32 logits with the padded vocab columns at -1e9."""
+    v = cfg.vocab_size
+    lg = logits.float()
+    pad = lg.shape[-1] - v
+    if not pad:
+        return lg
+    neg = torch.full(tuple(lg.shape[:-1]) + (pad,), -1e9, dtype=torch.float32,
+                     device=lg.device)
+    return torch.cat([lg[..., :v], neg], dim=-1)
+
+
+def cross_entropy(logits, targets, cfg: ModelConfig, loss_mask=None):
+    """Next-token CE with padded-vocab masking. logits: (B,S,Vp), targets:
+    (B,S) integer."""
+    lg = _mask_pad(logits, cfg)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if loss_mask is None:
+        return nll.mean()
+    loss_mask = loss_mask.float()
+    return (nll * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, depth=None,
+            remat: str = "none", aux_weight: float = 0.01):
+    """Standard LM loss (teacher phase / plain training). Returns
+    (loss, {"ce": ..., "moe_aux": ...})."""
+    outs, aux = forward(params, batch, cfg, depth=depth, remat=remat)
+    loss = cross_entropy(outs["final"], batch["targets"], cfg,
+                         batch.get("loss_mask"))
+    return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

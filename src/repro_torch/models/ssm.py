@@ -13,6 +13,8 @@ here, where the reference has them.
 one place where the port routes a model path through a kernel that the JAX
 model path does not call (JAX's ``ssm_forward`` calls ``ssd_chunked``
 directly); the kernel computes the same function, and the tests hold it to
+``ssd_chunked``. Training differentiates through it: on a card the
+backward kernel (``csrc/ssd_scan_bwd.cu``), on the CPU autograd through
 ``ssd_chunked``.
 
 Projection weights are stored unpacked (``w_x``, ``w_z``, ``w_bc``,

@@ -370,6 +370,118 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, shape):
     torch.testing.assert_close(sk, sq, atol=1e-3, rtol=1e-3)
 
 
+def _bwd_close(name, got, want, dtype):
+    """A gradient of the scan's backward kernel against its plain version:
+    1e-3 of the gradient's scale plus 1e-3 relative (C.B^T from the
+    forward's 3xTF32 products, sums in other orders), a bf16 dx to one
+    bf16 step more."""
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all()), name
+    scale = float(want.abs().max())
+    rtol = 1e-3 + (2.0 ** -7 if name == "dx" and dtype == torch.bfloat16
+                   else 0.0)
+    torch.testing.assert_close(got, want, atol=1e-3 * max(scale, 1e-6),
+                               rtol=rtol, msg=name)
+
+
+def _scan_grads(cuda, shape, dtype, dt_const=None):
+    """Autograd through ``ops.ssd_scan_bshn`` on the card (the forward
+    kernel, then the backward kernel on its kept workspace) against
+    ``ssd_scan_bwd_plain`` on the same inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x, dt, A, B, C = _ssd_inputs(g, shape, dtype)
+    if dt_const is not None:
+        dt = torch.full_like(dt, dt_const)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    f0, b0 = SSD.launch_count(), SSD.bwd_launch_count()
+    y, st = ops.ssd_scan_bshn(*leaves, chunk=16)
+    dy = torch.randn(y.shape, generator=g, device=cuda).to(dtype)
+    ds = torch.randn(st.shape, generator=g, device=cuda)
+    ((y.float() * dy.float()).sum() + (st * ds).sum()).backward()
+    torch.cuda.synchronize()
+    assert (SSD.launch_count(), SSD.bwd_launch_count()) == (f0 + 1, b0 + 1)
+    b, h = x.shape[0], x.shape[2]
+    want = SSD.ssd_scan_bwd_plain(x, dt, A.expand(b, h), B, C, dy, ds)
+    want = list(want[:2]) + [want[2].sum(0)] + list(want[3:])
+    for name, leaf, w in zip(("dx", "ddt", "dA", "dB", "dC"), leaves, want):
+        assert leaf.grad.dtype == leaf.dtype, name
+        _bwd_close(name, leaf.grad, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 128, 4, 16, 1, 16),
+                                   (1, 100, 6, 24, 2, 128),
+                                   (2, 37, 3, 8, 3, 40),
+                                   (2, 256, 32, 64, 1, 128),
+                                   (1, 300, 8, 80, 2, 200)])
+def test_ssd_scan_grad_matches_plain_backward(cuda, dtype, shape):
+    """Ragged last tiles (100, 37, 300 steps), several groups, hp and n
+    off the kernel's 64-column chunks (24, 8, 80; 40, 200) and Mamba2-370M's
+    full width at B = 2."""
+    _scan_grads(cuda, shape, dtype)
+
+
+def test_ssd_scan_grad_finite_past_a_tile_decay_of_88(cuda):
+    """dt = 0.5 and A in -[1, 15): a 64-step tile decays by up to 480; the
+    backward kernel evaluates no positive exponent."""
+    _scan_grads(cuda, (1, 256, 8, 16, 1, 16), torch.float32, dt_const=0.5)
+
+
+def test_mamba2_smoke_grads_on_card_match_cpu(cuda):
+    """``loss_fn`` gradients of the mamba2 smoke model (f32) on the card
+    (the scan kernels forward and backward) against the CPU route (autograd
+    through ``ssd_chunked``): each leaf's relative error norm within 1e-3."""
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim import grads_of, trainable
+    from repro_torch.optim.optimizer import leaves_with_path
+
+    cfg = smoke_config("mamba2-370m")
+    p_cpu = init_params(cfg, seed=4, device="cpu")
+    batch = make_batch(cfg, DataConfig(seed=1, global_batch=3, seq_len=40), 0)
+    grads = []
+    for dev in ("cpu", cuda):
+        p = trainable(_tree_to(p_cpu, dev))
+        loss, _ = loss_fn(p, to_device(batch, dev), cfg)
+        grads.append({k: t.float().cpu()
+                      for k, t in leaves_with_path(grads_of(loss, p))})
+    for k, gp in grads[0].items():
+        gc = grads[1][k]
+        assert bool(torch.isfinite(gc).all()), k
+        assert float((gc - gp).norm()) <= 1e-3 * max(float(gp.norm()), 1e-12), k
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else
+            v.detach().clone().to(dev) for k, v in tree.items()}
+
+
+def test_kernels_without_backward_refuse_autograd_on_card(cuda):
+    """The flash route of ``mha`` (``attn_impl="chunked"``) and the gated
+    projection raise under autograd on the card rather than drop the
+    gradients; under ``no_grad`` both run."""
+    from repro_torch.kernels.morph_matmul import morph_matmul
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim import trainable
+
+    cfg = smoke_config("tinyllama-1.1b").scaled(attn_impl="chunked")
+    p = trainable(init_params(cfg, seed=2, device=cuda))
+    batch = {"tokens": torch.arange(12, device=cuda)[None] % cfg.vocab_size,
+             "targets": torch.arange(1, 13, device=cuda)[None] % cfg.vocab_size}
+    with pytest.raises(RuntimeError, match="no backward"):
+        loss_fn(p, batch, cfg)
+    with torch.no_grad():
+        loss, _ = loss_fn(p, batch, cfg)
+    assert bool(torch.isfinite(loss))
+    x = torch.randn(2, 3, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        morph_matmul(x, torch.randn(64, 32, device=cuda), active_n=16)
+
+
 def test_mamba2_smoke_model_on_card_matches_cpu(cuda):
     """The mamba2 smoke model (f32) on the card (ssd_scan and morph_matmul
     kernels) against the plain versions on the CPU: prefill of a

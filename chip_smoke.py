@@ -28,8 +28,14 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    pages, two slots sharing four, a bf16 and an int8 cache; each paged
    launch against its plain paged version, on the tensor-core route,
    bit-identical to its dense twin over the same contents, and timed beside
-   that twin and its bound, the layer and its attention launch);
-   ``flash_attention`` at
+   that twin and its bound, the layer and its attention launch); the
+   verify kernels with a token tree's depths and ancestor mask
+   (``check_tree_verify``: trees (2, 2, 1) and (3, 2, 1), 11 and 16 nodes,
+   88 and 128 query rows per (slot, KV head), over a bf16 and an int8
+   cache, dense and paged; each against its plain version, each paged
+   launch bit-identical to its dense twin; the layer, its paged twin, the
+   plain version and the attention launch timed, the attention beside its
+   bound and SDPA under the tree's boolean mask); ``flash_attention`` at
    the full-width prompt pass (1 x 256 tokens, 32 / 4 heads of 64, causal,
    bf16), at a ragged S = 200 and at the reference's ``kernel_bench`` shape
    (f32, window 0 and 64); ``flash_decode`` at the serving cache's shape
@@ -55,26 +61,35 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``ServingEngine`` (8 slots, a Poisson trace with prompts of 16-256 and
    32-64 new tokens, cache 512, prefill threshold 8, the admission mode
    moved every 12 ticks along a schedule of every (depth, width) mode):
-   full-width ``tinyllama-1.1b`` (12 requests) six times: plain decode
+   full-width ``tinyllama-1.1b`` (12 requests) nine times: plain decode
    unfused, ``fused=True``, and ``fused=True`` with
    ``attn_impl="chunked"`` (every prompt pass through ``flash_attention``),
    then linear self-speculation
    (``SpecConfig(ks=(4,), min_accept_rate=0.0)``) unfused greedy, fused
-   greedy and fused at temperature 0.8 with top-k 50; then, on a trace of
-   12 requests whose prompts share a 128-token prefix, all admitted in the
-   full mode, four fused drives: plain and greedy speculative, each over a
+   greedy and fused at temperature 0.8 with top-k 50, then token-tree
+   speculation with the tree (2, 2, 1) (K = 4 built beside it) the same
+   three ways; then, on a trace of 12 requests whose prompts share a
+   128-token prefix, all admitted in the full mode, six fused drives:
+   plain, greedy speculative and greedy tree speculative, each over a
    dense cache and over a block-paged one (page 16, the worst-case pool of
    264 pages), asserting identical tokens pair by pair, radix hits, the
    page accounting after every tick, every fused launch paged; then
-   full-width, full-depth ``mamba2-370m`` (24 requests) twice: plain greedy and
-   speculative greedy (depth 48 drafts at exit 36, depth 36 at exit 24).
+   full-width, full-depth ``mamba2-370m`` (12 requests) three times: plain
+   greedy, speculative greedy and tree speculative greedy (depth 48 drafts
+   at exit 36, depth 36 at exit 24). Before each model's drives, its f32
+   smoke config serves greedily on the card with the tree (unfused; for
+   TinyLlama also fused, and fused over pages) and on the CPU, every
+   engine's tokens asserted equal to the card's plain engine's.
    Launch counters are zeroed just before each drive and read just after
    it, and each path must show its exact counts, worked out from the
    engine's own counters (plain steps, draft steps at the draft depth,
    verify steps, prefills and the depth each ran to): TinyLlama unfused, 7 ``morph_matmul`` per
    decoder-layer step; fused, 3 ``morph_matmul`` per layer-step, 1
-   ``fused_decode`` per decode or draft layer-step and 1 ``fused_verify``
-   per verify layer-step; Mamba2, 4 ``morph_matmul`` per SSM layer-step
+   ``fused_decode`` per decode or linear-draft layer-step and 1
+   ``fused_verify`` per verify layer-step (linear or tree), and 7
+   ``morph_matmul`` per layer and level of a tree draft (its level passes
+   take the einsum attention, as the reference's do); Mamba2, 4
+   ``morph_matmul`` per SSM layer-step (and per layer and tree level)
    and 1 ``ssd_scan`` per SSM layer of every prefill; under
    ``attn_impl="chunked"``, 1 ``flash_attention`` per attention layer of
    every prefill, and none on any other drive; every ``fused_decode``,
@@ -85,7 +100,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    model path calls, as in the reference) driven once per TinyLlama layer
    at the serving cache's shape. Speculative drives
    report acceptance, tokens per verify launch per slot, tick p50/p95 and
-   the device time of the draft's scratch copy. Also: the decode step at
+   the device time of the draft's scratch copy; greedy ones the host and
+   device ms and kernel launches of one full-depth tick (a tree's beside a
+   linear K = 4 tick of the same engine); every drive its peak device
+   memory. Also: the decode step at
    the narrowest vs full width with its device idle share, token
    agreement of fused vs unfused and of speculative vs plain greedy, and
    each smoke model on the card against the plain versions on the CPU
@@ -107,12 +125,16 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    48 and 48; a teacher step at grown depth D: D and D; a student step at
    depth d: D + d and d); and 5 TinyLlama-1.1B train steps (no hand kernel
    on its path). Step ms (wall and device), idle share, peak memory,
-   history and agreement per path are printed.
+   history and agreement per path are printed. The DistillCycle-trained
+   Mamba2 parameters (which require grad) then serve 4 requests x 16 new
+   tokens, plain and linear-speculative, with exact launch counts and the
+   acceptance printed.
 5. A ``{"kernels": [...]}`` JSON line (``fused_decode`` and
    ``fused_verify`` add their paged timings under ``paged`` and the paged
-   drives' counts under ``paged_launches_by_path``; ``ssd_scan_bwd`` is the
-   port's kernel with no Pallas counterpart), then the last line
-   ``{"ok": true, "device": {...}}``.
+   drives' counts under ``paged_launches_by_path``; ``fused_verify`` its
+   tree shapes under ``tree`` and the fused tree drive's count under
+   ``tree_launches``; ``ssd_scan_bwd`` is the port's kernel with no Pallas
+   counterpart), then the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card; exits non-zero without one, and outside a checkout of the repository.
@@ -122,6 +144,7 @@ kernel of phase 4).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import subprocess
@@ -141,6 +164,19 @@ PEAK_F32 = 67e12
 # (the two sum in different orders, then round) plus a small absolute floor
 RTOL_BF16 = 2.0 ** -7
 ATOL_BF16 = 1e-3
+# a verify over an int8 cache attends to its new keys and values through
+# their int8 round trip, quantized from f32 projections that the kernel and
+# the plain version sum in different orders: now and then a value (or a
+# row's absmax scale) lands on the other side of a rounding edge, one int8
+# step apart (as the decode's int8 cache writes may, which its check
+# allows), and moves a few outputs by up to ~1e-2. With a token tree's 88
+# and 128 query rows such a step comes up in most launches. So tree outputs
+# over an int8 cache: all but INT8_EDGE_FRAC of them within the bf16
+# tolerance above, none farther than INT8_EDGE_ATOL + RTOL_BF16; the check
+# prints the same count for the plain version against itself with its
+# weights scaled by 1 + 2^-20 (the size of a summation-order difference)
+INT8_EDGE_FRAC = 1e-4
+INT8_EDGE_ATOL = 2e-2
 # smoke model (f32) on the card vs the plain versions on the CPU
 ATOL_SMOKE = 1e-3
 # ssd_scan vs its plain versions on the card, f32: the kernel restarts the
@@ -199,9 +235,10 @@ def sass_mma(name: str) -> str:
             else "no HMMA instruction in SASS")
 
 
-def kernel_us(torch, fn, iters: int):
-    """Per-kernel device microseconds over ``iters`` calls of ``fn``, from
-    ``torch.profiler`` (CUPTI sees the ctypes-launched kernels too)."""
+def device_rows(torch, fn, iters: int):
+    """``torch.profiler``'s per-kernel rows (name, device microseconds,
+    launches) over ``iters`` calls of ``fn`` (CUPTI sees the
+    ctypes-launched kernels too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -210,8 +247,13 @@ def kernel_us(torch, fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {r.key: r.self_device_time_total for r in prof.key_averages()
-            if r.device_type == DeviceType.CUDA}
+    return [(r.key, r.self_device_time_total, r.count)
+            for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+
+
+def kernel_us(torch, fn, iters: int):
+    """Per-kernel device microseconds over ``iters`` calls of ``fn``."""
+    return {k: us for k, us, _ in device_rows(torch, fn, iters)}
 
 
 class Timer:
@@ -289,6 +331,25 @@ def close(torch, got, want, rtol=RTOL_BF16, atol=ATOL_BF16):
     err = (g - w).abs()
     ok = bool((err <= atol + rtol * w.abs()).all())
     return ok, float(err.max()) if err.numel() else 0.0
+
+
+def beyond_bf16(torch, got, want):
+    """(outputs beyond the bf16 tolerance, max |err|) of ``got`` vs
+    ``want``."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    return (int((err > ATOL_BF16 + RTOL_BF16 * w.abs()).sum()),
+            float(err.max()) if err.numel() else 0.0)
+
+
+def close_int8_edges(torch, got, want):
+    """The INT8_EDGE_* rule: (ok, max |err|, outputs beyond the bf16
+    tolerance)."""
+    n_out, e = beyond_bf16(torch, got, want)
+    far = (got.float() - want.float()).abs() > (
+        INT8_EDGE_ATOL + RTOL_BF16 * want.float().abs())
+    ok = n_out <= INT8_EDGE_FRAC * got.numel() and not bool(far.any())
+    return ok, e, n_out
 
 
 # ---------------------------------------------------------------------------
@@ -970,14 +1031,171 @@ def check_paged(torch, cfg, timer):
     return out
 
 
-def verify_attention_yardstick(torch, timer, cfg, x, cache, pos, S, t_attn):
+TREES = ((2, 2, 1), (3, 2, 1))
+
+
+def check_tree_verify(torch, cfg, timer):
+    """The verify kernels with a token tree's depths and ancestor mask at
+    full TinyLlama width: trees (2, 2, 1) and (3, 2, 1) (11 and 16 nodes:
+    88 and 128 query rows per (slot, KV head), more than one block carries,
+    so each unit's rows split over blocks), B = 8 slots at mixed widths and
+    committed counts over a 512-row capacity, a bf16 and an int8 cache,
+    dense and through a page table (page 16, shuffled pages, two slots
+    sharing four). Each launch against its plain version on the tensor-core
+    route; each paged launch bit-identical to its dense twin (``plan_len``
+    512) and counted as paged; the cache left as it was. The dense and the
+    paged layer, the plain version and the attention launch are timed, the
+    attention beside its bound and beside SDPA over the same live rows and
+    the tree's extension columns under the same boolean mask."""
+    import dataclasses
+
+    from repro_torch.core import elastic
+    from repro_torch.kernels import fused_decode as FD
+
+    B, Sc, ps = 8, 512, 16
+    dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    params = {
+        "wq": torch.randn(dm, H * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wk": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wv": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wo": torch.randn(H * hd, dm, generator=gen, device="cuda") / math.sqrt(H * hd),
+    }
+    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    aq, akv = act["q_dim"].tolist(), act["kv_dim"].tolist()
+    pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 496], dtype=torch.int32,
+                       device="cuda")
+    lens = [min(p, Sc) for p in pos.tolist()]
+    out = {}
+    for br in TREES:
+        nd, tb = tree_np(br)
+        S = len(nd)
+        ok = tb == 0.0
+        for cache_kind, qcfg in (("bf16", cfg), ("int8", dataclasses.replace(
+                cfg, kv_quant=True))):
+            variant = f"tree{'x'.join(map(str, br))} {cache_kind}"
+            dense, pool, table = paged_twin(torch, qcfg, gen, B, Sc, ps)
+            x = torch.randn(B, S, dm, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            before = {n: t.clone() for n, t in pool.items()}
+            kw = dict(active=act, node_depth=nd, tree_bias=tb)
+            pkw = dict(kw, pages=table, page_size=ps, plan_len=Sc)
+            r0, n0 = FD.verify_route_counts(), FD.paged_verify_launch_count()
+            o_d, kv_d = FD.fused_verify(params, x, dense, pos, qcfg, **kw)
+            o_p, kv_p = FD.fused_verify(params, x, pool, pos, qcfg, **pkw)
+            r1, n1 = FD.verify_route_counts(), FD.paged_verify_launch_count()
+            if r1["tc"] != r0["tc"] + 2 or r1["fma"] != r0["fma"] or \
+                    n1 != n0 + 1:
+                fail(f"fused_verify {variant}: routes {r0} -> {r1}, paged "
+                     f"{n0} -> {n1}; both launches must take the "
+                     f"tensor-core route, one of them paged")
+            o_r, kv_r = FD.fused_verify_plain(params, x, dense, pos, qcfg,
+                                              act["q_dim"], act["kv_dim"],
+                                              nd, tb)
+            o_rp, _ = FD.fused_verify_plain(params, x, pool, pos, qcfg,
+                                            act["q_dim"], act["kv_dim"], nd,
+                                            tb, pages=table, page_size=ps)
+            torch.cuda.synchronize()
+            err, edge_note = 0.0, ""
+            for name, got, want in (("out", o_d, o_r), ("k", kv_d["k"],
+                                                        kv_r["k"]),
+                                    ("v", kv_d["v"], kv_r["v"]),
+                                    ("paged out", o_p, o_rp)):
+                if qcfg.kv_quant and "out" in name:
+                    good, e, n_out = close_int8_edges(torch, got, want)
+                    edge_note += (f"; {name}: {n_out} of {got.numel()} "
+                                  f"beyond the bf16 tolerance")
+                else:
+                    good, e = close(torch, got, want)
+                if not good:
+                    fail(f"fused_verify {variant} {name}: max |err| {e:.3e} "
+                         f"beyond rtol {RTOL_BF16:.2e} + atol "
+                         f"{ATOL_BF16:.0e}" + (
+                             f" (int8 rule: at most {INT8_EDGE_FRAC:g} of "
+                             f"the outputs beyond it, none beyond "
+                             f"{INT8_EDGE_ATOL:g}{edge_note})"
+                             if qcfg.kv_quant else ""))
+                err = max(err, e)
+            if qcfg.kv_quant:
+                jittered = {k: v * (1 + 2.0 ** -20) for k, v in params.items()}
+                o_j, _ = FD.fused_verify_plain(jittered, x, dense, pos, qcfg,
+                                               act["q_dim"], act["kv_dim"],
+                                               nd, tb)
+                n_j, e_j = beyond_bf16(torch, o_j, o_r)
+                edge_note += (f"; the plain version with its weights scaled "
+                              f"by 1 + 2^-20 against itself: {n_j} beyond it, "
+                              f"max |err| {e_j:.3e}")
+            if not (torch.equal(o_p, o_d) and torch.equal(kv_p["k"], kv_d["k"])
+                    and torch.equal(kv_p["v"], kv_d["v"])):
+                fail(f"fused_verify {variant}: the paged launch differs from "
+                     f"its dense twin over the same contents")
+            for n in pool:
+                if not torch.equal(pool[n], before[n]):
+                    fail(f"fused_verify {variant} wrote the pool ({n})")
+
+            def run_d(x=x, c=dense, q=qcfg):
+                return FD.fused_verify(params, x, c, pos, q, **kw)
+
+            def run_p(x=x, c=pool, q=qcfg):
+                return FD.fused_verify(params, x, c, pos, q, **pkw)
+
+            t_d = timer.ms(run_d)
+            parts = launch_parts(timer.last)
+            t_p = timer.ms(run_p)
+            parts_p = launch_parts(timer.last)
+            t_plain = timer.ms(lambda x=x, c=dense, q=qcfg: FD.fused_verify_plain(
+                params, x, c, pos, q, act["q_dim"], act["kv_dim"], nd, tb))
+            attn = verify_attention_yardstick(
+                torch, timer, cfg, x, dense, pos, S, parts["attention"],
+                ext_ok=ok, what=f"fused_verify {variant}")
+            row_bytes = KV * hd * (1 + 2 / hd if qcfg.kv_quant else 2)
+            nbytes = ((dm * (max(aq) + 2 * max(akv)) + max(aq) * dm) * 4
+                      + sum(lens) * row_bytes * 2 + 2 * B * S * dm * 2
+                      + 2 * B * S * KV * hd * 2)
+            ops = sum(S * (2 * dm * (q + 2 * kv) + 2 * q * dm)
+                      + 4 * q * (S * n + int(ok.sum()))
+                      for q, kv, n in zip(aq, akv, lens))
+            bound, by = dense_bound(nbytes, ops, PEAK_F32)
+            splits, rows = FD.verify_attn_plan(B, H, KV, hd, S, Sc,
+                                               dense["k"].dtype, 0, "cuda")
+            out[variant] = dict(
+                nodes=S, max_abs_err=err, ms=t_d, paged_ms=t_p,
+                plain_ms=t_plain, bound_ms=bound, bound_by=by,
+                library_ms=attn["library_ms"],
+                per_launch=parts, paged_per_launch=parts_p,
+                attention=dict(ms=parts["attention"],
+                               paged_ms=parts_p["attention"],
+                               bound_ms=attn["bound_ms"],
+                               bound_by=attn["bound_by"],
+                               sdpa_ms=attn["library_ms"]),
+                attention_plan=dict(splits=splits, rows_per_split=rows,
+                                    query_rows=(H // KV) * S))
+            log(f"  fused_verify {variant} (B={B}, {S} nodes: "
+                f"{(H // KV) * S} query rows per (slot, KV head), cache "
+                f"{Sc}; {B * KV} units x {splits} splits of {rows} rows): "
+                f"max|err| vs plain {err:.3e}{edge_note}; paged bit-identical "
+                f"to dense; route tc; layer {t_d:.4f} ms (" + ", ".join(
+                    f"{k} {v:.4f}" for k, v in parts.items())
+                + f"), paged {t_p:.4f} ms (attention "
+                f"{parts_p['attention']:.4f}), plain {t_plain:.4f} ms, bound "
+                f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.3f} GFLOP f32)")
+    return out
+
+
+def verify_attention_yardstick(torch, timer, cfg, x, cache, pos, S, t_attn,
+                               ext_ok=None, what="fused_verify"):
     """The verify attention launch beside its bound and beside SDPA over
     the same live cache rows and S extension columns (bf16 q, K/V the cache
     and the new rows concatenated beforehand, a boolean mask: cache rows
-    below each slot's committed count, extension columns causal), a
-    yardstick the port never calls. Bound: the live K/V rows read once,
-    the f32 q, new k and v read, the f32 output and the bf16 candidates
-    written, against the f32 work 4 H S hd (rows + S) at 67 TFLOP/s."""
+    below each slot's committed count, extension columns causal, or a
+    tree's ancestor mask ``ext_ok`` (S, S)), a yardstick the port never
+    calls. Bound: the live K/V rows read once, the f32 q, new k and v read,
+    the f32 output and the bf16 candidates written, against the f32 work of
+    the scores and products each row needs, 4 H hd (rows + its extension
+    columns), at 67 TFLOP/s. The cache may be int8: SDPA then reads it
+    dequantized to bf16 (its bytes counted as the kernel reads them)."""
     F = torch.nn.functional
     B, Sc = x.shape[0], cache["k"].shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -985,21 +1203,34 @@ def verify_attention_yardstick(torch, timer, cfg, x, cache, pos, S, t_attn):
     gen = torch.Generator(device="cuda").manual_seed(16)
     q = torch.randn(B, H, S, hd, generator=gen, device="cuda").to(torch.bfloat16)
     kn = torch.randn(B, KV, S, hd, generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.cat([cache["k"].transpose(1, 2), kn], dim=2).contiguous()
-    v = torch.cat([cache["v"].transpose(1, 2), kn], dim=2).contiguous()
+
+    def bf16(name):
+        t = cache[name]
+        if t.dtype == torch.int8:
+            t = t.float() * cache[name + "_scale"].float()
+        return t.to(torch.bfloat16).transpose(1, 2)
+
+    k = torch.cat([bf16("k"), kn], dim=2).contiguous()
+    v = torch.cat([bf16("v"), kn], dim=2).contiguous()
     live = (torch.arange(Sc, device="cuda")[None, :]
             < torch.tensor(lens, device="cuda")[:, None])   # (B, Sc)
-    causal = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    if ext_ok is None:
+        ext = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    else:
+        ext = torch.as_tensor(ext_ok, device="cuda").bool()
     mask = torch.cat([live[:, None, :].expand(B, S, Sc),
-                      causal[None].expand(B, S, S)], dim=2)[:, None]
+                      ext[None].expand(B, S, S)], dim=2)[:, None]
     t_sdpa = timer.ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, enable_gqa=True))
     backend = sdpa_backend(timer.last)
-    nbytes = (sum(lens) * KV * hd * 2 * 2 + B * S * (2 * H + 2 * KV) * hd * 4
+    row_bytes = KV * hd * (1 + 2 / hd if cache["k"].dtype == torch.int8
+                           else 2)
+    nbytes = (sum(lens) * row_bytes * 2 + B * S * (2 * H + 2 * KV) * hd * 4
               + 2 * B * S * KV * hd * 2)
-    ops = sum(4 * H * S * hd * (n + S) for n in lens)
+    pairs = int(ext.sum())  # extension columns the rows need
+    ops = sum(4 * H * hd * (S * n + pairs) for n in lens)
     bound, by = dense_bound(nbytes, ops, PEAK_F32)
-    log(f"  fused_verify attention launch: {t_attn:.4f} ms, bound {bound:.5f} "
+    log(f"  {what} attention launch: {t_attn:.4f} ms, bound {bound:.5f} "
         f"ms ({by}; {nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} MFLOP); SDPA "
         f"({backend}) over the same live rows and extension columns "
         f"{t_sdpa:.4f} ms")
@@ -1381,8 +1612,6 @@ def mode_schedule(modes):
 def drive(engine, trace, switch_every: int):
     """Submit the whole trace, then tick, moving the admission mode along
     ``mode_schedule`` every ``switch_every`` ticks."""
-    import copy
-
     reqs = copy.deepcopy(trace)
     for r in reqs:
         engine.submit(r)
@@ -1400,7 +1629,13 @@ def drive(engine, trace, switch_every: int):
 def step_width_ms(torch, engine, width: float, iters: int = 10):
     """Decode step at full depth with every slot at ``width``: (host ms per
     step, device kernel ms per step or None on the CPU). Logs the step's
-    heaviest kernels and its kernel count."""
+    heaviest kernels and its kernel count. Runs under ``no_grad``, as the
+    engine's ticks do (the parameters may require grad)."""
+    with torch.no_grad():
+        return _step_width_ms(torch, engine, width, iters)
+
+
+def _step_width_ms(torch, engine, width, iters):
     ctrl = engine.ctrl
     step = ctrl.step_for(ctrl.modes[-1])
     active = engine._active_for([width] * engine.batch_size)
@@ -1443,28 +1678,41 @@ def step_bytes(engine) -> int:
                         if k in ("conv_x", "conv_bc", "state"))
 
 
-def spec_tick_ms(torch, engine, iters: int = 5):
-    """One speculative tick at full depth (K-token draft at the exit depth,
-    then verify + accept + commit), every slot at width 1.0, greedy: (host
-    ms per tick, device kernel ms per tick or None on the CPU)."""
+def spec_tick_ms(torch, engine, shape=None, iters: int = 5):
+    """One speculative tick at full depth (a K-token draft, or a token tree
+    drafted level by level, at the exit depth; then verify + accept +
+    commit), every slot at width 1.0, greedy, under ``no_grad`` as the
+    engine ticks: (host ms per tick over ``iters`` ticks, device kernel ms
+    per tick and kernels launched per tick over 2 profiled ticks, or None
+    on the CPU). ``shape`` is K or a tree's branching (default: the linear
+    K)."""
     from repro_torch.runtime.speculative import (draft_compile_key,
+                                                 tree_draft_compile_key,
+                                                 tree_verify_compile_key,
                                                  verify_compile_key)
 
+    shape = SPEC_K if shape is None else shape
+    tree = isinstance(shape, tuple)
     ctrl, cfg = engine.ctrl, engine.cfg
     d = cfg.n_groups
     plan = engine._spec_plan[d]
-    draft = ctrl.aux_step(draft_compile_key(plan.draft_depth, SPEC_K))
-    verify = ctrl.aux_step(verify_compile_key(d, SPEC_K))
+    if tree:
+        draft = ctrl.aux_step(tree_draft_compile_key(plan.draft_depth, shape))
+        verify = ctrl.aux_step(tree_verify_compile_key(d, shape))
+    else:
+        draft = ctrl.aux_step(draft_compile_key(plan.draft_depth, shape))
+        verify = ctrl.aux_step(verify_compile_key(d, shape))
     active = engine._active_for([1.0] * engine.batch_size)
     cache = engine.executor.init_cache()
     keys = engine.groups[d].keys
     tok = torch.ones((engine.batch_size, 1), dtype=torch.int64,
                      device=engine.device)
 
+    @torch.no_grad()
     def tick():
         dt, dl = draft(engine.params, cache, tok, active, keys, 0.0, 0)
-        verify(engine.params, cache, torch.cat([tok, dt], dim=1), dl, active,
-               keys, 0.0, 0)
+        verify(engine.params, cache, dt if tree else torch.cat([tok, dt], 1),
+               dl, active, keys, 0.0, 0)
 
     tick()
     sync(torch, engine.device)
@@ -1474,9 +1722,10 @@ def spec_tick_ms(torch, engine, iters: int = 5):
     sync(torch, engine.device)
     host = (time.perf_counter() - t0) / iters * 1e3
     if torch.device(engine.device).type != "cuda":
-        return host, None
-    per = kernel_us(torch, tick, iters)
-    return host, sum(per.values()) / iters / 1e3
+        return host, None, None
+    rows = device_rows(torch, tick, 2)
+    return (host, sum(us for _, us, _ in rows) / 2 / 1e3,
+            sum(n for _, _, n in rows) / 2)
 
 
 def sync(torch, device) -> None:
@@ -1488,15 +1737,20 @@ def layer_steps(engine, steps0, cfg):
     """Decoder-layer steps of one drive, from the engine's own counters:
     plain decode steps (controller telemetry, one entry per step at the
     mode it was attributed to) and, per speculative path (depth, draft
-    depth, K), its verify launches L: L * depth verify layer-steps and
-    L * K * draft depth draft layer-steps."""
+    depth, draft shape), its verify launches L: L * depth verify
+    layer-steps, and L * K * draft depth linear-draft layer-steps or, for a
+    tree, L * levels * draft depth tree-draft layer-passes (one level's
+    frontier each). Returns (plain, draft, verify, tree draft)."""
     plain = sum((engine.ctrl.telemetry[m.name].steps - steps0[m.name])
                 * m.depth * cfg.period for m in engine.ctrl.modes)
-    verify = draft = 0
-    for (d, dd, k), t in engine.spec_telemetry.items():
+    verify = draft = tree_draft = 0
+    for (d, dd, shape), t in engine.spec_telemetry.items():
         verify += t.launches * d * cfg.period
-        draft += t.launches * k * dd * cfg.period
-    return plain, draft, verify
+        if isinstance(shape, tuple):
+            tree_draft += t.launches * len(shape) * dd * cfg.period
+        else:
+            draft += t.launches * shape * dd * cfg.period
+    return plain, draft, verify, tree_draft
 
 
 def prefill_layers(engine, kind: str) -> int:
@@ -1517,14 +1771,17 @@ def expected_launches(torch, engine, steps0, fused: bool, device):
     """Launch counts one TinyLlama drive must show. Unfused, every decoder
     layer of every decode, draft and verify step runs its 7 gated
     projections through ``morph_matmul``. Fused, attention is one
-    ``fused_decode`` (decode and draft steps) or one ``fused_verify``
-    (verify steps), whose output projections are not ``morph_matmul``
-    counts, and the MLP is 3 ``morph_matmul``. Under
-    ``attn_impl="chunked"`` every attention layer of every prefill is one
-    ``flash_attention`` (prompts here are at most 256 tokens, so "auto"
-    takes the einsum attention and launches none). No scan runs. On the CPU
-    the wrappers count nothing."""
-    plain, draft, verify = steps = layer_steps(engine, steps0, engine.cfg)
+    ``fused_decode`` (decode and linear-draft steps) or one ``fused_verify``
+    (verify steps, linear and tree), whose output projections are not
+    ``morph_matmul`` counts, and the MLP is 3 ``morph_matmul``; a tree
+    draft's level passes take the einsum attention in either engine, 7
+    ``morph_matmul`` per layer and level. Under ``attn_impl="chunked"``
+    every attention layer of every prefill is one ``flash_attention``
+    (prompts here are at most 256 tokens, so "auto" takes the einsum
+    attention and launches none). No scan runs. On the CPU the wrappers
+    count nothing."""
+    plain, draft, verify, tree_draft = steps = layer_steps(engine, steps0,
+                                                           engine.cfg)
     flash = (prefill_layers(engine, "attn")
              if engine.cfg.attn_impl == "chunked" else 0)
     steps = steps + (flash,)
@@ -1532,10 +1789,10 @@ def expected_launches(torch, engine, steps0, fused: bool, device):
     if torch.device(device).type != "cuda":
         return zero, steps
     if fused:
-        return dict(zero, morph_matmul=3 * (plain + draft + verify),
-                    fused_decode=plain + draft, fused_verify=verify,
-                    flash_attention=flash), steps
-    return dict(zero, morph_matmul=7 * (plain + draft + verify),
+        return dict(zero, morph_matmul=3 * (plain + draft + verify)
+                    + 7 * tree_draft, fused_decode=plain + draft,
+                    fused_verify=verify, flash_attention=flash), steps
+    return dict(zero, morph_matmul=7 * (plain + draft + verify + tree_draft),
                 flash_attention=flash), steps
 
 
@@ -1543,38 +1800,67 @@ def expected_launches_ssm(torch, engine, steps0, fused: bool, device):
     """Launch counts one Mamba2 drive must show: 4 ``morph_matmul`` per SSM
     layer of every decode, draft and verify step (x, z and dt projections
     gated at each slot's width, the output projection's contraction; the
-    B/C projection is never gated), and one ``ssd_scan`` per SSM layer of
-    every prefill, which runs to the depth of the mode its request was
-    admitted at. ``fused`` reaches attention layers only."""
-    plain, draft, verify = steps = layer_steps(engine, steps0, engine.cfg)
+    B/C projection is never gated; a tree draft's level passes and the tree
+    verify the same), and one ``ssd_scan`` per SSM layer of every prefill,
+    which runs to the depth of the mode its request was admitted at.
+    ``fused`` reaches attention layers only."""
+    steps = layer_steps(engine, steps0, engine.cfg)
     scans = prefill_layers(engine, "ssm")
     zero = dict.fromkeys(KERNEL_NAMES, 0)
     if torch.device(device).type != "cuda":
         return zero, steps + (scans,)
-    return (dict(zero, morph_matmul=4 * (plain + draft + verify),
-                 ssd_scan=scans), steps + (scans,))
+    return (dict(zero, morph_matmul=4 * sum(steps), ssd_scan=scans),
+            steps + (scans,))
 
 
 KERNEL_NAMES = ("morph_matmul", "fused_decode", "fused_verify", "ssd_scan",
                 "ssd_scan_bwd", "flash_attention", "flash_decode")
-# path name -> (fused, speculative, temperature, top_k, attn_impl or None
-# for the config's own)
+SPEC_K = 4
+TREE = (2, 2, 1)
+# path name -> (fused, speculation: False, True (linear K = SPEC_K) or a
+# tree's branching, temperature, top_k, attn_impl or None for the
+# config's own)
 PATHS = (("unfused", False, False, 0.0, 0, None),
          ("fused", True, False, 0.0, 0, None),
          ("fused_chunked", True, False, 0.0, 0, "chunked"),
          ("spec_unfused", False, True, 0.0, 0, None),
          ("spec_fused", True, True, 0.0, 0, None),
-         ("spec_fused_t0.8_k50", True, True, 0.8, 50, None))
+         ("spec_fused_t0.8_k50", True, True, 0.8, 50, None),
+         ("tree_unfused", False, TREE, 0.0, 0, None),
+         ("tree_fused", True, TREE, 0.0, 0, None),
+         ("tree_fused_t0.8_k50", True, TREE, 0.8, 50, None))
 AGREE = (("unfused", "fused", "f32 fused projections vs bf16 unfused weights"),
          ("fused_chunked", "fused", "flash kernel's f32 P.V vs einsum "
           "attention's bf16-rounded p on the prompt pass"),
          ("spec_unfused", "unfused", "bf16 verify pass vs bf16 decode steps"),
-         ("spec_fused", "fused", "bf16 verify kernel vs bf16 decode kernel"))
+         ("spec_fused", "fused", "bf16 verify kernel vs bf16 decode kernel"),
+         ("tree_unfused", "unfused", "bf16 tree verify pass vs bf16 decode "
+          "steps"),
+         ("tree_fused", "fused", "bf16 tree verify kernel vs bf16 decode "
+          "kernel"))
 SSM_PATHS = (("mamba2_plain", False, False, 0.0, 0, None),
-             ("mamba2_spec", False, True, 0.0, 0, None))
+             ("mamba2_spec", False, True, 0.0, 0, None),
+             ("mamba2_tree", False, TREE, 0.0, 0, None))
 SSM_AGREE = (("mamba2_spec", "mamba2_plain",
-              "verify pass vs decode steps, bf16 activations"),)
-SPEC_K = 4
+              "verify pass vs decode steps, bf16 activations"),
+             ("mamba2_tree", "mamba2_plain",
+              "tree verify pass vs decode steps, bf16 activations"))
+
+
+def spec_config(spec):
+    """The ``SpecConfig`` of a path's speculation: None, linear K = SPEC_K,
+    or a tree (with K = SPEC_K built beside it, so that one engine times a
+    tree tick beside a linear one; the tree takes precedence in the drive,
+    which runs no policy). ``min_accept_rate`` 0: with random weights
+    acceptance may be low, and the collapse fallback must not switch the
+    path off."""
+    from repro_torch.runtime.speculative import SpecConfig
+
+    if spec is False:
+        return None
+    if spec is True:
+        return SpecConfig(ks=(SPEC_K,), min_accept_rate=0.0)
+    return SpecConfig(ks=(SPEC_K,), trees=(spec,), min_accept_rate=0.0)
 
 
 def counters():
@@ -1612,12 +1898,13 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
                prompt_len=(16, 256), new_tokens=(32, 64), capacity=512,
                paths=PATHS, expect=expected_launches, agreements=AGREE):
     """Serve ``cfg`` through each of ``paths`` on one trace; ``expect``
-    gives the exact launch counts each drive must show. Returns (launches
-    per path, results per path)."""
+    gives the exact launch counts each drive must show. With a ``timer``
+    each drive is followed by its step or tick measurements. Returns
+    (launches per path, results per path)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_decode as FD
     from repro_torch.runtime.serving import ServingEngine, poisson_trace
-    from repro_torch.runtime.speculative import SpecConfig, draft_compile_key
+    from repro_torch.runtime.speculative import draft_compile_key
 
     trace = poisson_trace(n_requests, 50.0, seed=0, prompt_len=prompt_len,
                           new_tokens=new_tokens, vocab=cfg.vocab_size)
@@ -1626,21 +1913,23 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
     count_reset = counters()
     for tag, fused, spec, temp, top_k, impl in paths:
         pcfg = cfg if impl is None else cfg.scaled(attn_impl=impl)
-        # min_accept_rate 0: with random weights acceptance may be low, and
-        # the collapse fallback must not switch the path off
+        tree = spec if isinstance(spec, tuple) else None
         engine = ServingEngine(
             params, pcfg, batch_size=8, cache_capacity=capacity,
             prefill_threshold=8, fused=fused, temperature=temp, top_k=top_k,
-            speculative=(SpecConfig(ks=(SPEC_K,), min_accept_rate=0.0)
-                         if spec else None), device=device)
+            speculative=spec_config(spec), device=device)
         engine.warmup()
         steps0 = {n: t.steps for n, t in engine.ctrl.telemetry.items()}
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         # each path's counts cover exactly its own drive: zeroed just
         # before it, read just after
         for _, reset in count_reset.values():
             reset()
         wall, streams = drive(engine, trace, switch_every=12)
         run_launches = {n: count() for n, (count, _) in count_reset.items()}
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if torch.device(device).type == "cuda" else float("nan"))
         launches[tag] = run_launches
         routes = FA.route_counts()
         if routes["tc"] != run_launches["flash_attention"]:
@@ -1661,6 +1950,10 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
                  f"{steps}")
         if spec and not engine.spec_verify_launches:
             fail(f"{tag} path: no speculative tick ran")
+        if engine.spec_tree_launches != (engine.spec_verify_launches
+                                         if tree else 0):
+            fail(f"{tag} path: {engine.spec_tree_launches} tree ticks of "
+                 f"{engine.spec_verify_launches} speculative ticks")
         gen = sum(len(s) for s in streams.values())
         if len(engine.completed) != len(trace):
             fail(f"{tag}: {len(engine.completed)} of {len(trace)} done")
@@ -1674,17 +1967,19 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
         log(f"  e2e {tag}: {gen} tokens, {len(engine.completed)} requests in "
             f"{wall:.2f} s wall -> {gen / wall:.1f} tokens/s; "
             f"{engine.decode_launches} decode steps, "
-            f"{engine.spec_verify_launches} speculative ticks, "
+            f"{engine.spec_verify_launches} speculative ticks "
+            f"({engine.spec_tree_launches} tree), "
             f"{engine.prefills} prefills, admission switches "
-            f"{len(engine.admission_switch_log)}")
+            f"{len(engine.admission_switch_log)}; peak device memory "
+            f"{peak:.2f} GiB")
         for name, t in sorted(engine.ctrl.telemetry_summary().items()):
             log(f"    mode {name:8s} steps {t['steps']:4d}  p50 "
                 f"{t['p50_ms']:8.3f} ms  p95 {t['p95_ms']:8.3f} ms")
         log(f"    launches in this drive: " + ", ".join(
             f"{n} {c}" for n, c in run_launches.items())
-            + f" ((plain, draft, verify) layer steps (, prefill layers) "
-            f"{steps}; as expected)")
-        res = dict(streams=streams, tokens_per_s=gen / wall)
+            + f" ((plain, draft, verify, tree draft) layer steps (, prefill "
+            f"layers) {steps}; as expected)")
+        res = dict(streams=streams, tokens_per_s=gen / wall, peak_gib=peak)
         if spec:
             tels = engine.spec_telemetry
             drafted = sum(t.drafted for t in tels.values())
@@ -1700,7 +1995,7 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
                     f"{t['accept_rate']:.4f}, tokens/launch/slot "
                     f"{t['tokens_per_slot_launch']:.3f}")
             scratch = ""
-            if timer is not None:
+            if timer is not None and not tree:
                 g = engine.groups[cfg.n_groups]
                 dd = engine._spec_plan[cfg.n_groups].draft_depth
                 draft = engine.ctrl.aux_step(draft_compile_key(dd, SPEC_K))
@@ -1715,15 +2010,24 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
                 f"tokens per verify launch per slot "
                 f"{res['tokens_per_slot_launch']:.3f}, tick p50 "
                 f"{h.p50:.3f} ms p95 {h.p95:.3f} ms{scratch}")
-            if temp == 0.0:
-                h_t, d_t = spec_tick_ms(torch, engine)
-                dev_note = ("" if d_t is None else
-                            f"; device kernel time {d_t:.3f} ms (idle share "
-                            f"{1 - d_t / h_t:.3f})")
-                log(f"    speculative tick at depth {cfg.n_groups} (K = "
-                    f"{SPEC_K} drafts + verify), all slots w1.0: host "
-                    f"{h_t:.3f} ms{dev_note}")
-        if not spec:
+            if temp == 0.0 and timer is not None:
+                for shape in ((tree, SPEC_K) if tree else (SPEC_K,)):
+                    h_t, d_t, n_k = spec_tick_ms(torch, engine, shape)
+                    dev_note = ("" if d_t is None else
+                                f"; device kernel time {d_t:.3f} ms (idle "
+                                f"share {1 - d_t / h_t:.3f}), {n_k:.0f} "
+                                f"kernels launched per tick")
+                    what = (f"tree {'x'.join(map(str, shape))} drafted level "
+                            f"by level + verify" if shape is tree else
+                            f"K = {SPEC_K} drafts + verify")
+                    log(f"    speculative tick at depth {cfg.n_groups} "
+                        f"({what}), all slots w1.0: host {h_t:.3f} ms"
+                        f"{dev_note}")
+                    key = "tree_tick" if shape is tree else "tick"
+                    res.update({f"{key}_host_ms": h_t,
+                                f"{key}_device_ms": d_t,
+                                f"{key}_kernels": n_k})
+        if not spec and timer is not None:
             narrow = min(cfg.elastic.width_fractions)
             (h_n, d_n), (h_f, d_f) = (step_width_ms(torch, engine, narrow),
                                       step_width_ms(torch, engine, 1.0))
@@ -1753,12 +2057,15 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
     return launches, results
 
 
-# path name -> (speculative, paged); every one fused, greedy, on one trace
-# whose prompts share a 128-token prefix, admitted in the full mode
+# path name -> (speculation as in PATHS, paged); every one fused, greedy,
+# on one trace whose prompts share a 128-token prefix, admitted in the full
+# mode; each dense path is followed by its paged twin
 PAGED_PATHS = (("prefix_fused", False, False),
                ("prefix_fused_paged", False, True),
                ("prefix_spec_fused", True, False),
-               ("prefix_spec_fused_paged", True, True))
+               ("prefix_spec_fused_paged", True, True),
+               ("prefix_tree_fused", TREE, False),
+               ("prefix_tree_fused_paged", TREE, True))
 PAGE = 16
 
 
@@ -1784,20 +2091,18 @@ def prefix_trace(cfg, n_requests=12, prefix_len=128, seed=7):
 
 def paged_end_to_end(torch, cfg, params, device="cuda"):
     """Serve full-width TinyLlama through ``PAGED_PATHS``: fused plain
-    decode and fused greedy speculation (K = 4), each over a dense cache and
-    over a paged one (page 16, the worst-case pool of 8 slots x (512 / 16 +
-    1) = 264 pages), on ``prefix_trace``, every request admitted in the full
+    decode, fused greedy speculation (K = 4) and fused greedy tree
+    speculation (TREE), each over a dense cache and over a paged one (page
+    16, the worst-case pool of 8 slots x (512 / 16 + 1) = 264 pages), on
+    ``prefix_trace``, every request admitted in the full
     mode (the radix keys on depth and width). Asserts per pair identical
     tokens, and per paged drive radix hits > 0, the page accounting after
     every tick, every fused launch paged, and nothing built after warmup;
     launch counts exactly as ``expected_launches``. Returns (launches per
     path, paged launches per path, results per path)."""
-    import copy
-
     from repro_torch.kernels import fused_decode as FD
     from repro_torch.models.paged import PagedLayout
     from repro_torch.runtime.serving import ServingEngine
-    from repro_torch.runtime.speculative import SpecConfig
 
     trace = prefix_trace(cfg)
     count_reset = counters()
@@ -1807,8 +2112,7 @@ def paged_end_to_end(torch, cfg, params, device="cuda"):
         engine = ServingEngine(
             params, cfg, batch_size=8, cache_capacity=512,
             prefill_threshold=8, fused=True, paged=layout,
-            speculative=(SpecConfig(ks=(SPEC_K,), min_accept_rate=0.0)
-                         if spec else None), device=device)
+            speculative=spec_config(spec), device=device)
         engine.warmup()
         engine.set_admission_mode(engine.ctrl.modes[-1])
         steps0 = {n: t.steps for n, t in engine.ctrl.telemetry.items()}
@@ -1840,6 +2144,10 @@ def paged_end_to_end(torch, cfg, params, device="cuda"):
             fail(f"{tag}: paged launches {n_paged}, expected {want_paged}")
         if spec and not engine.spec_verify_launches:
             fail(f"{tag}: no speculative tick ran")
+        if engine.spec_tree_launches != (engine.spec_verify_launches
+                                         if isinstance(spec, tuple) else 0):
+            fail(f"{tag}: {engine.spec_tree_launches} tree ticks of "
+                 f"{engine.spec_verify_launches} speculative ticks")
         if engine.ctrl.stats["compiles"] != engine.compiles_after_warmup:
             fail(f"{tag}: a step was built after warmup")
         streams = {r.rid: list(r.generated) for r in reqs}
@@ -1875,8 +2183,8 @@ def paged_end_to_end(torch, cfg, params, device="cuda"):
             + f" (paged: {n_paged}; as expected)")
         launches[tag], paged_launches[tag], results[tag] = run, n_paged, res
         del engine
-    for dense_tag, paged_tag in ((PAGED_PATHS[0][0], PAGED_PATHS[1][0]),
-                                 (PAGED_PATHS[2][0], PAGED_PATHS[3][0])):
+    for (dense_tag, _, _), (paged_tag, _, _) in zip(PAGED_PATHS[::2],
+                                                    PAGED_PATHS[1::2]):
         a, b = results[dense_tag]["streams"], results[paged_tag]["streams"]
         if a != b:
             same = sum(u == w for r in a for u, w in zip(a[r], b[r]))
@@ -1966,6 +2274,53 @@ def smoke_reference(torch, arch="tinyllama-1.1b"):
         what += ", chunked prefill through flash_attention"
     log(f"  {arch} smoke model (f32) on the card vs plain versions on the "
         f"CPU ({what}): max |err| {worst:.3e} (atol {ATOL_SMOKE:.0e})")
+
+
+def smoke_tree_engines(torch, arch="tinyllama-1.1b"):
+    """The smoke model of ``arch`` (f32), served greedily on the card with a
+    TREE token tree (unfused; for the attention model also fused, and fused
+    over a paged cache, page 4) and without speculation, and on the CPU
+    with the tree: every engine's streams must be the card's plain
+    engine's, token for token, and nothing built after warmup."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.runtime.serving import ServingEngine, poisson_trace
+
+    cfg = smoke_config(arch)
+    p_cpu = init_params(cfg, seed=3, device="cpu")
+    p_gpu = _move(p_cpu, "cuda")
+    trace = poisson_trace(6, 100.0, seed=2, prompt_len=(1, 6),
+                          new_tokens=(3, 12), vocab=cfg.vocab_size)
+    runs = [("card plain", "cuda", False, False, False)]
+    runs += [("card tree unfused", "cuda", TREE, False, False),
+             ("cpu tree", "cpu", TREE, False, False)]
+    if "attn" in cfg.layer_pattern:
+        runs += [("card tree fused", "cuda", TREE, True, False),
+                 ("card tree fused paged", "cuda", TREE, True, True)]
+    streams = {}
+    for name, dev, spec, fused, paged in runs:
+        eng = ServingEngine(p_gpu if dev == "cuda" else p_cpu, cfg,
+                            batch_size=3, cache_capacity=32,
+                            prefill_threshold=3, fused=fused,
+                            paged=PagedLayout(page_size=4) if paged else None,
+                            speculative=spec_config(spec), device=dev)
+        eng.warmup()
+        out = eng.run(copy.deepcopy(trace), budget_fn=None, policy=None)
+        if out["completed"] != len(trace) or \
+                eng.ctrl.stats["compiles"] != eng.compiles_after_warmup:
+            fail(f"{arch} smoke {name}: {out}")
+        if spec and not eng.spec_tree_launches:
+            fail(f"{arch} smoke {name}: no tree tick ran")
+        streams[name] = {r.rid: r.generated for r in eng.completed}
+    want = streams["card plain"]
+    for name, got in streams.items():
+        if got != want:
+            fail(f"{arch} smoke model: {name} streams differ from the card's "
+                 f"plain engine's")
+    log(f"  {arch} smoke model (f32), greedy tree {TREE}: "
+        f"{', '.join(streams)} all emit the same "
+        f"{sum(len(s) for s in want.values())} tokens")
 
 
 def _move(tree, dev):
@@ -2243,7 +2598,8 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
     are checked as they come: a base step, as many forward and backward
     scans as SSM layers; a teacher step at the grown depth D, D and D; a
     student step at depth d, D + d forward (the teacher's no-grad forward
-    and the student's) and d backward. Returns (launches, results)."""
+    and the student's) and d backward. Returns (launches, results, the
+    DistillCycle-trained parameters or None)."""
     from repro_torch.core.distillcycle import (DistillCycle,
                                                DistillCycleConfig)
     from repro_torch.data import DataConfig, make_batch, to_device
@@ -2317,6 +2673,7 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
     if distill and not tail < first:
         fail(f"{cfg.name} base loss did not fall: first 5 {first:.4f}, last 5 "
              f"{tail:.4f}")
+    params = None
     if distill:
         dcfg = DistillCycleConfig(epochs_per_stage=1, steps_per_epoch=2,
                                   epoch_lr_decay=1.0)
@@ -2369,14 +2726,25 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
         + f" (each step as expected); peak device memory {peak:.2f} GiB")
     del state
     torch.cuda.empty_cache()
-    return launches, res
+    return launches, res, params
+
+
+# phase 4's serving of the trained Mamba2 parameters (4 requests x 16 new
+# tokens), as in PATHS
+TRAINED_PATHS = (("mamba2_trained_plain", False, False, 0.0, 0, None),
+                 ("mamba2_trained_spec", False, True, 0.0, 0, None))
+TRAINED_AGREE = (("mamba2_trained_spec", "mamba2_trained_plain",
+                  "verify pass vs decode steps, bf16 activations"),)
 
 
 def training_phase(torch, cfg, mcfg, timer, full=True):
     """Phase 4: the scan's backward kernel against its plain version; with
     ``full``, the 4-layer full-width Mamba2 gradients against the CPU, the
-    full-depth Mamba2-370M DistillCycle and TinyLlama-1.1B's train steps.
-    Returns (backward kernel results, launches per path, results)."""
+    full-depth Mamba2-370M DistillCycle, the trained parameters served
+    (they require grad: the engine ticks under ``no_grad``; plain and
+    linear-speculative, 4 requests x 16 tokens, acceptance printed) and
+    TinyLlama-1.1B's train steps. Returns (backward kernel results,
+    launches per path, results)."""
     phase("[phase 4] training: the ssd_scan backward kernel vs its plain "
           "version (Mamba2-370M training shapes)")
     bwd = check_ssd_scan_bwd(torch, mcfg, timer)
@@ -2387,10 +2755,23 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
     check_model_grads(torch, mcfg)
     phase("[phase 4] training: full-width, full-depth Mamba2-370M base steps "
           "and DistillCycle, one card")
-    ml, mres = train_drive(torch, mcfg, 20, True, dict(lr=2e-3))
+    ml, mres, mparams = train_drive(torch, mcfg, 20, True, dict(lr=2e-3))
+    phase("[phase 4] serving the DistillCycle-trained Mamba2-370M parameters")
+    n_grad = sum(t.requires_grad for t in _leaves(mparams))
+    log(f"  {n_grad} of {len(list(_leaves(mparams)))} trained parameter "
+        f"tensors require grad; served as they are")
+    sl, sres = end_to_end(torch, mcfg, mparams, n_requests=4,
+                          prompt_len=(16, 64), new_tokens=(16, 16),
+                          capacity=128, paths=TRAINED_PATHS,
+                          expect=expected_launches_ssm,
+                          agreements=TRAINED_AGREE)
+    mres["served"] = {k: {m: v for m, v in r.items() if m != "streams"}
+                      for k, r in sres.items()}
+    del mparams
+    torch.cuda.empty_cache()
     phase("[phase 4] training: full-width TinyLlama-1.1B train steps, one card")
-    tl, tres = train_drive(torch, cfg, 5, False, dict(lr=2e-3))
-    return (bwd, {"mamba2_train": ml, "tinyllama_train": tl},
+    tl, tres, _ = train_drive(torch, cfg, 5, False, dict(lr=2e-3))
+    return (bwd, dict(sl, mamba2_train=ml, tinyllama_train=tl),
             {"mamba2-370m": mres, "tinyllama-1.1b": tres})
 
 
@@ -2445,6 +2826,7 @@ def main(argv=None) -> int:
     fd = check_fused_decode(torch, cfg, timer)
     fv = check_fused_verify(torch, cfg, timer)
     pg = check_paged(torch, cfg, timer)
+    tv = check_tree_verify(torch, cfg, timer)
     fa = check_flash_attention(torch, cfg, timer)
     fdk = check_flash_decode(torch, cfg, timer)
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
@@ -2453,14 +2835,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
-                for p in (PATHS + SSM_PATHS + PAGED_PATHS
+                for p in (PATHS + SSM_PATHS + PAGED_PATHS + TRAINED_PATHS
                           + (("flash_decode_entry",), ("mamba2_train",),
                              ("tinyllama_train",)))}
     paged_launches = {p[0]: dict.fromkeys(("fused_decode", "fused_verify"))
                       for p in PAGED_PATHS}
+    max_err = max(r["max_abs_err"] for r in tv.values())
     if not args.skip_e2e:
         phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
+        smoke_tree_engines(torch)
         params = init_on_card(torch, cfg)
         # 12 requests: the Mamba2 drives below share the run's time
         launches, _ = end_to_end(torch, cfg, params, timer, n_requests=12)
@@ -2476,9 +2860,11 @@ def main(argv=None) -> int:
         launches["flash_decode_entry"] = flash_decode_drive(torch, cfg)
         phase("[phase 3] end to end: mamba2-370m, full width, one card")
         smoke_reference(torch, "mamba2-370m")
+        smoke_tree_engines(torch, "mamba2-370m")
         mparams = init_on_card(torch, mcfg)
+        # 12 requests: the tree drives share the run's time
         ssm_launches, _ = end_to_end(torch, mcfg, mparams,
-                                     timer, paths=SSM_PATHS,
+                                     timer, n_requests=12, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
@@ -2556,7 +2942,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/fused_decode.py:621",
              launches=launches["spec_fused"]["fused_verify"],
              launches_by_path=by_path("fused_verify"),
-             max_abs_err=fv["max_abs_err"], ms=fv["ms"],
+             max_abs_err=max(fv["max_abs_err"], max_err), ms=fv["ms"],
              plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
              bound_by=fv["bound_by"], library_ms=None,
              check_pass_ms=fv["check_pass_ms"], per_launch=fv["per_launch"],
@@ -2564,7 +2950,13 @@ def main(argv=None) -> int:
                                  rows_per_split=fv["rows_per_split"]),
              paged=paged_summary("verify"),
              paged_launches_by_path={p: c["fused_verify"]
-                                     for p, c in paged_launches.items()}),
+                                     for p, c in paged_launches.items()},
+             tree={k: {m: r[m] for m in ("nodes", "max_abs_err", "ms",
+                                         "paged_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "attention", "attention_plan")}
+                   for k, r in tv.items()},
+             tree_launches=launches["tree_fused"]["fused_verify"]),
         dict(name="ssd_scan", route="cuda", status=status,
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:27",

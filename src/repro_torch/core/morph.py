@@ -258,8 +258,11 @@ def make_serve_controller(params, cfg: ModelConfig,
 
     ``speculative`` (a ``SpecConfig``) adds, through ``register_aux``, one
     draft step per (draft_depth, K) and one verify step per (depth, K) of
-    ``ctrl.spec_plan``; they are built at warmup and advance
-    ``trace_counter`` once each.
+    ``ctrl.spec_plan``, and for its token trees one tree draft step per
+    (draft_depth, branching) and one tree verify step per (depth,
+    branching); they are built at warmup and advance ``trace_counter``
+    once each. The tree draft takes the einsum attention path in fused
+    engines too (as the reference's does); the tree verify is fused.
 
     ``paged_page_size`` > 0 switches the serving surface to the block-paged
     cache (``models.paged``): every step takes a trailing page-table
@@ -340,14 +343,37 @@ def make_serve_controller(params, cfg: ModelConfig,
                                               plan_len=plan_len, fused=fused)
             return build
 
+        def tree_draft_factory(draft_depth: int, branching):
+            def build():
+                trace_counter["n"] += 1
+                return _spec.make_tree_draft_step(cfg, draft_depth,
+                                                  branching, top_k,
+                                                  page_size=paged_page_size)
+            return build
+
+        def tree_verify_factory(depth: int, branching):
+            def build():
+                trace_counter["n"] += 1
+                return _spec.make_tree_verify_step(
+                    cfg, depth, branching, top_k, page_size=paged_page_size,
+                    plan_len=plan_len, fused=fused)
+            return build
+
         for dd, k in sorted({(e.draft_depth, k) for e in plan.values()
                              for k in e.ks}):
             ctrl.register_aux(_spec.draft_compile_key(dd, k),
                               draft_factory(dd, k))
+        for dd, br in sorted({(e.draft_depth, br) for e in plan.values()
+                              for br in e.trees}):
+            ctrl.register_aux(_spec.tree_draft_compile_key(dd, br),
+                              tree_draft_factory(dd, br))
         for e in plan.values():
             for k in e.ks:
                 ctrl.register_aux(_spec.verify_compile_key(e.depth, k),
                                   verify_factory(e.depth, k))
+            for br in e.trees:
+                ctrl.register_aux(_spec.tree_verify_compile_key(e.depth, br),
+                                  tree_verify_factory(e.depth, br))
     return ctrl
 
 

@@ -15,7 +15,10 @@ Two traffic shapes:
     the widest mode whose predicted step latency fits the budget.
 
 ``--spec-k K`` turns on linear self-speculative decoding (shallow exits
-draft K tokens, one full-depth pass verifies K+1 positions) and prints the
+draft K tokens, one full-depth pass verifies K+1 positions) and
+``--spec-tree 2x2x1`` token-tree speculation (level l: every frontier node
+gets that many sibling candidates; one full-depth pass verifies the whole
+tree and commits the accepted root-to-leaf path); both print the
 acceptance telemetry; ``--temperature`` / ``--top-k`` sample instead of
 taking the argmax. ``--kv-page-size N`` serves from a block-paged KV cache
 (N tokens per page; shared prompt prefixes reuse pages through the radix
@@ -31,6 +34,8 @@ Examples:
       --batch 8 --tokens 256 --spec-k 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu --kv-page-size 4 --fused --spec-k 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --batch 8 --tokens 256 --fused --spec-tree 2x2x1
 """
 from __future__ import annotations
 
@@ -79,8 +84,13 @@ def main(argv=None):
                     help="draft exit depth in layer groups (0 = deepest "
                          "exit shallower than each serving depth)")
     ap.add_argument("--spec-tree", default="",
-                    help="token-tree speculative decoding: arrives with the "
-                         "tree slice of the port")
+                    help="token-tree speculative decoding branching "
+                         "schedule, e.g. 2x2x1 (level l: every frontier "
+                         "node gets that many sibling candidates); one "
+                         "full-depth pass verifies the whole tree and "
+                         "commits the accepted root-to-leaf path. May be "
+                         "combined with --spec-k (the SLO policy switches "
+                         "between the built shapes at runtime)")
     ap.add_argument("--kv-page-size", type=int, default=0,
                     help="block-paged KV cache: tokens per physical page "
                          "(0 = dense per-slot buffers). Must divide the "
@@ -105,16 +115,25 @@ def main(argv=None):
 
     if args.batch < 1:
         ap.error(f"--batch must be >= 1, got {args.batch}")
+    spec_trees = ()
     if args.spec_tree:
-        raise NotImplementedError("--spec-tree: token trees arrive with the "
-                                  "tree slice of the port")
+        try:
+            branching = tuple(int(b) for b in
+                              args.spec_tree.lower().split("x"))
+        except ValueError:
+            branching = ()
+        if not branching or any(b < 1 for b in branching):
+            ap.error(f"--spec-tree wants a branching schedule of levels "
+                     f">= 1 like 2x2x1, got {args.spec_tree!r}")
+        spec_trees = (branching,)
     device = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = init_params(cfg, seed=args.seed, device=device)
     modes = cfg.elastic.modes(cfg.n_groups)
     per_req = max(4, args.tokens // (2 * args.batch))
     n_requests = max(args.batch, (args.tokens + per_req - 1) // per_req)
-    capacity = per_req + 8 + args.spec_k  # drafted-window headroom
+    # drafted-window headroom: linear K or the deepest tree's level count
+    capacity = per_req + 8 + max([args.spec_k] + [len(t) for t in spec_trees])
     paged = None
     if args.kv_pages and not args.kv_page_size:
         ap.error("--kv-pages requires --kv-page-size (a pool needs a page "
@@ -130,8 +149,9 @@ def main(argv=None):
         except ValueError as e:
             ap.error(str(e))
     speculative = None
-    if args.spec_k > 0:
-        speculative = SpecConfig(ks=(args.spec_k,),
+    if args.spec_k > 0 or spec_trees:
+        speculative = SpecConfig(ks=(args.spec_k,) if args.spec_k > 0 else (),
+                                 trees=spec_trees,
                                  draft_depth=args.spec_draft_depth or None,
                                  top_k=args.top_k)
     obs = Observability(trace=bool(args.trace_out))
@@ -150,6 +170,7 @@ def main(argv=None):
           f"requests={n_requests} x {per_req} tokens, batch={args.batch}"
           f"{paged_note}{' fused' if args.fused else ''}"
           f"{f' spec_k={args.spec_k}' if args.spec_k else ''}"
+          f"{f' spec_tree={args.spec_tree}' if spec_trees else ''}"
           f"{f' temperature={args.temperature}' if args.temperature else ''}")
     engine.warmup()
     for i in range(n_requests):
@@ -183,6 +204,7 @@ def main(argv=None):
           f"(per-mode baseline {engine.per_mode_launch_equiv}) "
           f"prefills={engine.prefills} "
           f"spec_verify_launches={engine.spec_verify_launches} "
+          f"(tree {engine.spec_tree_launches}) "
           f"tokens/s={generated / busy if busy else 0.0:.1f}")
     for name, t in ctrl.telemetry_summary().items():
         mode = ctrl.mode_by_name[name]
@@ -190,11 +212,13 @@ def main(argv=None):
         print(f"  mode {name:8s} p50 {t['p50_ms']:8.2f} ms  p95 {t['p95_ms']:8.2f} ms  "
               f"{t['tokens_per_s']:8.1f} tok/s  active-FLOPs {frac * 100:5.1f}%")
     for path, t in engine.spec_telemetry_summary().items():
+        nodes = (f"  tree {t['tree']} ({t['draft_nodes']} draft nodes)"
+                 if "tree" in t else "")
         print(f"  spec {path:10s} accept {t['accept_rate'] * 100:5.1f}%  "
               f"accepted/launch {t['accepted_per_launch']:.2f}  "
               f"tokens/launch {t['tokens_per_launch']:.2f} "
               f"(per-slot {t['tokens_per_slot_launch']:.2f})  "
-              f"launches {t['launches']}")
+              f"launches {t['launches']}{nodes}")
     if engine.spec_fallback_log:
         print(f"  spec fallbacks: {list(engine.spec_fallback_log)}")
     if paged is not None:

@@ -524,3 +524,68 @@ def mha_verify(params, x, cache, pos, cfg: ModelConfig, *, active=None,
                          causal=True, bias=bias)
     out = morph_proj(out.reshape(B, S, cfg.q_dim), params["wo"], active_k=a_q)
     return out, {"k": k_new, "v": v_new}
+
+
+def mha_tree_level(params, x, cache, pos, cfg: ModelConfig, carry_kv, *,
+                   level, carry_depths, bias, active=None, pages=None,
+                   page_size=0):
+    """One tree-draft LEVEL of attention: frontier nodes vs cache + carry.
+
+    The level's frontier ``x`` (B, nf, d), all at depth ``level`` (absolute
+    position ``pos + level``), attends over the committed cache (read only;
+    through the gathered per-slot view with ``pages``) plus the K/V carried
+    from earlier levels. ``carry_kv`` holds ``{"k", "v"}`` (B, Nc, KV, hd)
+    round-tripped K/V of processed nodes in BFS order (rows past the
+    readable prefix are not read); ``carry_depths`` is the (f1,) depth of
+    each readable carry row and ``bias`` the (nf, f1) ancestor-mask rows of
+    the frontier, whose own in-flight K/V are columns [f1 - nf, f1).
+
+    Gives the frontier rows of ``mha_verify`` over the whole tree prefix:
+    carried rows are what that pass recomputes, in the same BFS column
+    order. Returns (out (B, nf, d), rows {"k", "v"} (B, nf, KV, hd)) with
+    the rows through the int8 round trip of an int8 cache (what a cache
+    read-back gives), ready to write into the carry."""
+    dt = x.dtype
+    B, nf, _ = x.shape
+    a_q = active.get("q_dim") if active else None
+    a_kv = active.get("kv_dim") if active else None
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    qpos = (pos.long() + level)[:, None].expand(B, nf)  # one level, one depth
+    q = _split_heads(morph_proj(x, params["wq"], active_n=a_q),
+                     cfg.n_heads, cfg.head_dim)
+    k_new = _split_heads(morph_proj(x, params["wk"], active_n=a_kv),
+                         cfg.n_kv_heads, cfg.head_dim)
+    v_new = _split_heads(morph_proj(x, params["wv"], active_n=a_kv),
+                         cfg.n_kv_heads, cfg.head_dim)
+    if cfg.use_rope:
+        q = rope(q, qpos, cfg.rope_theta)
+        k_new = rope(k_new, qpos, cfg.rope_theta)
+    from repro_torch.models.paged import paged_view
+
+    def view(buf):
+        return paged_view(buf, pages, page_size)
+
+    if cfg.kv_quant and "k_scale" in cache:
+        kc = dequantize_kv(view(cache["k"]), view(cache["k_scale"]), dt)
+        vc = dequantize_kv(view(cache["v"]), view(cache["v_scale"]), dt)
+        kq, ks_ = quantize_kv(k_new)  # the round trip mha_verify attends
+        vq, vs = quantize_kv(v_new)
+        k_att, v_att = dequantize_kv(kq, ks_, dt), dequantize_kv(vq, vs, dt)
+    else:
+        kc, vc = view(cache["k"]).to(dt), view(cache["v"]).to(dt)
+        k_att, v_att = k_new, v_new
+    Sc = kc.shape[1]
+    f1 = bias.shape[1]  # readable carry prefix (ancestors + frontier)
+    k_car = torch.cat([carry_kv["k"][:, :f1 - nf].to(dt), k_att], dim=1)
+    v_car = torch.cat([carry_kv["v"][:, :f1 - nf].to(dt), v_att], dim=1)
+    depths = torch.as_tensor(carry_depths, dtype=torch.int64, device=x.device)
+    kpos = torch.cat([_cache_kpos(pos, Sc, cfg.sliding_window),
+                      pos.long()[:, None] + depths[None, :]], dim=1)
+    bias_full = torch.cat(
+        [torch.zeros((nf, Sc), device=x.device),
+         torch.as_tensor(bias, dtype=torch.float32, device=x.device)], dim=1)
+    out = attention_full(q, torch.cat([kc, k_car], dim=1),
+                         torch.cat([vc, v_car], dim=1), cfg, qpos, kpos,
+                         causal=True, bias=bias_full)
+    out = morph_proj(out.reshape(B, nf, cfg.q_dim), params["wo"], active_k=a_q)
+    return out, {"k": k_att, "v": v_att}

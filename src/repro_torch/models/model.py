@@ -17,14 +17,18 @@ checkpointing that keeps the matrix products), ``cross_entropy`` (padded
 vocab masked) and ``loss_fn``. Each leaf of the group stack is unbound once
 per pass, so that its gradient is one stack of the groups' parts.
 
-Linear speculative decoding has ``verify_step`` (read-only scoring of K+1
-positions) and ``commit_verify`` (in-place masked commit of K/V, a
-gather of each SSM layer's candidate at ``n_accepted``). ``decode_step``,
-``verify_step`` and ``commit_verify`` also take a block-paged cache
-(``models.paged``) through ``pages`` / ``page_size``. MoE,
-encoder-decoder and frontend families, absolute-position models and the
-token-tree paths raise ``NotImplementedError`` naming the slice of the
-port they arrive with.
+Speculative decoding has ``verify_step`` (read-only scoring of K+1
+positions), ``verify_tree`` (read-only scoring of a flattened token tree:
+ancestor-mask attention, per-node SSM state), the KV-carrying tree draft
+(``init_tree_draft_carry`` and ``draft_tree_level``, one level's frontier
+per pass) and ``commit_verify`` (in-place masked commit of K/V, a gather
+of each SSM layer's candidate at ``n_accepted``; a tree's accepted path
+through ``path_nodes``). ``decode_step``, ``verify_step``,
+``verify_tree``, ``draft_tree_level`` and ``commit_verify`` also take a
+block-paged cache (``models.paged``) through ``pages`` / ``page_size``.
+MoE, encoder-decoder and frontend families and absolute-position models
+raise ``NotImplementedError`` naming the slice of the port they arrive
+with.
 """
 from __future__ import annotations
 
@@ -451,10 +455,13 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *,
 
 
 def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
-                  active=None, pages=None, page_size=0, plan_len=0,
-                  fused=False):
+                  active=None, tree=None, pages=None, page_size=0,
+                  plan_len=0, fused=False):
     """One period of layers over S speculative positions (read-only cache).
-    Returns (h, per-layer K/V candidates for ``commit_verify``)."""
+    Returns (h, per-layer write candidates for ``commit_verify``). With
+    ``tree`` (a static topology, see ``verify_tree``) the S positions are a
+    flattened token tree: attention gets its depths and ancestor mask, the
+    SSM recurrence follows parent pointers."""
     cand = {}
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
@@ -462,11 +469,18 @@ def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
         if cfg.layer_kind(p) == "attn":
             mix, cand[f"pos{p}"] = L.mha_verify(
                 lp["attn"], hn, group_cache[f"pos{p}"], pos, cfg,
-                active=active, pages=pages, page_size=page_size,
-                plan_len=plan_len, fused=fused)
-        else:
+                active=active,
+                node_depth=None if tree is None else tree.depths,
+                tree_bias=None if tree is None else tree.ancestor_bias,
+                pages=pages, page_size=page_size, plan_len=plan_len,
+                fused=fused)
+        elif tree is None:
             mix, cand[f"pos{p}"] = SSM.ssm_verify_step(
                 lp["ssm"], hn, group_cache[f"pos{p}"], cfg, active=active)
+        else:
+            mix, cand[f"pos{p}"] = SSM.ssm_verify_tree(
+                lp["ssm"], hn, group_cache[f"pos{p}"], cfg, tree,
+                active=active)
         h = h + mix
         if cfg.d_ff:
             hn = L.apply_norm(lp["norm2"], h, cfg)
@@ -502,12 +516,21 @@ def verify_step(params, cache, tokens, cfg: ModelConfig, *,
                          f"sliding window ({cfg.sliding_window}); use a "
                          f"draft length K <= window - 1")
     h = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    return _verify_groups(params, cache, h, cfg, depth, active=active,
+                          pages=pages, page_size=page_size,
+                          plan_len=plan_len, fused=fused)
+
+
+def _verify_groups(params, cache, h, cfg: ModelConfig, depth, tree=None,
+                   **kw):
+    """Run ``_group_verify`` over the first ``depth`` groups: (logits,
+    pending) with each layer's candidates stacked over the groups."""
+    pos = cache["pos"]
     cands = []
     for g in range(depth):
         h, c = _group_verify(_tree_index(params["stack"], g),
                              _tree_index(cache["stack"], g), h, pos, cfg,
-                             active=active, pages=pages, page_size=page_size,
-                             plan_len=plan_len, fused=fused)
+                             tree=tree, **kw)
         cands.append(c)
     pend = {pn: {k: torch.stack([c[pn][k] for c in cands]) for k in cands[0][pn]}
             for pn in cands[0]}
@@ -515,18 +538,152 @@ def verify_step(params, cache, tokens, cfg: ModelConfig, *,
     return logits, {"stack": pend}
 
 
-def verify_tree(*args, **kwargs):
-    """Token-tree verifier: arrives with the tree slice of the port
-    (``repro.models.model.verify_tree`` is its reference)."""
-    raise NotImplementedError("verify_tree arrives with the tree slice of "
-                              "the port")
+def verify_tree(params, cache, tokens, cfg: ModelConfig, *, tree,
+                depth: Optional[int] = None, active=None, pages=None,
+                page_size=0, plan_len=0, fused=False):
+    """Token-tree verifier: score a whole candidate tree in one pass.
+
+    ``tokens`` (B, N) is the flattened tree in BFS level order, node 0 each
+    slot's last committed token, every other node a drafted candidate
+    continuing its parent. ``tree`` is the static topology
+    (``runtime.speculative.TreeTopology``): ``depths`` put node j at
+    absolute position ``pos + depths[j]``, ``ancestor_bias`` restricts each
+    node's attention among the new keys to its own root path (positions
+    cannot separate siblings at one depth), ``paths`` / ``parents`` drive
+    the SSM conv windows and state recurrence down each branch. The cache
+    is read, never written, so any root-to-leaf path can be committed.
+
+    Returns ``(logits (B, N, Vp), pending)``: row j is the next-token
+    distribution after the root-to-j path (what chained ``decode_step``
+    calls down that branch give), and ``pending`` the per-NODE write
+    candidates, committed along the accepted path by
+    ``commit_verify(..., path_nodes=...)``. ``depth``, ``active``,
+    ``pages``, ``page_size``, ``plan_len`` and ``fused`` as in
+    ``verify_step``."""
+    depth = depth if depth is not None else cfg.n_groups
+    pos = cache["pos"]
+    if pos.dim() != 1:
+        raise ValueError("verify_tree needs a per-slot cache (pos of shape (B,))")
+    B, N = tokens.shape
+    if N != tree.n_nodes:
+        raise ValueError(f"tokens carry {N} nodes, topology has {tree.n_nodes}")
+    if cfg.sliding_window and tree.n_levels + 1 > cfg.sliding_window:
+        # commit_verify's rolling scatter would alias buffer slots
+        raise ValueError(f"tree of depth {tree.n_levels} exceeds the sliding "
+                         f"window ({cfg.sliding_window}); bound the tree "
+                         f"depth at window - 1")
+    h = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    return _verify_groups(params, cache, h, cfg, depth, tree=tree,
+                          active=active, pages=pages, page_size=page_size,
+                          plan_len=plan_len, fused=fused)
 
 
-def draft_tree_level(*args, **kwargs):
-    """One level of the KV-carrying tree draft: arrives with the tree slice
-    of the port (``repro.models.model.draft_tree_level``)."""
-    raise NotImplementedError("draft_tree_level arrives with the tree slice "
-                              "of the port")
+def _group_tree_level(group_params, group_cache, group_carry, h, pos,
+                      cfg: ModelConfig, *, level, tree, active=None,
+                      pages=None, page_size=0):
+    """One period of layers over one tree-draft level's frontier: attention
+    against the committed cache plus the carried K/V
+    (``layers.mha_tree_level``), the SSM recurrence one step from each
+    parent's carried state (``ssm.ssm_tree_level``). Returns (h, each
+    layer's new carry rows for the frontier)."""
+    rows = {}
+    f0, f1 = tree.level_nodes(level)
+    for p in range(cfg.period):
+        lp = group_params[f"pos{p}"]
+        cp, cr = group_cache[f"pos{p}"], group_carry[f"pos{p}"]
+        hn = L.apply_norm(lp["norm1"], h, cfg)
+        if cfg.layer_kind(p) == "attn":
+            mix, rows[f"pos{p}"] = L.mha_tree_level(
+                lp["attn"], hn, cp, pos, cfg, cr, level=level,
+                carry_depths=tree.depths[:f1],
+                bias=tree.ancestor_bias[f0:f1, :f1], active=active,
+                pages=pages, page_size=page_size)
+        else:
+            mix, rows[f"pos{p}"] = SSM.ssm_tree_level(
+                lp["ssm"], hn, cp, cr, cfg, parents=tree.parents[f0:f1],
+                active=active)
+        h = h + mix
+        if cfg.d_ff:
+            hn = L.apply_norm(lp["norm2"], h, cfg)
+            h = h + L.apply_mlp(lp["mlp"], hn, cfg,
+                                active_ff=active.get("d_ff") if active else None)
+    return h, rows
+
+
+def tree_carry_nodes(tree) -> int:
+    """Carry rows the KV-carrying tree draft needs = nodes it processes per
+    launch: every node but the last level's (leaves get no children)."""
+    if tree.n_levels == 0:
+        return 1
+    return tree.level_nodes(tree.n_levels - 1)[1]
+
+
+def init_tree_draft_carry(cfg: ModelConfig, batch: int, tree,
+                          depth: Optional[int] = None, device=None) -> Cache:
+    """Zeroed per-node carry for ``draft_tree_level``: the cache stack's
+    layout over the first ``depth`` groups, ``tree_carry_nodes`` rows on the
+    node axis. Attention layers carry round-tripped K/V rows
+    ``(depth, B, Nc, KV, hd)``; SSM layers post-consume conv tails
+    ``(depth, B, Nc, K-1, C)`` and the state ``(depth, B, Nc, nh, hp, n)``
+    in f32."""
+    depth = depth if depth is not None else cfg.n_groups
+    dev = resolve_device(device)
+    nc = tree_carry_nodes(tree)
+    dt = dtype_of(cfg.dtype)
+    lead = (depth, batch, nc)
+
+    def one_layer(p: int):
+        if cfg.layer_kind(p) == "attn":
+            shape = lead + (cfg.n_kv_heads, cfg.head_dim)
+            return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+        kk = cfg.ssm_conv
+        d_in = cfg.ssm_nheads * cfg.ssm_head_dim
+        bc = 2 * cfg.ssm_ngroups * cfg.ssm_state
+        return {"conv_x": torch.zeros(lead + (kk - 1, d_in), dtype=dt,
+                                      device=dev),
+                "conv_bc": torch.zeros(lead + (kk - 1, bc), dtype=dt,
+                                       device=dev),
+                "state": torch.zeros(lead + (cfg.ssm_nheads,
+                                             cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=torch.float32, device=dev)}
+
+    return {"stack": {f"pos{p}": one_layer(p) for p in range(cfg.period)}}
+
+
+def draft_tree_level(params, cache, carry, tokens_lvl, cfg: ModelConfig, *,
+                     tree, level: int, depth: Optional[int] = None,
+                     active=None, pages=None, page_size=0):
+    """Score ONE level of a draft token tree, carrying K/V forward.
+
+    ``tokens_lvl`` (B, nf) is the frontier at ``level`` (level 0: the root,
+    the last committed token). The committed per-slot ``cache`` is read
+    only; what deeper levels need is written into ``carry`` (from
+    ``init_tree_draft_carry``) at the frontier's rows, in place. Over the
+    levels this gives ``verify_tree``'s frontier rows while touching each
+    node once. Returns (logits (B, nf, Vp), carry)."""
+    depth = depth if depth is not None else cfg.n_groups
+    pos = cache["pos"]
+    if pos.dim() != 1:
+        raise ValueError("draft_tree_level needs a per-slot cache (pos (B,))")
+    B, nf = tokens_lvl.shape
+    f0, f1 = tree.level_nodes(level)
+    if f1 - f0 != nf:
+        raise ValueError(f"level {level} frontier is {f1 - f0} nodes, "
+                         f"tokens carry {nf}")
+    h = params["embed"][tokens_lvl].to(dtype_of(cfg.dtype))
+    for g in range(depth):
+        gcar = _tree_index(carry["stack"], g)
+        h, rows = _group_tree_level(_tree_index(params["stack"], g),
+                                    _tree_index(cache["stack"], g), gcar, h,
+                                    pos, cfg, level=level, tree=tree,
+                                    active=active, pages=pages,
+                                    page_size=page_size)
+        for pn, layer in rows.items():
+            for k, r in layer.items():
+                gcar[pn][k][:, f0:f1] = r.to(gcar[pn][k].dtype)
+    logits = _logits(params, h, cfg, _exit_norm(params, cfg, depth))
+    return logits, carry
 
 
 def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
@@ -547,15 +704,28 @@ def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
     offset), and a rejected position writes the pool's own contents back,
     as in the dense scatter (a boolean-mask write would read the accepted
     count back to the host once per leaf); the host then frees the tail
-    pages speculation reached past the commit."""
-    if path_nodes is not None:
-        raise NotImplementedError("token-tree commits (path_nodes) arrive "
-                                  "with the tree slice of the port")
+    pages speculation reached past the commit.
+
+    ``path_nodes`` (B, L) commits a token tree (``verify_tree``'s per-node
+    candidates): the node indices of each slot's accepted root-to-leaf path
+    (entry 0 the root, entries past ``n_accepted`` any valid pad). K/V
+    candidates are gathered along the path, after which the accepted
+    branch is a linear window and the masked scatter applies unchanged; an
+    SSM layer takes the candidate of node ``path_nodes[b, n_accepted[b]]``."""
     pos = cache["pos"]
     n_acc = torch.as_tensor(n_accepted, device=pos.device).long()
     pend = pending["stack"]
     first = next(iter(next(iter(pend.values())).values()))
     d, B, S = first.shape[:3]
+    sel = n_acc  # the SSM candidate each slot takes
+    if path_nodes is not None:
+        path = torch.as_tensor(path_nodes, device=pos.device).long()
+        sel = path.gather(1, n_acc[:, None])[:, 0]
+        bix = torch.arange(B, device=pos.device)[:, None]
+        pend = {pn: {k: (t[:, bix, path] if k in ("k", "v") else t)
+                     for k, t in layer.items()}
+                for pn, layer in pend.items()}
+        S = path.shape[1]
     j = torch.arange(S, device=pos.device)
     acc = j[None, :] <= n_acc[:, None]  # (B, S)
     tgt = pos.long()[:, None] + j[None, :]
@@ -572,8 +742,8 @@ def commit_verify(cache, pending, n_accepted, cfg: ModelConfig,
         sub[(slice(None),) + rows] = torch.where(m, new.to(full.dtype), old)
 
     def select_step(full, new):
-        """full (G, B, ...) <- candidate n_accepted of new (d, B, S, ...)."""
-        ix = n_acc.reshape((1, B, 1) + (1,) * (new.dim() - 3))
+        """full (G, B, ...) <- candidate ``sel`` of new (d, B, S, ...)."""
+        ix = sel.reshape((1, B, 1) + (1,) * (new.dim() - 3))
         ix = ix.expand((d, B, 1) + tuple(new.shape[3:]))
         full[:d].copy_(torch.gather(new, 2, ix)[:, :, 0])
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,9 +42,6 @@ from repro_torch.kernels.ref import ssd_reference  # noqa: F401 (re-export)
 from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: F401 (re-export)
 from repro_torch.models.layers import (apply_norm, apply_norm_masked,
                                        dense_init, matmul, morph_proj)
-
-_TREE_SLICE = "arrives with the tree slice of the port"
-
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None):
     """Seeded SSM block parameters with the JAX tree keys, shapes and init
@@ -280,19 +278,145 @@ def ssm_verify_step(params, x, cache, cfg: ModelConfig, active=None):
                  "state": torch.stack(states, dim=1)}
 
 
-def ssm_verify_tree(*args, **kwargs):
-    """Token-tree verify of an SSM layer: arrives with the tree slice of
-    the port (``repro.models.ssm.ssm_verify_tree`` is its reference)."""
-    raise NotImplementedError(f"ssm_verify_tree {_TREE_SLICE}")
+def _window_conv(win, w, b, dtype):
+    """Depthwise conv of per-node windows: win (B, Q, K, C), w (C, K),
+    b (C,) -> (B, Q, C) in ``dtype``."""
+    y = torch.einsum("bqkc,ck->bqc", win.float(), w.float())
+    return (y + b.float()).to(dtype)
 
 
-def ssm_tree_level(*args, **kwargs):
-    """One tree-draft level of an SSM layer: arrives with the tree slice of
-    the port (``repro.models.ssm.ssm_tree_level``)."""
-    raise NotImplementedError(f"ssm_tree_level {_TREE_SLICE}")
+def _path_conv(u, w, b, tail, paths):
+    """Per-node causal conv along each tree node's ancestor path.
+
+    u: (B, N, C) per-node conv inputs in tree order; ``paths`` the static
+    root-to-node index paths. Node q's window is the last K entries of the
+    cached tail (B, K-1, C) followed by the inputs along q's path: what
+    ``depth(q) + 1`` chained decode steps down that branch would see.
+    Returns (y (B, N, C), tails (B, N, K-1, C) the per-node post-consume
+    tails). One gather for all nodes."""
+    K = w.shape[1]
+    ext = torch.cat([tail.to(u.dtype), u], dim=1)  # tail rows, then nodes
+    idx = []
+    for path in paths:
+        seq = list(range(K - 1)) + [K - 1 + n for n in path]
+        idx.append(seq[-K:])  # len(seq) = K-1 + depth+1 >= K always
+    idx = torch.tensor(idx, dtype=torch.int64, device=u.device)  # (N, K)
+    win = ext[:, idx]  # (B, N, K, C)
+    return _window_conv(win, w, b, u.dtype), win[:, :, 1:]
 
 
-def _path_conv(*args, **kwargs):
-    """Per-node causal conv along a tree path: arrives with the tree slice
-    of the port (``repro.models.ssm._path_conv``)."""
-    raise NotImplementedError(f"_path_conv {_TREE_SLICE}")
+def _softplus(x):
+    """softplus(x) = log1p(exp(x)) from exp, log and a division (Kahan's
+    log1p; within 3e-7 relative of ``F.softplus``). PyTorch's CPU softplus
+    and log1p take a scalar path for a tensor's trailing elements whose last
+    bit differs from their vector path, so a row's value would depend on how
+    many rows one call scores; these three ops give every element the same
+    bits at any size, so a tree node's dt is the same whether its level or
+    its whole tree is scored."""
+    e = torch.exp(x)
+    u = 1.0 + e
+    y = torch.where(u == 1.0, e, torch.log(u) * (e / (u - 1.0)))
+    return torch.where(x > 20.0, x, y)
+
+
+def _tree_gate_in(params, x, cfg: ModelConfig, active, conv):
+    """The tree passes' shared front half: projections, the per-node conv
+    (``conv(u, w, b, cache_key)`` -> (y, tails)), activations and the SSD
+    operands. Returns (a_in, z, xh, dt, A, B_, C_, x_tails, bc_tails)."""
+    nh = params["A_log"].shape[0]
+    hp = cfg.ssm_head_dim
+    g, n = cfg.ssm_ngroups, cfg.ssm_state
+    B, N, _ = x.shape
+    a_in, xs, z, bc, dt_raw = _projections(params, x, cfg, active)
+    xs_conv, x_tails = conv(xs, params["conv_x_w"][: nh * hp],
+                            params["conv_x_b"][: nh * hp], "conv_x")
+    bc_conv, bc_tails = conv(bc, params["conv_bc_w"], params["conv_bc_b"],
+                             "conv_bc")
+    xs_f = F.silu(xs_conv.float())  # (B, N, d_in)
+    bc_f = F.silu(bc_conv.float())
+    B_, C_ = (t.repeat_interleave(nh // g, dim=2)
+              for t in _split_bc(bc_f, g, n))
+    dt = _softplus(dt_raw.float() + params["dt_bias"].float())  # (B,N,nh)
+    A = -torch.exp(params["A_log"].float())
+    return (a_in, z, xs_f.reshape(B, N, nh, hp), dt, A, B_, C_, x_tails,
+            bc_tails)
+
+
+def _tree_gate_out(params, states, C_, xh, z, cfg: ModelConfig, dt_, a_in):
+    """The tree passes' shared back half: y = C.h + D x, gated norm, out."""
+    B, N, nh, hp = xh.shape
+    ys = torch.einsum("bqhpn,bqhn->bqhp", states, C_)
+    y = ys + params["D"].float()[:, None] * xh
+    return _gated_out(params, y.reshape(B, N, nh * hp), z, cfg, dt_, a_in)
+
+
+def ssm_verify_tree(params, x, cache, cfg: ModelConfig, tree, active=None):
+    """Token-tree verify pass: score every tree node in one pass.
+
+    The math of chaining ``ssm_decode_step`` down every root-to-leaf branch
+    (conv windows and recurrent state both follow the ancestor path, read
+    from the committed cache, never written): node q's state is
+    ``decay_q * state_parent(q) + upd_q``, the root chaining off
+    ``cache["state"]``. The recurrence runs one level at a time, every node
+    of a level from its parent's state at once. ``tree`` is the static
+    topology (``paths``, ``parents``, ``level_nodes``).
+
+    Returns (y (B, N, d), candidates) with per-node ``conv_x`` / ``conv_bc``
+    tails (B, N, K-1, C) and ``state`` (B, N, nh, hp, n): entry q is the
+    value after consuming the path ending at node q."""
+    def conv(u, w, b, key):
+        return _path_conv(u, w, b, cache[key], tree.paths)
+
+    a_in, z, xh, dt, A, B_, C_, x_tails, bc_tails = _tree_gate_in(
+        params, x, cfg, active, conv)
+    decay = torch.exp(dt * A)  # (B, N, h)
+    upd = torch.einsum("bqhp,bqhn->bqhpn", xh * dt[..., None], B_)
+    states = torch.empty_like(upd)
+    states[:, 0] = cache["state"] * decay[:, 0, :, None, None] + upd[:, 0]
+    for level in range(1, tree.n_levels + 1):
+        f0, f1 = tree.level_nodes(level)
+        par = torch.as_tensor(tree.parents[f0:f1], dtype=torch.int64,
+                              device=x.device)
+        states[:, f0:f1] = (states[:, par] * decay[:, f0:f1, :, None, None]
+                            + upd[:, f0:f1])
+    out = _tree_gate_out(params, states, C_, xh, z, cfg, x.dtype, a_in)
+    return out, {"conv_x": x_tails, "conv_bc": bc_tails, "state": states}
+
+
+def ssm_tree_level(params, x, cache, carry, cfg: ModelConfig, *, parents,
+                   active=None):
+    """One tree-draft LEVEL of the SSM recurrence: each frontier node
+    advances one step from its parent's carried state.
+
+    x: (B, nf, d) frontier embeddings; ``carry`` holds the post-consume
+    values of processed nodes, ``conv_x`` / ``conv_bc`` tails
+    (B, Nc, K-1, C) and ``state`` (B, Nc, nh, hp, n); ``parents`` is the
+    static (nf,) carry row of each frontier node's parent (-1: chain off
+    the committed ``cache``, the root level). A node's conv window is its
+    parent's tail followed by its own input, the last K entries of the path
+    window ``_path_conv`` builds, and the state reads the same parent
+    state: the frontier rows of ``ssm_verify_tree``.
+
+    Returns (y (B, nf, d), rows) with per-node ``conv_x`` / ``conv_bc``
+    tails (B, nf, K-1, C) and ``state`` (B, nf, nh, hp, n), ready to write
+    into the carry at the frontier rows."""
+    if int(parents[0]) < 0:  # root level: nf == 1, chain off the cache
+        par_of = {k: cache[k][:, None] for k in ("conv_x", "conv_bc",
+                                                 "state")}
+    else:
+        pidx = torch.as_tensor(np.asarray(parents), dtype=torch.int64,
+                               device=x.device)
+        par_of = {k: carry[k][:, pidx] for k in ("conv_x", "conv_bc",
+                                                 "state")}
+
+    def conv(u, w, b, key):
+        win = torch.cat([par_of[key].to(u.dtype), u[:, :, None, :]], dim=2)
+        return _window_conv(win, w, b, u.dtype), win[:, :, 1:]
+
+    a_in, z, xh, dt, A, B_, C_, x_tails, bc_tails = _tree_gate_in(
+        params, x, cfg, active, conv)
+    decay = torch.exp(dt * A)  # (B, nf, h)
+    upd = torch.einsum("bqhp,bqhn->bqhpn", xh * dt[..., None], B_)
+    states = par_of["state"].float() * decay[..., None, None] + upd
+    out = _tree_gate_out(params, states, C_, xh, z, cfg, x.dtype, a_in)
+    return out, {"conv_x": x_tails, "conv_bc": bc_tails, "state": states}

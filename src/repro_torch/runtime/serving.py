@@ -23,12 +23,18 @@ observability.
   the port's hardware spec (H100 data-sheet peaks), corrected online by
   measured per-mode telemetry.
 
-* **Self-speculative decoding (linear K).** With
+* **Self-speculative decoding, linear and token-tree drafts.** With
   ``speculative=SpecConfig(...)`` each depth group that has a shallower
-  exit drafts K tokens there and verifies K+1 positions in one full-depth
-  pass per tick (``runtime.speculative``); the commit happens on the
-  device and the host reads ``(out_tokens, n_accepted)`` once per tick.
-  Acceptance telemetry feeds ``SLOPolicy.choose_spec_k``; an acceptance
+  exit drafts at that exit and verifies in one full-depth pass per tick
+  (``runtime.speculative``): a linear draft chains K tokens and verifies
+  K+1 positions; a token tree (``SpecConfig.trees``, a static branching
+  schedule) is drafted level by level with K/V carried forward, verified
+  in one ``verify_tree`` pass (ancestor-mask attention, per-node SSM
+  state) and its accepted root-to-leaf path committed through a path-index
+  gather. The commit happens on the device and the host reads
+  ``(out_tokens, n_accepted)`` once per tick. Acceptance telemetry feeds
+  the SLO policy's draft-shape choice (``choose_tree``: a tree, a linear K
+  or plain stepping; ``choose_spec_k`` without trees); an acceptance
   collapse falls back to plain stepping for a cooloff
   (``spec_fallback_log``).
 * **Sampling.** ``temperature > 0`` (and ``top_k``) sample from per-slot
@@ -49,8 +55,11 @@ observability.
 
 ``fused=True`` routes every attention layer through the fused decode and
 verify kernels (a closure flag on the step callables; SSM layers have no
-fused path and ignore it). Token trees, snapshot/restore and mesh
-executors arrive with later slices of the port and raise here.
+fused path and ignore it; a tree draft's level passes take the einsum
+path, as the reference's do). Every tick and the warmup run under
+``torch.no_grad()``, so parameters that require grad (fresh from
+training) serve as they are. Snapshot/restore and mesh executors arrive
+with later slices of the port and raise here.
 """
 from __future__ import annotations
 
@@ -82,10 +91,21 @@ from repro_torch.runtime.paged_cache import BlockAllocator, RadixCache
 from repro_torch.runtime.speculative import (SpecConfig, SpecTelemetry,
                                              draft_compile_key,
                                              expected_tokens_per_launch,
+                                             expected_tokens_per_tree_launch,
                                              per_candidate_accept_rate,
+                                             tree_draft_compile_key,
+                                             tree_node_budget,
+                                             tree_verify_compile_key,
                                              verify_compile_key)
 
 SLO_CLASSES = ("interactive", "batch")
+
+
+def _shape_label(shape) -> str:
+    """Draft-shape label: ``k3`` linear lengths, ``t3x2x1`` tree schedules."""
+    if isinstance(shape, tuple):
+        return "t" + "x".join(str(b) for b in shape)
+    return f"k{shape}"
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +283,40 @@ class SLOPolicy:
             if gain - prev > cut * (k - best) / max(max(ks), 1):
                 best = k
         return best
+
+    def choose_tree(self, trees: Sequence[Tuple[int, ...]],
+                    ks: Sequence[int], accept_rate: float,
+                    queue_depths: Optional[Dict[str, int]] = None,
+                    min_accept_rate: float = 0.05) -> Tuple[str, object]:
+        """Pick the draft shape for the next speculative ticks: a token tree
+        from the built ``trees`` table, a linear K from ``ks``, or plain
+        stepping. Each candidate is ranked by expected tokens per verify
+        launch at the measured acceptance rate
+        (``expected_tokens_per_tree_launch``: a level of b siblings survives
+        with prob 1 - (1-a)^b) minus a queue-pressure-scaled node cost, so
+        a backlog shrinks the tree as it shrinks K. Below
+        ``min_accept_rate`` every draft is expected waste: ``("plain",
+        None)``. Returns ``("tree", branching)``, ``("linear", k)`` or
+        ``("plain", None)``."""
+        if accept_rate < min_accept_rate:
+            return ("plain", None)
+        cands = ([("linear", k, k) for k in sorted(set(ks))]
+                 + [("tree", tuple(br), tree_node_budget(br))
+                    for br in trees])
+        if not cands:
+            return ("plain", None)
+        pressure = self._queue_pressure(queue_depths)
+        cut = self.queue_gamma * pressure / (1.0 + self.queue_gamma * pressure)
+        max_nodes = max(nodes for _, _, nodes in cands)
+
+        def value(kind, shape, nodes):
+            e = (expected_tokens_per_launch(accept_rate, shape)
+                 if kind == "linear"
+                 else expected_tokens_per_tree_launch(accept_rate, shape))
+            return e - cut * nodes / max(max_nodes, 1)
+
+        best = max(cands, key=lambda c: value(*c))
+        return (best[0], best[1])
 
 
 # ---------------------------------------------------------------------------
@@ -580,9 +634,11 @@ class _DepthGroup:
     slots: List[Optional[Request]]
     widths: List[float]  # admission width per slot (stale for free slots)
     keys: Optional[torch.Tensor] = None  # (B,) per-slot sample keys
-    # speculative state (spec_k 0: this depth has no shallower exit, or
-    # speculation is off engine-wide)
+    # speculative state (spec_k 0 and spec_tree None: this depth has no
+    # shallower exit, or speculation is off engine-wide); the active token
+    # tree takes precedence over spec_k (the SLO policy switches them)
     spec_k: int = 0
+    spec_tree: Optional[Tuple[int, ...]] = None
     spec_off_until: int = -1  # tick until which speculation cools off
     accept_window: Optional[Deque[float]] = None
     paging: Optional[_GroupPaging] = None  # block-paged cache bookkeeping
@@ -616,6 +672,7 @@ class ServingEngine:
         "ticks_with_work": "engine_ticks_with_work",
         "spec_draft_launches": "engine_spec_draft_launches",
         "spec_verify_launches": "engine_spec_verify_launches",
+        "spec_tree_launches": "engine_spec_tree_launches",
         "spec_generated_tokens": "engine_spec_generated_tokens",
         "backpressure_events": "engine_backpressure_events",
     }
@@ -634,13 +691,21 @@ class ServingEngine:
                  observability: Optional[Observability] = None,
                  device=None):
         if speculative is not None and cfg.sliding_window:
-            # the verify commit's rolling scatter would alias buffer slots
+            # bound every draft shape's depth at the rolling window: the
+            # verify commit's rolling scatter would alias buffer slots
             k_max = max(speculative.ks, default=0)
             if k_max + 1 > cfg.sliding_window:
                 raise ValueError(
                     f"speculative K={k_max} needs K+1 <= sliding_window "
                     f"({cfg.sliding_window}): the verify commit's rolling "
                     f"scatter would alias buffer slots")
+            for br in speculative.trees:
+                if len(br) + 1 > cfg.sliding_window:
+                    raise ValueError(
+                        f"speculative tree {br} is {len(br)} levels deep; "
+                        f"needs depth+1 <= sliding_window "
+                        f"({cfg.sliding_window}): the verify commit's "
+                        f"rolling scatter would alias buffer slots")
         if (speculative is not None and top_k and speculative.top_k
                 and speculative.top_k != top_k):
             raise ValueError(
@@ -703,12 +768,20 @@ class ServingEngine:
                                         cache_capacity)
             plan = self._spec_plan.get(d)
             if plan is not None:
-                g.spec_k = max(plan.ks)
+                g.spec_k = max(plan.ks, default=0)
+                if plan.trees:
+                    # optimistic default until telemetry arrives: the tree
+                    # with the best expected tokens per launch at high
+                    # agreement (trained exits are built to agree)
+                    g.spec_tree = max(
+                        plan.trees,
+                        key=lambda br: expected_tokens_per_tree_launch(
+                            0.75, br))
                 g.accept_window = deque(maxlen=speculative.window)
             self.groups[d] = g
-        # acceptance telemetry per (depth, draft_depth, K): feeds the SLO
-        # policy's K choice and the fallback decision
-        self.spec_telemetry: Dict[Tuple[int, int, int], SpecTelemetry] = {}
+        # acceptance telemetry per (depth, draft_depth, draft shape): feeds
+        # the SLO policy's draft-shape choice and the fallback decision
+        self.spec_telemetry: Dict[Tuple, SpecTelemetry] = {}
         reg = self.metrics
         self._ev_spec_fallback = reg.events(
             "engine_spec_fallback", ("step", "depth", "rate", "off_until"))
@@ -750,6 +823,7 @@ class ServingEngine:
         self.ticks_with_work = 0
         self.spec_draft_launches = 0
         self.spec_verify_launches = 0
+        self.spec_tree_launches = 0  # verify launches that scored a tree
         self.spec_generated_tokens = 0
         self.backpressure_events = 0
         # per-slot width tensors memoized by widths tuple: widths only change
@@ -822,9 +896,9 @@ class ServingEngine:
         for d, stats in self.page_pool_stats().items():
             out.update({f"kv_pool_d{d}_{k}": float(v)
                         for k, v in stats.items()})
-        for (d, dd, k), t in self.spec_telemetry.items():
+        for (d, dd, shape), t in self.spec_telemetry.items():
             if t.launches:
-                out.update(t.metric_values(f"spec_d{d}_k{k}"))
+                out.update(t.metric_values(f"spec_d{d}_{_shape_label(shape)}"))
         return out
 
     def export_metrics(self, events: bool = False) -> Dict:
@@ -835,16 +909,18 @@ class ServingEngine:
 
     # -- lifecycle ----------------------------------------------------------
 
+    @torch.no_grad()
     def warmup(self) -> None:
         """Build every depth's step (and, when speculating, every draft and
-        verify step) and run each once, then rewind.
+        verify step, linear and tree) and run each once, then rewind.
 
         After this, ``self.ctrl.stats['compiles']`` is frozen at
-        ``len(depths)`` plus one draft per (draft_depth, K) and one verify
-        per (depth, K) (and, paged, one decode step per (depth, bucket)):
-        width and depth churn, K switches, bucket changes and the fallback
-        to plain stepping re-dispatch these steps. The first draft call also
-        allocates the draft's scratch cache."""
+        ``len(depths)`` plus one draft per (draft_depth, shape) and one
+        verify per (depth, shape) (and, paged, one decode step per (depth,
+        bucket)): width and depth churn, draft-shape switches, bucket
+        changes and the fallback to plain stepping re-dispatch these steps.
+        The first draft call also allocates the draft's scratch cache (a
+        tree draft: its carry)."""
         self.ctrl.warmup()
         tok = self.executor.put(np.zeros((self.batch_size, 1), np.int64))
         active = self._active_for([1.0] * self.batch_size)
@@ -879,6 +955,14 @@ class ServingEngine:
                                      torch.cat([tok, dtoks], dim=1), dlg,
                                      active, g.keys, self.temperature, 0,
                                      *extra)
+            for br in (plan.trees if plan is not None else ()):
+                draft = self.ctrl.aux_step(
+                    tree_draft_compile_key(plan.draft_depth, br))
+                verify = self.ctrl.aux_step(tree_verify_compile_key(d, br))
+                ttoks, dlg = draft(self.params, cache, tok, active, g.keys,
+                                   self.temperature, 0, *extra)
+                _, _, cache = verify(self.params, cache, ttoks, dlg, active,
+                                     g.keys, self.temperature, 0, *extra)
             cache = self._reset(cache, mask)
             _block_until_ready(cache)
             g.cache = self.executor.init_cache()  # warmup wrote pos 0
@@ -936,13 +1020,15 @@ class ServingEngine:
     def _worst_case_pages(self, g: _DepthGroup, req: Request) -> int:
         """Pages admitting ``req`` into ``g`` can ever map at once: up to
         the highest decode write position (``prompt + new - 2``) plus the
-        longest draft the group may speculate past it; a prefill maps
+        deepest draft shape (a linear K, a tree's level count) the group may
+        speculate past it; a prefill maps
         ``plen // page_size + 1`` pages up front."""
         pg = g.paging
         plan = self._spec_plan.get(g.depth)
-        headroom = (max(plan.ks, default=0)
-                    if self.speculative is not None and plan is not None
-                    else 0)
+        headroom = 0
+        if self.speculative is not None and plan is not None:
+            headroom = max(list(plan.ks) + [len(br) for br in plan.trees],
+                           default=0)
         last = len(req.prompt) + req.max_new_tokens - 2 + headroom
         need = max(last, len(req.prompt)) // pg.ps + 1
         return min(need, pg.cap_pages)
@@ -1154,35 +1240,55 @@ class ServingEngine:
         if req.done:
             self._complete(g, slot, req, now_s)
 
-    def _spec_select(self, g: _DepthGroup) -> int:
-        """The draft length K to speculate with this tick, or 0 (plain
-        step). A group speculates only when the depth has a shallower exit,
-        speculation is not cooling off after an acceptance collapse, and
-        every active slot has fed its prompt up to the last token and has
-        K + 1 cache positions of headroom."""
+    def _spec_select(self, g: _DepthGroup):
+        """The draft shape to speculate with this tick: ``("tree",
+        branching)``, ``("linear", k)``, or ``None`` (plain step). A group
+        speculates only when the depth has a shallower exit, speculation is
+        not cooling off after an acceptance collapse, and every active slot
+        has fed its prompt up to the last token and has draft-depth + 1
+        cache positions of headroom. The active token tree (``spec_tree``)
+        takes precedence over the linear draft length."""
         if self.speculative is None or g.depth not in self._spec_plan:
-            return 0
-        if self.step_count < g.spec_off_until or g.spec_k <= 0:
-            return 0
+            return None
+        if self.step_count < g.spec_off_until:
+            return None
+        if g.spec_tree is not None:
+            sel, draft_depth = ("tree", g.spec_tree), len(g.spec_tree)
+        elif g.spec_k > 0:
+            sel, draft_depth = ("linear", g.spec_k), g.spec_k
+        else:
+            return None
         for r in g.slots:
             if r is None:
                 continue
             if r.fed < len(r.prompt) - 1:
-                return 0
-            if r.fed + g.spec_k + 1 > self.cache_capacity:
-                return 0
-        return g.spec_k
+                return None
+            if r.fed + draft_depth + 1 > self.cache_capacity:
+                return None
+        return sel
 
-    def _spec_tick(self, g: _DepthGroup, k: int, active_ix: List[int],
+    def _spec_tick(self, g: _DepthGroup, sel, active_ix: List[int],
                    now_s: float) -> float:
-        """One speculative step for a depth group: draft K tokens at the
-        shallow exit, verify all K+1 positions in one full-depth pass and
-        commit the accepted prefix on the device. ONE host transfer brings
-        back (out_tokens, n_accepted) for the slot bookkeeping."""
+        """One speculative step for a depth group: draft at the shallow exit
+        (a linear K-token chain or a token tree), verify every position in
+        one full-depth pass and commit the accepted prefix or path on the
+        device. ONE host transfer brings back (out_tokens, n_accepted) for
+        the slot bookkeeping."""
         plan = self._spec_plan[g.depth]
-        self.executor.launch("verify")
-        draft = self.ctrl.aux_step(draft_compile_key(plan.draft_depth, k))
-        verify = self.ctrl.aux_step(verify_compile_key(g.depth, k))
+        kind, shape = sel
+        site = "tree_verify" if kind == "tree" else "verify"
+        self.executor.launch(site)
+        if kind == "tree":
+            draft = self.ctrl.aux_step(
+                tree_draft_compile_key(plan.draft_depth, shape))
+            vkey = tree_verify_compile_key(g.depth, shape)
+            depth_budget = len(shape)  # most drafts one launch accepts
+        else:
+            draft = self.ctrl.aux_step(draft_compile_key(plan.draft_depth,
+                                                         shape))
+            vkey = verify_compile_key(g.depth, shape)
+            depth_budget = shape
+        verify = self.ctrl.aux_step(vkey)
         toks = np.zeros((self.batch_size, 1), np.int64)
         for i in active_ix:
             toks[i, 0] = g.slots[i].next_input()
@@ -1192,20 +1298,20 @@ class ServingEngine:
         extra = ()
         if pg is not None:
             # grow every active slot's mapping to cover the deepest draft
-            # write (root + K positions) and privatize any shared page in
-            # that range; draft and verify read the full-width table
+            # write (root + depth_budget positions) and privatize any shared
+            # page in that range; draft and verify read the full-width table
             for i in active_ix:
                 pos = int(pg.host_pos[i])
-                pg.ensure_slot(i, pos + k)
-                for src, dst in pg.cow_pairs(i, pos, pos + k):
+                pg.ensure_slot(i, pos + depth_budget)
+                for src, dst in pg.cow_pairs(i, pos, pos + depth_budget):
                     g.cache = self._copy_page(g.cache, src, dst)
             extra = (self._table_op(pg, pg.cap_pages),)
         t0 = self._clock()
         dtoks, dlg = draft(self.params, g.cache, tok_op, active, g.keys,
                            self.temperature, self.step_count, *extra)
-        out, n_acc, g.cache = verify(self.params, g.cache,
-                                     torch.cat([tok_op, dtoks], dim=1), dlg,
-                                     active, g.keys, self.temperature,
+        vtoks = dtoks if kind == "tree" else torch.cat([tok_op, dtoks], dim=1)
+        out, n_acc, g.cache = verify(self.params, g.cache, vtoks, dlg, active,
+                                     g.keys, self.temperature,
                                      self.step_count, *extra)
         both = torch.cat([out, n_acc[:, None]], dim=1).cpu().numpy()
         out_h, n_acc_h = both[:, :-1], both[:, -1]
@@ -1215,6 +1321,7 @@ class ServingEngine:
         self.ctrl.last_step_s = dt
         self.spec_draft_launches += 1
         self.spec_verify_launches += 1
+        self.spec_tree_launches += kind == "tree"
         if pg is not None:
             # mirror commit_verify: pos += n_accepted + 1 for every slot
             # (free slots drift harmlessly; admission resets both counters)
@@ -1242,19 +1349,25 @@ class ServingEngine:
         self._h_spec.observe(dt * 1e3)
         if rec_on:
             self._rec.launch(
-                "verify", t0, t0 + dt, depth=g.depth, rids=rids,
+                site, t0, t0 + dt, depth=g.depth, rids=rids,
                 occupancy=len(active_ix), tokens=produced,
-                widths=[g.widths[i] for i in active_ix],
-                key=list(verify_compile_key(g.depth, k)))
+                widths=[g.widths[i] for i in active_ix], key=list(vkey))
 
         # speculative tick time lives in the SPEC telemetry only: the
         # controller's per-mode p50 is the SLO policy's per-decode-step
         # estimate, which a multi-token tick would inflate
+        tree = shape if kind == "tree" else None
         tel = self.spec_telemetry.setdefault(
-            (g.depth, plan.draft_depth, k), SpecTelemetry(k=k))
+            (g.depth, plan.draft_depth, shape),
+            SpecTelemetry(k=depth_budget, tree=tree,
+                          nodes=tree_node_budget(shape) if tree else shape))
         tel.record([int(n_acc_h[i]) for i in active_ix], len(active_ix), dt)
+        # window entries are PER-CANDIDATE acceptance: a tree's depth
+        # fraction measures per-level survival and is inverted, so tree and
+        # linear ticks feed the policy and the collapse threshold one number
         g.accept_window.append(per_candidate_accept_rate(
-            float(np.mean([n_acc_h[i] for i in active_ix])) / k))
+            float(np.mean([n_acc_h[i] for i in active_ix])) / depth_budget,
+            tree))
         spec = self.speculative
         if (len(g.accept_window) == g.accept_window.maxlen
                 and float(np.mean(g.accept_window)) < spec.min_accept_rate):
@@ -1268,6 +1381,7 @@ class ServingEngine:
             g.accept_window.clear()
         return dt
 
+    @torch.no_grad()
     def step(self, now_s: float = 0.0) -> float:
         """One engine tick. Returns device wall-time spent (seconds)."""
         self._admit(now_s)
@@ -1278,9 +1392,9 @@ class ServingEngine:
             if not active_ix:
                 continue
             ticked = True
-            k = self._spec_select(g)
-            if k:
-                spent += self._spec_tick(g, k, active_ix, now_s)
+            sel = self._spec_select(g)
+            if sel is not None:
+                spent += self._spec_tick(g, sel, active_ix, now_s)
                 continue
             if g.paging is not None:
                 spent += self._paged_tick(g, active_ix, now_s)
@@ -1442,6 +1556,7 @@ class ServingEngine:
         prefill_s0 = self.prefill_s
         prefill_toks0 = self.prefill_prompt_tokens
         spec_v0 = self.spec_verify_launches
+        spec_t0 = self.spec_tree_launches
         spec_tok0 = self.spec_generated_tokens
         expired0 = len(self.expired)
         while (pending or self.queue or self.n_active) \
@@ -1489,6 +1604,7 @@ class ServingEngine:
             # speculative decoding: verify launches and the tokens they
             # emitted (tokens/launch > 1 is the decode-launch reduction)
             "spec_verify_launches": spec_v,
+            "spec_tree_launches": self.spec_tree_launches - spec_t0,
             "spec_generated_tokens": spec_tok,
             "spec_tokens_per_launch": spec_tok / spec_v if spec_v else 0.0,
             "spec_fallbacks": len(self.spec_fallback_log),
@@ -1497,9 +1613,11 @@ class ServingEngine:
 
     def _retune_spec(self, policy: SLOPolicy,
                      queue_depths: Dict[str, int]) -> None:
-        """Let the SLO policy re-pick each group's draft length from the
-        built table, at the measured acceptance (rolling window first,
-        lifetime telemetry second, an optimistic 0.75 before any data)."""
+        """Let the SLO policy re-pick each group's draft shape (a token
+        tree, a linear K, or plain stepping) from the built table, at the
+        measured per-candidate acceptance (rolling window first, lifetime
+        telemetry second, an optimistic 0.75 before any data)."""
+        spec = self.speculative
         for g in self.groups.values():
             plan = self._spec_plan.get(g.depth)
             if plan is None:
@@ -1507,17 +1625,40 @@ class ServingEngine:
             if g.accept_window:
                 rate = float(np.mean(g.accept_window))
             else:
+                # each path's depth fraction converted to the per-candidate
+                # rate first: tree and linear denominators differ
                 tels = [t for (d, _, _), t in self.spec_telemetry.items()
                         if d == g.depth and t.drafted]
-                rate = (sum(per_candidate_accept_rate(t.accepted / t.drafted)
+                rate = (sum(per_candidate_accept_rate(t.accepted / t.drafted,
+                                                      t.tree)
                             * t.slot_launches for t in tels)
                         / sum(t.slot_launches for t in tels)) if tels else 0.75
-            g.spec_k = policy.choose_spec_k(plan.ks, rate, queue_depths)
+            if plan.trees:
+                kind, shape = policy.choose_tree(
+                    plan.trees, plan.ks, rate, queue_depths,
+                    min_accept_rate=spec.min_accept_rate)
+                if kind == "tree":
+                    g.spec_tree, g.spec_k = shape, 0
+                elif kind == "linear":
+                    g.spec_tree, g.spec_k = None, shape
+                elif g.accept_window:
+                    # plain stepping, on fresh window evidence only: cool
+                    # off as the in-tick collapse fallback does, keeping the
+                    # shapes so the group re-probes afterwards (a stale
+                    # lifetime rate must not extend the cooloff forever)
+                    g.spec_off_until = max(g.spec_off_until,
+                                           self.step_count
+                                           + spec.cooloff_ticks)
+                    g.accept_window.clear()
+            else:
+                g.spec_tree = None
+                g.spec_k = policy.choose_spec_k(plan.ks, rate, queue_depths)
 
     def spec_telemetry_summary(self) -> Dict[str, Dict[str, float]]:
-        """Acceptance telemetry per (depth, draft_depth, K) path."""
-        return {f"d{d}<-d{dd}k{k}": t.summary()
-                for (d, dd, k), t in self.spec_telemetry.items()
+        """Acceptance telemetry per (depth, draft_depth, draft shape) path
+        (``k...`` linear draft lengths, ``t...`` tree schedules)."""
+        return {f"d{d}<-d{dd}{_shape_label(s)}": t.summary()
+                for (d, dd, s), t in self.spec_telemetry.items()
                 if t.launches}
 
 

@@ -213,7 +213,9 @@ def _verify_case(cuda, variant, seed=4):
     f32 weights, B = 3 slots, a 130-row cache (6 rows under the window) at
     positions 0, 4 and Sc + 70, mixed widths. "_g8" variants take 16 query
     heads over 2 KV heads: G * S = 40 (linear) or 56 ((2, 2) tree) query
-    rows per (slot, KV head), three or four m16 row tiles of one block."""
+    rows per (slot, KV head), three or four m16 row tiles of one block;
+    the (2, 2, 1) and (3, 2, 1) trees give 88 and 128 rows, more than one
+    block carries, so they split over blocks (head groups)."""
     kw = {"linear_f32": {}, "linear_bf16": {"dtype": "bfloat16"},
           "tree_int8": {"kv_quant": True},
           "linear_swa": {"sliding_window": 6},
@@ -222,6 +224,14 @@ def _verify_case(cuda, variant, seed=4):
           "tree_int8_g8": {"kv_quant": True, "n_heads": 16, "n_kv_heads": 2},
           "linear_swa_bf16_g8": {"dtype": "bfloat16", "n_heads": 16,
                                  "n_kv_heads": 2, "sliding_window": 70},
+          "tree221_bf16_g8": {"dtype": "bfloat16", "n_heads": 16,
+                              "n_kv_heads": 2},
+          "tree221_int8_g8": {"kv_quant": True, "n_heads": 16,
+                              "n_kv_heads": 2},
+          "tree321_bf16_g8": {"dtype": "bfloat16", "n_heads": 16,
+                              "n_kv_heads": 2},
+          "tree321_int8_g8": {"kv_quant": True, "n_heads": 16,
+                              "n_kv_heads": 2},
           }[variant]
     cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -233,7 +243,8 @@ def _verify_case(cuda, variant, seed=4):
     nd = tb = None
     S = 5
     if variant.startswith("tree"):
-        nd, tb = tree_np((2, 2))
+        nd, tb = tree_np({"tree221": (2, 2, 1), "tree321": (3, 2, 1)}.get(
+            variant[:7], (2, 2)))
         S = len(nd)
     Sc = cfg.sliding_window or 130
     shape = (B, Sc, KV, hd)
@@ -260,7 +271,9 @@ def _verify_case(cuda, variant, seed=4):
 @pytest.mark.parametrize("variant", ["linear_f32", "linear_bf16",
                                      "tree_int8", "linear_swa",
                                      "linear_bf16_g8", "tree_int8_g8",
-                                     "linear_swa_bf16_g8"])
+                                     "linear_swa_bf16_g8", "tree221_bf16_g8",
+                                     "tree221_int8_g8", "tree321_bf16_g8",
+                                     "tree321_int8_g8"])
 def test_fused_verify_kernel_matches_plain(cuda, variant):
     """Against the plain version: outputs, raw candidates, the cache left
     as it was, and the route the attention launch reports (bf16 and int8
@@ -309,6 +322,90 @@ def test_engine_on_card_greedy_spec_equals_plain(cuda, fused):
         assert (out["spec_verify_launches"] > 0) == (spec is not None)
         streams.append({r.rid: r.generated for r in eng.completed})
     assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+def test_engine_on_card_greedy_tree_equals_plain(cuda, fused, paged):
+    """Greedy token-tree speculation ((2, 1) and (2, 2, 1) trees, built
+    side by side) on the f32 smoke config emits the plain engine's tokens,
+    over a dense cache and through a page table, and builds nothing after
+    warmup."""
+    from repro_torch.models.model import init_params
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.runtime.serving import ServingEngine, poisson_trace
+    from repro_torch.runtime.speculative import SpecConfig
+
+    cfg = smoke_config("tinyllama-1.1b")
+    params = init_params(cfg, seed=0, device=cuda)
+    streams = []
+    for spec in (None, SpecConfig(ks=(), trees=((2, 1), (2, 2, 1)),
+                                  min_accept_rate=0.0)):
+        eng = ServingEngine(params, cfg, batch_size=3, cache_capacity=32,
+                            prefill_threshold=3, fused=fused,
+                            paged=PagedLayout(page_size=4) if paged else None,
+                            speculative=spec, device=cuda)
+        eng.warmup()
+        trace = poisson_trace(6, 100.0, seed=2, prompt_len=(1, 6),
+                              new_tokens=(3, 12), vocab=cfg.vocab_size)
+        out = eng.run(trace, budget_fn=None, policy=None)
+        assert out["completed"] == 6
+        assert (out["spec_tree_launches"] > 0) == (spec is not None)
+        assert eng.ctrl.stats["compiles"] == eng.compiles_after_warmup
+        if paged:
+            eng.check_paged_invariants()
+        streams.append({r.rid: r.generated for r in eng.completed})
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+@pytest.mark.parametrize("branching", [(2, 2, 1), (3, 2, 1)],
+                         ids=["2x2x1", "3x2x1"])
+def test_paged_tree_verify_full_width(cuda, cache, branching):
+    """The verify kernels at TinyLlama's full width with a token tree of 11
+    or 16 nodes (88 or 128 query rows per (slot, KV head)), B = 8 over a
+    512-row capacity: the paged launch (page 16, shuffled, two slots sharing
+    four) against ``fused_verify_plain`` through the same table, on the
+    tensor-core route (int8: see the rounding-edge rule below), and
+    bit-identical to its dense twin (``plan_len`` = 512); the pool is left
+    as it was."""
+    cfg, params, dense, pool, table, act, xdt, g = _paged_twin(cuda, cache)
+    nd, tb = tree_np(branching)
+    ps = 16
+    pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 497], dtype=torch.int32,
+                       device=cuda)
+    x = torch.randn(8, len(nd), cfg.d_model, generator=g, device=cuda).to(xdt)
+    before = {n: t.clone() for n, t in pool.items()}
+    r0 = FD.verify_route_counts()
+    o_p, kv_p = FD.fused_verify(params, x, pool, pos, cfg, active=act,
+                                node_depth=nd, tree_bias=tb, pages=table,
+                                page_size=ps, plan_len=512)
+    assert FD.verify_route_counts()["tc"] == r0["tc"] + 1
+    o_d, kv_d = FD.fused_verify(params, x, dense, pos, cfg, active=act,
+                                node_depth=nd, tree_bias=tb)
+    o_r, kv_r = FD.fused_verify_plain(params, x, pool, pos, cfg,
+                                      act["q_dim"], act["kv_dim"], nd, tb,
+                                      pages=table, page_size=ps)
+    torch.cuda.synchronize()
+    if cache == "int8":
+        # the extension attends through the int8 round trip of the new K/V,
+        # quantized from f32 projections summed in another order than the
+        # plain version's: a value on a rounding edge now and then lands one
+        # int8 step apart and moves a few outputs by up to ~1e-2 (the
+        # decode's int8 writes may differ by a step, as above); all but
+        # 1e-4 of the outputs within one bf16 step + 1e-3, none past 2e-2
+        err = (o_p.float() - o_r.float()).abs()
+        one_step = 1e-3 + 2.0 ** -7 * o_r.float().abs()
+        assert int((err > one_step).sum()) <= 1e-4 * err.numel()
+        assert bool((err <= 2e-2 + 2.0 ** -7 * o_r.float().abs()).all())
+    else:
+        _close(o_p, o_r, xdt)
+    for n in ("k", "v"):
+        _close(kv_p[n], kv_r[n], xdt)
+        assert torch.equal(kv_p[n], kv_d[n]), n
+    assert torch.equal(o_p, o_d)
+    for n in pool:
+        assert torch.equal(pool[n], before[n]), n
 
 
 def _ssd_inputs(g, shape, dtype):

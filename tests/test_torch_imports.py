@@ -121,6 +121,8 @@ def test_serve_cli_speculative_on_cpu(capsys):
                  "--temperature", "0.8", "--top-k", "5"]) == 0
     out = capsys.readouterr().out
     assert "recompiles_after_warmup=0" in out and "spec d3<-d1k2" in out
-    with pytest.raises(NotImplementedError, match="tree slice"):
-        main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
-              "--spec-tree", "2x2"])
+    assert main(["--arch", "tinyllama-1.1b", "--smoke", "--batch", "2",
+                 "--tokens", "12", "--device", "cpu", "--spec-tree",
+                 "2x2"]) == 0
+    out = capsys.readouterr().out
+    assert "recompiles_after_warmup=0" in out and "spec d3<-d1t2x2" in out

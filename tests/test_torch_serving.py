@@ -121,11 +121,13 @@ def test_slo_policy_run_and_metrics():
 
 
 def test_unported_options_raise():
-    """Mesh executors are a later slice and raise; token trees raise naming
-    the tree slice. (Sampling and linear speculation arrived with the
-    speculative slice, ``test_torch_speculative.py``; paged caches with the
-    paged slice, ``test_torch_paged.py``: a page size that does not divide
-    the capacity is refused before anything is built.)"""
+    """Mesh executors are a later slice and raise. (Sampling and linear
+    speculation arrived with the speculative slice,
+    ``test_torch_speculative.py``; paged caches with the paged slice,
+    ``test_torch_paged.py``: a page size that does not divide the capacity
+    is refused before anything is built; token trees with the tree slice,
+    ``test_torch_tree*.py``: a tree deeper than a sliding window allows is
+    refused before anything is built.)"""
     from repro_torch.models.paged import PagedLayout
     from repro_torch.runtime.speculative import SpecConfig
 
@@ -137,6 +139,6 @@ def test_unported_options_raise():
     mesh_exec.mesh = object()
     with pytest.raises(NotImplementedError, match="mesh"):
         TS.ServingEngine({}, cfg, device="cpu", executor=mesh_exec)
-    with pytest.raises(NotImplementedError, match="tree slice"):
-        TS.ServingEngine({}, cfg, device="cpu",
-                         speculative=SpecConfig(trees=((2, 2),)))
+    with pytest.raises(ValueError, match="sliding_window"):
+        TS.ServingEngine({}, cfg.scaled(sliding_window=2), device="cpu",
+                         speculative=SpecConfig(ks=(), trees=((1, 1),)))

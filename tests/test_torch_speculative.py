@@ -458,13 +458,26 @@ def test_choose_spec_k_and_run_summary():
 
 
 def test_tree_parts_raise_naming_the_tree_slice():
+    """The tree slice's entry points (ported; held to JAX in
+    ``test_torch_tree.py``) refuse malformed trees with an error that names
+    what is wrong: a level without children, a token array that is not the
+    topology's node count, a spec plan without any draft shape."""
     _, tcfg = _cfgs("full")
-    for fn in (lambda: TSP.SpecConfig(ks=(2,), trees=((2, 1),)),
-               lambda: TSP.TreeTopology((2, 1)),
-               lambda: TSP.accept_tree(),
-               lambda: TM.verify_tree(),
-               lambda: TM.draft_tree_level(),
-               lambda: TM.commit_verify({"pos": torch.zeros(1)}, {}, 0, tcfg,
-                                        path_nodes=torch.zeros(1, 2))):
-        with pytest.raises(NotImplementedError, match="tree slice"):
+    tp = TM.init_params(tcfg, seed=0, device="cpu")
+    cache = TM.init_decode_cache(tcfg, 1, 8, per_slot=True, device="cpu")
+    topo = TSP.TreeTopology((2, 1))
+    assert (topo.n_nodes, topo.n_levels) == (5, 2)
+    for fn, err, match in (
+            (lambda: TSP.TreeTopology((2, 0)), ValueError, "branching"),
+            (lambda: TSP.spec_plan([1, 3], TSP.SpecConfig(ks=())),
+             ValueError, "tree schedule"),
+            (lambda: TM.verify_tree(tp, cache, torch.zeros((1, 4),
+                                                           dtype=torch.int64),
+                                    tcfg, tree=topo), ValueError, "nodes"),
+            (lambda: TM.draft_tree_level(
+                tp, cache, TM.init_tree_draft_carry(tcfg, 1, topo,
+                                                    device="cpu"),
+                torch.zeros((1, 1), dtype=torch.int64), tcfg, tree=topo,
+                level=1), ValueError, "frontier")):
+        with pytest.raises(err, match=match):
             fn()

@@ -235,8 +235,15 @@ def test_ssm_verify_step_matches_jax_and_reads_only(block_params):
         _close(tc[k], jc[k], msg=k)
     for k, v in cache.items():
         np.testing.assert_array_equal(tcache[k].numpy(), v)
-    with pytest.raises(NotImplementedError, match="tree slice"):
-        TSSM.ssm_verify_tree()
+    # a chain tree (one child a level) is the linear window: the tree pass
+    # gives the verify step's outputs and per-step candidates
+    from repro_torch.runtime.speculative import tree_topology
+
+    yt, ct = TSSM.ssm_verify_tree(tp, torch.from_numpy(x), tcache, TCFG,
+                                  tree_topology((1, 1, 1)), active=ta)
+    _close(yt, ty, msg="chain tree y")
+    for k in tc:
+        _close(ct[k], tc[k], msg=f"chain tree {k}")
 
 
 # ---------------------------------------------------------------------------

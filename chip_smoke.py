@@ -43,7 +43,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    an int8 cache at kv_len 1, 300 and 512 (at kv_len 1 beside an empty
    kernel and the kernel's skeleton at the same grid and clusters: the
    timer's floor), and at ``tests/test_flash_decode.py``'s largest case;
-   the route counts of both decode kernels. Then at full
+   the route counts of both decode kernels. Then ``fused_decode_step`` and
+   ``fused_verify`` (linear S = 5 and tree (2, 2, 1)) at the attention
+   shapes of the MoE families (``check_fused_moe_shapes``: granite's 16 / 8
+   heads of 64, group 2, and jamba's 32 / 8 heads of 128, group 4, without
+   RoPE; B = 8, a 512-row bf16 cache), each against its plain version on
+   the tensor-core route, timed beside it. Then at full
    Mamba2-370M shapes: ``morph_matmul`` over the four gated projections of
    one SSM layer (B = 8, widths {0.5, 1.0}, at decode shape and at the
    verify pass's S = 5), and ``ssd_scan`` at the
@@ -74,12 +79,21 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    dense cache and over a block-paged one (page 16, the worst-case pool of
    264 pages), asserting identical tokens pair by pair, radix hits, the
    page accounting after every tick, every fused launch paged; then
-   full-width, full-depth ``mamba2-370m`` (12 requests) three times: plain
+   full-width, full-depth ``mamba2-370m`` (8 requests) three times: plain
    greedy, speculative greedy and tree speculative greedy (depth 48 drafts
    at exit 36, depth 36 at exit 24). Before each model's drives, its f32
    smoke config serves greedily on the card with the tree (unfused; for
    TinyLlama also fused, and fused over pages) and on the CPU, every
-   engine's tokens asserted equal to the card's plain engine's.
+   engine's tokens asserted equal to the card's plain engine's. Then the
+   smoke configs of granite, mixtral (window 8) and jamba on the card
+   against the CPU (decode, capacity-dispatch prefill and verify, unfused
+   and fused; jamba's fused kernels run without RoPE), and full-width,
+   full-depth ``granite-moe-1b-a400m`` (24 layers, 32 experts of 512,
+   top-8, 12 requests) four ways: plain unfused, plain fused, speculative
+   K = 4 fused greedy and tree (2, 2, 1) fused greedy, each drive printing
+   its step or tick (host and device ms, idle share, heaviest kernels),
+   the step's byte bound and the bytes the experts' per-step cast to bf16
+   moves.
    Launch counters are zeroed just before each drive and read just after
    it, and each path must show its exact counts, worked out from the
    engine's own counters (plain steps, draft steps at the draft depth,
@@ -92,7 +106,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``morph_matmul`` per SSM layer-step (and per layer and tree level)
    and 1 ``ssd_scan`` per SSM layer of every prefill; under
    ``attn_impl="chunked"``, 1 ``flash_attention`` per attention layer of
-   every prefill, and none on any other drive; every ``fused_decode``,
+   every prefill, and none on any other drive; granite, 4 ``morph_matmul``
+   per layer-step unfused, and fused 1 ``fused_decode`` per decode or
+   draft layer-step, 1 ``fused_verify`` per verify layer-step and 4
+   ``morph_matmul`` per layer and level of a tree draft (its experts run
+   ``torch.matmul`` over the expert axis); every ``fused_decode``,
    ``fused_verify`` and ``flash_decode`` launch on the tensor-core route.
    Then one full-depth 256-token prompt pass under the einsum and under the
    chunked attention (host and device ms), one full-depth 256-token
@@ -117,7 +135,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    tolerance, timed (profiler, cold L2) beside its plain version and its
    bound. Then full-width Mamba2-370M cut to 4 layers (f32, B = 2,
    S = 256): ``loss_fn`` gradients on the card against the CPU plain route.
-   Then full-width, full-depth Mamba2-370M from seeded random weights: 20
+   Then two seeded runs of 2 full-depth Mamba2-370M train steps in one
+   process, whose parameters and optimizer moments must be bit-identical
+   (``check_reproducible``). Then full-width, full-depth Mamba2-370M from
+   seeded random weights: 20
    ``make_train_step`` steps (B = 8, S = 256, AdamW, over 4 batches; the
    loss must fall), DistillCycle over ``default_schedule`` (6 stages, 2
    teacher + 2 student steps each) and ``eval_modes(with_agreement=True)``,
@@ -133,8 +154,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``fused_verify`` add their paged timings under ``paged`` and the paged
    drives' counts under ``paged_launches_by_path``; ``fused_verify`` its
    tree shapes under ``tree`` and the fused tree drive's count under
-   ``tree_launches``; ``ssd_scan_bwd`` is the port's kernel with no Pallas
-   counterpart), then the last line ``{"ok": true, "device": {...}}``.
+   ``tree_launches``; the three that granite's drives run add their counts
+   there under ``granite_launches``, and ``fused_decode`` / ``fused_verify``
+   the MoE attention shapes under ``moe_attention_shapes``;
+   ``ssd_scan_bwd`` is the port's kernel with no Pallas counterpart), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
 card; exits non-zero without one, and outside a checkout of the repository.
@@ -813,6 +837,95 @@ def check_fused_verify(torch, cfg, timer):
                 bound_ms=bound, bound_by=by, library_ms=None,
                 check_pass_ms=t_check, per_launch=per_launch, splits=splits,
                 rows_per_split=rows)
+
+
+# the attention shapes the MoE families bring to B2 and B3
+MOE_ATTN_ARCHS = ("granite-moe-1b-a400m", "jamba-v0.1-52b")
+
+
+def check_fused_moe_shapes(torch, timer):
+    """B2 and B3 at the attention shapes of the MoE families, published
+    widths: ``granite-moe-1b-a400m`` (16 query heads of 64 over 8 KV heads:
+    group 2, RoPE) and ``jamba-v0.1-52b`` (32 of 128 over 8: group 4, no
+    RoPE), B = 8 slots at widths (0.5, 1) over a 512-row bf16 cache at
+    mixed positions: the decode, the linear verify (S = 5) and the TREE
+    verify, each against its plain version, on the tensor-core route, and
+    timed beside it (profiler, cold L2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import elastic
+    from repro_torch.kernels import fused_decode as FD
+
+    B, Sc = 8, 512
+    depths, bias = tree_np(TREE)
+    out = {}
+    for arch in MOE_ATTN_ARCHS:
+        cfg = get_config(arch)
+        dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        params = {n: torch.randn(*s, generator=gen, device="cuda")
+                  / math.sqrt(s[0])
+                  for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
+                               ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
+        act = elastic.active_widths_batch(cfg, [0.5, 1.0] * 4, device="cuda")
+        aq, akv = act["q_dim"], act["kv_dim"]
+        pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 505],
+                           dtype=torch.int32, device="cuda")
+        cache = {n: torch.randn(B, Sc, KV, hd, generator=gen, device="cuda")
+                 .to(torch.bfloat16) for n in ("k", "v")}
+        res = {}
+        for what, S, nd, tb in (("decode", 1, None, None),
+                                ("verify linear", 5, None, None),
+                                ("verify tree", len(depths), depths, bias)):
+            x = torch.randn(B, S, dm, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            if what == "decode":
+                c_k = {n: t.clone() for n, t in cache.items()}
+                c_p = {n: t.clone() for n, t in cache.items()}
+
+                def run():
+                    return FD.fused_decode_step(params, x, c_k, pos, cfg,
+                                                active=act)
+
+                def plain():
+                    return FD.fused_decode_plain(params, x, c_p, pos, cfg,
+                                                 aq, akv)
+                routes = FD.route_counts
+            else:
+                def run():
+                    return FD.fused_verify(params, x, cache, pos, cfg,
+                                           active=act, node_depth=nd,
+                                           tree_bias=tb)
+
+                def plain():
+                    return FD.fused_verify_plain(params, x, cache, pos, cfg,
+                                                 aq, akv, nd, tb)
+                routes = FD.verify_route_counts
+            r0 = routes()["tc"]
+            o_k, kv_k = run()
+            if routes()["tc"] != r0 + 1:
+                fail(f"{arch} {what}: not on the tensor-core route")
+            o_p, kv_p = plain()
+            torch.cuda.synchronize()
+            pairs = [("out", o_k, o_p)]
+            if what == "decode":
+                pairs += [(n, c_k[n], c_p[n]) for n in ("k", "v")]
+            else:
+                pairs += [(n, kv_k[n], kv_p[n]) for n in ("k", "v")]
+            err = 0.0
+            for name, got, want in pairs:
+                ok, e = close(torch, got, want)
+                if not ok:
+                    fail(f"{arch} {what} {name}: max |err| {e:.3e} beyond "
+                         f"rtol {RTOL_BF16:.2e} + atol {ATOL_BF16:.0e}")
+                err = max(err, e)
+            t_k, t_p = timer.ms(run), timer.ms(plain)
+            res[what] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, rows=S)
+            log(f"  {arch} attention ({H}/{KV} heads of {hd}, "
+                f"{'RoPE' if cfg.use_rope else 'no RoPE'}) {what} (B={B}, "
+                f"S={S}, cache {Sc}): max|err| {err:.3e}, route tc; kernels "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+        out[arch] = res
+    return out
 
 
 def paged_twin(torch, cfg, gen, B=8, S=512, ps=16):
@@ -1626,9 +1739,15 @@ def drive(engine, trace, switch_every: int):
     return time.perf_counter() - t0, {r.rid: list(r.generated) for r in reqs}
 
 
+# steps a step's device time is profiled over (few, so that the granite
+# drives fit the run's time)
+PROFILED_STEPS = 3
+
+
 def step_width_ms(torch, engine, width: float, iters: int = 10):
     """Decode step at full depth with every slot at ``width``: (host ms per
-    step, device kernel ms per step or None on the CPU). Logs the step's
+    step over ``iters`` steps, device kernel ms per step over
+    PROFILED_STEPS profiled steps, or None on the CPU). Logs the step's
     heaviest kernels and its kernel count. Runs under ``no_grad``, as the
     engine's ticks do (the parameters may require grad)."""
     with torch.no_grad():
@@ -1652,11 +1771,11 @@ def _step_width_ms(torch, engine, width, iters):
     if torch.device(engine.device).type != "cuda":
         return host, None
     per = kernel_us(torch, lambda: step(engine.params, cache, tok, active),
-                    iters)
-    total = sum(per.values()) / iters / 1e3
+                    PROFILED_STEPS)
+    total = sum(per.values()) / PROFILED_STEPS / 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
     log(f"    w{width} step: {len(per)} distinct kernels; heaviest: " + "; ".join(
-        f"{v / iters / 1e3:.3f} ms {k[:60]}" for k, v in top))
+        f"{v / PROFILED_STEPS / 1e3:.3f} ms {k[:60]}" for k, v in top))
     return host, total
 
 
@@ -1683,7 +1802,7 @@ def spec_tick_ms(torch, engine, shape=None, iters: int = 5):
     drafted level by level, at the exit depth; then verify + accept +
     commit), every slot at width 1.0, greedy, under ``no_grad`` as the
     engine ticks: (host ms per tick over ``iters`` ticks, device kernel ms
-    per tick and kernels launched per tick over 2 profiled ticks, or None
+    per tick and kernels launched per tick over 1 profiled tick, or None
     on the CPU). ``shape`` is K or a tree's branching (default: the linear
     K)."""
     from repro_torch.runtime.speculative import (draft_compile_key,
@@ -1723,9 +1842,12 @@ def spec_tick_ms(torch, engine, shape=None, iters: int = 5):
     host = (time.perf_counter() - t0) / iters * 1e3
     if torch.device(engine.device).type != "cuda":
         return host, None, None
-    rows = device_rows(torch, tick, 2)
-    return (host, sum(us for _, us, _ in rows) / 2 / 1e3,
-            sum(n for _, _, n in rows) / 2)
+    rows = device_rows(torch, tick, 1)
+    top = sorted(rows, key=lambda r: -r[1])[:4]
+    log("    tick's heaviest kernels: " + "; ".join(
+        f"{us / 1e3:.3f} ms {k[:60]}" for k, us, _ in top))
+    return (host, sum(us for _, us, _ in rows) / 1e3,
+            sum(n for _, _, n in rows))
 
 
 def sync(torch, device) -> None:
@@ -1813,6 +1935,60 @@ def expected_launches_ssm(torch, engine, steps0, fused: bool, device):
             steps + (scans,))
 
 
+def expected_launches_moe(torch, engine, steps0, fused: bool, device):
+    """Launch counts one granite drive must show. Every layer is attention
+    + MoE, and only the attention reaches a hand kernel: the experts are
+    ``torch.matmul`` over the expert axis, as the reference's are einsum
+    outside any Pallas kernel. Unfused, 4 ``morph_matmul`` (Q, K, V, O) per
+    layer of every decode, draft and verify step and of every tree-draft
+    level pass. Fused, 1 ``fused_decode`` per decode or linear-draft
+    layer-step and 1 ``fused_verify`` per verify layer-step (linear or
+    tree), whose projections are not ``morph_matmul`` counts; a tree
+    draft's level passes take the einsum attention, 4 ``morph_matmul`` per
+    layer and level. Prompts of at most 256 tokens take the einsum
+    attention, so no ``flash_attention``; no scan."""
+    plain, draft, verify, tree_draft = steps = layer_steps(engine, steps0,
+                                                           engine.cfg)
+    zero = dict.fromkeys(KERNEL_NAMES, 0)
+    if torch.device(device).type != "cuda":
+        return zero, steps
+    if fused:
+        return dict(zero, morph_matmul=4 * tree_draft,
+                    fused_decode=plain + draft, fused_verify=verify), steps
+    return dict(zero, morph_matmul=4 * (plain + draft + verify
+                                        + tree_draft)), steps
+
+
+def moe_cast_bytes(engine) -> int:
+    """Bytes the dropless MoE's cast of the expert matrices to the
+    activation dtype moves in one full-depth step: every expert master
+    read once and written once in the activation dtype (0 where they
+    match). The router stays f32."""
+    from repro_torch.device import dtype_of
+
+    act = dtype_of(engine.cfg.dtype)
+    return sum(t.numel() * (t.element_size() + act.itemsize)
+               for layer in engine.params["stack"].values()
+               for k, t in layer.get("moe", {}).items()
+               if k != "router" and t.dtype != act)
+
+
+def bound_note(engine) -> str:
+    """A full-depth step's byte bound at w1.0 (``step_bytes``) and, for an
+    MoE model, the bytes its experts' per-step cast moves."""
+    cfg = engine.cfg
+    nbytes, cast = step_bytes(engine), moe_cast_bytes(engine)
+    note = (f"a full-depth step's bound at w1.0 "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes: "
+            f"{nbytes / 1e9:.3f} GB)")
+    if cast:
+        note += (f"; the experts' cast to {cfg.dtype} moves "
+                 f"{cast / 1e9:.3f} GB a step "
+                 f"({cast / HBM_BYTES_PER_S * 1e3:.3f} ms at the data-sheet "
+                 f"rate)")
+    return note
+
+
 KERNEL_NAMES = ("morph_matmul", "fused_decode", "fused_verify", "ssd_scan",
                 "ssd_scan_bwd", "flash_attention", "flash_decode")
 SPEC_K = 4
@@ -1845,6 +2021,16 @@ SSM_AGREE = (("mamba2_spec", "mamba2_plain",
               "verify pass vs decode steps, bf16 activations"),
              ("mamba2_tree", "mamba2_plain",
               "tree verify pass vs decode steps, bf16 activations"))
+MOE_PATHS = (("granite_unfused", False, False, 0.0, 0, None),
+             ("granite_fused", True, False, 0.0, 0, None),
+             ("granite_spec_fused", True, True, 0.0, 0, None),
+             ("granite_tree_fused", True, TREE, 0.0, 0, None))
+MOE_AGREE = (("granite_unfused", "granite_fused",
+              "f32 fused projections vs bf16 unfused weights"),
+             ("granite_spec_fused", "granite_fused",
+              "bf16 verify kernel vs bf16 decode kernel"),
+             ("granite_tree_fused", "granite_fused",
+              "bf16 tree verify kernel vs bf16 decode kernel"))
 
 
 def spec_config(spec):
@@ -1918,7 +2104,9 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
             params, pcfg, batch_size=8, cache_capacity=capacity,
             prefill_threshold=8, fused=fused, temperature=temp, top_k=top_k,
             speculative=spec_config(spec), device=device)
+        t_warm = time.perf_counter()
         engine.warmup()
+        t_warm = time.perf_counter() - t_warm
         steps0 = {n: t.steps for n, t in engine.ctrl.telemetry.items()}
         if torch.device(device).type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -1927,6 +2115,7 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
         for _, reset in count_reset.values():
             reset()
         wall, streams = drive(engine, trace, switch_every=12)
+        t_meas = time.perf_counter()
         run_launches = {n: count() for n, (count, _) in count_reset.items()}
         peak = (torch.cuda.max_memory_allocated() / 2**30
                 if torch.device(device).type == "cuda" else float("nan"))
@@ -2035,11 +2224,14 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
                         f"; device kernel time {d_n:.3f} ms vs {d_f:.3f} ms "
                         f"(ratio {d_n / d_f:.3f}, idle share at w1.0 "
                         f"{1 - d_f / h_f:.3f})")
-            nbytes = step_bytes(engine)
             log(f"    decode step at full depth, all slots w{narrow}: host "
-                f"{h_n:.3f} ms, all w1.0: {h_f:.3f} ms{dev_note}; bound at "
-                f"w1.0 {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes: "
-                f"{nbytes / 1e9:.3f} GB)")
+                f"{h_n:.3f} ms, all w1.0: {h_f:.3f} ms{dev_note}; "
+                + bound_note(engine))
+            res.update(step_host_ms=h_f, step_device_ms=d_f)
+        elif timer is not None:
+            log("    " + bound_note(engine))
+        log(f"    seconds: warmup {t_warm:.1f}, trace {wall:.1f}, checks and "
+            f"measurements {time.perf_counter() - t_meas:.1f}")
         results[tag] = res
         del engine
 
@@ -2203,23 +2395,28 @@ def _leaves(tree):
             yield v
 
 
-def smoke_reference(torch, arch="tinyllama-1.1b"):
-    """The smoke model of ``arch`` (f32) on the card (kernels) vs the CPU
-    (plain versions): decode at mixed widths, a slot prefill (for the SSM
-    model a prompt of three chunks, through the scan kernel) and a verify
-    pass with its candidates."""
+def smoke_reference(torch, arch="tinyllama-1.1b", **overrides):
+    """The smoke model of ``arch`` (f32, with ``overrides``) on the card
+    (kernels) vs the CPU (plain versions): decode at mixed widths, a slot
+    prefill (with SSM layers a prompt of three chunks, through the scan
+    kernel; MoE layers route it with capacity dispatch) and a verify pass
+    with its candidates, unfused and, with attention layers, fused (for
+    jamba the fused kernels without RoPE)."""
+    import dataclasses
+
     from repro_torch.configs import smoke_config
     from repro_torch.core import elastic
     from repro_torch.models.model import (decode_step, init_decode_cache,
                                           init_params, prefill, verify_step)
 
-    cfg = smoke_config(arch)
+    cfg = dataclasses.replace(smoke_config(arch), **overrides)
     ssm = "ssm" in cfg.layer_pattern
+    attn = "attn" in cfg.layer_pattern
     p_cpu = init_params(cfg, seed=3, device="cpu")
     p_gpu = {k: v for k, v in _move(p_cpu, "cuda").items()}
     worst = 0.0
     # fused reaches attention layers only
-    for fused in ((False,) if ssm else (False, True)):
+    for fused in ((False, True) if attn else (False,)):
         outs = []
         for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
             act = elastic.active_widths_batch(cfg, [0.5, 1.0], device=dev)
@@ -2245,7 +2442,7 @@ def smoke_reference(torch, arch="tinyllama-1.1b"):
             fail(f"{arch} smoke model fused={fused}: card vs CPU max |err| "
                  f"{err:.3e}")
         worst = max(worst, err)
-    what = "decode, prefill, verify"
+    what = "decode, prefill, verify" + (", fused too" if attn else "")
     if not ssm:
         # the chunked prompt pass: the flash kernel on the card, the
         # model's chunked attention on the CPU; 29 tokens cut the kernel's
@@ -2272,8 +2469,9 @@ def smoke_reference(torch, arch="tinyllama-1.1b"):
                  f"{err:.3e}")
         worst = max(worst, err)
         what += ", chunked prefill through flash_attention"
-    log(f"  {arch} smoke model (f32) on the card vs plain versions on the "
-        f"CPU ({what}): max |err| {worst:.3e} (atol {ATOL_SMOKE:.0e})")
+    extra = "".join(f", {k} {v}" for k, v in overrides.items())
+    log(f"  {arch} smoke model (f32{extra}) on the card vs plain versions on "
+        f"the CPU ({what}): max |err| {worst:.3e} (atol {ATOL_SMOKE:.0e})")
 
 
 def smoke_tree_engines(torch, arch="tinyllama-1.1b"):
@@ -2670,6 +2868,7 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
         f"ms wall (steps 1..{n_steps - n_prof - 1}), {dev_ms:.1f} ms device "
         f"(profiled steps), idle share {1 - dev_ms / host_ms:.3f}; heaviest: "
         + "; ".join(f"{v / n_prof / 1e3:.2f} ms {k[:48]}" for k, v in top))
+    log(f"    base losses, full precision: {losses}")
     if distill and not tail < first:
         fail(f"{cfg.name} base loss did not fall: first 5 {first:.4f}, last 5 "
              f"{tail:.4f}")
@@ -2709,6 +2908,7 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
         log("  eval_modes(with_agreement=True): " + "; ".join(
             f"{k} CE {v['ce']:.4f} agreement {v['agreement']:.3f}"
             for k, v in ev.items()))
+        log(f"    eval_modes, full precision: {ev}")
         res.update(history=hist, eval=ev,
                    teacher_step_ms=_ms(kind_ms["teacher"]),
                    student_step_ms=_ms(kind_ms["student"]))
@@ -2727,6 +2927,46 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
     del state
     torch.cuda.empty_cache()
     return launches, res, params
+
+
+def check_reproducible(torch, cfg, n_steps=2):
+    """Two seeded full-depth ``make_train_step`` runs of ``cfg`` in one
+    process (B = 8, S = 256, AdamW lr 2e-3, ``n_steps`` steps each on the
+    first batches of ``DataConfig(seed=0)``): fails unless the parameters
+    and both optimizer moments come out bit-identical."""
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import leaves_with_path
+
+    ocfg = OptimizerConfig(lr=2e-3)
+    dc = DataConfig(seed=0, global_batch=8, seq_len=256)
+    runs, losses = [], []
+    for _ in range(2):
+        state = init_train_state(cfg, ocfg, seed=0, device="cuda")
+        step = make_train_step(cfg, ocfg, remat="none")
+        hist = []
+        for i in range(n_steps):
+            state, m = step(state, to_device(make_batch(cfg, dc, i), "cuda"))
+            hist.append(m["loss"].item())
+        losses.append(hist)
+        runs.append({f"{part}/{k}": t.detach().clone()
+                     for part, tree in (("params", state["params"]),
+                                        ("mu", state["opt"].mu),
+                                        ("nu", state["opt"].nu))
+                     for k, t in leaves_with_path(tree)})
+        del state
+        torch.cuda.empty_cache()
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    if differ or losses[0] != losses[1]:
+        fail(f"{cfg.name}: two seeded runs of {n_steps} train steps differ: "
+             f"losses {losses}; {len(differ)} of {len(runs[0])} tensors, "
+             f"first {differ[:4]}")
+    log(f"  {cfg.name}, two seeded runs of {n_steps} train steps in one "
+        f"process: losses {losses[0]} both times; all {len(runs[0])} "
+        f"parameter and moment tensors bit-identical")
+    del runs
+    torch.cuda.empty_cache()
 
 
 # phase 4's serving of the trained Mamba2 parameters (4 requests x 16 new
@@ -2753,6 +2993,9 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
         return bwd, {}, {}
     phase("[phase 4] training: full-width Mamba2-370M gradients, card vs CPU")
     check_model_grads(torch, mcfg)
+    phase("[phase 4] training: full-depth Mamba2-370M steps reproduce bit for "
+          "bit")
+    check_reproducible(torch, mcfg)
     phase("[phase 4] training: full-width, full-depth Mamba2-370M base steps "
           "and DistillCycle, one card")
     ml, mres, mparams = train_drive(torch, mcfg, 20, True, dict(lr=2e-3))
@@ -2829,13 +3072,17 @@ def main(argv=None) -> int:
     tv = check_tree_verify(torch, cfg, timer)
     fa = check_flash_attention(torch, cfg, timer)
     fdk = check_flash_decode(torch, cfg, timer)
+    phase("[phase 2] fused decode and verify at the MoE families' attention "
+          "shapes (granite: group 2; jamba: group 4, no RoPE)")
+    moe_attn = check_fused_moe_shapes(torch, timer)
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
     mms, mmsv = check_morph_matmul_ssm(torch, mcfg, timer)
     ssd = check_ssd_scan(torch, mcfg, timer)
     torch.cuda.empty_cache()
 
     launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
-                for p in (PATHS + SSM_PATHS + PAGED_PATHS + TRAINED_PATHS
+                for p in (PATHS + SSM_PATHS + MOE_PATHS + PAGED_PATHS
+                          + TRAINED_PATHS
                           + (("flash_decode_entry",), ("mamba2_train",),
                              ("tinyllama_train",)))}
     paged_launches = {p[0]: dict.fromkeys(("fused_decode", "fused_verify"))
@@ -2862,15 +3109,31 @@ def main(argv=None) -> int:
         smoke_reference(torch, "mamba2-370m")
         smoke_tree_engines(torch, "mamba2-370m")
         mparams = init_on_card(torch, mcfg)
-        # 12 requests: the tree drives share the run's time
+        # 8 requests: the tree drives and the granite drives share the
+        # run's time
         ssm_launches, _ = end_to_end(torch, mcfg, mparams,
-                                     timer, n_requests=12, paths=SSM_PATHS,
+                                     timer, n_requests=8, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
         phase("[phase 3] a full-depth Mamba2-370M prompt pass")
         prompt_pass_ms(torch, mparams, mcfg, impls=(None,))
         del mparams
+        torch.cuda.empty_cache()
+        phase("[phase 3] end to end: granite-moe-1b-a400m, full width, one "
+              "card")
+        smoke_reference(torch, "granite-moe-1b-a400m")
+        smoke_reference(torch, "mixtral-8x22b", sliding_window=8)
+        smoke_reference(torch, "jamba-v0.1-52b")
+        gcfg = get_config("granite-moe-1b-a400m")
+        gparams = init_on_card(torch, gcfg)
+        moe_launches, _ = end_to_end(torch, gcfg, gparams, timer,
+                                     n_requests=12, paths=MOE_PATHS,
+                                     expect=expected_launches_moe,
+                                     agreements=MOE_AGREE)
+        launches.update(moe_launches)
+        del gparams
+        torch.cuda.empty_cache()
     bwd, train_launches, train_res = training_phase(
         torch, cfg, mcfg, timer, full=not args.skip_e2e)
     launches.update(train_launches)
@@ -2888,6 +3151,13 @@ def main(argv=None) -> int:
 
     def by_path(name):
         return {p: c[name] for p, c in launches.items()}
+
+    def granite(name):
+        return {p[0]: launches[p[0]][name] for p in MOE_PATHS}
+
+    def moe_shapes(kind):
+        return {a: {w: r for w, r in res.items()
+                    if w.startswith(kind)} for a, res in moe_attn.items()}
 
     def paged_summary(kind):
         return {v: {m: r[kind][m] for m in ("ms", "dense_ms", "plain_ms",
@@ -2909,6 +3179,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/morph_matmul.py:68",
              launches=launches["unfused"]["morph_matmul"],
              launches_by_path=by_path("morph_matmul"),
+             granite_launches=granite("morph_matmul"),
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
                              mms["max_abs_err"], mmsv["max_abs_err"]),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
@@ -2928,7 +3199,11 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/fused_decode.py:377",
              launches=launches["fused"]["fused_decode"],
              launches_by_path=by_path("fused_decode"),
-             max_abs_err=fd["max_abs_err"], ms=fd["ms"],
+             granite_launches=granite("fused_decode"),
+             moe_attention_shapes=moe_shapes("decode"),
+             max_abs_err=max(fd["max_abs_err"], max(
+                 r["decode"]["max_abs_err"] for r in moe_attn.values())),
+             ms=fd["ms"],
              plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
              bound_by=fd["bound_by"], library_ms=None,
              per_launch=fd["per_launch"],
@@ -2942,7 +3217,11 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/fused_decode.py:621",
              launches=launches["spec_fused"]["fused_verify"],
              launches_by_path=by_path("fused_verify"),
-             max_abs_err=max(fv["max_abs_err"], max_err), ms=fv["ms"],
+             granite_launches=granite("fused_verify"),
+             moe_attention_shapes=moe_shapes("verify"),
+             max_abs_err=max(fv["max_abs_err"], max_err, max(
+                 r[w]["max_abs_err"] for r in moe_attn.values()
+                 for w in ("verify linear", "verify tree"))), ms=fv["ms"],
              plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
              bound_by=fv["bound_by"], library_ms=None,
              check_pass_ms=fv["check_pass_ms"], per_launch=fv["per_launch"],

@@ -34,8 +34,13 @@
 //       state before the tile and the gradient after it: dx, ddt, the
 //       head's dB and dC, its share of dA.
 //   (4) ssd_bwd_sum_kernel: dB and dC summed over each group's heads (B and
-//       C are shared per group), dA over the tiles. No atomics: the sums
-//       are in a fixed order.
+//       C are shared per group), dA over the tiles.
+// No atomics anywhere: every sum runs in a fixed order, so a launch on the
+// same inputs gives the same bits. In launch 3 the per-step decay terms are
+// reduced from staged tiles (V = Q o CB, row sums minus column sums) and
+// from each thread's partials in shared memory ([step][tx]), one thread a
+// step adding them in index order; <G, h_prev> is a warp-shuffle tree per
+// warp, then the 8 warp sums in order.
 // Products are f32 FMAs from shared memory: each thread of 256 holds a 4 x 4
 // register tile of a 64 x 64 output (rows ty + 16 i, columns tx + 16 j), and
 // reads the right operand along a row of shared memory (64 x 64 chunks
@@ -246,8 +251,12 @@ struct TileLayout {
   static constexpr int kDcs = kW + kL;   // the decay gradient, then da
   static constexpr int kDux = kDcs + kL; // <du_s, x_s>
   static constexpr int kZ = kDux + kL;   // w_s <u_s, G B_s>
-  static constexpr int kGH = kZ + kL;    // <G, h_prev>
-  static constexpr int kFloats = kGH + 4;
+  static constexpr int kGH = kZ + kL;    // <G, h_prev>, one per warp
+  // per-thread partials [step][tx] of <du, x>, <u, G B> and e o <C, dY h>
+  static constexpr int kPx = kGH + kThreads / 32;
+  static constexpr int kPz = kPx + kL * 16;
+  static constexpr int kPc = kPz + kL * 16;
+  static constexpr int kFloats = kPc + kL * 16;
 };
 
 template <typename TX>
@@ -273,6 +282,9 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
   float* dux = smem + Lay::kDux;
   float* zs = smem + Lay::kZ;
   float* gh = smem + Lay::kGH;
+  float* px = smem + Lay::kPx;
+  float* pz = smem + Lay::kPz;
+  float* pcs = smem + Lay::kPc;
   const int t = threadIdx.x, ty = t / 16, tx = t % 16;
   const int tile = blockIdx.x, t0 = tile * kL, nrow = min(kL, S - t0);
   const int row = blockIdx.y, bi = row / H, hi = row % H, gi = hi / (H / G);
@@ -285,11 +297,7 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
   const float* Ht = fw.st + ((size_t)row * T + tile) * P * NP;   // [p][n]
   const float* CB = fw.cb + ((size_t)(bi * G + gi) * T + tile) * kL * kL;
 
-  if (t < kL) {
-    dts[t] = t < nrow ? dt[(size_t)(bi * S + t0 + t) * H + hi] : 0.f;
-    dcs[t] = dux[t] = zs[t] = 0.f;
-  }
-  if (t == 0) gh[0] = 0.f;
+  if (t < kL) dts[t] = t < nrow ? dt[(size_t)(bi * S + t0 + t) * H + hi] : 0.f;
   __syncthreads();
   const float a = A[row];
   if (t < 32) tile_cumsum(dts, a, cs, t);
@@ -300,8 +308,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
   }
   __syncthreads();
 
-  // ---- D = dY U^T over p, then P = M o CB, Q = M o D, and V = Q o CB's
-  // row sums minus column sums into dcs ----
+  // ---- D = dY U^T over p, then P = M o CB, Q = M o D, V = Q o CB (into
+  // b2); dcs = V's row sums minus its column sums ----
   {
     float acc[4][4];
     zero4(acc);
@@ -315,30 +323,37 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int tt = ty + 16 * i;
-      float rsum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int ss = tx + 16 * j;
-        float pv = 0.f, qv = 0.f;
+        float pv = 0.f, qv = 0.f, vv = 0.f;
         if (ss <= tt) {
           const float m = expf(cs[tt] - cs[ss]);
           const float cb = CB[tt * kL + ss];
           pv = m * cb;
           qv = m * acc[i][j];
-          const float v = qv * cb;
-          rsum += v;
-          atomicAdd(&dcs[ss], -v);
+          vv = qv * cb;
         }
         Pm[tt * kLds + ss] = pv;
         Qm[tt * kLds + ss] = qv;
+        b2[tt * kLds + ss] = vv;
       }
-      atomicAdd(&dcs[tt], rsum);
     }
   }
   __syncthreads();
+  // b2 is next written after the du loop's first barrier
+  if (t < kL) {
+    float r = 0.f, c = 0.f;
+    for (int k = 0; k < kL; ++k) {
+      r += b2[t * kLds + k];
+      c += b2[k * kLds + t];
+    }
+    dcs[t] = r - c;
+  }
 
   // ---- du = P^T dY + w o (B G^T), per 64 columns of p; dx, <du, x> and
-  // the state term's share of the decay gradient ----
+  // the state term's share of the decay gradient, kept per thread ----
+  float rx[4] = {0.f, 0.f, 0.f, 0.f}, rz[4] = {0.f, 0.f, 0.f, 0.f};
   for (int pc = 0; pc < P; pc += kC) {
     float acc[4][4], accs[4][4];
     zero4(acc);
@@ -356,24 +371,25 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int ss = ty + 16 * i;
-      float rx = 0.f, rz = 0.f;
-      if (ss < nrow) {
+      if (ss >= nrow) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = pc + tx + 16 * j;
-          if (p >= P) continue;
-          const size_t at = xrow + (size_t)ss * H * P + p;
-          const float xv = to_f32(x[at]);
-          const float du = acc[i][j] + wdec[ss] * accs[i][j];
-          store_as(dx + at, dts[ss] * du);
-          rx += du * xv;
-          rz += xv * accs[i][j];
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int p = pc + tx + 16 * j;
+        if (p >= P) continue;
+        const size_t at = xrow + (size_t)ss * H * P + p;
+        const float xv = to_f32(x[at]);
+        const float du = acc[i][j] + wdec[ss] * accs[i][j];
+        store_as(dx + at, dts[ss] * du);
+        rx[i] += du * xv;
+        rz[i] += xv * accs[i][j];
       }
-      atomicAdd(&dux[ss], rx);
-      atomicAdd(&zs[ss], rz * dts[ss] * wdec[ss]);
     }
     __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    px[(ty + 16 * i) * 16 + tx] = rx[i];
+    pz[(ty + 16 * i) * 16 + tx] = rz[i];
   }
 
   // ---- dB (this head's) = Q^T C + w o (U G), per 64 columns of n ----
@@ -406,8 +422,8 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
   }
 
   // ---- dC (this head's) = Q B + e o (dY h_prev), per 64 columns of n;
-  // e_t <C_t, (dY h_prev)_t> and <G, h_prev> into the decay gradient ----
-  float ghp = 0.f;
+  // <C_t, (dY h_prev)_t> and <G, h_prev> kept per thread ----
+  float ghp = 0.f, rc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int nc = 0; nc < N; nc += kC) {
     float acc[4][4], accs[4][4];
     zero4(acc);
@@ -433,19 +449,34 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
       if (tt >= nrow) continue;
       float* o = w.dch + ((size_t)(bi * S + t0 + tt) * H + hi) * N;
       const float* cr = Cm + bcrow + (size_t)tt * G * N;
-      float rc = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int n = nc + tx + 16 * j;
         if (n >= N) continue;
         o[n] = acc[i][j] + ecs[tt] * accs[i][j];
-        rc += cr[n] * accs[i][j];
+        rc[i] += cr[n] * accs[i][j];
       }
-      atomicAdd(&dcs[tt], ecs[tt] * rc);
     }
     __syncthreads();
   }
-  atomicAdd(gh, ghp);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pcs[(ty + 16 * i) * 16 + tx] = rc[i];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ghp += __shfl_xor_sync(0xffffffffu, ghp, o);
+  if (t % 32 == 0) gh[t / 32] = ghp;
+  __syncthreads();
+  // the partials of each step, added in index order by one thread
+  if (t < kL) {
+    float sx = 0.f, sz = 0.f, sc = 0.f;
+    for (int k = 0; k < 16; ++k) {
+      sx += px[t * 16 + k];
+      sz += pz[t * 16 + k];
+      sc += pcs[t * 16 + k];
+    }
+    dux[t] = sx;
+    zs[t] = sz * dts[t] * wdec[t];
+    dcs[t] += ecs[t] * sc;
+  }
   __syncthreads();
 
   // ---- the decay gradient: state terms, the reverse cumsum into da, then
@@ -458,7 +489,11 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_tile_kernel(
     // dcs_s -= z_s; dcs_last += sum_s z_s + E <G, h_prev>
     float d0 = dcs[2 * lane] - zs[2 * lane];
     float d1 = dcs[2 * lane + 1] - zs[2 * lane + 1];
-    if (lane == 31) d1 += z2 + expf(cs[kL - 1]) * gh[0];
+    if (lane == 31) {
+      float ght = 0.f;
+      for (int k = 0; k < kThreads / 32; ++k) ght += gh[k];
+      d1 += z2 + expf(cs[kL - 1]) * ght;
+    }
     // da_k = sum_{t >= k} dcs_t: a suffix scan, lane 31 holds the end
     float inc = d0 + d1;
 #pragma unroll

@@ -36,6 +36,10 @@ Examples:
       --smoke --device cpu --kv-page-size 4 --fused --spec-k 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 8 --tokens 256 --fused --spec-tree 2x2x1
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-1b-a400m --batch 8 --tokens 256 --fused
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --smoke --device cpu --spec-k 2
 """
 from __future__ import annotations
 

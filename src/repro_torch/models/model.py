@@ -26,9 +26,15 @@ of each SSM layer's candidate at ``n_accepted``; a tree's accepted path
 through ``path_nodes``). ``decode_step``, ``verify_step``,
 ``verify_tree``, ``draft_tree_level`` and ``commit_verify`` also take a
 block-paged cache (``models.paged``) through ``pages`` / ``page_size``.
-MoE, encoder-decoder and frontend families and absolute-position models
-raise ``NotImplementedError`` naming the slice of the port they arrive
-with.
+
+MoE layers (``cfg.layer_is_moe``: granite and mixtral every layer, jamba
+every other one) take ``models.moe`` in place of the MLP: the full
+forward and ``prefill`` route by ``cfg.moe_impl`` (capacity dispatch, or
+the dropless path under ``"dense"``) and sum the load-balancing loss into
+``forward``'s aux; decode, verify and the tree draft always run the
+dropless path, gated per slot by ``active["top_k"]``. Encoder-decoder and
+frontend families and absolute-position models raise
+``NotImplementedError`` naming the slice of the port they arrive with.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.paged import cache_rows
 
@@ -58,9 +65,6 @@ def pos_kind(cfg: ModelConfig) -> str:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers arrive with the "
-                                  f"MoE slice of the port")
     if cfg.is_encdec or cfg.frontend or pos_kind(cfg) == "sinusoidal":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder, frontend and "
                                   f"absolute-position models arrive with a "
@@ -109,7 +113,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             layer["attn"] = L.init_attention(gen, cfg, lead=lead, device=dev)
         else:
             layer["ssm"] = SSM.init_ssm(gen, cfg, lead=lead, device=dev)
-        if cfg.d_ff:
+        if cfg.layer_is_moe(p):
+            layer["norm2"] = L.init_norm(cfg, lead=lead, device=dev)
+            layer["moe"] = MOE.init_moe(gen, cfg, lead=lead, device=dev)
+        elif cfg.d_ff:
             layer["norm2"] = L.init_norm(cfg, lead=lead, device=dev)
             layer["mlp"] = L.init_mlp(gen, cfg, lead=lead, device=dev)
         stack[f"pos{p}"] = layer
@@ -128,9 +135,34 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def _ffn(lp, h, cfg: ModelConfig, p: int, active=None, dropless=False):
+    """The second half of layer ``p``: h + its MoE or MLP on the normed h.
+    Returns (h, the MoE aux loss or None). ``dropless`` (decode, verify and
+    the tree draft) takes ``apply_moe_dense`` gated at ``active["top_k"]``;
+    otherwise ``cfg.moe_impl`` picks the full pass's route."""
+    if cfg.layer_is_moe(p):
+        hn = L.apply_norm(lp["norm2"], h, cfg)
+        if dropless:
+            y, a = MOE.apply_moe_dense(
+                lp["moe"], hn, cfg,
+                active_topk=active.get("top_k") if active else None)
+        elif cfg.moe_impl == "dense":
+            y, a = MOE.apply_moe_dense(lp["moe"], hn, cfg)
+        else:
+            y, a = MOE.apply_moe(lp["moe"], hn, cfg)
+        return h + y, a
+    if cfg.d_ff:
+        hn = L.apply_norm(lp["norm2"], h, cfg)
+        h = h + L.apply_mlp(lp["mlp"], hn, cfg,
+                            active_ff=active.get("d_ff") if active else None)
+    return h, None
+
+
 def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, causal=True,
                want_cache=False, cache_extra=0):
-    """Run one period of layers. Returns (h, cache_or_None)."""
+    """Run one period of layers. Returns (h, aux, cache_or_None); aux is
+    the MoE layers' load-balancing loss, 0.0 without MoE layers."""
+    aux = 0.0
     caches = {}
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
@@ -148,10 +180,10 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, causal=True,
                 caches[f"pos{p}"] = {"conv_x": x_tail, "conv_bc": bc_tail,
                                      "state": state}
         h = h + mix
-        if cfg.d_ff:
-            hn = L.apply_norm(lp["norm2"], h, cfg)
-            h = h + L.apply_mlp(lp["mlp"], hn, cfg)
-    return h, (caches if want_cache else None)
+        h, a = _ffn(lp, h, cfg, p)
+        if a is not None:
+            aux = aux + a
+    return h, aux, (caches if want_cache else None)
 
 
 def _pack_kv_cache(k, v, cfg: ModelConfig, extra: int = 0):
@@ -220,28 +252,31 @@ def _remat_wrap(fn, policy: str):
 def _scan_groups(stack, h, cfg: ModelConfig, positions, *, start: int,
                  stop: int, remat: str = "none", want_cache: bool = False,
                  cache_extra: int = 0):
-    """Run groups [start, stop). Returns (h, caches stacked on a leading
-    group axis, or None). ``remat`` checkpoints each group (training; no
-    caches then)."""
+    """Run groups [start, stop). Returns (h, the groups' summed MoE aux,
+    caches stacked on a leading group axis or None). ``remat`` checkpoints
+    each group (training; no caches then)."""
     if remat != "none" and want_cache:
         raise ValueError("remat applies to the training forward, which "
                          "keeps no caches")
     groups = _group_views(stack)
     per_group = []
+    aux = 0.0
     for g in range(start, stop):
         if remat != "none":
             def body(x, gp=groups[g]):
-                return _group_fwd(gp, x, cfg, positions)[0]
-            h, c = _remat_wrap(body, remat)(h), None
+                return _group_fwd(gp, x, cfg, positions)[:2]
+            (h, a), c = _remat_wrap(body, remat)(h), None
         else:
-            h, c = _group_fwd(groups[g], h, cfg, positions,
-                              want_cache=want_cache, cache_extra=cache_extra)
+            h, a, c = _group_fwd(groups[g], h, cfg, positions,
+                                 want_cache=want_cache,
+                                 cache_extra=cache_extra)
+        aux = aux + a
         per_group.append(c)
     if not want_cache:
-        return h, None
+        return h, aux, None
     caches = {pn: {k: torch.stack([c[pn][k] for c in per_group])
                    for k in per_group[0][pn]} for pn in per_group[0]}
-    return h, caches
+    return h, aux, caches
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
@@ -273,9 +308,9 @@ def forward(params, batch, cfg: ModelConfig, *, depth: Optional[int] = None,
 
     Returns (outputs, aux) where outputs maps "final" -> logits and
     "exit_g{i}" -> logits for each requested exit group below ``depth``
-    (through that exit's norm); aux is the MoE load-balancing loss, 0 for
-    the families the port runs. ``remat`` ("none" | "dots" | "full")
-    checkpoints each layer group."""
+    (through that exit's norm); aux is the MoE load-balancing loss summed
+    over the layers run, 0 without MoE layers. ``remat`` ("none" | "dots"
+    | "full") checkpoints each layer group."""
     _check_family(cfg)
     depth = depth if depth is not None else cfg.n_groups
     h, positions = _embed_inputs(params, batch, cfg)
@@ -285,8 +320,9 @@ def forward(params, batch, cfg: ModelConfig, *, depth: Optional[int] = None,
     start = 0
     for b in boundaries:
         if b > start:
-            h, _ = _scan_groups(params["stack"], h, cfg, positions,
-                                start=start, stop=b, remat=remat)
+            h, a, _ = _scan_groups(params["stack"], h, cfg, positions,
+                                   start=start, stop=b, remat=remat)
+            aux = aux + a
         if b < depth:
             np_ = params.get("exit_norms", {}).get(f"g{b}",
                                                    params["final_norm"])
@@ -410,11 +446,7 @@ def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
         else:  # no fused path: ``fused`` reaches attention layers only
             mix, _ = SSM.ssm_decode_step(lp["ssm"], hn, cp, cfg,
                                          active=active)
-        h = h + mix
-        if cfg.d_ff:
-            hn = L.apply_norm(lp["norm2"], h, cfg)
-            h = h + L.apply_mlp(lp["mlp"], hn, cfg,
-                                active_ff=active.get("d_ff") if active else None)
+        h, _ = _ffn(lp, h + mix, cfg, p, active, dropless=True)
     return h
 
 
@@ -481,11 +513,7 @@ def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
             mix, cand[f"pos{p}"] = SSM.ssm_verify_tree(
                 lp["ssm"], hn, group_cache[f"pos{p}"], cfg, tree,
                 active=active)
-        h = h + mix
-        if cfg.d_ff:
-            hn = L.apply_norm(lp["norm2"], h, cfg)
-            h = h + L.apply_mlp(lp["mlp"], hn, cfg,
-                                active_ff=active.get("d_ff") if active else None)
+        h, _ = _ffn(lp, h + mix, cfg, p, active, dropless=True)
     return h, cand
 
 
@@ -602,11 +630,7 @@ def _group_tree_level(group_params, group_cache, group_carry, h, pos,
             mix, rows[f"pos{p}"] = SSM.ssm_tree_level(
                 lp["ssm"], hn, cp, cr, cfg, parents=tree.parents[f0:f1],
                 active=active)
-        h = h + mix
-        if cfg.d_ff:
-            hn = L.apply_norm(lp["norm2"], h, cfg)
-            h = h + L.apply_mlp(lp["mlp"], hn, cfg,
-                                active_ff=active.get("d_ff") if active else None)
+        h, _ = _ffn(lp, h + mix, cfg, p, active, dropless=True)
     return h, rows
 
 
@@ -781,9 +805,9 @@ def prefill(params, batch, cfg: ModelConfig, *, cache_extra: int = 0,
     depth = depth if depth is not None else cfg.n_groups
     h, positions = _embed_inputs(params, batch, cfg)
     S = h.shape[1]
-    h, caches = _scan_groups(params["stack"], h, cfg, positions, start=0,
-                             stop=depth, want_cache=True,
-                             cache_extra=cache_extra)
+    h, _, caches = _scan_groups(params["stack"], h, cfg, positions, start=0,
+                                stop=depth, want_cache=True,
+                                cache_extra=cache_extra)
     if depth < cfg.n_groups:  # pad the group stack back to engine layout
         caches = {pn: {k: torch.cat(
             [a, torch.zeros((cfg.n_groups - depth,) + tuple(a.shape[1:]),

@@ -115,16 +115,16 @@ def test_morph_matmul_dead_tiles_are_zero(cuda, dtype):
 
 
 @pytest.mark.parametrize("variant", ["full", "swa", "kv_quant", "bf16",
-                                     "swa_bf16", "swa_int8"])
+                                     "swa_bf16", "swa_int8", "bf16_norope",
+                                     "bf16_granite", "int8_granite"])
 def test_fused_decode_kernels_match_plain(cuda, variant):
     """The smoke config (hd 16) with f32 caches on the FMA route and bf16 /
     int8 caches on the tensor-core route, with and without a sliding window
-    (the slot wraps at position S + 70)."""
-    kw = {"full": {}, "swa": {"sliding_window": 6},
-          "kv_quant": {"kv_quant": True}, "bf16": {"dtype": "bfloat16"},
-          "swa_bf16": {"sliding_window": 40, "dtype": "bfloat16"},
-          "swa_int8": {"sliding_window": 40, "kv_quant": True}}[variant]
-    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
+    (the slot wraps at position S + 70), and without RoPE (jamba's
+    attention layers). The "_granite" variants take granite-moe-1b-a400m's
+    attention heads: 16 query heads of 64 over 8 KV heads (group 2), at
+    widths (0.5, 1, 1)."""
+    cfg = _variant_cfg(variant)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     g = torch.Generator(device=cuda).manual_seed(1)
     dm, H, KV, hd, B = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 3
@@ -147,8 +147,8 @@ def test_fused_decode_kernels_match_plain(cuda, variant):
                  "v": torch.randn(shape, generator=g, device=cuda).to(dt)}
     x = torch.randn(B, 1, dm, generator=g, device=cuda).to(dt)
     pos = torch.tensor([0, 4, S + 70], dtype=torch.int32, device=cuda)
-    act = {"q_dim": torch.tensor([32, 64, 24], dtype=torch.int32, device=cuda),
-           "kv_dim": torch.tensor([16, 32, 24], dtype=torch.int32, device=cuda)}
+    act = _variant_act(cuda, variant, cfg,
+                       ([32, 64, 24], [16, 32, 24]))
     c_k = {n: t.clone() for n, t in cache.items()}
     c_p = {n: t.clone() for n, t in cache.items()}
     route = "fma" if cache["k"].dtype == torch.float32 else "tc"
@@ -185,6 +185,39 @@ def test_engine_on_card_fused_equals_unfused(cuda):
     assert streams[0] == streams[1]
 
 
+# granite-moe-1b-a400m's attention on the smoke width: group 2 at hd 64
+_GRANITE_HEADS = {"n_heads": 16, "n_kv_heads": 8, "head_dim": 64}
+
+
+def _variant_cfg(variant):
+    """The fused decode test's config for ``variant``: TinyLlama's smoke
+    config with the variant's overrides, or granite's with its full
+    attention heads."""
+    kw = {"full": {}, "swa": {"sliding_window": 6},
+          "kv_quant": {"kv_quant": True}, "bf16": {"dtype": "bfloat16"},
+          "swa_bf16": {"sliding_window": 40, "dtype": "bfloat16"},
+          "swa_int8": {"sliding_window": 40, "kv_quant": True},
+          "bf16_norope": {"dtype": "bfloat16", "use_rope": False},
+          "bf16_granite": dict(_GRANITE_HEADS, dtype="bfloat16"),
+          "int8_granite": dict(_GRANITE_HEADS, kv_quant=True)}[variant]
+    arch = ("granite-moe-1b-a400m" if variant.endswith("granite")
+            else "tinyllama-1.1b")
+    return dataclasses.replace(smoke_config(arch), **kw)
+
+
+def _variant_act(cuda, variant, cfg, widths):
+    """Per-slot (q_dim, kv_dim) of a fused test: the given ones, or for a
+    granite variant the config's own at widths (0.5, 1, 1)."""
+    if variant.endswith("granite"):
+        from repro_torch.core import elastic
+
+        a = elastic.active_widths_batch(cfg, [0.5, 1.0, 1.0], device=cuda)
+        return {"q_dim": a["q_dim"], "kv_dim": a["kv_dim"]}
+    q, kv = widths
+    return {"q_dim": torch.tensor(q, dtype=torch.int32, device=cuda),
+            "kv_dim": torch.tensor(kv, dtype=torch.int32, device=cuda)}
+
+
 def tree_np(branching):
     """(node depths, additive ancestor mask) of a token tree with the given
     branching per level, BFS order (node 0 the root): 0 where column j is
@@ -215,7 +248,10 @@ def _verify_case(cuda, variant, seed=4):
     heads over 2 KV heads: G * S = 40 (linear) or 56 ((2, 2) tree) query
     rows per (slot, KV head), three or four m16 row tiles of one block;
     the (2, 2, 1) and (3, 2, 1) trees give 88 and 128 rows, more than one
-    block carries, so they split over blocks (head groups)."""
+    block carries, so they split over blocks (head groups). "_granite"
+    variants take granite-moe-1b-a400m's 16 query heads of 64 over 8 KV
+    heads (group 2) at widths (0.5, 1, 1); "_norope" skips the rotation
+    (jamba's attention)."""
     kw = {"linear_f32": {}, "linear_bf16": {"dtype": "bfloat16"},
           "tree_int8": {"kv_quant": True},
           "linear_swa": {"sliding_window": 6},
@@ -232,8 +268,13 @@ def _verify_case(cuda, variant, seed=4):
                               "n_kv_heads": 2},
           "tree321_int8_g8": {"kv_quant": True, "n_heads": 16,
                               "n_kv_heads": 2},
+          "linear_bf16_granite": dict(_GRANITE_HEADS, dtype="bfloat16"),
+          "tree221_bf16_granite": dict(_GRANITE_HEADS, dtype="bfloat16"),
+          "linear_bf16_norope": {"dtype": "bfloat16", "use_rope": False},
           }[variant]
-    cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), **kw)
+    arch = ("granite-moe-1b-a400m" if variant.endswith("granite")
+            else "tinyllama-1.1b")
+    cfg = dataclasses.replace(smoke_config(arch), **kw)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     g = torch.Generator(device=cuda).manual_seed(seed)
     dm, H, KV, hd, B = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 3
@@ -262,9 +303,7 @@ def _verify_case(cuda, variant, seed=4):
                  "v": torch.randn(shape, generator=g, device=cuda).to(dt)}
     x = torch.randn(B, S, dm, generator=g, device=cuda).to(dt)
     pos = torch.tensor([0, 4, Sc + 70], dtype=torch.int32, device=cuda)
-    act = {"q_dim": torch.tensor([32, H * hd, 24], dtype=torch.int32,
-                                 device=cuda),
-           "kv_dim": torch.tensor([16, 32, 24], dtype=torch.int32, device=cuda)}
+    act = _variant_act(cuda, variant, cfg, ([32, H * hd, 24], [16, 32, 24]))
     return cfg, dt, params, cache, x, pos, act, nd, tb
 
 
@@ -273,7 +312,9 @@ def _verify_case(cuda, variant, seed=4):
                                      "linear_bf16_g8", "tree_int8_g8",
                                      "linear_swa_bf16_g8", "tree221_bf16_g8",
                                      "tree221_int8_g8", "tree321_bf16_g8",
-                                     "tree321_int8_g8"])
+                                     "tree321_int8_g8", "linear_bf16_granite",
+                                     "tree221_bf16_granite",
+                                     "linear_bf16_norope"])
 def test_fused_verify_kernel_matches_plain(cuda, variant):
     """Against the plain version: outputs, raw candidates, the cache left
     as it was, and the route the attention launch reports (bf16 and int8
@@ -550,6 +591,40 @@ def test_mamba2_smoke_grads_on_card_match_cpu(cuda):
         gc = grads[1][k]
         assert bool(torch.isfinite(gc).all()), k
         assert float((gc - gp).norm()) <= 1e-3 * max(float(gp.norm()), 1e-12), k
+
+
+def test_mamba2_train_steps_are_bit_reproducible(cuda):
+    """Two seeded ``make_train_step`` runs of full-width Mamba2-370M cut to
+    4 layers (B = 4, S = 256, AdamW, 2 steps each, in one process) leave
+    bit-identical parameters and optimizer moments: no sum on the step's
+    path (the scan kernels forward and backward, the embedding's gradient,
+    the losses and the optimizer) depends on launch order."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import leaves_with_path
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=4)
+    ocfg = OptimizerConfig(lr=2e-3)
+    dc = DataConfig(seed=0, global_batch=4, seq_len=256)
+    runs = []
+    for _ in range(2):
+        state = init_train_state(cfg, ocfg, seed=0, device=cuda)
+        step = make_train_step(cfg, ocfg, remat="none")
+        for i in range(2):
+            state, _ = step(state, to_device(make_batch(cfg, dc, i), cuda))
+        torch.cuda.synchronize()
+        runs.append(dict(
+            (f"{part}/{k}", t.detach().clone())
+            for part, tree in (("params", state["params"]),
+                               ("mu", state["opt"].mu),
+                               ("nu", state["opt"].nu))
+            for k, t in leaves_with_path(tree)))
+        del state
+    assert runs[0].keys() == runs[1].keys()
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    assert not differ, differ
 
 
 def _tree_to(tree, dev):
@@ -929,15 +1004,31 @@ def test_bf16_matmul_sums_in_f32(cuda, shape):
 
 
 @pytest.mark.parametrize("kernel", ["fused_verify_g8", "fused_verify_tree",
-                                    "ssd_scan"])
+                                    "ssd_scan", "ssd_scan_bwd"])
 def test_verify_and_scan_kernels_are_deterministic(cuda, kernel):
     """Repeated launches on the same inputs are bit-identical: the verify's
-    splits merge in split order through the cluster's shared memory, and
-    the scan's tiles meet in a fixed order through its workspace, with no
-    atomics in either."""
+    splits merge in split order through the cluster's shared memory, the
+    scan's tiles meet in a fixed order through its workspace, and the
+    scan's backward sums each step's decay terms from per-thread partials
+    in index order, with no atomics in any. The backward runs at
+    Mamba2-370M's width (32 heads of 64, n = 128) over 300 steps (a ragged
+    last tile), on one forward's kept workspace."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
 
-    if kernel == "ssd_scan":
+    if kernel == "ssd_scan_bwd":
+        g = torch.Generator(device=cuda).manual_seed(30)
+        x, dt, A, B, C = _ssd_inputs(g, (2, 300, 32, 64, 1, 128),
+                                     torch.float32)
+        A_bh = A.expand(2, 32).contiguous()
+        y, st, ws = SSD.launch_bshn(x, dt, A_bh, B, C, keep_workspace=True)
+        dy = torch.randn(y.shape, generator=g, device=cuda)
+        ds = torch.randn(st.shape, generator=g, device=cuda)
+
+        def run():
+            return torch.cat([t.float().flatten() for t in SSD.launch_bwd(
+                x, dt, A_bh, B, C, ws, dy, ds)])
+    elif kernel == "ssd_scan":
         g = torch.Generator(device=cuda).manual_seed(29)
         x, dt, A, B, C = _ssd_inputs(g, (1, 300, 8, 64, 2, 128),
                                      torch.float32)

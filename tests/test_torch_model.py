@@ -156,8 +156,10 @@ def test_init_params_matches_jax_layout_and_scale():
     # SSM layers arrived with the SSM slice (tests/test_torch_ssm.py)
     assert "ssm" in TM.init_params(smoke_config("mamba2-370m"),
                                    device="cpu")["stack"]["pos0"]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TM.init_params(smoke_config("mixtral-8x22b"), device="cpu")
+    # MoE layers arrived with the MoE slice (tests/test_torch_moe.py)
+    layer = TM.init_params(smoke_config("mixtral-8x22b"),
+                           device="cpu")["stack"]["pos0"]
+    assert {"moe", "norm2"} <= set(layer) and "mlp" not in layer
 
 
 def test_norm_masked_and_chunked_attention_match_jax():

@@ -45,10 +45,18 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    timer's floor), and at ``tests/test_flash_decode.py``'s largest case;
    the route counts of both decode kernels. Then ``fused_decode_step`` and
    ``fused_verify`` (linear S = 5 and tree (2, 2, 1)) at the attention
-   shapes of the MoE families (``check_fused_moe_shapes``: granite's 16 / 8
-   heads of 64, group 2, and jamba's 32 / 8 heads of 128, group 4, without
-   RoPE; B = 8, a 512-row bf16 cache), each against its plain version on
-   the tensor-core route, timed beside it. Then at full
+   shapes of the MoE families (``check_fused_attention_shapes``: granite's
+   16 / 8 heads of 64, group 2, and jamba's 32 / 8 heads of 128, group 4,
+   without RoPE; B = 8, a 512-row bf16 cache), each against its plain
+   version on the tensor-core route, timed beside it. Then the shapes of
+   the encoder-decoder and frontend models: ``flash_decode`` at whisper's
+   cross-attention decode (``check_cross_decode``: 64 KV rows of 1500
+   encoder positions, group 1, bf16 cache, bf16 and f32 queries) beside
+   SDPA and its byte bound; ``flash_attention`` unmasked at whisper's
+   encoder (1500 x 1500, 8 heads of 64) and cross prompt pass (16 x 1500)
+   in ``check_flash_attention``; the fused decode layer at whisper's (8 / 8
+   heads of 64, no RoPE) and internvl's (16 / 8 of 128, RoPE) shapes,
+   beside its byte bound. Then at full
    Mamba2-370M shapes: ``morph_matmul`` over the four gated projections of
    one SSM layer (B = 8, widths {0.5, 1.0}, at decode shape and at the
    verify pass's S = 5), and ``ssd_scan`` at the
@@ -114,8 +122,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``fused_verify`` and ``flash_decode`` launch on the tensor-core route.
    Then one full-depth 256-token prompt pass under the einsum and under the
    chunked attention (host and device ms), one full-depth 256-token
-   Mamba2 prompt pass (48 scans), and the ``flash_decode`` entry point (which no
-   model path calls, as in the reference) driven once per TinyLlama layer
+   Mamba2 prompt pass (48 scans), and the ``flash_decode`` entry point (the
+   reference's only caller of that kernel) driven once per TinyLlama layer
    at the serving cache's shape. Speculative drives
    report acceptance, tokens per verify launch per slot, tick p50/p95 and
    the device time of the draft's scratch copy; greedy ones the host and
@@ -127,6 +135,23 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    each smoke model on the card against the plain versions on the CPU
    (decode, prefill and verify, and for TinyLlama a chunked prefill
    through the flash kernel; a small-input reference).
+   Then the encoder-decoder and frontend families at full width and depth
+   (``encdec_phase``, ``vlm_phase``): ``whisper-base`` (98.8 M
+   parameters) on 8 requests of 1500 seeded frames and a 4-token prompt,
+   one prompt pass under the einsum and one under the chunked attention
+   (18 ``flash_attention`` launches: 6 encoder layers, 6 decoder self- and
+   6 cross-attentions), 32 greedy decode steps at depth 6 and 8 at depth 3,
+   unfused (8 ``morph_matmul`` and 1 ``flash_decode`` per layer-step) and
+   fused (4 ``morph_matmul``, 1 ``fused_decode``, 1 ``flash_decode``), then
+   the engine unfused and fused on 12 Poisson requests (prompts 4-16, no
+   prefill admission for these families, as in the reference), then full
+   depth in f32 on the card against the CPU (a chunked prompt pass and 4
+   fused steps); ``internvl2-2b`` (1.898 B) the same way with 256 seeded
+   patches and 64 text tokens (24 ``flash_attention`` launches under the
+   chunked attention; 32 fused steps, 3 ``morph_matmul`` and 1
+   ``fused_decode`` per layer-step), its engine fused, and 4 layers of full
+   width in f32 against the CPU. Each drive's counts are exact and every
+   launch over bf16 takes the tensor-core route.
 4. Training, one card. The scan's backward kernel (``ssd_scan_bwd``, on
    the forward kernel's kept workspace) against ``ssd_scan_bwd_plain`` at
    the Mamba2-370M training shape (B = 8, S = 256, 32 heads of 64,
@@ -144,8 +169,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    teacher + 2 student steps each) and ``eval_modes(with_agreement=True)``,
    every step's forward and backward scan launches checked (a base step:
    48 and 48; a teacher step at grown depth D: D and D; a student step at
-   depth d: D + d and d); and 5 TinyLlama-1.1B train steps (no hand kernel
-   on its path). Step ms (wall and device), idle share, peak memory,
+   depth d: D + d and d); 5 TinyLlama-1.1B train steps (no hand kernel
+   on its path); and 5 whisper-base train steps (B = 8, 1500 frames and 64
+   decoder tokens a sequence; no hand kernel on its path; the fifth step
+   revisits the first's batch and its loss must be lower). Step ms (wall and device), idle share, peak memory,
    history and agreement per path are printed. The DistillCycle-trained
    Mamba2 parameters (which require grad) then serve 4 requests x 16 new
    tokens, plain and linear-speculative, with exact launch counts and the
@@ -156,8 +183,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    tree shapes under ``tree`` and the fused tree drive's count under
    ``tree_launches``; the three that granite's drives run add their counts
    there under ``granite_launches``, and ``fused_decode`` / ``fused_verify``
-   the MoE attention shapes under ``moe_attention_shapes``;
-   ``ssd_scan_bwd`` is the port's kernel with no Pallas counterpart), then
+   the MoE attention shapes under ``moe_attention_shapes``; the kernels of
+   the whisper and internvl drives their counts under ``encdec_launches``
+   and ``vlm_launches``, ``fused_decode`` their attention shapes under
+   ``frontend_attention_shapes`` and ``flash_decode`` its cross shape under
+   ``cross_attention``; ``ssd_scan_bwd`` is the port's kernel with no
+   Pallas counterpart), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -841,16 +872,19 @@ def check_fused_verify(torch, cfg, timer):
 
 # the attention shapes the MoE families bring to B2 and B3
 MOE_ATTN_ARCHS = ("granite-moe-1b-a400m", "jamba-v0.1-52b")
+ATTN_WHATS = ("decode", "verify linear", "verify tree")
 
 
-def check_fused_moe_shapes(torch, timer):
-    """B2 and B3 at the attention shapes of the MoE families, published
-    widths: ``granite-moe-1b-a400m`` (16 query heads of 64 over 8 KV heads:
-    group 2, RoPE) and ``jamba-v0.1-52b`` (32 of 128 over 8: group 4, no
-    RoPE), B = 8 slots at widths (0.5, 1) over a 512-row bf16 cache at
-    mixed positions: the decode, the linear verify (S = 5) and the TREE
-    verify, each against its plain version, on the tensor-core route, and
-    timed beside it (profiler, cold L2)."""
+def check_fused_attention_shapes(torch, timer, archs=MOE_ATTN_ARCHS,
+                                 whats=ATTN_WHATS):
+    """B2 and B3 at the attention shapes of ``archs``, published widths
+    (the MoE families: ``granite-moe-1b-a400m``, 16 query heads of 64 over
+    8 KV heads: group 2, RoPE; ``jamba-v0.1-52b``, 32 of 128 over 8: group
+    4, no RoPE), B = 8 slots at widths (0.5, 1) over a 512-row bf16 cache
+    at mixed positions: of ``whats``, the decode, the linear verify (S = 5)
+    and the TREE verify, each against its plain version, on the
+    tensor-core route, and timed beside it (profiler, cold L2); the decode
+    beside its byte bound (f32 weights, the live cache rows, x and out)."""
     from repro_torch.configs import get_config
     from repro_torch.core import elastic
     from repro_torch.kernels import fused_decode as FD
@@ -858,7 +892,7 @@ def check_fused_moe_shapes(torch, timer):
     B, Sc = 8, 512
     depths, bias = tree_np(TREE)
     out = {}
-    for arch in MOE_ATTN_ARCHS:
+    for arch in archs:
         cfg = get_config(arch)
         dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         gen = torch.Generator(device="cuda").manual_seed(12)
@@ -876,6 +910,8 @@ def check_fused_moe_shapes(torch, timer):
         for what, S, nd, tb in (("decode", 1, None, None),
                                 ("verify linear", 5, None, None),
                                 ("verify tree", len(depths), depths, bias)):
+            if what not in whats:
+                continue
             x = torch.randn(B, S, dm, generator=gen, device="cuda").to(
                 torch.bfloat16)
             if what == "decode":
@@ -920,10 +956,19 @@ def check_fused_moe_shapes(torch, timer):
                 err = max(err, e)
             t_k, t_p = timer.ms(run), timer.ms(plain)
             res[what] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, rows=S)
+            bound = ""
+            if what == "decode":
+                nbytes = (sum(t.numel() * t.element_size()
+                              for t in params.values())
+                          + int((pos + 1).sum()) * 2 * KV * hd * 2
+                          + 2 * B * dm * 2)
+                ms, by = dense_bound(nbytes, 0, PEAK_BF16)
+                res[what].update(bound_ms=ms, bound_by=by)
+                bound = f", bound {ms:.5f} ms ({by}; {nbytes / 1e6:.3f} MB)"
             log(f"  {arch} attention ({H}/{KV} heads of {hd}, "
                 f"{'RoPE' if cfg.use_rope else 'no RoPE'}) {what} (B={B}, "
                 f"S={S}, cache {Sc}): max|err| {err:.3e}, route tc; kernels "
-                f"{t_k:.4f} ms, plain {t_p:.4f} ms")
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms{bound}")
         out[arch] = res
     return out
 
@@ -1516,39 +1561,51 @@ def check_flash_attention(torch, cfg, timer):
     the full-width TinyLlama prompt pass (1 x 256 tokens, 32 / 4 heads of
     64, causal, bf16) and at a ragged S = 200, through
     ``ops.flash_attention_bshd`` in the model layout as the prompt pass
-    calls it; and at the reference's ``kernel_bench`` shape (q (2, 256, 4,
-    64), k / v (2, 256, 2, 64), f32) with window 0 and 64. Library
-    yardstick: ``scaled_dot_product_attention`` with ``enable_gqa``
-    (``is_causal`` without a window, a boolean mask with one)."""
+    calls it; at the reference's ``kernel_bench`` shape (q (2, 256, 4,
+    64), k / v (2, 256, 2, 64), f32) with window 0 and 64; and unmasked
+    (neither causal nor windowed) at whisper-base's prompt-pass shapes, 8
+    heads of 64 (group 1), bf16: its encoder's self-attention (1 x 1500
+    frames; 1500 = 23 x 64 + 28, a ragged last tile) and its decoder's
+    cross-attention (16 queries against 1500 keys). Library yardstick:
+    ``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal``
+    without a window, a boolean mask with one, neither when unmasked)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops
 
     F = torch.nn.functional
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    wc = get_config(ENCDEC_ARCH)
+    wh, wkv, whd, wse = wc.n_heads, wc.n_kv_heads, wc.head_dim, wc.enc_seq
+    bf, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(13)
     res = {}
-    for tag, (b, s, h, kv, d, window, dt) in (
-            ("prompt S=256", (1, 256, H, KV, hd, 0, torch.bfloat16)),
-            ("prompt S=200", (1, 200, H, KV, hd, 0, torch.bfloat16)),
-            ("kernel_bench win0", (2, 256, 4, 2, 64, 0, torch.float32)),
-            ("kernel_bench win64", (2, 256, 4, 2, 64, 64, torch.float32))):
-        q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
-        k = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dt)
-        v = torch.randn(b, s, kv, d, generator=gen, device="cuda").to(dt)
-        flat = [t.transpose(1, 2).reshape(-1, s, d).contiguous()
+    for tag, (b, sq, sk, h, kv, d, causal, window, dt) in (
+            ("prompt S=256", (1, 256, 256, H, KV, hd, True, 0, bf)),
+            ("prompt S=200", (1, 200, 200, H, KV, hd, True, 0, bf)),
+            ("kernel_bench win0", (2, 256, 256, 4, 2, 64, True, 0, f32)),
+            ("kernel_bench win64", (2, 256, 256, 4, 2, 64, True, 64, f32)),
+            ("whisper encoder 1500x1500",
+             (1, wse, wse, wh, wkv, whd, False, 0, bf)),
+            ("whisper cross prompt 16x1500",
+             (1, 16, wse, wh, wkv, whd, False, 0, bf))):
+        q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
+        k = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dt)
+        v = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dt)
+        flat = [t.transpose(1, 2).reshape(-1, t.shape[1], d).contiguous()
                 for t in (q, k, v)]
 
         def kern():
-            return ops.flash_attention_bshd(q, k, v, causal=True,
+            return ops.flash_attention_bshd(q, k, v, causal=causal,
                                             window=window)
 
         def plain():
-            return FA.flash_attention_plain(*flat, group=h // kv, causal=True,
-                                            window=window)
+            return FA.flash_attention_plain(*flat, group=h // kv,
+                                            causal=causal, window=window)
 
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window:
-            r = torch.arange(s, device="cuda")
+            r = torch.arange(sq, device="cuda")
             allow = (r[None, :] <= r[:, None]) & (r[None, :] > r[:, None] - window)
 
             def lib():
@@ -1558,31 +1615,32 @@ def check_flash_attention(torch, cfg, timer):
         else:
             def lib():
                 return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True,
+                                                      is_causal=causal,
                                                       enable_gqa=True)
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        got_f = got.transpose(1, 2).reshape(-1, s, d)
+        got_f = got.transpose(1, 2).reshape(-1, sq, d)
         rtol, atol = ((RTOL_BF16, ATOL_BF16) if dt == torch.bfloat16
                       else (RTOL_F32, ATOL_F32))
         ok, err = close(torch, got_f, want, rtol=rtol, atol=atol)
         if not ok or not bool(torch.isfinite(got.float()).all()):
             fail(f"flash_attention {tag}: max |err| {err:.3e} beyond rtol "
                  f"{rtol:.2e} + atol {atol:.0e}")
-        _, lib_err = close(torch, lib().reshape(-1, s, d), want)
+        _, lib_err = close(torch, lib().reshape(-1, sq, d), want)
         t_k = timer.ms(kern)
         t_kw = timer.wall_ms(kern)
         t_p = timer.ms(plain)
         t_l = timer.ms(lib)
         backend = sdpa_backend(timer.last)
         size = torch.finfo(dt).bits // 8
-        nbytes = size * (2 * b * s * h * d + 2 * b * s * kv * d)
-        ops_n = 4 * d * attn_pairs(s, s, True, window) * b * h
+        nbytes = size * (2 * b * sq * h * d + 2 * b * sk * kv * d)
+        ops_n = 4 * d * attn_pairs(sq, sk, causal, window) * b * h
         peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
         bound, by = dense_bound(nbytes, ops_n, peak)
         route = "tc (tensor cores)" if dt == torch.bfloat16 else "fma (f32)"
-        log(f"  flash_attention {tag} (b={b}, h={h}/{kv}, hd={d}, window "
-            f"{window}, {str(dt)[6:]}, route {route}): max|err| {err:.3e} "
+        log(f"  flash_attention {tag} (b={b}, Sq={sq}, Sk={sk}, h={h}/{kv}, "
+            f"hd={d}, {'causal' if causal else 'unmasked'}, window {window}, "
+            f"{str(dt)[6:]}, route {route}): max|err| {err:.3e} "
             f"(rtol {rtol:.2e} + atol {atol:.0e}; SDPA vs plain "
             f"{lib_err:.3e})  kernel {t_k:.4f} ms (call, event-timed "
             f"{t_kw:.4f} ms)  plain {t_p:.4f} ms  SDPA ({backend}) "
@@ -1781,20 +1839,26 @@ def _step_width_ms(torch, engine, width, iters):
 
 def step_bytes(engine) -> int:
     """Bytes a full-depth decode step at full width must move: every
-    parameter read once (the embedding only where it is the tied
-    unembedding; an untied one is a row gather), and every SSM layer's
-    recurrent state read and written. K/V reads are left out: the step is
-    timed on a fresh cache."""
+    decoder parameter read once (the embedding only where it is the tied
+    unembedding; an untied one is a row gather; an encoder and a frontend
+    projection are not read), every SSM layer's recurrent state read and
+    written, and an encoder-decoder layer's cross-attention K/V read.
+    Self-attention K/V reads are left out: the step is timed on a fresh
+    cache."""
     cfg = engine.cfg
-    nbytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    dec = {k: v for k, v in engine.params.items()
+           if k not in ("encoder", "frontend_proj")}
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(dec))
     if not cfg.tie_embeddings:
         emb = engine.params["embed"]
         nbytes -= emb.numel() * emb.element_size()
     cache = engine.groups[cfg.n_groups].cache
-    return nbytes + sum(2 * t.numel() * t.element_size()
+    return nbytes + sum((2 if k in ("conv_x", "conv_bc", "state") else 1)
+                        * t.numel() * t.element_size()
                         for layer in cache["stack"].values()
                         for k, t in layer.items()
-                        if k in ("conv_x", "conv_bc", "state"))
+                        if k in ("conv_x", "conv_bc", "state", "cross_k",
+                                 "cross_v"))
 
 
 def spec_tick_ms(torch, engine, shape=None, iters: int = 5):
@@ -2087,8 +2151,6 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
     gives the exact launch counts each drive must show. With a ``timer``
     each drive is followed by its step or tick measurements. Returns
     (launches per path, results per path)."""
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import fused_decode as FD
     from repro_torch.runtime.serving import ServingEngine, poisson_trace
     from repro_torch.runtime.speculative import draft_compile_key
 
@@ -2120,18 +2182,7 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
         peak = (torch.cuda.max_memory_allocated() / 2**30
                 if torch.device(device).type == "cuda" else float("nan"))
         launches[tag] = run_launches
-        routes = FA.route_counts()
-        if routes["tc"] != run_launches["flash_attention"]:
-            fail(f"{tag} path: flash_attention routes {routes}; every launch "
-                 f"of a bf16 model must take the tensor-core kernel")
-        routes = FD.route_counts()
-        if routes["tc"] != run_launches["fused_decode"]:
-            fail(f"{tag} path: fused_decode routes {routes}; every launch "
-                 f"over a bf16 cache must take the tensor-core route")
-        routes = FD.verify_route_counts()
-        if routes["tc"] != run_launches["fused_verify"]:
-            fail(f"{tag} path: fused_verify routes {routes}; every launch "
-                 f"over a bf16 cache must take the tensor-core route")
+        check_routes(f"{tag} path", run_launches)
         want, steps = expect(torch, engine, steps0, fused, device)
         if run_launches != want:
             fail(f"{tag} path: launches {run_launches}, expected {want} for "
@@ -2609,6 +2660,435 @@ def flash_decode_drive(torch, cfg, calls: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# encoder-decoder (whisper-base) and vision-frontend (internvl2-2b) models
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-base"
+VLM_ARCH = "internvl2-2b"
+FRONTEND_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
+# engine paths (as in PATHS); neither family takes speculation
+ENCDEC_PATHS = (("whisper_unfused", False, False, 0.0, 0, None),
+                ("whisper_fused", True, False, 0.0, 0, None))
+ENCDEC_AGREE = (("whisper_unfused", "whisper_fused",
+                 "f32 fused projections vs bf16 unfused weights"),)
+VLM_PATHS = (("internvl_fused", True, False, 0.0, 0, None),)
+# model-level drives and card-vs-CPU checks, by their launch-count tags
+ENCDEC_DRIVES = ("whisper_prefill_einsum", "whisper_prefill_chunked",
+                 "whisper_decode_unfused", "whisper_decode_fused",
+                 "whisper_vs_cpu")
+VLM_DRIVES = ("internvl_prefill_einsum", "internvl_prefill_chunked",
+              "internvl_decode_fused", "internvl_vs_cpu")
+
+
+def check_cross_decode(torch, timer):
+    """B5 at whisper-base's cross-attention decode shape: 8 slots x 8
+    heads over 64 KV rows of all 1500 encoder positions (kv_len 1500), hd
+    64, group 1, a bf16 cache (the tensor-core route), with bf16 queries
+    (the model's) and f32 ones (an f32 model's), against its plain version,
+    timed beside it, beside SDPA over the same keys (bf16 queries) and
+    beside its byte bound (K and V read once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as FDK
+
+    F = torch.nn.functional
+    cfg = get_config(ENCDEC_ARCH)
+    B, H, KV, hd, Se = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.enc_seq
+    g = H // KV
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    kc, vc, _, _ = decode_cache(torch, gen, B * KV, Se, hd, False)
+    res = {}
+    for qdt in (torch.bfloat16, torch.float32):
+        q = torch.randn(B * H, hd, generator=gen, device="cuda").to(qdt)
+
+        def kern():
+            return FDK.flash_decode(q, kc, vc, Se, group=g)
+
+        def plain():
+            return FDK.flash_decode_plain(q, kc, vc, Se, group=g)
+
+        r0 = FDK.route_counts()["tc"]
+        got = kern()
+        if FDK.route_counts()["tc"] != r0 + 1:
+            fail("flash_decode at the cross shape: not on the tensor-core "
+                 "route")
+        want = plain()
+        torch.cuda.synchronize()
+        rtol, atol = ((RTOL_BF16, ATOL_BF16) if qdt == torch.bfloat16
+                      else (RTOL_F32, ATOL_F32))
+        ok, err = close(torch, got, want, rtol=rtol, atol=atol)
+        if not ok or not bool(torch.isfinite(got.float()).all()):
+            fail(f"flash_decode cross shape, {qdt} queries: max |err| "
+                 f"{err:.3e} beyond rtol {rtol:.2e} + atol {atol:.0e}")
+        t_k, t_kw, t_p = timer.ms(kern), timer.wall_ms(kern), timer.ms(plain)
+        t_l = None
+        if qdt == torch.bfloat16:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q.view(B * KV, g, 1, hd), kc[:, None], vc[:, None],
+                    enable_gqa=True)
+            t_l = timer.ms(lib)
+        nbytes = 2 * kc.numel() * kc.element_size() + 2 * q.numel() * \
+            q.element_size()
+        ops_n = 4 * hd * Se * B * H
+        bound, by = dense_bound(nbytes, ops_n, PEAK_BF16 if qdt ==
+                                torch.bfloat16 else PEAK_F32)
+        splits, rows = FDK.plan(B * KV, g, Se, qdt, kc.dtype, hd, "cuda")
+        tag = f"cross q {str(qdt)[6:]}"
+        lib_s = "none (f32 queries)" if t_l is None else f"{t_l:.4f} ms"
+        log(f"  flash_decode {tag} (BKV={B * KV}, group {g}, S=kv_len={Se}, "
+            f"hd={hd}, bf16 cache, route tc; {splits} splits of {rows} rows): "
+            f"max|err| {err:.3e} (rtol {rtol:.2e} + atol {atol:.0e})  kernel "
+            f"{t_k:.4f} ms (call, event-timed {t_kw:.4f} ms)  plain "
+            f"{t_p:.4f} ms  SDPA {lib_s}  bound {bound:.5f} ms ({by}; "
+            f"{nbytes / 1e6:.3f} MB); kernel at {bound / t_k:.3f} of the "
+            f"bound")
+        res[tag] = dict(max_abs_err=err, ms=t_k, wall_ms=t_kw, plain_ms=t_p,
+                        bound_ms=bound, bound_by=by, library_ms=t_l,
+                        splits=splits, rows_per_split=rows)
+    return res
+
+
+def decode_layer_launches(cfg, fused: bool) -> dict:
+    """Hand-kernel launches of one decoder layer's decode step at runtime
+    widths: the self-attention's 4 gated projections (unfused) or 1
+    ``fused_decode`` (fused, its projections not ``morph_matmul`` counts);
+    an encoder-decoder layer's cross-attention, 2 gated projections (query
+    and output, in either engine) around 1 ``flash_decode``; the MLP's 3
+    (SwiGLU) or 2 gated projections."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    if fused:
+        n["fused_decode"] = 1
+    else:
+        n["morph_matmul"] = 4
+    if cfg.is_encdec:
+        n["morph_matmul"] += 2
+        n["flash_decode"] = 1
+    n["morph_matmul"] += 3 if cfg.activation == "swiglu" else 2
+    return n
+
+
+def prompt_pass_launches(cfg, chunked: bool) -> dict:
+    """Hand-kernel launches of one full-depth prompt pass: under
+    ``attn_impl="chunked"`` 1 ``flash_attention`` per attention (the
+    encoder's layers, and per decoder layer its self-attention and, in an
+    encoder-decoder model, its cross-attention); none otherwise (the
+    prompts and the 1500 encoder positions stay under "auto"'s 2048)."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    if chunked:
+        n["flash_attention"] = cfg.enc_layers + cfg.n_layers * (
+            2 if cfg.is_encdec else 1)
+    return n
+
+
+def expected_launches_frontend(torch, engine, steps0, fused: bool, device):
+    """Launch counts one whisper or internvl engine drive must show: the
+    engine feeds these families token by token (no prefill, as in the
+    reference), so ``decode_layer_launches`` per decoder layer-step."""
+    steps = layer_steps(engine, steps0, engine.cfg)
+    if engine.prefills or any(steps[1:]):
+        fail(f"{engine.cfg.name}: {engine.prefills} prefills, layer steps "
+             f"{steps}; the engine feeds these families token by token")
+    if torch.device(device).type != "cuda":
+        return dict.fromkeys(KERNEL_NAMES, 0), steps
+    per = decode_layer_launches(engine.cfg, fused)
+    return {k: v * steps[0] for k, v in per.items()}, steps
+
+
+def frontend_batch(torch, cfg, n: int, text: int, seed: int = 0):
+    """``n`` requests of ``text`` prompt tokens each and the frontend's
+    seeded inputs (``data.make_batch``: whisper ``frames`` (n, 1500, 512),
+    internvl ``patches`` (n, 256, 1024)), on the card."""
+    from repro_torch.data import DataConfig, make_batch, to_device
+
+    extra = cfg.frontend_seq if cfg.frontend == "vision_stub" else 0
+    b = make_batch(cfg, DataConfig(seed=seed, global_batch=n,
+                                   seq_len=extra + text), 0)
+    b.pop("targets")
+    return to_device(b, "cuda")
+
+
+def check_routes(what: str, launches: dict) -> None:
+    """Every launch of the attention kernels in a bf16 drive (counted in
+    ``launches`` since the counters were zeroed) on the tensor-core
+    route."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FDK
+    from repro_torch.kernels import fused_decode as FD
+
+    for name, routes in (("flash_attention", FA.route_counts()),
+                         ("fused_decode", FD.route_counts()),
+                         ("fused_verify", FD.verify_route_counts()),
+                         ("flash_decode", FDK.route_counts())):
+        if routes["tc"] != launches[name]:
+            fail(f"{what}: {name} routes {routes}; every launch over bf16 "
+                 f"must take the tensor-core route")
+
+
+def frontend_model_drive(torch, cfg, params, text: int, fused_paths,
+                         n_steps: int = 32, shallow_steps: int = 0):
+    """The model-level drive of an encoder-decoder or frontend model at
+    full width: 8 requests (``frontend_batch``) through one prompt pass
+    under the einsum attention and one under ``attn_impl="chunked"`` (the
+    flash kernel), the two passes' greedy next tokens compared; then from
+    the chunked pass's cache, for each of ``fused_paths``, ``n_steps``
+    greedy decode steps at full depth and ``shallow_steps`` at the first
+    exit, the 8 slots at widths (0.5, 1) x 4. Counters are zeroed just
+    before each prompt pass and each decode path and read just after; each
+    must show its exact counts (``prompt_pass_launches``,
+    ``decode_layer_launches`` per layer-step). Host ms and device kernel ms
+    of each prompt pass and decode step; returns (launches by drive tag,
+    results)."""
+    from repro_torch.core import elastic
+    from repro_torch.models.model import decode_step, prefill
+
+    arch = "whisper" if cfg.is_encdec else "internvl"
+    B = 8
+    batch = frontend_batch(torch, cfg, B, text)
+    extra = n_steps + shallow_steps + 4
+    count_reset = counters()
+
+    def zero():
+        for _, reset in count_reset.values():
+            reset()
+
+    def read():
+        torch.cuda.synchronize()
+        return {n: count() for n, (count, _) in count_reset.items()}
+
+    launches, res, caches, nxt = {}, {}, {}, {}
+    for impl in ("einsum", "chunked"):
+        pcfg = cfg.scaled(attn_impl=impl)
+
+        def run():
+            return prefill(params, batch, pcfg, cache_extra=extra,
+                           per_slot=True)
+
+        zero()
+        t0 = time.perf_counter()
+        lg, cache = run()
+        got = read()
+        first = (time.perf_counter() - t0) * 1e3
+        tag = f"{arch}_prefill_{impl}"
+        want = prompt_pass_launches(cfg, impl == "chunked")
+        if got != want:
+            fail(f"{tag}: launches {got}, expected {want}")
+        check_routes(tag, got)
+        launches[tag] = got
+        if not bool(torch.isfinite(lg.float()).all()):
+            fail(f"{tag}: non-finite logits")
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        per = kernel_us(torch, run, 1)
+        dev = sum(per.values()) / 1e3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+        S = int(cache["pos"][0])
+        log(f"  {tag}: {B} requests x {S} prompt positions"
+            + (f" + {cfg.enc_seq} encoder frames" if cfg.is_encdec else "")
+            + f", depth {cfg.n_groups}: host {host:.3f} ms (first call "
+            f"{first:.1f} ms), device {dev:.3f} ms (idle share "
+            f"{1 - dev / host:.3f}); launches " + ", ".join(
+                f"{n} {c}" for n, c in got.items() if c)
+            + " (as expected); heaviest: " + "; ".join(
+                f"{v / 1e3:.3f} ms {k[:50]}" for k, v in top))
+        res[tag] = dict(host_ms=host, device_ms=dev)
+        caches[impl] = cache
+        nxt[impl] = lg[:, -1, :cfg.vocab_size].float().argmax(-1)
+    same = int((nxt["einsum"] == nxt["chunked"]).sum())
+    log(f"  {arch} prompt passes, einsum vs chunked: {same}/{B} greedy next "
+        f"tokens agree (the flash kernel keeps p in f32 for P.V, the einsum "
+        f"rounds it to bf16; reported, not asserted)")
+    act = elastic.active_widths_batch(cfg, [0.5, 1.0] * (B // 2),
+                                      device="cuda")
+    exit_depth = min(m.depth for m in cfg.elastic.modes(cfg.n_groups))
+    streams = {}
+    for fused in fused_paths:
+        tag = f"{arch}_decode_{'fused' if fused else 'unfused'}"
+        runs = [(cfg.n_groups, n_steps)]
+        if shallow_steps:
+            runs.append((exit_depth, shallow_steps))
+        zero()
+        wall, toks = {}, {}
+        with torch.no_grad():
+            for depth, n in runs:
+                cache = {"pos": caches["chunked"]["pos"].clone(),
+                         "stack": {pn: {k: t.clone() for k, t in l.items()}
+                                   for pn, l in
+                                   caches["chunked"]["stack"].items()}}
+                tok = nxt["chunked"][:, None]
+                out = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    lg, cache = decode_step(params, cache, tok, cfg,
+                                            depth=depth, active=act,
+                                            fused=fused)
+                    tok = lg[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+                    out.append(tok)
+                torch.cuda.synchronize()
+                wall[depth] = (time.perf_counter() - t0) / n * 1e3
+                toks[depth] = torch.cat(out, 1)
+            got = read()
+            layer_steps_n = sum(d * cfg.period * n for d, n in runs)
+            want = {k: v * layer_steps_n for k, v in
+                    decode_layer_launches(cfg, fused).items()}
+            if got != want:
+                fail(f"{tag}: launches {got}, expected {want} for "
+                     f"{layer_steps_n} layer-steps")
+            check_routes(tag, got)
+            streams[fused] = toks[cfg.n_groups]
+            if not bool(((streams[fused] >= 0)
+                         & (streams[fused] < cfg.vocab_size)).all()):
+                fail(f"{tag}: a token out of the vocabulary")
+            per = kernel_us(torch, lambda: decode_step(
+                params, cache, tok, cfg, active=act, fused=fused), 2)
+        dev = sum(per.values()) / 2 / 1e3
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+        host = wall[cfg.n_groups]
+        log(f"  {tag}: {' + '.join(f'{n} steps at depth {d}' for d, n in runs)}"
+            f", B={B} at widths (0.5, 1): step at depth {cfg.n_groups} "
+            f"host {host:.3f} ms ({B / host * 1e3:.1f} tokens/s), device "
+            f"{dev:.3f} ms (idle share {1 - dev / host:.3f})"
+            + "".join(f"; at depth {d} host {wall[d]:.3f} ms" for d, _ in
+                      runs[1:])
+            + "; launches " + ", ".join(f"{n} {c}" for n, c in got.items()
+                                        if c)
+            + f" ({layer_steps_n} layer-steps, as expected); heaviest: "
+            + "; ".join(f"{v / 2e3:.3f} ms {k[:50]}" for k, v in top))
+        launches[tag] = got
+        res[tag] = dict(step_host_ms=host, step_device_ms=dev,
+                        tokens_per_s=B / host * 1e3)
+    if len(streams) == 2:
+        a, b_ = streams[False], streams[True]
+        log(f"  {arch} decode, unfused vs fused: "
+            f"{int((a == b_).sum())}/{a.numel()} tokens agree position-wise "
+            f"(f32 fused projections vs bf16 unfused weights; reported, not "
+            f"asserted)")
+    del caches
+    return launches, res
+
+
+def full_width_vs_cpu(torch, arch, n_layers=None, text: int = 4):
+    """``arch`` at full width in f32 (``n_layers`` cuts the depth), seeded
+    weights made on the card and copied to the CPU: one request's prompt
+    pass under ``attn_impl="chunked"`` and 4 fused decode steps at full
+    width, the card's kernels (flash_attention, fused_decode, morph_matmul
+    and, for whisper, flash_decode, all on their f32 routes) against the
+    plain versions on the CPU; the prompt pass's and every step's logits to
+    ATOL_SMOKE. Returns the card's launches, checked exactly."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import elastic
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    cfg = get_config(arch).scaled(dtype="float32", attn_impl="chunked")
+    if n_layers:
+        cfg = cfg.scaled(n_layers=n_layers)
+    p_gpu = init_params(cfg, seed=1, device="cuda")
+    p_cpu = _move(p_gpu, "cpu")
+    b_gpu = frontend_batch(torch, cfg, 1, text, seed=1)
+    count_reset = counters()
+    outs = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        for _, reset in count_reset.values():
+            reset()
+        act = elastic.active_widths_batch(cfg, [1.0], device=dev)
+        with torch.no_grad():
+            lg, cache = prefill(p, _move(b_gpu, dev), cfg, cache_extra=4,
+                                per_slot=True)
+            got = [lg]
+            for t in (5, 9, 3, 7):
+                lg, cache = decode_step(p, cache, torch.tensor([[t]],
+                                                               device=dev),
+                                        cfg, active=act, fused=True)
+                got.append(lg)
+        sync(torch, dev)
+        outs[dev] = [x.float().cpu() for x in got]
+        launches = {n: count() for n, (count, _) in count_reset.items()}
+    want = prompt_pass_launches(cfg, True)
+    for k, v in decode_layer_launches(cfg, True).items():
+        want[k] += 4 * cfg.n_layers * v
+    if launches != want:
+        fail(f"{arch} f32 on the card: launches {launches}, expected {want}")
+    err = max(float((a - b).abs().max()) for a, b in zip(outs["cpu"],
+                                                        outs["cuda"]))
+    if not math.isfinite(err) or err > ATOL_SMOKE:
+        fail(f"{arch} full width f32: card vs CPU max |err| {err:.3e}")
+    log(f"  {arch} at full width, {cfg.n_layers} layers, f32 on the card "
+        f"(chunked prompt pass, 4 fused decode steps) vs plain versions on "
+        f"the CPU: max |err| {err:.3e} over the logits (atol "
+        f"{ATOL_SMOKE:.0e}); card launches " + ", ".join(
+            f"{n} {c}" for n, c in launches.items() if c) + " (as expected)")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def encdec_phase(torch, timer):
+    """Phase 3 for ``whisper-base`` (98.8 M parameters, full width and
+    depth): the model-level transcription drive (8 requests of 1500 seeded
+    frames and a 4-token prompt; prompt passes under einsum and chunked
+    attention; 32 greedy steps at depth 6 and 8 at depth 3, unfused and
+    fused), the engine unfused and fused on 12 Poisson requests (token
+    feed), and full depth in f32 on the card against the CPU."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC_ARCH)
+    t0 = time.perf_counter()
+    params = init_on_card(torch, cfg)
+    launches, res = frontend_model_drive(torch, cfg, params, text=4,
+                                         fused_paths=(False, True),
+                                         shallow_steps=8)
+    log(f"    seconds: model-level drive {time.perf_counter() - t0:.1f}")
+    el, eres = end_to_end(torch, cfg, params, timer, n_requests=12,
+                          prompt_len=(4, 16), new_tokens=(32, 64),
+                          capacity=128, paths=ENCDEC_PATHS,
+                          expect=expected_launches_frontend,
+                          agreements=ENCDEC_AGREE)
+    launches.update(el)
+    res.update({k: {m: v for m, v in r.items() if m != "streams"}
+                for k, r in eres.items()})
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["whisper_vs_cpu"] = full_width_vs_cpu(torch, ENCDEC_ARCH)
+    log(f"    seconds: card vs CPU {time.perf_counter() - t0:.1f}")
+    return launches, res
+
+
+def vlm_phase(torch, timer):
+    """Phase 3 for ``internvl2-2b`` (1.898 B parameters, full width and
+    depth): the model-level drive (8 requests of 256 seeded patches and 64
+    text tokens; prompt passes under einsum and chunked attention; 32
+    greedy fused steps), the fused engine on 12 Poisson requests (token
+    feed), and 4 layers of full width in f32 on the card against the
+    CPU."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    params = init_on_card(torch, cfg)
+    launches, res = frontend_model_drive(torch, cfg, params, text=64,
+                                         fused_paths=(True,))
+    log(f"    seconds: model-level drive {time.perf_counter() - t0:.1f}")
+    el, eres = end_to_end(torch, cfg, params, timer, n_requests=12,
+                          prompt_len=(4, 16), new_tokens=(32, 64),
+                          capacity=128, paths=VLM_PATHS,
+                          expect=expected_launches_frontend, agreements=())
+    launches.update(el)
+    res.update({k: {m: v for m, v in r.items() if m != "streams"}
+                for k, r in eres.items()})
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["internvl_vs_cpu"] = full_width_vs_cpu(torch, VLM_ARCH,
+                                                    n_layers=4, text=16)
+    log(f"    seconds: card vs CPU {time.perf_counter() - t0:.1f}")
+    return launches, res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training on the card
 # ---------------------------------------------------------------------------
 
@@ -2785,10 +3265,14 @@ def _ms(xs):
     return sum(xs) / len(xs) if xs else float("nan")
 
 
-def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
+def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0, seq_len=256,
+                must_fall=False):
     """Full-width, full-depth training of ``cfg`` on the card from seeded
     random weights: ``n_steps`` base ``make_train_step`` steps (B = 8,
-    S = 256, AdamW, cycling over BASE_BATCHES batches), then with
+    ``seq_len`` tokens (an encoder-decoder model also takes its frames),
+    AdamW, cycling over BASE_BATCHES batches; with ``must_fall`` the last
+    step's loss must be below the first's, on the same batch when
+    ``n_steps`` is BASE_BATCHES + 1), then with
     ``distill`` DistillCycle over ``default_schedule`` (one epoch of 2
     teacher + 2 student steps a stage) and
     ``eval_modes(with_agreement=True)``. Every kernel count is zeroed
@@ -2808,7 +3292,7 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
     ssm = "ssm" in cfg.layer_pattern
     per_group = sum(k == "ssm" for k in cfg.layer_pattern)
     ocfg = OptimizerConfig(**ocfg_kw)
-    dc = DataConfig(seed=seed, global_batch=8, seq_len=256)
+    dc = DataConfig(seed=seed, global_batch=8, seq_len=seq_len)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, ocfg, seed=seed, device="cuda")
@@ -2862,7 +3346,9 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
     first, tail = _ms(losses[:5]), _ms(losses[-5:])
     res = dict(base_losses=losses, base_step_ms=host_ms, base_device_ms=dev_ms,
                base_idle_share=1 - dev_ms / host_ms)
-    log(f"  {cfg.name} base training, B=8, S=256, {n_steps} steps, AdamW lr "
+    log(f"  {cfg.name} base training, B=8, S={seq_len}"
+        + (f" (+ {cfg.enc_seq} encoder frames)" if cfg.is_encdec else "")
+        + f", {n_steps} steps, AdamW lr "
         f"{ocfg.lr:g}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
         f"first 5 {first:.4f}, of the last 5 {tail:.4f}); step {host_ms:.1f} "
         f"ms wall (steps 1..{n_steps - n_prof - 1}), {dev_ms:.1f} ms device "
@@ -2872,6 +3358,8 @@ def train_drive(torch, cfg, n_steps, distill, ocfg_kw, seed=0):
     if distill and not tail < first:
         fail(f"{cfg.name} base loss did not fall: first 5 {first:.4f}, last 5 "
              f"{tail:.4f}")
+    if must_fall and not losses[-1] < losses[0]:
+        fail(f"{cfg.name} base loss did not fall: {losses}")
     params = None
     if distill:
         dcfg = DistillCycleConfig(epochs_per_stage=1, steps_per_epoch=2,
@@ -2982,8 +3470,10 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
     ``full``, the 4-layer full-width Mamba2 gradients against the CPU, the
     full-depth Mamba2-370M DistillCycle, the trained parameters served
     (they require grad: the engine ticks under ``no_grad``; plain and
-    linear-speculative, 4 requests x 16 tokens, acceptance printed) and
-    TinyLlama-1.1B's train steps. Returns (backward kernel results,
+    linear-speculative, 4 requests x 16 tokens, acceptance printed),
+    TinyLlama-1.1B's train steps and whisper-base's (5 steps, 64 decoder
+    tokens and 1500 frames a sequence; the last step's loss below the
+    first's, on the same batch). Returns (backward kernel results,
     launches per path, results)."""
     phase("[phase 4] training: the ssd_scan backward kernel vs its plain "
           "version (Mamba2-370M training shapes)")
@@ -3014,8 +3504,16 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
     torch.cuda.empty_cache()
     phase("[phase 4] training: full-width TinyLlama-1.1B train steps, one card")
     tl, tres, _ = train_drive(torch, cfg, 5, False, dict(lr=2e-3))
-    return (bwd, dict(sl, mamba2_train=ml, tinyllama_train=tl),
-            {"mamba2-370m": mres, "tinyllama-1.1b": tres})
+    phase("[phase 4] training: full-width whisper-base train steps, one card")
+    from repro_torch.configs import get_config
+
+    wl, wres, _ = train_drive(torch, get_config(ENCDEC_ARCH),
+                              BASE_BATCHES + 1, False, dict(lr=2e-3),
+                              seq_len=64, must_fall=True)
+    return (bwd, dict(sl, mamba2_train=ml, tinyllama_train=tl,
+                      whisper_train=wl),
+            {"mamba2-370m": mres, "tinyllama-1.1b": tres,
+             "whisper-base": wres})
 
 
 def main(argv=None) -> int:
@@ -3074,7 +3572,12 @@ def main(argv=None) -> int:
     fdk = check_flash_decode(torch, cfg, timer)
     phase("[phase 2] fused decode and verify at the MoE families' attention "
           "shapes (granite: group 2; jamba: group 4, no RoPE)")
-    moe_attn = check_fused_moe_shapes(torch, timer)
+    moe_attn = check_fused_attention_shapes(torch, timer)
+    phase("[phase 2] whisper-base and internvl2-2b shapes: the cross-"
+          "attention decode on flash_decode, the fused decode layer")
+    cross = check_cross_decode(torch, timer)
+    ed_attn = check_fused_attention_shapes(torch, timer, archs=FRONTEND_ARCHS,
+                                           whats=("decode",))
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
     mms, mmsv = check_morph_matmul_ssm(torch, mcfg, timer)
     ssd = check_ssd_scan(torch, mcfg, timer)
@@ -3082,9 +3585,10 @@ def main(argv=None) -> int:
 
     launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
                 for p in (PATHS + SSM_PATHS + MOE_PATHS + PAGED_PATHS
-                          + TRAINED_PATHS
+                          + TRAINED_PATHS + ENCDEC_PATHS + VLM_PATHS
+                          + tuple((t,) for t in ENCDEC_DRIVES + VLM_DRIVES)
                           + (("flash_decode_entry",), ("mamba2_train",),
-                             ("tinyllama_train",)))}
+                             ("tinyllama_train",), ("whisper_train",)))}
     paged_launches = {p[0]: dict.fromkeys(("fused_decode", "fused_verify"))
                       for p in PAGED_PATHS}
     max_err = max(r["max_abs_err"] for r in tv.values())
@@ -3134,6 +3638,16 @@ def main(argv=None) -> int:
         launches.update(moe_launches)
         del gparams
         torch.cuda.empty_cache()
+        phase("[phase 3] end to end: whisper-base (encoder-decoder), full "
+              "width, one card")
+        ed_launches, ed_res = encdec_phase(torch, timer)
+        launches.update(ed_launches)
+        phase("[phase 3] end to end: internvl2-2b (vision frontend), full "
+              "width, one card")
+        vl_launches, vl_res = vlm_phase(torch, timer)
+        launches.update(vl_launches)
+        log("  encoder-decoder and frontend drives: " + json.dumps(
+            {**ed_res, **vl_res}))
     bwd, train_launches, train_res = training_phase(
         torch, cfg, mcfg, timer, full=not args.skip_e2e)
     launches.update(train_launches)
@@ -3144,9 +3658,11 @@ def main(argv=None) -> int:
     # unfused TinyLlama engine; fused_decode: ``fused=True``; fused_verify:
     # greedy speculative ``fused=True``; ssd_scan: the plain Mamba2 engine's
     # prefills; flash_attention: the fused TinyLlama engine under
-    # ``attn_impl="chunked"``, its prefills; flash_decode: its own entry
-    # point, which no model path calls, as in the reference);
-    # ``launches_by_path`` gives every path's own count.
+    # ``attn_impl="chunked"``, its prefills; flash_decode: whisper's
+    # cross-attention decode in the fused engine, as it first is on a model
+    # path here; its own entry point, the reference's only caller, is the
+    # drive flash_decode_entry); ``launches_by_path`` gives every path's own
+    # count, ``encdec_launches`` / ``vlm_launches`` whisper's and internvl's.
     status = "ok" if not args.skip_e2e else "ok (kernel checks only)"
 
     def by_path(name):
@@ -3154,6 +3670,16 @@ def main(argv=None) -> int:
 
     def granite(name):
         return {p[0]: launches[p[0]][name] for p in MOE_PATHS}
+
+    def family(name, paths, drives):
+        return {t: launches[t][name] for t in
+                [p[0] for p in paths] + list(drives)}
+
+    def encdec(name):
+        return family(name, ENCDEC_PATHS, ENCDEC_DRIVES + ("whisper_train",))
+
+    def vlm(name):
+        return family(name, VLM_PATHS, VLM_DRIVES)
 
     def moe_shapes(kind):
         return {a: {w: r for w, r in res.items()
@@ -3172,7 +3698,8 @@ def main(argv=None) -> int:
 
     prompt = ssd["prompt S=256"]
     fa_main = fa["prompt S=256"]
-    fd_main = fdk["serving bf16 kv_len=512"]
+    # B5's main path is whisper's cross-attention decode
+    fd_main = cross["cross q bfloat16"]
     kernels = [
         dict(name="morph_matmul", route="cuda", status=status,
              source="src/repro_torch/csrc/morph_matmul.cu",
@@ -3180,6 +3707,8 @@ def main(argv=None) -> int:
              launches=launches["unfused"]["morph_matmul"],
              launches_by_path=by_path("morph_matmul"),
              granite_launches=granite("morph_matmul"),
+             encdec_launches=encdec("morph_matmul"),
+             vlm_launches=vlm("morph_matmul"),
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
                              mms["max_abs_err"], mmsv["max_abs_err"]),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
@@ -3200,9 +3729,14 @@ def main(argv=None) -> int:
              launches=launches["fused"]["fused_decode"],
              launches_by_path=by_path("fused_decode"),
              granite_launches=granite("fused_decode"),
+             encdec_launches=encdec("fused_decode"),
+             vlm_launches=vlm("fused_decode"),
              moe_attention_shapes=moe_shapes("decode"),
+             frontend_attention_shapes={a: r["decode"]
+                                        for a, r in ed_attn.items()},
              max_abs_err=max(fd["max_abs_err"], max(
-                 r["decode"]["max_abs_err"] for r in moe_attn.values())),
+                 r["decode"]["max_abs_err"] for r in list(moe_attn.values())
+                 + list(ed_attn.values()))),
              ms=fd["ms"],
              plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
              bound_by=fd["bound_by"], library_ms=None,
@@ -3253,6 +3787,8 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/flash_attention.py:26",
              launches=launches["fused_chunked"]["flash_attention"],
              launches_by_path=by_path("flash_attention"),
+             encdec_launches=encdec("flash_attention"),
+             vlm_launches=vlm("flash_attention"),
              max_abs_err=max(r["max_abs_err"] for r in fa.values()),
              ms=fa_main["ms"], plain_ms=fa_main["plain_ms"],
              bound_ms=fa_main["bound_ms"], bound_by=fa_main["bound_by"],
@@ -3261,16 +3797,22 @@ def main(argv=None) -> int:
         dict(name="flash_decode", route="cuda", status=status,
              source="src/repro_torch/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:31",
-             launches=launches["flash_decode_entry"]["flash_decode"],
+             launches=launches["whisper_fused"]["flash_decode"],
              launches_by_path=by_path("flash_decode"),
-             launched_on="its own entry point only (phase 3 drive "
-                         "flash_decode_entry); no model path calls it, as "
-                         "in the reference",
-             max_abs_err=max(r["max_abs_err"] for r in fdk.values()),
+             encdec_launches=encdec("flash_decode"),
+             vlm_launches=vlm("flash_decode"),
+             launched_on="whisper-base's cross-attention decode (1 launch "
+                         "per decoder layer-step, every whisper drive; "
+                         "launches: the fused engine drive) and its own "
+                         "entry point (drive flash_decode_entry), the "
+                         "reference's only caller",
+             cross_attention=cross,
+             max_abs_err=max(r["max_abs_err"] for r in list(fdk.values())
+                             + list(cross.values())),
              ms=fd_main["ms"], plain_ms=fd_main["plain_ms"],
              bound_ms=fd_main["bound_ms"], bound_by=fd_main["bound_by"],
              library_ms=fd_main["library_ms"],
-             other_shapes=others(fdk, fd_main),
+             other_shapes=others({**fdk, **cross}, fd_main),
              empty_kernel_floor_ms={k: r["floor_ms"] for k, r in fdk.items()
                                     if "floor_ms" in r},
              skeleton_ms={k: r["skeleton_ms"] for k, r in fdk.items()

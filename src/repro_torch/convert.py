@@ -38,14 +38,27 @@ def params_from_jax(tree: Dict, device=None) -> Dict:
     return _convert(tree, resolve_device(device))
 
 
+_CROSS_KEYS = ("cross_k", "cross_v")
+
+
 def cache_from_jax(tree: Dict, device=None) -> Dict:
     """Nested dict of numpy arrays (a JAX decode cache) -> same tree of
     tensors: ``{"pos": (B,), "stack": {"pos0": {"k": (G,B,S,KV,hd), ...}}}``
     (SSM layers: ``conv_x``, ``conv_bc``, ``state``).
-    Position counters become int32 tensors, as the port's caches hold them."""
+    Position counters become int32 tensors, as the port's caches hold them.
+
+    One layout differs: an encoder-decoder cache's ``cross_k`` /
+    ``cross_v`` are (G, B, enc_seq, KV, hd) in JAX and (G, B, KV, enc_seq,
+    hd) in the port (the ``flash_decode`` kernel's layout as a view), so
+    these two leaves have axes -3 and -2 swapped here, into contiguous
+    tensors; a test that holds a port cache to JAX's swaps them back."""
     out = _convert(tree, resolve_device(device))
     if "pos" in out:
         out["pos"] = out["pos"].to(torch.int32)
+    for layer in out.get("stack", {}).values():
+        for k in _CROSS_KEYS:
+            if k in layer:
+                layer[k] = layer[k].transpose(-3, -2).contiguous()
     return out
 
 

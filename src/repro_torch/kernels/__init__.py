@@ -12,8 +12,9 @@
   (``csrc/flash_attention.cu``); ``kernels.ops.flash_attention_bshd`` is its
   model-layout entry point.
 * ``kernels.flash_decode`` — single-token attention over a float or int8
-  cache (``csrc/flash_decode.cu``); its own entry point, as in the
-  reference, which has no model caller for it.
+  cache (``csrc/flash_decode.cu``): the encoder-decoder cross-attention
+  decode (``layers.mha_decode(cross=True)``) on a card, and its own entry
+  point, the reference's only caller.
 
 Every Pallas kernel of the reference has its counterpart here, and the scan
 has its backward (``csrc/ssd_scan_bwd.cu``, through ``ssd_scan.ScanFunction``).

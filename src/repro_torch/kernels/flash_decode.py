@@ -14,7 +14,9 @@ zeros, as the TPU kernel does; ``ref.flash_decode_ref`` returns the mean of
 v there instead.
 
 The reference has no model caller: ``flash_decode`` is its own entry point.
-On CPU tensors it runs ``flash_decode_plain``, a tiled mirror of the TPU
+In the port the encoder-decoder cross-attention decode calls it on a card
+(``layers.mha_decode(cross=True)``: every encoder position valid, so
+``kv_len`` = enc_seq). On CPU tensors it runs ``flash_decode_plain``, a tiled mirror of the TPU
 kernel at ``bk``-row tiles; on CUDA tensors it launches the hand-written
 kernel in ``csrc/flash_decode.cu`` or raises. The kernel is the shared
 decode-attention core (``csrc/decode_attn.cuh``; its 64-row chunks split

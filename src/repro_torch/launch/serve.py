@@ -40,6 +40,14 @@ Examples:
       --arch granite-moe-1b-a400m --batch 8 --tokens 256 --fused
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
       --smoke --device cpu --spec-k 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+      --batch 8 --tokens 256 --fused
+
+Encoder-decoder (whisper) and frontend (internvl) models serve on the
+token feed, as the reference's engine serves them: their requests carry no
+frames or patches, so no prompt is prefilled and the cross-attention
+reads the zeros of a fresh cache. ``--spec-k``, ``--spec-tree`` and
+``--kv-page-size`` raise the engine's ``ValueError`` for them.
 """
 from __future__ import annotations
 

@@ -129,6 +129,18 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(positions, d: int):
+    """Absolute sinusoidal positions (whisper-style), f32. positions:
+    (..., S) integer -> (..., S, d): sines of the first d / 2 channels, then
+    cosines."""
+    half = d // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(10000.0) / max(half - 1, 1)))
+    angles = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (dense)
 # ---------------------------------------------------------------------------
@@ -277,14 +289,19 @@ def mha(params, x, cfg: ModelConfig, positions, *, kv_x=None,
     impl = cfg.attn_impl
     if impl == "auto":
         impl = "chunked" if Sk > 2048 else "einsum"
-    if impl == "chunked" and kv_x is None and q.device.type == "cuda":
+    if impl == "chunked" and q.device.type == "cuda":
         # The flash kernel masks by index, not by ``positions``. That is the
-        # same mask here: the prompt pass numbers its tokens 0..S-1
-        # (``model._embed_inputs``). Key positions of their own have no
-        # place in it.
-        if kv_positions is not None:
-            raise ValueError("the flash attention kernel masks by index; "
-                             "mha with kv_positions has no kernel route")
+        # same mask in two cases: a sequence over its own keys (the prompt
+        # pass numbers its tokens 0..S-1, ``model._embed_inputs``), and an
+        # unmasked pass (neither causal nor windowed: the encoder's
+        # self-attention and the decoder's cross-attention, whose key
+        # positions are 0..Sk-1, none of them padding). Any other mask
+        # depends on positions and has no kernel route.
+        own_keys = kv_x is None and kv_positions is None
+        if not own_keys and (causal or cfg.sliding_window):
+            raise ValueError("the flash attention kernel masks by index; a "
+                             "causal or windowed mha over keys with "
+                             "positions of their own has no kernel route")
         from repro_torch.kernels import ops
         out = ops.flash_attention_bshd(q, k, v, causal=causal,
                                        window=cfg.sliding_window)
@@ -364,10 +381,13 @@ def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
     positions, whose columns past a slot's length are masked. Needs
     per-slot positions. ``plan_len`` reaches the fused kernel only (its
     split plan; ``kernels.fused_decode``).
+
+    ``cross=True`` is the decoder's cross-attention over the encoder's K/V
+    (``_cross_decode``): nothing is written, and ``fused`` and ``pages``
+    do not apply, as in the reference.
     """
     if cross:
-        raise NotImplementedError("cross-attention decode arrives with the "
-                                  "encoder-decoder slice of the port")
+        return _cross_decode(params, x, cache, pos, cfg, active)
     if fused:
         from repro_torch.kernels.fused_decode import fused_decode_step
         return fused_decode_step(params, x, cache, pos, cfg, active=active,
@@ -426,6 +446,43 @@ def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
 
     kpos = _decode_kpos(pos_b, S, window)
     out = attention_full(q, k, v, cfg, qpos, kpos, causal=True)
+    out = morph_proj(out.reshape(B, 1, cfg.q_dim), params["wo"], active_k=a_q)
+    return out, cache
+
+
+def _cross_decode(params, x, cache, pos, cfg: ModelConfig, active):
+    """Cross-attention of one decode token over the encoder's K/V.
+
+    ``cache`` holds ``{"k", "v"}`` of shape (B, KV, enc_seq, hd), written
+    once by the prompt pass, so that (B * KV, enc_seq, hd) is a view and
+    the kernel reads it without a copy. Every encoder position is valid:
+    no mask, no RoPE. The query goes through ``morph_proj`` at the slot's
+    ``q_dim`` width; the encoder's K/V are full width, so an inactive query
+    head attends to non-zero values, and only the ``active_k`` gate on
+    ``wo`` leaves it out. On a card the attention is the ``flash_decode``
+    kernel (``kv_len`` = enc_seq, group H / KV); on the CPU it is the plain
+    einsum. The cache is returned unchanged."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    a_q = active.get("q_dim") if active else None
+    q = morph_proj(x, params["wq"], active_n=a_q)  # (B, 1, H * hd)
+    k, v = cache["k"], cache["v"]
+    Se = k.shape[2]
+    if x.device.type == "cuda":
+        if cfg.sliding_window:
+            raise ValueError("the flash_decode kernel masks by kv_len; a "
+                             "windowed cross-attention has no kernel route")
+        from repro_torch.kernels.flash_decode import flash_decode
+        out = flash_decode(q.reshape(B * H, hd).contiguous(),
+                           k.view(B * KV, Se, hd), v.view(B * KV, Se, hd),
+                           Se, group=H // KV)
+    else:
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+        qpos = pos.expand(B)[:, None] if pos.dim() == 0 else pos[:, None]
+        kpos = torch.arange(Se, device=x.device)
+        out = attention_full(_split_heads(q, H, hd), k.transpose(1, 2),
+                             v.transpose(1, 2), cfg, qpos, kpos,
+                             causal=False)
     out = morph_proj(out.reshape(B, 1, cfg.q_dim), params["wo"], active_k=a_q)
     return out, cache
 

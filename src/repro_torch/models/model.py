@@ -32,9 +32,19 @@ every other one) take ``models.moe`` in place of the MLP: the full
 forward and ``prefill`` route by ``cfg.moe_impl`` (capacity dispatch, or
 the dropless path under ``"dense"``) and sum the load-balancing loss into
 ``forward``'s aux; decode, verify and the tree draft always run the
-dropless path, gated per slot by ``active["top_k"]``. Encoder-decoder and
-frontend families and absolute-position models raise
-``NotImplementedError`` naming the slice of the port they arrive with.
+dropless path, gated per slot by ``active["top_k"]``.
+
+Encoder-decoder models (whisper) run an encoder stack over the frontend's
+projected ``frames`` (sinusoidal positions, non-causal) once per prompt
+pass; every decoder layer adds a cross-attention over its output, whose
+K/V the prompt pass caches as ``cross_k`` / ``cross_v`` of shape
+(G, B, KV, enc_seq, hd) (the reference keeps (G, B, enc_seq, KV, hd);
+this layout is the ``flash_decode`` kernel's (B * KV, enc_seq, hd) as a
+view). A ``vision_stub`` frontend (internvl) prepends the projected
+``patches`` to the token embeddings, and ``loss_fn`` drops their logits.
+Models without RoPE outside the SSM families add sinusoidal positions.
+Speculative scoring (``verify_step``, ``verify_tree``,
+``draft_tree_level``) refuses both families, as the reference does.
 """
 from __future__ import annotations
 
@@ -64,11 +74,17 @@ def pos_kind(cfg: ModelConfig) -> str:
     return "sinusoidal"
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.is_encdec or cfg.frontend or pos_kind(cfg) == "sinusoidal":
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder, frontend and "
-                                  f"absolute-position models arrive with a "
-                                  f"later slice")
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder stack's config: attention + MLP layers, no experts, no
+    RoPE, no window."""
+    return cfg.scaled(layer_pattern=("attn",), n_layers=cfg.enc_layers,
+                      n_experts=0, top_k=0, use_rope=False, sliding_window=0,
+                      enc_layers=0)
+
+
+def _check_token_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.is_encdec or cfg.frontend:
+        raise NotImplementedError(f"{what} supports token-only decoders")
 
 
 def _tree_index(tree, i):
@@ -92,7 +108,6 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     ``torch.Generator`` (seeded with ``seed`` unless one is passed), so they
     differ from JAX's. Tests that compare the two convert JAX's params with
     ``repro_torch.convert.params_from_jax`` instead."""
-    _check_family(cfg)
     dev = resolve_device(device)
     gen = generator
     if gen is None:
@@ -100,12 +115,34 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         gen.manual_seed(seed)
     pd = dtype_of(cfg.param_dtype)
     v = cfg.padded_vocab()
-    lead = (cfg.n_groups,)
     params: Params = {
         "embed": L.dense_init(gen, (v, cfg.d_model), in_axis=-1, dtype=pd,
                               device=dev),
         "final_norm": L.init_norm(cfg, device=dev),
     }
+    params["stack"] = _init_stack(gen, cfg, cfg.n_groups, dev,
+                                  cross=cfg.is_encdec)
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.dense_init(gen, (cfg.d_model, v), dtype=pd,
+                                         device=dev)
+    if cfg.elastic.exit_layers and cfg.elastic.dedicated_exit_norm:
+        params["exit_norms"] = {f"g{g}": L.init_norm(cfg, device=dev)
+                                for g in cfg.elastic.exit_layers}
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "stack": _init_stack(gen, _encoder_cfg(cfg), cfg.enc_layers, dev),
+            "final_norm": L.init_norm(cfg, device=dev)}
+    if cfg.frontend:
+        params["frontend_proj"] = L.dense_init(
+            gen, (cfg.frontend_dim, cfg.d_model), dtype=pd, device=dev)
+    return params
+
+
+def _init_stack(gen, cfg: ModelConfig, n_groups: int, dev, *,
+                cross: bool = False) -> Params:
+    """One period of layers, each leaf stacked over ``n_groups``; ``cross``
+    adds each layer's cross-attention (``norm_cross``, ``cross``)."""
+    lead = (n_groups,)
     stack = {}
     for p in range(cfg.period):
         layer = {"norm1": L.init_norm(cfg, lead=lead, device=dev)}
@@ -113,6 +150,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             layer["attn"] = L.init_attention(gen, cfg, lead=lead, device=dev)
         else:
             layer["ssm"] = SSM.init_ssm(gen, cfg, lead=lead, device=dev)
+        if cross:
+            layer["norm_cross"] = L.init_norm(cfg, lead=lead, device=dev)
+            layer["cross"] = L.init_attention(gen, cfg, lead=lead, device=dev)
         if cfg.layer_is_moe(p):
             layer["norm2"] = L.init_norm(cfg, lead=lead, device=dev)
             layer["moe"] = MOE.init_moe(gen, cfg, lead=lead, device=dev)
@@ -120,14 +160,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
             layer["norm2"] = L.init_norm(cfg, lead=lead, device=dev)
             layer["mlp"] = L.init_mlp(gen, cfg, lead=lead, device=dev)
         stack[f"pos{p}"] = layer
-    params["stack"] = stack
-    if not cfg.tie_embeddings:
-        params["unembed"] = L.dense_init(gen, (cfg.d_model, v), dtype=pd,
-                                         device=dev)
-    if cfg.elastic.exit_layers and cfg.elastic.dedicated_exit_norm:
-        params["exit_norms"] = {f"g{g}": L.init_norm(cfg, device=dev)
-                                for g in cfg.elastic.exit_layers}
-    return params
+    return stack
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +191,13 @@ def _ffn(lp, h, cfg: ModelConfig, p: int, active=None, dropless=False):
     return h, None
 
 
-def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, causal=True,
-               want_cache=False, cache_extra=0):
+def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, enc_out=None,
+               enc_positions=None, causal=True, want_cache=False,
+               cache_extra=0):
     """Run one period of layers. Returns (h, aux, cache_or_None); aux is
-    the MoE layers' load-balancing loss, 0.0 without MoE layers."""
+    the MoE layers' load-balancing loss, 0.0 without MoE layers. An
+    encoder-decoder layer adds its cross-attention over ``enc_out``; its
+    K/V are cached as ``cross_k`` / ``cross_v`` (B, KV, enc_seq, hd)."""
     aux = 0.0
     caches = {}
     for p in range(cfg.period):
@@ -180,6 +216,15 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, causal=True,
                 caches[f"pos{p}"] = {"conv_x": x_tail, "conv_bc": bc_tail,
                                      "state": state}
         h = h + mix
+        if cfg.is_encdec:
+            hn = L.apply_norm(lp["norm_cross"], h, cfg)
+            mix, (ck, cv) = L.mha(lp["cross"], hn, cfg, positions,
+                                  kv_x=enc_out, kv_positions=enc_positions,
+                                  causal=False)
+            if want_cache:
+                caches[f"pos{p}"]["cross_k"] = ck.transpose(1, 2).contiguous()
+                caches[f"pos{p}"]["cross_v"] = cv.transpose(1, 2).contiguous()
+            h = h + mix
         h, a = _ffn(lp, h, cfg, p)
         if a is not None:
             aux = aux + a
@@ -250,7 +295,8 @@ def _remat_wrap(fn, policy: str):
 
 
 def _scan_groups(stack, h, cfg: ModelConfig, positions, *, start: int,
-                 stop: int, remat: str = "none", want_cache: bool = False,
+                 stop: int, remat: str = "none", enc_out=None,
+                 enc_positions=None, want_cache: bool = False,
                  cache_extra: int = 0):
     """Run groups [start, stop). Returns (h, the groups' summed MoE aux,
     caches stacked on a leading group axis or None). ``remat`` checkpoints
@@ -261,13 +307,14 @@ def _scan_groups(stack, h, cfg: ModelConfig, positions, *, start: int,
     groups = _group_views(stack)
     per_group = []
     aux = 0.0
+    enc = dict(enc_out=enc_out, enc_positions=enc_positions)
     for g in range(start, stop):
         if remat != "none":
             def body(x, gp=groups[g]):
-                return _group_fwd(gp, x, cfg, positions)[:2]
+                return _group_fwd(gp, x, cfg, positions, **enc)[:2]
             (h, a), c = _remat_wrap(body, remat)(h), None
         else:
-            h, a, c = _group_fwd(groups[g], h, cfg, positions,
+            h, a, c = _group_fwd(groups[g], h, cfg, positions, **enc,
                                  want_cache=want_cache,
                                  cache_extra=cache_extra)
         aux = aux + a
@@ -280,13 +327,35 @@ def _scan_groups(stack, h, cfg: ModelConfig, positions, *, start: int,
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embedding. Returns (h, positions)."""
+    """Token (+ frontend) embedding. Returns (h, positions, enc_out,
+    enc_positions); the last two are None without an encoder.
+
+    A ``vision_stub`` frontend's ``patches`` (B, P, frontend_dim) are
+    projected by ``frontend_proj`` and prepended to the tokens. An
+    encoder-decoder model projects ``frames`` (B, enc_seq, frontend_dim)
+    the same way, adds sinusoidal positions and runs the encoder stack
+    over them, non-causal, ending in the encoder's final norm."""
     dt = dtype_of(cfg.dtype)
     tokens = batch["tokens"]
     h = params["embed"][tokens].to(dt)
+    enc_out = enc_pos = None
+    if cfg.frontend == "vision_stub":
+        ph = L.matmul(batch["patches"].to(dt), params["frontend_proj"], dt)
+        h = torch.cat([ph, h], dim=1)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
-    return h, positions
+    if pos_kind(cfg) == "sinusoidal":
+        h = h + L.sinusoidal_pos(positions, cfg.d_model).to(dt)
+    if cfg.is_encdec:
+        eh = L.matmul(batch["frames"].to(dt), params["frontend_proj"], dt)
+        enc_pos = torch.arange(eh.shape[1], dtype=torch.int32,
+                               device=h.device)
+        eh = eh + L.sinusoidal_pos(enc_pos, cfg.d_model).to(dt)
+        ecfg = _encoder_cfg(cfg)
+        for gp in _group_views(params["encoder"]["stack"]):
+            eh = _group_fwd(gp, eh, ecfg, enc_pos, causal=False)[0]
+        enc_out = L.apply_norm(params["encoder"]["final_norm"], eh, cfg)
+    return h, positions, enc_out, enc_pos
 
 
 def _logits(params, h, cfg: ModelConfig, norm_params):
@@ -310,10 +379,10 @@ def forward(params, batch, cfg: ModelConfig, *, depth: Optional[int] = None,
     "exit_g{i}" -> logits for each requested exit group below ``depth``
     (through that exit's norm); aux is the MoE load-balancing loss summed
     over the layers run, 0 without MoE layers. ``remat`` ("none" | "dots"
-    | "full") checkpoints each layer group."""
-    _check_family(cfg)
+    | "full") checkpoints each layer group (the encoder is not
+    checkpointed)."""
     depth = depth if depth is not None else cfg.n_groups
-    h, positions = _embed_inputs(params, batch, cfg)
+    h, positions, enc_out, enc_pos = _embed_inputs(params, batch, cfg)
     boundaries = sorted([g for g in collect_exits if g < depth]) + [depth]
     outputs = {}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -321,7 +390,8 @@ def forward(params, batch, cfg: ModelConfig, *, depth: Optional[int] = None,
     for b in boundaries:
         if b > start:
             h, a, _ = _scan_groups(params["stack"], h, cfg, positions,
-                                   start=start, stop=b, remat=remat)
+                                   start=start, stop=b, remat=remat,
+                                   enc_out=enc_out, enc_positions=enc_pos)
             aux = aux + a
         if b < depth:
             np_ = params.get("exit_norms", {}).get(f"g{b}",
@@ -365,9 +435,13 @@ def cross_entropy(logits, targets, cfg: ModelConfig, loss_mask=None):
 def loss_fn(params, batch, cfg: ModelConfig, *, depth=None,
             remat: str = "none", aux_weight: float = 0.01):
     """Standard LM loss (teacher phase / plain training). Returns
-    (loss, {"ce": ..., "moe_aux": ...})."""
+    (loss, {"ce": ..., "moe_aux": ...}). A ``vision_stub`` model's logits
+    cover the patches and the text; the loss takes the text's only."""
     outs, aux = forward(params, batch, cfg, depth=depth, remat=remat)
-    loss = cross_entropy(outs["final"], batch["targets"], cfg,
+    logits = outs["final"]
+    if cfg.frontend == "vision_stub":
+        logits = logits[:, cfg.frontend_seq:]
+    loss = cross_entropy(logits, batch["targets"], cfg,
                          batch.get("loss_mask"))
     return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
 
@@ -382,17 +456,24 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
     """Zeroed cache with room for ``capacity`` tokens:
     ``{"pos": () or (B,), "stack": {"pos0": {"k": (G,B,S,KV,hd), ...}}}``;
     SSM layers hold ``conv_x`` / ``conv_bc`` (G,B,K-1,C) in ``cfg.dtype``
-    and ``state`` (G,B,nh,hp,n) in f32 instead, whatever the capacity."""
-    _check_family(cfg)
+    and ``state`` (G,B,nh,hp,n) in f32 instead, whatever the capacity. An
+    encoder-decoder model's layers also hold ``cross_k`` / ``cross_v``
+    (G,B,KV,enc_seq,hd), which a prompt pass fills."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
     lead = (cfg.n_groups,)
-    stack = {f"pos{p}": (L.init_kv_cache(cfg, batch, capacity, dt, lead=lead,
-                                         device=dev)
-                         if cfg.layer_kind(p) == "attn" else
-                         SSM.init_ssm_cache(cfg, batch, dtype=dt, lead=lead,
-                                            device=dev))
-             for p in range(cfg.period)}
+
+    def one_layer(p: int):
+        c = (L.init_kv_cache(cfg, batch, capacity, dt, lead=lead, device=dev)
+             if cfg.layer_kind(p) == "attn" else
+             SSM.init_ssm_cache(cfg, batch, dtype=dt, lead=lead, device=dev))
+        if cfg.is_encdec:
+            shape = lead + (batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
+            c["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
+            c["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
+        return c
+
+    stack = {f"pos{p}": one_layer(p) for p in range(cfg.period)}
     pos = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                       device=dev)
     return {"pos": pos, "stack": stack}
@@ -404,7 +485,8 @@ def reset_cache_slots(cache: Cache, mask) -> Cache:
     Position counters go to 0 and the recurrent state of SSM layers (conv
     tails and SSD state, which carry across tokens unconditionally) is
     zeroed; attention KV is left as it is (position masking hides the
-    previous occupant's keys). One masked fill per leaf, on the device."""
+    previous occupant's keys), and so are the cross-attention's
+    ``cross_k`` / ``cross_v``. One masked fill per leaf, on the device."""
     mask = torch.as_tensor(mask, dtype=torch.bool, device=cache["pos"].device)
     cache["pos"].masked_fill_(mask, 0)
     for layer in cache["stack"].values():
@@ -424,7 +506,8 @@ def reset_cache_slot(cache: Cache, slot) -> Cache:
 
 def adopt_cache_slot(cache: Cache, pre: Cache, slot) -> Cache:
     """Copy slot ``slot`` of a prefilled engine-layout cache ``pre`` into
-    ``cache``, in place (every leaf's lane and the position)."""
+    ``cache``, in place (every leaf's lane, the cross-attention's K/V
+    included, and the position)."""
     for pn, layer in cache["stack"].items():
         for k, full in layer.items():
             full[:, slot] = pre["stack"][pn][k][:, slot].to(full.dtype)
@@ -438,15 +521,24 @@ def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
         cp = group_cache[f"pos{p}"]
+        self_keys = {k: v for k, v in cp.items() if not k.startswith("cross_")}
         hn = L.apply_norm(lp["norm1"], h, cfg)
         if cfg.layer_kind(p) == "attn":
-            mix, _ = L.mha_decode(lp["attn"], hn, cp, pos, cfg, active=active,
-                                  pages=pages, page_size=page_size,
-                                  plan_len=plan_len, fused=fused)
+            mix, _ = L.mha_decode(lp["attn"], hn, self_keys, pos, cfg,
+                                  active=active, pages=pages,
+                                  page_size=page_size, plan_len=plan_len,
+                                  fused=fused)
         else:  # no fused path: ``fused`` reaches attention layers only
-            mix, _ = SSM.ssm_decode_step(lp["ssm"], hn, cp, cfg,
+            mix, _ = SSM.ssm_decode_step(lp["ssm"], hn, self_keys, cfg,
                                          active=active)
-        h, _ = _ffn(lp, h + mix, cfg, p, active, dropless=True)
+        h = h + mix
+        if cfg.is_encdec:
+            hn = L.apply_norm(lp["norm_cross"], h, cfg)
+            mix, _ = L.mha_decode(lp["cross"], hn,
+                                  {"k": cp["cross_k"], "v": cp["cross_v"]},
+                                  pos, cfg, cross=True, active=active)
+            h = h + mix
+        h, _ = _ffn(lp, h, cfg, p, active, dropless=True)
     return h
 
 
@@ -466,11 +558,16 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *,
     pools read and written through the table; SSM leaves stay per slot.
     ``plan_len`` (a slot's full capacity in positions) sizes the fused
     kernels' split plan so that every table width visits rows as the dense
-    cache does; the unfused path ignores it."""
+    cache does; the unfused path ignores it. An encoder-decoder model's
+    cross-attention reads the cache's ``cross_k`` / ``cross_v`` (on a card
+    through the ``flash_decode`` kernel) whether ``fused`` or not."""
     depth = depth if depth is not None else cfg.n_groups
     dt = dtype_of(cfg.dtype)
     pos = cache["pos"]
     h = params["embed"][tokens].to(dt)
+    if pos_kind(cfg) == "sinusoidal":
+        spos = pos[:, None] if pos.dim() == 1 else pos.reshape(1)
+        h = h + L.sinusoidal_pos(spos, cfg.d_model).to(dt)
     for g in range(depth):
         h = _group_decode(_tree_index(params["stack"], g),
                           _tree_index(cache["stack"], g), h, pos, cfg,
@@ -531,7 +628,9 @@ def verify_step(params, cache, tokens, cfg: ModelConfig, *,
     ``depth`` groups, for ``commit_verify``; SSM layers give per-step
     ``conv_x`` / ``conv_bc`` (d, B, S, K-1, C) and ``state``
     (d, B, S, nh, hp, n), entry j the value after consuming token j.
-    ``pages`` / ``page_size`` / ``plan_len`` as in ``decode_step``."""
+    ``pages`` / ``page_size`` / ``plan_len`` as in ``decode_step``.
+    Encoder-decoder and frontend models raise ``NotImplementedError``."""
+    _check_token_only(cfg, "verify_step")
     depth = depth if depth is not None else cfg.n_groups
     pos = cache["pos"]
     if pos.dim() != 1:
@@ -543,10 +642,21 @@ def verify_step(params, cache, tokens, cfg: ModelConfig, *,
         raise ValueError(f"verify window of {S} positions exceeds the "
                          f"sliding window ({cfg.sliding_window}); use a "
                          f"draft length K <= window - 1")
-    h = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    h = _embed_at(params, tokens, cfg,
+                  pos.long()[:, None] + torch.arange(S, device=pos.device))
     return _verify_groups(params, cache, h, cfg, depth, active=active,
                           pages=pages, page_size=page_size,
                           plan_len=plan_len, fused=fused)
+
+
+def _embed_at(params, tokens, cfg: ModelConfig, qpos):
+    """Token embedding of (B, S) ``tokens``, plus sinusoidal positions at
+    ``qpos`` (B, S) in a model that has them."""
+    dt = dtype_of(cfg.dtype)
+    h = params["embed"][tokens].to(dt)
+    if pos_kind(cfg) == "sinusoidal":
+        h = h + L.sinusoidal_pos(qpos, cfg.d_model).to(dt)
+    return h
 
 
 def _verify_groups(params, cache, h, cfg: ModelConfig, depth, tree=None,
@@ -588,6 +698,7 @@ def verify_tree(params, cache, tokens, cfg: ModelConfig, *, tree,
     ``commit_verify(..., path_nodes=...)``. ``depth``, ``active``,
     ``pages``, ``page_size``, ``plan_len`` and ``fused`` as in
     ``verify_step``."""
+    _check_token_only(cfg, "verify_tree")
     depth = depth if depth is not None else cfg.n_groups
     pos = cache["pos"]
     if pos.dim() != 1:
@@ -600,7 +711,9 @@ def verify_tree(params, cache, tokens, cfg: ModelConfig, *, tree,
         raise ValueError(f"tree of depth {tree.n_levels} exceeds the sliding "
                          f"window ({cfg.sliding_window}); bound the tree "
                          f"depth at window - 1")
-    h = params["embed"][tokens].to(dtype_of(cfg.dtype))
+    depths = torch.as_tensor(tree.depths, dtype=torch.int64,
+                             device=pos.device)
+    h = _embed_at(params, tokens, cfg, pos.long()[:, None] + depths[None, :])
     return _verify_groups(params, cache, h, cfg, depth, tree=tree,
                           active=active, pages=pages, page_size=page_size,
                           plan_len=plan_len, fused=fused)
@@ -686,6 +799,7 @@ def draft_tree_level(params, cache, carry, tokens_lvl, cfg: ModelConfig, *,
     ``init_tree_draft_carry``) at the frontier's rows, in place. Over the
     levels this gives ``verify_tree``'s frontier rows while touching each
     node once. Returns (logits (B, nf, Vp), carry)."""
+    _check_token_only(cfg, "draft_tree_level")
     depth = depth if depth is not None else cfg.n_groups
     pos = cache["pos"]
     if pos.dim() != 1:
@@ -695,7 +809,8 @@ def draft_tree_level(params, cache, carry, tokens_lvl, cfg: ModelConfig, *,
     if f1 - f0 != nf:
         raise ValueError(f"level {level} frontier is {f1 - f0} nodes, "
                          f"tokens carry {nf}")
-    h = params["embed"][tokens_lvl].to(dtype_of(cfg.dtype))
+    h = _embed_at(params, tokens_lvl, cfg,
+                  (pos.long() + level)[:, None].expand(B, nf))
     for g in range(depth):
         gcar = _tree_index(carry["stack"], g)
         h, rows = _group_tree_level(_tree_index(params["stack"], g),
@@ -800,13 +915,16 @@ def prefill(params, batch, cfg: ModelConfig, *, cache_extra: int = 0,
     slot ``slot`` of an ``n_slots``-wide zeroed cache, layout-identical to
     ``init_decode_cache(cfg, n_slots, S + cache_extra, per_slot=True)``.
     ``depth`` stops at an exit: logits from its exit head, cache groups past
-    it zero."""
-    _check_family(cfg)
+    it zero. ``batch`` carries ``frames`` (encoder-decoder) or ``patches``
+    (``vision_stub``) beside ``tokens`` where the model takes them; the
+    encoder's K/V land in every decoder layer's ``cross_k`` / ``cross_v``
+    and the patches count as prompt positions."""
     depth = depth if depth is not None else cfg.n_groups
-    h, positions = _embed_inputs(params, batch, cfg)
+    h, positions, enc_out, enc_pos = _embed_inputs(params, batch, cfg)
     S = h.shape[1]
     h, _, caches = _scan_groups(params["stack"], h, cfg, positions, start=0,
-                                stop=depth, want_cache=True,
+                                stop=depth, enc_out=enc_out,
+                                enc_positions=enc_pos, want_cache=True,
                                 cache_extra=cache_extra)
     if depth < cfg.n_groups:  # pad the group stack back to engine layout
         caches = {pn: {k: torch.cat(

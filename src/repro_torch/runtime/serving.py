@@ -723,6 +723,10 @@ class ServingEngine:
                     "frontend archs carry cross-attention state the page "
                     "pool does not cover)")
             paged.validate(cfg, cache_capacity)
+        if speculative is not None and (cfg.is_encdec or cfg.frontend):
+            raise ValueError("speculative serving needs a token-only decoder "
+                             "(enc-dec / frontend archs carry non-token "
+                             "prompt operands the draft loop cannot feed)")
         if executor is not None and executor.mesh is not None:
             raise NotImplementedError("mesh executors arrive with the "
                                       "multi-device slice of the port")
@@ -1064,7 +1068,11 @@ class ServingEngine:
     # -- one tick -----------------------------------------------------------
 
     def _use_prefill(self, req: Request) -> bool:
-        return len(req.prompt) >= self.prefill_threshold
+        # enc-dec / frontend archs need non-token inputs at prompt time; the
+        # engine carries token prompts only, so they stay on the token feed
+        # (a slot's cross K/V stay the zeros of ``init_decode_cache``)
+        return (len(req.prompt) >= self.prefill_threshold
+                and not self.cfg.is_encdec and not self.cfg.frontend)
 
     def _expire_queued(self, now_s: float) -> None:
         """Retire queued requests past their deadline (terminal ``expired``)."""

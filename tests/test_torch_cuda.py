@@ -1254,3 +1254,107 @@ def test_smoke_paged_unfused_decode_on_card_matches_dense(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(l_p, l_d, atol=1e-5, rtol=0,
                                    msg=f"step {step}")
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder and frontend models: cross-attention decode on
+# flash_decode, unmasked prompt-pass attention on flash_attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16],
+                         ids=["q_f32", "q_bf16"])
+def test_flash_decode_cross_shape_matches_plain(cuda, qdtype):
+    """Whisper's cross-attention decode: 8 slots x 8 heads over 64 KV rows
+    of 1500 encoder positions, hd 64, group 1, a bf16 cache (the
+    tensor-core route) with f32 and bf16 queries, kv_len = 1500."""
+    from repro_torch.kernels import flash_decode as FDK
+
+    g = torch.Generator(device=cuda).manual_seed(21)
+    k, v, _, _ = _serving_cache(g, cuda, (64, 1500, 64), "bf16")
+    q = torch.randn(64, 64, generator=g, device=cuda).to(qdtype)
+    n0, r0 = FDK.launch_count(), FDK.route_counts()["tc"]
+    got = FDK.flash_decode(q, k, v, 1500, group=1)
+    assert FDK.launch_count() == n0 + 1
+    assert FDK.route_counts()["tc"] == r0 + 1
+    want = FDK.flash_decode_plain(q, k, v, 1500, group=1)
+    torch.cuda.synchronize()
+    assert got.dtype == qdtype
+    _close(got, want, qdtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq,sk", [(16, 1500), (1500, 1500)],
+                         ids=["cross_prompt", "encoder"])
+def test_flash_attention_unmasked_whisper_shapes(cuda, dtype, sq, sk):
+    """Non-causal, no window, 8 heads of 64 (group 1): the decoder's cross
+    prompt pass (16 queries against 1500 keys) and the encoder's
+    self-attention (1500 x 1500; 1500 = 23 x 64 + 28, a ragged last tile),
+    through the model-layout wrapper, against the plain version."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(22)
+    q = torch.randn(1, sq, 8, 64, generator=g, device=cuda).to(dtype)
+    k = torch.randn(1, sk, 8, 64, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, sk, 8, 64, generator=g, device=cuda).to(dtype)
+    n0 = FA.launch_count()
+    o = ops.flash_attention_bshd(q, k, v, causal=False)
+    assert FA.launch_count() == n0 + 1
+    flat = [t.transpose(1, 2).reshape(-1, t.shape[1], 64).contiguous()
+            for t in (q, k, v)]
+    want = FA.flash_attention_plain(*flat, group=1, causal=False)
+    torch.cuda.synchronize()
+    _close(o.transpose(1, 2).reshape(-1, sq, 64), want, dtype)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
+def test_encdec_smoke_models_on_card_match_cpu(cuda, arch, fused):
+    """The f32 smoke models on the card against the plain versions on the
+    CPU: a prompt pass under ``attn_impl="chunked"`` (whisper: frames;
+    internvl: patches), then 3 decode steps at mixed widths, logits and
+    every cache leaf to 1e-3. On the card the prompt pass launches
+    flash_attention once per attention layer (whisper: 2 encoder layers,
+    and per decoder layer its self- and cross-attention), and every
+    whisper decode step launches flash_decode once per decoder layer."""
+    from repro_torch.core import elastic
+    from repro_torch.data import pipeline as TD
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_decode as FDK
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(smoke_config(arch), attn_impl="chunked")
+    p_cpu = init_params(cfg, seed=3, device="cpu")
+    b = TD.make_batch(cfg, TD.DataConfig(seed=1, global_batch=2,
+                                         seq_len=16), 0)
+
+    def move(t, dev):
+        return ({k: move(v, dev) for k, v in t.items()} if isinstance(t, dict)
+                else t.to(dev))
+
+    outs = []
+    for dev, p in (("cpu", p_cpu), (cuda, move(p_cpu, cuda))):
+        act = elastic.active_widths_batch(cfg, [0.5, 1.0], device=dev)
+        n_fa, n_fd = FA.launch_count(), FDK.launch_count()
+        lg, cache = prefill(p, TD.to_device(b, dev), cfg, cache_extra=4,
+                            per_slot=True)
+        if dev != "cpu":
+            per_layer = 2 if cfg.is_encdec else 1
+            assert FA.launch_count() == (n_fa + cfg.enc_layers
+                                         + per_layer * cfg.n_layers)
+        got = [lg]
+        toks = torch.tensor([[5, 9, 3], [2, 4, 6]], device=dev)
+        for t in range(toks.shape[1]):
+            lg, cache = decode_step(p, cache, toks[:, t:t + 1], cfg,
+                                    active=act, fused=fused)
+            got.append(lg)
+        if dev != "cpu":
+            n_cross = 3 * cfg.n_layers if cfg.is_encdec else 0
+            assert FDK.launch_count() == n_fd + n_cross
+        for layer in cache["stack"].values():
+            got += list(layer.values())
+        outs.append([t.float().cpu() for t in got])
+    for a, c in zip(*outs):
+        torch.testing.assert_close(c, a, atol=1e-3, rtol=1e-3)

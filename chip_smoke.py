@@ -54,7 +54,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    encoder positions, group 1, bf16 cache, bf16 and f32 queries) beside
    SDPA and its byte bound; ``flash_attention`` unmasked at whisper's
    encoder (1500 x 1500, 8 heads of 64) and cross prompt pass (16 x 1500)
-   in ``check_flash_attention``; the fused decode layer at whisper's (8 / 8
+   and causal at internvl's prompt pass (8 x 320, 16 / 8 heads of 128) in
+   ``check_flash_attention``; ``morph_matmul`` over one whisper and one
+   internvl decoder layer's projections (``check_morph_matmul_frontend``:
+   B = 8, widths (0.5, 1)); the fused decode layer at whisper's (8 / 8
    heads of 64, no RoPE) and internvl's (16 / 8 of 128, RoPE) shapes,
    beside its byte bound. Then at full
    Mamba2-370M shapes: ``morph_matmul`` over the four gated projections of
@@ -185,7 +188,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    there under ``granite_launches``, and ``fused_decode`` / ``fused_verify``
    the MoE attention shapes under ``moe_attention_shapes``; the kernels of
    the whisper and internvl drives their counts under ``encdec_launches``
-   and ``vlm_launches``, ``fused_decode`` their attention shapes under
+   and ``vlm_launches``, ``morph_matmul`` their layers under
+   ``frontend_layers``, ``fused_decode`` their attention shapes under
    ``frontend_attention_shapes`` and ``flash_decode`` its cross shape under
    ``cross_attention``; ``ssd_scan_bwd`` is the port's kernel with no
    Pallas counterpart), then
@@ -470,13 +474,20 @@ def mm_cases(torch, timer, gen, cases, S: int, title: str):
     return dict(max_abs_err=max_err, **tot)
 
 
-def _tinyllama_cases(cfg, act):
+def _layer_cases(cfg, act):
+    """The gated projections of one decoder layer's decode step: an
+    encoder-decoder layer's cross-attention adds a query and an output
+    projection of the self-attention's shapes, a GELU MLP has one input
+    projection where SwiGLU has two."""
     dm, ff, qd, kvd = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    attn = 2 if cfg.is_encdec else 1
+    mlp_in = 2 if cfg.activation == "swiglu" else 1
     # name, K, N, active_n, active_k, calls per decoder layer
-    return [("wq", dm, qd, act["q_dim"], None, 1),
+    return [("wq", dm, qd, act["q_dim"], None, attn),
             ("wk/wv", dm, kvd, act["kv_dim"], None, 2),
-            ("attn wo", qd, dm, None, act["q_dim"], 1),
-            ("wi/wg", dm, ff, act["d_ff"], None, 2),
+            ("attn wo", qd, dm, None, act["q_dim"], attn),
+            ("wi/wg" if mlp_in == 2 else "wi", dm, ff, act["d_ff"], None,
+             mlp_in),
             ("mlp wo", ff, dm, None, act["d_ff"], 1)]
 
 
@@ -537,10 +548,31 @@ def check_morph_matmul(torch, cfg, timer):
                          dtype=torch.int32, device="cuda")
     odd_k = torch.tensor([1500, 2048, 2047, 33, 700, 2048, 1, 96],
                          dtype=torch.int32, device="cuda")
-    cases = _tinyllama_cases(cfg, act) + [
+    cases = _layer_cases(cfg, act) + [
         ("unaligned", dm, dm, odd_n, odd_k, 0)]
     return mm_cases(torch, timer, gen, cases, 1,
                     "one decoder layer (7 projections, B=8, mixed widths)")
+
+
+def check_morph_matmul_frontend(torch, timer):
+    """``morph_matmul`` over the projections of one whisper-base decoder
+    layer (d_model 512: self- and cross-attention 512 x 512, GELU MLP 512
+    x 2048) and one internvl2-2b layer (d_model 2048, 16 / 8 heads of 128,
+    SwiGLU 8192), B = 8 decode rows at widths (0.5, 1) x 4 as the model
+    drives run them, bf16 activations (the tensor-core route)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import elastic
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    res = {}
+    for arch in FRONTEND_ARCHS:
+        c = get_config(arch)
+        act = elastic.active_widths_batch(c, [0.5, 1.0] * 4, device="cuda")
+        n = sum(k for *_, k in _layer_cases(c, act))
+        res[arch] = mm_cases(torch, timer, gen, _layer_cases(c, act), 1,
+                             f"one {arch} decoder layer ({n} projections, "
+                             f"B=8, widths (0.5, 1))")
+    return res
 
 
 def check_fused_decode(torch, cfg, timer):
@@ -713,7 +745,7 @@ def check_morph_matmul_verify(torch, cfg, timer, S=5):
     widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
     act = elastic.active_widths_batch(cfg, widths, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    return mm_cases(torch, timer, gen, _tinyllama_cases(cfg, act), S,
+    return mm_cases(torch, timer, gen, _layer_cases(cfg, act), S,
                     f"at verify shape, one decoder layer (7 projections, "
                     f"{8 * S} rows)")
 
@@ -1566,7 +1598,9 @@ def check_flash_attention(torch, cfg, timer):
     (neither causal nor windowed) at whisper-base's prompt-pass shapes, 8
     heads of 64 (group 1), bf16: its encoder's self-attention (1 x 1500
     frames; 1500 = 23 x 64 + 28, a ragged last tile) and its decoder's
-    cross-attention (16 queries against 1500 keys). Library yardstick:
+    cross-attention (16 queries against 1500 keys); and at internvl2-2b's
+    chunked prompt pass (8 x 320 positions, 16 / 8 heads of 128, causal,
+    bf16). Library yardstick:
     ``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal``
     without a window, a boolean mask with one, neither when unmasked)."""
     from repro_torch.configs import get_config
@@ -1577,6 +1611,10 @@ def check_flash_attention(torch, cfg, timer):
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     wc = get_config(ENCDEC_ARCH)
     wh, wkv, whd, wse = wc.n_heads, wc.n_kv_heads, wc.head_dim, wc.enc_seq
+    vc = get_config(VLM_ARCH)
+    # internvl's chunked prompt pass in the model drive: 256 patches + 64
+    # text tokens for each of 8 requests
+    vs = vc.frontend_seq + VLM_TEXT
     bf, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cuda").manual_seed(13)
     res = {}
@@ -1588,7 +1626,10 @@ def check_flash_attention(torch, cfg, timer):
             ("whisper encoder 1500x1500",
              (1, wse, wse, wh, wkv, whd, False, 0, bf)),
             ("whisper cross prompt 16x1500",
-             (1, 16, wse, wh, wkv, whd, False, 0, bf))):
+             (1, 16, wse, wh, wkv, whd, False, 0, bf)),
+            (f"internvl prompt 8x{vs}",
+             (8, vs, vs, vc.n_heads, vc.n_kv_heads, vc.head_dim, True, 0,
+              bf))):
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dt)
@@ -2665,6 +2706,8 @@ def flash_decode_drive(torch, cfg, calls: int = 0):
 
 ENCDEC_ARCH = "whisper-base"
 VLM_ARCH = "internvl2-2b"
+# text tokens after internvl's 256 patches in its model-level drive
+VLM_TEXT = 64
 FRONTEND_ARCHS = (ENCDEC_ARCH, VLM_ARCH)
 # engine paths (as in PATHS); neither family takes speculation
 ENCDEC_PATHS = (("whisper_unfused", False, False, 0.0, 0, None),
@@ -2825,6 +2868,34 @@ def check_routes(what: str, launches: dict) -> None:
                  f"must take the tensor-core route")
 
 
+def next_token_margins(torch, arch, a, b):
+    """Where two prompt passes' last-position logits ``a`` and ``b`` (B,
+    V) pick different greedy tokens, how close the call was: each pass's
+    margin between its own pick and the other's, beside the largest
+    |a - b| over that row and the median top-1 / top-2 gap of the rows
+    that agree. A flip whose margins are far below the agreeing rows' gaps
+    is a near tie that rounding decides."""
+    top2 = a.topk(2, -1).values
+    gap = top2[:, 0] - top2[:, 1]
+    ia, ib = a.argmax(-1), b.argmax(-1)
+    agree = ia == ib
+    med = float(gap[agree].median()) if bool(agree.any()) else float("nan")
+    flips = []
+    for r in (~agree).nonzero().flatten().tolist():
+        ta, tb = int(ia[r]), int(ib[r])
+        flips.append(dict(row=r, margin_a=float(a[r, ta] - a[r, tb]),
+                          margin_b=float(b[r, tb] - b[r, ta]),
+                          row_max_abs_diff=float((a[r] - b[r]).abs().max())))
+    log(f"  {arch} next-token flips, einsum vs chunked: " + ("; ".join(
+        f"row {f['row']}: margin {f['margin_a']:.4f} in the einsum pass, "
+        f"{f['margin_b']:.4f} in the chunked, row max |dlogit| "
+        f"{f['row_max_abs_diff']:.4f}" for f in flips) or "none")
+        + f"; median top-1/top-2 gap of the agreeing rows {med:.4f}; "
+        f"max |dlogit| over all rows {float((a - b).abs().max()):.4f}")
+    return dict(agree=int(agree.sum()), rows=int(a.shape[0]),
+                median_gap_agreeing=med, flips=flips)
+
+
 def frontend_model_drive(torch, cfg, params, text: int, fused_paths,
                          n_steps: int = 32, shallow_steps: int = 0):
     """The model-level drive of an encoder-decoder or frontend model at
@@ -2856,7 +2927,7 @@ def frontend_model_drive(torch, cfg, params, text: int, fused_paths,
         torch.cuda.synchronize()
         return {n: count() for n, (count, _) in count_reset.items()}
 
-    launches, res, caches, nxt = {}, {}, {}, {}
+    launches, res, caches, nxt, last = {}, {}, {}, {}, {}
     for impl in ("einsum", "chunked"):
         pcfg = cfg.scaled(attn_impl=impl)
 
@@ -2895,11 +2966,14 @@ def frontend_model_drive(torch, cfg, params, text: int, fused_paths,
                 f"{v / 1e3:.3f} ms {k[:50]}" for k, v in top))
         res[tag] = dict(host_ms=host, device_ms=dev)
         caches[impl] = cache
-        nxt[impl] = lg[:, -1, :cfg.vocab_size].float().argmax(-1)
+        last[impl] = lg[:, -1, :cfg.vocab_size].float()
+        nxt[impl] = last[impl].argmax(-1)
     same = int((nxt["einsum"] == nxt["chunked"]).sum())
     log(f"  {arch} prompt passes, einsum vs chunked: {same}/{B} greedy next "
         f"tokens agree (the flash kernel keeps p in f32 for P.V, the einsum "
         f"rounds it to bf16; reported, not asserted)")
+    res[f"{arch}_prefill_agreement"] = next_token_margins(
+        torch, arch, last["einsum"], last["chunked"])
     act = elastic.active_widths_batch(cfg, [0.5, 1.0] * (B // 2),
                                       device="cuda")
     exit_depth = min(m.depth for m in cfg.elastic.modes(cfg.n_groups))
@@ -3069,7 +3143,7 @@ def vlm_phase(torch, timer):
     cfg = get_config(VLM_ARCH)
     t0 = time.perf_counter()
     params = init_on_card(torch, cfg)
-    launches, res = frontend_model_drive(torch, cfg, params, text=64,
+    launches, res = frontend_model_drive(torch, cfg, params, text=VLM_TEXT,
                                          fused_paths=(True,))
     log(f"    seconds: model-level drive {time.perf_counter() - t0:.1f}")
     el, eres = end_to_end(torch, cfg, params, timer, n_requests=12,
@@ -3574,8 +3648,10 @@ def main(argv=None) -> int:
           "shapes (granite: group 2; jamba: group 4, no RoPE)")
     moe_attn = check_fused_attention_shapes(torch, timer)
     phase("[phase 2] whisper-base and internvl2-2b shapes: the cross-"
-          "attention decode on flash_decode, the fused decode layer")
+          "attention decode on flash_decode, the gated projections, the "
+          "fused decode layer")
     cross = check_cross_decode(torch, timer)
+    mmf = check_morph_matmul_frontend(torch, timer)
     ed_attn = check_fused_attention_shapes(torch, timer, archs=FRONTEND_ARCHS,
                                            whats=("decode",))
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
@@ -3658,11 +3734,11 @@ def main(argv=None) -> int:
     # unfused TinyLlama engine; fused_decode: ``fused=True``; fused_verify:
     # greedy speculative ``fused=True``; ssd_scan: the plain Mamba2 engine's
     # prefills; flash_attention: the fused TinyLlama engine under
-    # ``attn_impl="chunked"``, its prefills; flash_decode: whisper's
-    # cross-attention decode in the fused engine, as it first is on a model
-    # path here; its own entry point, the reference's only caller, is the
-    # drive flash_decode_entry); ``launches_by_path`` gives every path's own
-    # count, ``encdec_launches`` / ``vlm_launches`` whisper's and internvl's.
+    # ``attn_impl="chunked"``, its prefills; flash_decode: its own entry
+    # point, the reference's only caller, drive flash_decode_entry);
+    # ``launches_by_path`` gives every path's own count, ``encdec_launches``
+    # / ``vlm_launches`` whisper's and internvl's (flash_decode's model
+    # path: whisper's cross-attention decode).
     status = "ok" if not args.skip_e2e else "ok (kernel checks only)"
 
     def by_path(name):
@@ -3698,8 +3774,7 @@ def main(argv=None) -> int:
 
     prompt = ssd["prompt S=256"]
     fa_main = fa["prompt S=256"]
-    # B5's main path is whisper's cross-attention decode
-    fd_main = cross["cross q bfloat16"]
+    fd_main = fdk["serving bf16 kv_len=512"]
     kernels = [
         dict(name="morph_matmul", route="cuda", status=status,
              source="src/repro_torch/csrc/morph_matmul.cu",
@@ -3710,7 +3785,8 @@ def main(argv=None) -> int:
              encdec_launches=encdec("morph_matmul"),
              vlm_launches=vlm("morph_matmul"),
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
-                             mms["max_abs_err"], mmsv["max_abs_err"]),
+                             mms["max_abs_err"], mmsv["max_abs_err"],
+                             *(r["max_abs_err"] for r in mmf.values())),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
              bound_by="bytes", library_ms=mm["library_ms"],
              wall_ms=mm["wall_ms"],
@@ -3722,7 +3798,11 @@ def main(argv=None) -> int:
                                                "library_ms")},
              mamba2_verify_shape={k: mmsv[k] for k in ("ms", "plain_ms",
                                                        "bound_ms",
-                                                       "library_ms")}),
+                                                       "library_ms")},
+             frontend_layers={a: {k: r[k] for k in ("ms", "plain_ms",
+                                                     "bound_ms", "library_ms",
+                                                     "max_abs_err")}
+                              for a, r in mmf.items()}),
         dict(name="fused_decode", route="cuda", status=status,
              source="src/repro_torch/csrc/fused_decode.cu",
              replaces="src/repro/kernels/fused_decode.py:377",
@@ -3797,22 +3877,24 @@ def main(argv=None) -> int:
         dict(name="flash_decode", route="cuda", status=status,
              source="src/repro_torch/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:31",
-             launches=launches["whisper_fused"]["flash_decode"],
+             launches=launches["flash_decode_entry"]["flash_decode"],
              launches_by_path=by_path("flash_decode"),
              encdec_launches=encdec("flash_decode"),
              vlm_launches=vlm("flash_decode"),
-             launched_on="whisper-base's cross-attention decode (1 launch "
-                         "per decoder layer-step, every whisper drive; "
-                         "launches: the fused engine drive) and its own "
-                         "entry point (drive flash_decode_entry), the "
-                         "reference's only caller",
+             launched_on="its own entry point (drive flash_decode_entry, "
+                         "the reference's only caller; launches and the "
+                         "times at the serving cache's shape) and "
+                         "whisper-base's cross-attention decode (1 launch "
+                         "per decoder layer-step, every whisper drive: "
+                         "encdec_launches; times at that shape: "
+                         "cross_attention)",
              cross_attention=cross,
              max_abs_err=max(r["max_abs_err"] for r in list(fdk.values())
                              + list(cross.values())),
              ms=fd_main["ms"], plain_ms=fd_main["plain_ms"],
              bound_ms=fd_main["bound_ms"], bound_by=fd_main["bound_by"],
              library_ms=fd_main["library_ms"],
-             other_shapes=others({**fdk, **cross}, fd_main),
+             other_shapes=others(fdk, fd_main),
              empty_kernel_floor_ms={k: r["floor_ms"] for k, r in fdk.items()
                                     if "floor_ms" in r},
              skeleton_ms={k: r["skeleton_ms"] for k, r in fdk.items()

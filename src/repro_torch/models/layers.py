@@ -273,7 +273,9 @@ def attention_chunked(q, k, v, cfg: ModelConfig, q_pos, k_pos, causal=True):
 
 def mha(params, x, cfg: ModelConfig, positions, *, kv_x=None,
         kv_positions=None, causal=True):
-    """Full-sequence attention (prefill). Returns (out, (k, v))."""
+    """Full-sequence attention (prefill). Returns (out, (k, v)): k and v
+    are (B, S, KV, hd), or, over ``kv_x`` (a cross-attention), (B, KV, Sk,
+    hd) views, the layout ``init_cross_cache`` holds."""
     dt = x.dtype
     q = _split_heads(matmul(x, params["wq"], dt), cfg.n_heads, cfg.head_dim)
     kv_in = x if kv_x is None else kv_x
@@ -310,6 +312,8 @@ def mha(params, x, cfg: ModelConfig, positions, *, kv_x=None,
         out = fn(q, k, v, cfg, positions, kpos, causal=causal)
     out = matmul(out.reshape(out.shape[0], out.shape[1], cfg.q_dim),
                  params["wo"], dt)
+    if kv_x is not None:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
     return out, (k, v)
 
 
@@ -343,6 +347,17 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq: int, dtype, *,
         }
     return {"k": torch.zeros(shape, dtype=dtype, **z),
             "v": torch.zeros(shape, dtype=dtype, **z)}
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, dtype, *, lead=(),
+                     device=None):
+    """The encoder's K/V for one decoder layer's cross-attention, zeroed:
+    ``cross_k`` / ``cross_v`` of (lead..., B, KV, enc_seq, hd). The
+    reference keeps (..., B, enc_seq, KV, hd); this layout makes (B * KV,
+    enc_seq, hd), the ``flash_decode`` kernel's, a view."""
+    shape = tuple(lead) + (batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
+    return {k: torch.zeros(shape, dtype=dtype, device=device)
+            for k in ("cross_k", "cross_v")}
 
 
 def _decode_kpos(pos_b, S: int, window: int):
@@ -453,8 +468,8 @@ def mha_decode(params, x, cache, pos, cfg: ModelConfig, *, cross=False,
 def _cross_decode(params, x, cache, pos, cfg: ModelConfig, active):
     """Cross-attention of one decode token over the encoder's K/V.
 
-    ``cache`` holds ``{"k", "v"}`` of shape (B, KV, enc_seq, hd), written
-    once by the prompt pass, so that (B * KV, enc_seq, hd) is a view and
+    ``cache`` holds ``{"k", "v"}`` of shape (B, KV, enc_seq, hd)
+    (``init_cross_cache``), written once by the prompt pass, so that (B * KV, enc_seq, hd) is a view and
     the kernel reads it without a copy. Every encoder position is valid:
     no mask, no RoPE. The query goes through ``morph_proj`` at the slot's
     ``q_dim`` width; the encoder's K/V are full width, so an inactive query

@@ -197,7 +197,7 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, enc_out=None,
     """Run one period of layers. Returns (h, aux, cache_or_None); aux is
     the MoE layers' load-balancing loss, 0.0 without MoE layers. An
     encoder-decoder layer adds its cross-attention over ``enc_out``; its
-    K/V are cached as ``cross_k`` / ``cross_v`` (B, KV, enc_seq, hd)."""
+    K/V are cached as ``cross_k`` / ``cross_v`` (``L.init_cross_cache``)."""
     aux = 0.0
     caches = {}
     for p in range(cfg.period):
@@ -222,8 +222,7 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, enc_out=None,
                                   kv_x=enc_out, kv_positions=enc_positions,
                                   causal=False)
             if want_cache:
-                caches[f"pos{p}"]["cross_k"] = ck.transpose(1, 2).contiguous()
-                caches[f"pos{p}"]["cross_v"] = cv.transpose(1, 2).contiguous()
+                caches[f"pos{p}"].update(cross_k=ck, cross_v=cv)
             h = h + mix
         h, a = _ffn(lp, h, cfg, p)
         if a is not None:
@@ -468,9 +467,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, *,
              if cfg.layer_kind(p) == "attn" else
              SSM.init_ssm_cache(cfg, batch, dtype=dt, lead=lead, device=dev))
         if cfg.is_encdec:
-            shape = lead + (batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
-            c["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
-            c["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
+            c.update(L.init_cross_cache(cfg, batch, dt, lead=lead, device=dev))
         return c
 
     stack = {f"pos{p}": one_layer(p) for p in range(cfg.period)}
@@ -521,7 +518,8 @@ def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
         cp = group_cache[f"pos{p}"]
-        self_keys = {k: v for k, v in cp.items() if not k.startswith("cross_")}
+        self_keys = ({k: v for k, v in cp.items()
+                      if not k.startswith("cross_")} if cfg.is_encdec else cp)
         hn = L.apply_norm(lp["norm1"], h, cfg)
         if cfg.layer_kind(p) == "attn":
             mix, _ = L.mha_decode(lp["attn"], hn, self_keys, pos, cfg,
@@ -562,12 +560,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, *,
     cross-attention reads the cache's ``cross_k`` / ``cross_v`` (on a card
     through the ``flash_decode`` kernel) whether ``fused`` or not."""
     depth = depth if depth is not None else cfg.n_groups
-    dt = dtype_of(cfg.dtype)
     pos = cache["pos"]
-    h = params["embed"][tokens].to(dt)
-    if pos_kind(cfg) == "sinusoidal":
-        spos = pos[:, None] if pos.dim() == 1 else pos.reshape(1)
-        h = h + L.sinusoidal_pos(spos, cfg.d_model).to(dt)
+    h = _embed_at(params, tokens, cfg,
+                  pos[:, None] if pos.dim() == 1 else pos.reshape(1))
     for g in range(depth):
         h = _group_decode(_tree_index(params["stack"], g),
                           _tree_index(cache["stack"], g), h, pos, cfg,

@@ -705,14 +705,17 @@ def test_mamba2_smoke_model_on_card_matches_cpu(cuda):
                                    (1, 17, 4, 2, 64, True, 0),
                                    (1, (17, 50), 4, 2, 64, False, 0),
                                    (1, (50, 17), 4, 2, 64, True, 0),
-                                   (1, 33, 2, 1, 20, True, 0)])
+                                   (1, 33, 2, 1, 20, True, 0),
+                                   (2, 320, 16, 8, 128, True, 0)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, shape):
     """The flash kernel against its plain version: GQA at B = 2, a ragged
     S = 200 (last query and key tiles cut short), a window of 8 (rows whose
     first visited tile is wholly masked), non-causal at hd 128, a window of
     70 at S = 131 and hd 40 (not a multiple of 16, zero-padded), Sq = 1 and
     17 (fewer rows than a warp's 16 or a block's 64), Sq != Sk both ways,
-    and hd 20 (rows not 16-byte aligned: element copies). S is Sq = Sk or
+    hd 20 (rows not 16-byte aligned: element copies), and internvl2-2b's
+    prompt pass (256 patches + 64 tokens, 16 / 8 heads of 128, causal;
+    two requests of its eight). S is Sq = Sk or
     (Sq, Sk). Through the model-layout wrapper and the flat entry point."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops

@@ -23,7 +23,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    tensor-core route, its three launches (QKV, attention, output
    projection) timed in both of its timed passes, the attention beside its
    bound and beside SDPA over the same live rows and extension columns
-   under the same boolean mask; the page-table half of both
+   under the same boolean mask; ``fused_verify`` at the shape a failover
+   replay chunk gives it (``check_replay_chunk``: B = 8 slots of S = 8
+   rows, linear, 64 query rows per (slot, KV head), dense and paged, on
+   the tensor-core route, timed beside SDPA); the page-table half of both
    (``check_paged``: B = 8 over a 512-row capacity, page 16, shuffled
    pages, two slots sharing four, a bf16 and an int8 cache; each paged
    launch against its plain paged version, on the tensor-core route,
@@ -155,6 +158,31 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``fused_decode`` per layer-step), its engine fused, and 4 layers of full
    width in f32 against the CPU. Each drive's counts are exact and every
    launch over bf16 takes the tensor-core route.
+   Then failover (``failover_phase``), each drive fused and greedy with 8
+   slots, capacity 512 and all 12 (Mamba2: 8) Poisson requests arriving at
+   t ~ 0 (rate 1e6, seed 5, 30% interactive, prompts 1-64): full-width
+   ``tinyllama-1.1b`` with ``attn_impl="chunked"``, linear K = 2 over a
+   dense cache and tree (2, 2, 1) over a paged one (page 16), 32-64 new
+   tokens; full-depth ``mamba2-370m``, linear K = 2, 16 new tokens; and
+   TinyLlama cut to 4 layers in f32 (an exit at 2). Each runs the trace
+   unsupervised, under a counting ``ExecutorSupervisor`` (the fault-free
+   reference; each tick's snapshot timed) and as a chaos run over two
+   pre-warmed engines ping-ponged by the supervisor, with one planned
+   failure at each of three launch sites (decode, verify, prefill; the
+   paged tree drive paged_decode, tree_verify, prefill), every one of which
+   must fire. Restores replay each live slot's committed tokens through
+   the kernels (prefills, one-token launches, verify chunks of up to 8
+   tokens). Each failover compares the restored cache with the failed
+   engine's on every live slot's committed rows, per leaf and layer group.
+   The chaos run's launches are exact: the final engine's own steps (as
+   for a fault-free run) plus each replay call's and each interrupted
+   tick's prefills. Streams must equal the fault-free run's, with its
+   counters, no request dropped or completed twice, and page accounting
+   intact; in bf16 a stream that parts must be a near tie, rescored at the
+   parting position from each run's cache of the request (the f32 and
+   Mamba2 drives must be identical). Recovery (rebuild, replay, first
+   token after it), replay launches, tokens/s unsupervised / supervised /
+   chaos and peak memory are printed.
 4. Training, one card. The scan's backward kernel (``ssd_scan_bwd``, on
    the forward kernel's kept workspace) against ``ssd_scan_bwd_plain`` at
    the Mamba2-370M training shape (B = 8, S = 256, 32 heads of 64,
@@ -179,7 +207,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    history and agreement per path are printed. The DistillCycle-trained
    Mamba2 parameters (which require grad) then serve 4 requests x 16 new
    tokens, plain and linear-speculative, with exact launch counts and the
-   acceptance printed.
+   acceptance printed. Last, a full-depth Mamba2-370M ``TrainRunner``
+   restart (``restart_drive``): 4 steps with a checkpoint every 2 and a
+   failure injected before step 3, resumed by ``run_with_restarts``, must
+   end bit-identical to 4 uninterrupted steps; save and restore seconds
+   and bytes printed, the checkpoints in a temporary directory removed
+   afterwards.
 5. A ``{"kernels": [...]}`` JSON line (``fused_decode`` and
    ``fused_verify`` add their paged timings under ``paged`` and the paged
    drives' counts under ``paged_launches_by_path``; ``fused_verify`` its
@@ -192,7 +225,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``frontend_layers``, ``fused_decode`` their attention shapes under
    ``frontend_attention_shapes`` and ``flash_decode`` its cross shape under
    ``cross_attention``; ``ssd_scan_bwd`` is the port's kernel with no
-   Pallas counterpart), then
+   Pallas counterpart; the kernels of the failover drives and the restart
+   drive add their counts there under ``failover_launches``, and
+   ``fused_verify`` its replay-chunk shape under ``replay_chunk``), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -204,8 +239,10 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -900,6 +937,106 @@ def check_fused_verify(torch, cfg, timer):
                 bound_ms=bound, bound_by=by, library_ms=None,
                 check_pass_ms=t_check, per_launch=per_launch, splits=splits,
                 rows_per_split=rows)
+
+
+# the replay chunk's length: restore force-commits up to this many
+# committed tokens per slot in one verify launch (``c_max``)
+REPLAY_C = 8
+
+
+def check_replay_chunk(torch, cfg, timer):
+    """``fused_verify`` at the shape a failover replay chunk gives it (new
+    in PR 23): B = 8 slots of S = REPLAY_C = 8 rows with the linear mask
+    (64 query rows per (slot, KV head) at TinyLlama's 32 / 4 heads of 64),
+    mixed widths, a 512-row bf16 cache at mixed committed counts, dense and
+    through a page table (page 16, shuffled, two slots sharing four pages).
+    Each launch is held to its plain version under the bf16 tolerance and
+    asserted on the tensor-core route; the paged launch must be
+    bit-identical to its dense twin. The dense layer is timed beside the
+    plain version and its bound, its attention launch beside SDPA."""
+    from repro_torch.core import elastic
+    from repro_torch.kernels import fused_decode as FD
+
+    B, Sc, ps, S = 8, 512, 16, REPLAY_C
+    dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    params = {
+        "wq": torch.randn(dm, H * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wk": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wv": torch.randn(dm, KV * hd, generator=gen, device="cuda") / math.sqrt(dm),
+        "wo": torch.randn(H * hd, dm, generator=gen, device="cuda") / math.sqrt(H * hd),
+    }
+    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    aq, akv = act["q_dim"].tolist(), act["kv_dim"].tolist()
+    pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, Sc - S],
+                       dtype=torch.int32, device="cuda")
+    dense, pool, table = paged_twin(torch, cfg, gen, B, Sc, ps)
+    x = torch.randn(B, S, dm, generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(pages=table, page_size=ps, plan_len=Sc)
+    err, outs = 0.0, {}
+    for kind, cache, extra, plain_kw in (
+            ("dense", dense, {}, {}),
+            ("paged", pool, kw, dict(pages=table, page_size=ps))):
+        n0, r0 = FD.paged_verify_launch_count(), FD.verify_route_counts()
+        o_k, kv_k = FD.fused_verify(params, x, cache, pos, cfg, active=act,
+                                    **extra)
+        n1, r1 = FD.paged_verify_launch_count(), FD.verify_route_counts()
+        o_p, kv_p = FD.fused_verify_plain(params, x, cache, pos, cfg,
+                                          act["q_dim"], act["kv_dim"],
+                                          **plain_kw)
+        torch.cuda.synchronize()
+        if (r1["tc"] != r0["tc"] + 1 or r1["fma"] != r0["fma"]
+                or n1 != n0 + (kind == "paged")):
+            fail(f"fused_verify replay chunk {kind}: routes {r0} -> {r1}, "
+                 f"paged count {n0} -> {n1}; a bf16 cache must take the "
+                 f"tensor-core route")
+        for name, got, want in (("out", o_k, o_p), ("k", kv_k["k"], kv_p["k"]),
+                                ("v", kv_k["v"], kv_p["v"])):
+            ok, e = close(torch, got, want)
+            if not ok:
+                fail(f"fused_verify replay chunk {kind} {name}: max |err| "
+                     f"{e:.3e} beyond rtol {RTOL_BF16:.2e} + atol "
+                     f"{ATOL_BF16:.0e}")
+            err = max(err, e)
+        outs[kind] = o_k
+    if not torch.equal(outs["dense"], outs["paged"]):
+        fail("fused_verify replay chunk: the paged launch differs from its "
+             "dense twin over the same contents")
+
+    def run_d():
+        return FD.fused_verify(params, x, dense, pos, cfg, active=act)
+
+    def run_p():
+        return FD.fused_verify(params, x, pool, pos, cfg, active=act, **kw)
+
+    t_k = timer.ms(run_d)
+    parts = launch_parts(timer.last)
+    t_w = timer.wall_ms(run_d)
+    t_pg = timer.ms(run_p)
+    t_p = timer.ms(lambda: FD.fused_verify_plain(
+        params, x, dense, pos, cfg, act["q_dim"], act["kv_dim"]))
+    attn = verify_attention_yardstick(torch, timer, cfg, x, dense, pos, S,
+                                      parts["attention"],
+                                      what="fused_verify replay chunk")
+    lens = [min(p, Sc) for p in pos.tolist()]
+    nbytes = ((dm * (max(aq) + 2 * max(akv)) + max(aq) * dm) * 4
+              + sum(lens) * KV * hd * 2 * 2 + 2 * B * S * dm * 2
+              + 2 * B * S * KV * hd * 2)
+    ops = sum(S * (2 * dm * (q + 2 * kv) + 2 * q * dm) + 4 * q * S * (n + S)
+              for q, kv, n in zip(aq, akv, lens))
+    bound, by = dense_bound(nbytes, ops, PEAK_F32)
+    log(f"  fused_verify at the replay chunk's shape (B={B}, S={S} linear, "
+        f"{(H // KV) * S} query rows per (slot, KV head), cache {Sc}): "
+        f"out/k/v max|err| {err:.3e} dense and paged (rtol {RTOL_BF16:.2e} "
+        f"+ atol {ATOL_BF16:.0e}); route tc; paged bit-identical to dense; "
+        f"layer {t_k:.4f} ms (event-timed {t_w:.4f}; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items())
+        + f"), paged {t_pg:.4f} ms, plain {t_p:.4f} ms, bound {bound:.4f} "
+        f"ms ({by}; {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP f32)")
+    return dict(max_abs_err=err, ms=t_k, wall_ms=t_w, paged_ms=t_pg,
+                plain_ms=t_p, bound_ms=bound, bound_by=by, library_ms=None,
+                rows=S, per_launch=parts, attention=attn)
 
 
 # the attention shapes the MoE families bring to B2 and B3
@@ -3590,6 +3727,601 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
              "whisper-base": wres})
 
 
+# ---------------------------------------------------------------------------
+# phase 3: failover (PR 23)
+# ---------------------------------------------------------------------------
+
+# drive name -> (arch, config overrides, speculation, paged page size,
+# n requests, prompt lengths, new tokens, planned failure sites). Every
+# drive is fused, greedy, 8 slots, capacity 512, prefill threshold 8,
+# admitted in the full mode, on a Poisson trace at rate 1e6 (every arrival
+# at t ~ 0, so the schedule does not depend on step times), seed 5, 30%
+# interactive.
+FAILOVER_DRIVES = (
+    ("tinyllama_fused_linear", "tinyllama-1.1b", dict(attn_impl="chunked"),
+     "linear", 0, 12, (1, 64), (32, 64), ("decode", "verify", "prefill")),
+    ("tinyllama_paged_tree", "tinyllama-1.1b", dict(attn_impl="chunked"),
+     "tree", PAGE, 12, (1, 64), (32, 64),
+     ("paged_decode", "tree_verify", "prefill")),
+    ("mamba2_linear", "mamba2-370m", {}, "linear", 0, 8, (1, 64), (16, 16),
+     ("decode", "verify", "prefill")),
+    # full width cut to 4 layers, f32 (an exit at 2 to draft from): the
+    # kernels' f32 routes, where a replay's cache should land within f32
+    # rounding of the source's
+    ("tinyllama_f32_4layers", "tinyllama-1.1b",
+     dict(attn_impl="chunked", dtype="float32", n_layers=4), "linear", 0, 12,
+     (1, 64), (32, 64), ("decode", "verify", "prefill")),
+)
+FAILOVER_K = 2
+
+
+def check_routes_f32(what: str, launches: dict) -> None:
+    """Every attention kernel launch of an f32 drive on the FMA route."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_decode as FD
+
+    for name, routes in (("flash_attention", FA.route_counts()),
+                         ("fused_decode", FD.route_counts()),
+                         ("fused_verify", FD.verify_route_counts())):
+        if routes["fma"] != launches[name] or routes["tc"]:
+            fail(f"{what}: {name} routes {routes}; every launch over f32 "
+                 f"must take the FMA route")
+
+
+def failover_spec(kind):
+    from repro_torch.runtime.speculative import SpecConfig
+
+    if kind == "tree":
+        return SpecConfig(ks=(), trees=(TREE,), min_accept_rate=0.0)
+    return SpecConfig(ks=(FAILOVER_K,), min_accept_rate=0.0)
+
+
+def layer_launches(cfg, fused: bool, verify: bool) -> dict:
+    """Hand-kernel launches of one layer group of a decode (``verify``
+    False) or verify step: an attention layer fused is 1 ``fused_decode``
+    or ``fused_verify`` plus the MLP's 3 ``morph_matmul`` (7 unfused); an
+    SSM layer 4 ``morph_matmul``."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    for p in range(cfg.period):
+        if cfg.layer_kind(p) == "ssm":
+            n["morph_matmul"] += 4
+        elif fused:
+            n["fused_verify" if verify else "fused_decode"] += 1
+            n["morph_matmul"] += 3
+        else:
+            n["morph_matmul"] += 7
+    return n
+
+
+def prefill_launches(cfg, depth: int) -> dict:
+    """Hand-kernel launches of one prefill to ``depth`` groups: 1
+    ``ssd_scan`` per SSM layer, and under ``attn_impl="chunked"`` 1
+    ``flash_attention`` per attention layer."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    for p in range(cfg.period):
+        if cfg.layer_kind(p) == "ssm":
+            n["ssd_scan"] += depth
+        elif cfg.attn_impl == "chunked":
+            n["flash_attention"] += depth
+    return n
+
+
+def _add(total: dict, part: dict, times: int = 1) -> None:
+    for k, v in part.items():
+        total[k] += v * times
+
+
+def slot_lanes(g, i: int, fed: int) -> dict:
+    """Copies of slot ``i``'s cache in depth group ``g``, per leaf: K/V
+    (and int8 scales) on its committed rows [0, fed) as a dense (G, rows,
+    ...) lane, gathered through its page table when the cache is paged;
+    recurrent SSM leaves whole."""
+    from repro_torch.models.paged import is_paged_key
+
+    out = {}
+    for pn, layer in g.cache["stack"].items():
+        for k, t in layer.items():
+            if not is_paged_key(k):
+                out[f"{pn}/{k}"] = t[:, i].clone()
+            elif g.paging is None:
+                out[f"{pn}/{k}"] = t[:, i, :min(fed, t.shape[2])].clone()
+            else:
+                ps = g.paging.ps
+                pages = [int(p) for p in g.paging.table[i, :-(-fed // ps)]]
+                rows = t[:, pages].reshape((t.shape[0], len(pages) * ps)
+                                           + tuple(t.shape[3:]))
+                out[f"{pn}/{k}"] = rows[:, :fed].clone()
+    return out
+
+
+def lane_delta(a: dict, b: dict) -> dict:
+    """Max |a - b| per leaf and layer group of two ``slot_lanes``:
+    ``"pos0/k[3]"`` is the K rows of group 3."""
+    out = {}
+    for k in a:
+        d = (a[k].float() - b[k].float()).abs().reshape(a[k].shape[0], -1)
+        for g in range(d.shape[0]):
+            out[f"{k}[{g}]"] = float(d[g].max()) if d.shape[1] else 0.0
+    return out
+
+
+def rescore(torch, engine, lanes: dict, fed: int, width: float, tokens):
+    """Logits (vocab,) after feeding ``tokens`` one at a time, from
+    position ``fed``, to a one-slot cache holding ``lanes``: the engine's
+    full-depth fused decode step at the slot's width."""
+    from repro_torch.core import elastic
+    from repro_torch.models.model import decode_step, init_decode_cache
+    from repro_torch.models.paged import is_paged_key
+
+    cfg = engine.cfg
+    cache = init_decode_cache(cfg, 1, engine.cache_capacity, per_slot=True,
+                              device=engine.device)
+    for pn, layer in cache["stack"].items():
+        for k, t in layer.items():
+            lane = lanes[f"{pn}/{k}"]
+            if is_paged_key(k):
+                t[:, 0, :lane.shape[1]] = lane
+            else:
+                t[:, 0] = lane
+    cache["pos"][0] = fed
+    act = elastic.active_widths_batch(cfg, [width], device=engine.device)
+    with torch.no_grad():
+        for tok in tokens:
+            lg, cache = decode_step(engine.params, cache,
+                                    torch.tensor([[tok]],
+                                                 device=engine.device),
+                                    cfg, active=act, fused=engine.fused)
+    return lg[0, -1, :cfg.vocab_size].float()
+
+
+def near_ties(torch, engine, trace, ref, out, lanes):
+    """For each request whose chaos stream parted from the fault-free one
+    at generated index j (fault-free token a, chaos token b): rescore the
+    position P that produced index j from each run's own cache of the
+    request (``lanes``: "ref" / "chaos" -> rid -> its slot's lanes when it
+    completed) cut to rows [0, P), both holding the same tokens, by
+    feeding the token at P; it is a near tie when the fault-free cache's
+    margin of a over b is at most twice the largest logit change between
+    the two rescorings. Returns the rows printed; fails on a divergence
+    that is not a near tie, and on any in an SSM model (its recurrent
+    state cannot be cut back to P)."""
+    rows = []
+    prompts = {r.rid: tuple(r.prompt) for r in trace}
+    for rid, s in sorted(ref.items()):
+        if out[rid] == s:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(s, out[rid])) if x != y)
+        a, b = s[j], out[rid][j]
+        full = prompts[rid] + s
+        P = len(prompts[rid]) + j - 1  # the position whose logits gave j
+        (_, width, src), (_, _, dst) = lanes["ref"][rid], lanes["chaos"][rid]
+        if any(k.split("/")[-1] not in ("k", "v") for k in src):
+            fail(f"request {rid} parted from the fault-free run at {j} in "
+                 f"a model with recurrent state")
+        cut = [{k: t[:, :P] for k, t in x.items()} for x in (src, dst)]
+        ls, lr = (rescore(torch, engine, c, P, width, [full[P]])
+                  for c in cut)
+        top2 = torch.topk(ls, 2).values
+        change = float((ls - lr).abs().max())
+        margin = float(ls[a] - ls[b])
+        row = dict(rid=rid, index=j, fault_free=a, chaos=b,
+                   margin_a_over_b=margin,
+                   top1_top2=float(top2[0] - top2[1]),
+                   max_logit_change=change, near_tie=margin <= 2 * change,
+                   cache_rows_max_abs_delta=max(
+                       lane_delta(cut[0], cut[1]).values()))
+        rows.append(row)
+        log(f"    rid {rid} parted at generated index {j} ({a} fault-free, "
+            f"{b} after failover): rescored at position {P} from each "
+            f"run's cache of it (rows differ by up to "
+            f"{row['cache_rows_max_abs_delta']:.3e}), margin of {a} over "
+            f"{b} {margin:.4f} (top-1 / top-2 {row['top1_top2']:.4f}), max "
+            f"logit change {change:.4f}: "
+            + ("a near tie" if row["near_tie"] else "NOT a near tie"))
+        if not row["near_tie"]:
+            fail(f"request {rid} parted from the fault-free run at {j} with "
+                 f"a margin {margin:.4f} above twice the logit change "
+                 f"{change:.4f} between the two runs' caches")
+    return rows
+
+
+def failover_drive(torch, name, arch, overrides, spec_kind, page, n_req,
+                   prompt_len, new_tokens, sites, device="cuda"):
+    """One failover drive of ``FAILOVER_DRIVES``: two pre-warmed engines;
+    the trace unsupervised on one, then under a counting supervisor on the
+    other (the fault-free reference: streams, counters, launches per site);
+    then, both engines reset from their clean snapshots, a chaos run
+    ping-ponging them with one planned failure at each of ``sites``, at an
+    occurrence the fault-free run reached. Launch counters are zeroed just
+    before the chaos run and read just after it; the counts must equal the
+    final engine's own (as for a fault-free run) plus what each replay and
+    each interrupted tick launched, from the engines' replay calls and
+    counters. Asserts every planned failure fired, the fault-free streams
+    (or, in bf16, near ties: ``near_ties``) and counters, no request
+    dropped or completed twice, and paged invariants; prints the recovery
+    timings, the restored-vs-source cache |delta| per leaf and layer
+    group, tokens/s unsupervised, supervised and chaos, the supervisor's
+    snapshot time per tick, and peak memory. On the CPU (``device``) the
+    wrappers count nothing and no launch is expected. Returns (launches,
+    results)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.runtime.fault_tolerance import (ExecutorSupervisor,
+                                                     FailurePlan)
+    from repro_torch.runtime.serving import ServingEngine, poisson_trace
+
+    cfg = get_config(arch)
+    if "n_layers" in overrides:
+        cfg = cfg.scaled(elastic=dataclasses.replace(
+            cfg.elastic, exit_layers=(overrides["n_layers"] // 2,)))
+    cfg = cfg.scaled(**overrides)
+    t_all = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    params = init_on_card(torch, cfg, device)
+    paged = PagedLayout(page_size=page) if page else None
+    replays = []  # (kind, depth, C) per replay call, every engine
+    # run tag -> rid -> (fed, width, its slot's lanes when it completed)
+    lanes, tag = {}, ["unsupervised"]
+
+    def build():
+        eng = ServingEngine(params, cfg, batch_size=8, cache_capacity=512,
+                            prefill_threshold=8, fused=True,
+                            speculative=failover_spec(spec_kind),
+                            paged=paged, device=device)
+        eng.warmup()
+        for meth, kind in (("_replay_launch", "decode"),
+                           ("_replay_chunk", "chunk"),
+                           ("_replay_prefill", "prefill")):
+            def wrapped(g, *a, _f=getattr(eng, meth), _k=kind):
+                C = a[0].shape[1] if _k == "chunk" else 1
+                replays.append((_k, g.depth, C))
+                return _f(g, *a)
+            setattr(eng, meth, wrapped)
+        complete = eng._complete
+
+        def keep_lanes(g, slot, req, now_s):
+            lanes.setdefault(tag[0], {})[req.rid] = (
+                req.fed, g.widths[slot], slot_lanes(g, slot, req.fed))
+            return complete(g, slot, req, now_s)
+
+        eng._complete = keep_lanes
+        return eng, eng.snapshot()
+
+    t0 = time.perf_counter()
+    (e0, clean0), (e1, clean1) = build(), build()
+    t_warm = time.perf_counter() - t0
+    trace = poisson_trace(n_req, 1e6, seed=5, prompt_len=prompt_len,
+                          new_tokens=new_tokens, vocab=cfg.vocab_size,
+                          interactive_frac=0.3)
+
+    t0 = time.perf_counter()
+    e1.run(copy.deepcopy(trace))
+    sync(torch, device)
+    wall_un = time.perf_counter() - t0
+    un_streams = {r.rid: tuple(r.generated) for r in e1.completed}
+
+    counter = FailurePlan()
+    snap_s = []  # the supervisor's per-tick snapshot, timed
+    snapshot0 = e0.snapshot
+
+    def timed_snapshot():
+        t = time.perf_counter()
+        out = snapshot0()
+        snap_s.append(time.perf_counter() - t)
+        return out
+
+    e0.snapshot = timed_snapshot
+    tag[0] = "ref"
+    t0 = time.perf_counter()
+    sup = ExecutorSupervisor(lambda: e0, failure_plan=counter)
+    sup.run_trace(copy.deepcopy(trace))
+    sync(torch, device)
+    wall_sup = time.perf_counter() - t0
+    e0.snapshot = snapshot0
+    ref = {r.rid: tuple(r.generated) for r in e0.completed}
+    ref_counters = (e0.step_count, e0.decode_launches, e0.prefills,
+                    e0.spec_verify_launches, e0.spec_generated_tokens)
+    totals = dict(counter.site_counts)
+    if sup.failovers or ref != un_streams:
+        fail(f"{name}: the counting supervisor changed the run "
+             f"({sup.failovers} failovers; streams equal to the "
+             f"unsupervised run's: {ref == un_streams})")
+    at = []
+    for site in sites:
+        if not totals.get(site):
+            fail(f"{name}: the fault-free run never launched at {site!r}: "
+                 f"{totals}")
+        at.append((site, min(3, totals[site])))
+    plan = FailurePlan(at_sites=tuple(at))
+
+    # both engines back to a clean start (restore resets an engine fully)
+    e0.restore(clean0)
+    e1.restore(clean1)
+    engines, idx = [e0, e1], [0]
+    deltas, wasted = [], dict.fromkeys(KERNEL_NAMES, 0)
+
+    class Chaos(ExecutorSupervisor):
+        def _failover(self, snap, cause, detect_s):
+            old = self.engine
+            n_pre = old.prefills - snap.counters["prefills"]
+            super()._failover(snap, cause, detect_s)
+            # prefills the interrupted tick had already launched (its
+            # admissions ran before the failing launch)
+            _add(wasted, prefill_launches(cfg, old.admission_mode.depth),
+                 n_pre * on_card)
+            # one active depth group, and the failure came before its
+            # launch: the failed engine's live slots hold the snapshot's
+            # committed rows
+            delta = {}
+            for d, g in self.engine.groups.items():
+                for i, r in enumerate(g.slots):
+                    if r is None:
+                        continue
+                    src = slot_lanes(old.groups[d], i, r.fed)
+                    dst = slot_lanes(g, i, r.fed)
+                    for k, v in lane_delta(src, dst).items():
+                        delta[k] = max(delta.get(k, 0.0), v)
+            if delta:
+                deltas.append(delta)
+
+    def pingpong():
+        idx[0] ^= 1
+        return engines[idx[0]]
+
+    replays.clear()
+    tag[0] = "chaos"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    count_reset = counters()
+    for _, reset in count_reset.values():
+        reset()
+    t0 = time.perf_counter()
+    chaos = Chaos(pingpong, failure_plan=plan, max_failovers=len(at))
+    summary = chaos.run_trace(copy.deepcopy(trace))
+    sync(torch, device)
+    wall_chaos = time.perf_counter() - t0
+    run_launches = {n: count() for n, (count, _) in count_reset.items()}
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else float("nan"))
+    eng = chaos.engine
+    if on_card and cfg.dtype == "float32":
+        check_routes_f32(f"failover {name}", run_launches)
+    elif on_card:
+        check_routes(f"failover {name}", run_launches)
+    out = {r.rid: tuple(r.generated) for r in eng.completed}
+    got_counters = (eng.step_count, eng.decode_launches, eng.prefills,
+                    eng.spec_verify_launches, eng.spec_generated_tokens)
+    if summary["failovers"] != len(at) or plan.fired_sites != set(at):
+        fail(f"{name}: {summary['failovers']} failovers, fired "
+             f"{sorted(plan.fired_sites)} of {at}")
+    rids = [r.rid for r in eng.completed]
+    if sorted(rids) != sorted(r.rid for r in trace) or eng.expired:
+        fail(f"{name}: requests dropped or completed twice: {sorted(rids)}")
+    eng.check_paged_invariants()
+    diverged = {rid: next(j for j, (a, b) in enumerate(zip(out[rid], s))
+                          if a != b)
+                for rid, s in ref.items() if out[rid] != s}
+    ties = near_ties(torch, eng, trace, ref, out, lanes) if diverged else []
+    # a stream parted at a near tie accepts other drafts from there on, so
+    # its ticks may differ; its prefills and its token count cannot
+    exact = (0, 1, 2, 3, 4) if not diverged else (2,)
+    if [got_counters[i] for i in exact] != [ref_counters[i] for i in exact] \
+            or sum(map(len, out.values())) != sum(map(len, ref.values())):
+        fail(f"{name}: counters (steps, decode launches, prefills, verify "
+             f"launches, spec tokens) {got_counters} after the chaos run, "
+             f"{ref_counters} fault-free")
+    expect = (expected_launches if cfg.layer_kind(0) == "attn"
+              else expected_launches_ssm)
+    want, steps = expect(torch, eng, {m.name: 0 for m in eng.ctrl.modes},
+                         True, device)
+    n_single = n_chunk = n_pre = 0
+    for kind, d, C in replays:
+        if kind == "prefill":
+            _add(want, prefill_launches(cfg, d), on_card)
+            n_pre += 1
+        else:
+            _add(want, layer_launches(cfg, True, kind == "chunk"),
+                 d * on_card)
+            n_single += kind == "decode"
+            n_chunk += kind == "chunk"
+    _add(want, wasted)
+    if run_launches != want:
+        fail(f"{name}: chaos-run launches {run_launches}, expected {want} "
+             f"(engine layer steps {steps}; replays: {n_single} one-token, "
+             f"{n_chunk} chunks, {n_pre} prefills; interrupted ticks' "
+             f"prefills {wasted})")
+    fo = list(chaos.failover_log)
+    gen = sum(len(s) for s in ref.values())
+    res = dict(
+        failovers=len(fo), sites=[list(a) for a in at],
+        rebuild_ms=[e["rebuild_s"] * 1e3 for e in fo],
+        replay_ms=[e["replay_s"] * 1e3 for e in fo],
+        first_token_ms=[None if e["first_token_s"] is None
+                        else e["first_token_s"] * 1e3 for e in fo],
+        replay_launches=n_single + n_chunk, replay_chunk_launches=n_chunk,
+        replay_prefills=n_pre,
+        tokens_per_s_unsupervised=gen / wall_un,
+        tokens_per_s_supervised=gen / wall_sup,
+        tokens_per_s_chaos=gen / wall_chaos, peak_gib=peak,
+        snapshot_ms_per_tick=sum(snap_s) / len(snap_s) * 1e3,
+        supervised_ticks=len(snap_s),
+        streams_identical=not diverged, diverged=diverged, near_ties=ties)
+    if deltas:
+        per_leaf = {k: max(d[k] for d in deltas) for k in deltas[0]}
+        res["cache_max_abs_delta"] = max(per_leaf.values())
+        kinds, first, zero, n_layers = {}, {}, {}, {}
+        for k, v in per_leaf.items():
+            leaf, g = k.split("/")[-1].rstrip("]").split("[")
+            kinds[leaf] = max(kinds.get(leaf, 0.0), v)
+            zero[leaf] = zero.get(leaf, 0) + (v == 0.0)
+            n_layers[leaf] = n_layers.get(leaf, 0) + 1
+            if g == "0":
+                first[leaf] = max(first.get(leaf, 0.0), v)
+        res.update(cache_max_abs_delta_by_leaf=kinds,
+                   cache_first_layer_delta=first,
+                   cache_bit_identical_layers=zero)
+        log(f"    restored vs source cache on the live slots' committed "
+            f"rows, {len(deltas)} failover(s): max |delta| by leaf "
+            + ", ".join(f"{k} {v:.3e} (first layer group {first[k]:.3e}; "
+                        f"{zero[k]} of {n_layers[k]} groups bit-identical)"
+                        for k, v in kinds.items()))
+    log(f"  failover {name} ({cfg.name}, {cfg.dtype}, fused, "
+        f"{'paged ' + str(page) if page else 'dense'}, "
+        f"{spec_kind} {TREE if spec_kind == 'tree' else FAILOVER_K}, "
+        f"{n_req} requests, {gen} tokens): plan {at}, all fired; "
+        f"{len(fo)} failovers: rebuild ms "
+        + ", ".join(f"{x:.1f}" for x in res["rebuild_ms"]) + "; replay ms "
+        + ", ".join(f"{x:.1f}" for x in res["replay_ms"])
+        + "; first token after failover ms "
+        + ", ".join("n/a" if x is None else f"{x:.1f}"
+                    for x in res["first_token_ms"])
+        + f"; replay: {n_single} one-token launches, {n_chunk} chunk "
+        f"launches (C <= {REPLAY_C}), {n_pre} prompt prefills; tokens/s "
+        f"unsupervised {res['tokens_per_s_unsupervised']:.1f}, supervised "
+        f"fault-free {res['tokens_per_s_supervised']:.1f} (the snapshot "
+        f"before each of its {len(snap_s)} ticks "
+        f"{res['snapshot_ms_per_tick']:.3f} ms on the host), chaos "
+        f"{res['tokens_per_s_chaos']:.1f}; counters {got_counters} ("
+        f"fault-free {ref_counters}); peak {peak:.2f} GiB")
+    log(f"    chaos-run launches " + ", ".join(
+        f"{n} {c}" for n, c in run_launches.items() if c)
+        + " (as expected: the engine's own steps, its replays and the "
+        "interrupted ticks' prefills)")
+    if diverged:
+        log(f"    streams parted from the fault-free run in "
+            f"{len(diverged)} of {len(ref)} requests, each a near tie "
+            f"(above)")
+    else:
+        log(f"    every stream token-identical to the fault-free run "
+            f"({len(ref)} requests)")
+    log(f"    seconds: warmup of two engines {t_warm:.1f}, unsupervised "
+        f"{wall_un:.1f}, supervised {wall_sup:.1f}, chaos {wall_chaos:.1f}, "
+        f"drive {time.perf_counter() - t_all:.1f}")
+    del e0, e1, engines, eng, chaos, sup, params
+    if on_card:
+        torch.cuda.empty_cache()
+    return run_launches, res
+
+
+def failover_phase(torch, device="cuda"):
+    """Phase 3's failover drives (``FAILOVER_DRIVES``). Fails on a stream
+    that parted from the fault-free run in an f32 drive; in bf16 each
+    parted stream must be a near tie (``near_ties``). Returns (launches
+    per drive, results per drive)."""
+    launches, results = {}, {}
+    for spec in FAILOVER_DRIVES:
+        name = spec[0]
+        launches[name], results[name] = failover_drive(torch, *spec,
+                                                       device=device)
+        if "float32" in str(spec[2].get("dtype")) \
+                and results[name]["diverged"]:
+            fail(f"{name}: an f32 chaos run parted from the fault-free run")
+    return launches, results
+
+
+def restart_drive(torch, cfg, n_steps=4, every=2, fail_at=3):
+    """Phase 4's restart drive (PR 23): full-width, full-depth ``cfg``
+    (B = 8, S = 256, AdamW lr 2e-3) for ``n_steps`` steps through
+    ``TrainRunner`` with a checkpoint every ``every`` steps and a failure
+    injected before step ``fail_at``; ``run_with_restarts`` resumes from
+    the latest checkpoint. Its parameters and both moments must come out
+    bit-identical to an uninterrupted run of the same steps. Prints save
+    and restore seconds and bytes; the checkpoints go to a temporary
+    directory, removed afterwards. The scans' counts are exact: 1 forward
+    and 1 backward ``ssd_scan`` per SSM layer of every step run. Returns
+    (launches, results)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointing import leaves_with_path
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.fault_tolerance import FailurePlan, TrainRunner
+
+    ocfg = OptimizerConfig(lr=2e-3)
+    dc = DataConfig(seed=0, global_batch=8, seq_len=256)
+
+    def init():
+        return init_train_state(cfg, ocfg, seed=0, device="cuda")
+
+    def flat(state):
+        return {k: t.detach().clone() for k, t in leaves_with_path(state)}
+
+    count_reset = counters()
+    for _, reset in count_reset.values():
+        reset()
+    step = make_train_step(cfg, ocfg, remat="none")
+    state = init()
+    for i in range(n_steps):
+        state, _ = step(state, make_batch(cfg, dc, i))
+    sync(torch, "cuda")
+    want = flat(state)
+    del state
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        runner = TrainRunner(cfg, make_train_step(cfg, ocfg, remat="none"),
+                             init, dc, tmp, ckpt_every=every, keep=1,
+                             failure_plan=FailurePlan(at_steps=(fail_at,)))
+        saves, restores = [], []
+        save0, restore0 = runner.mgr.save, runner.mgr.restore
+
+        def timed_save(*a, **k):
+            t0 = time.perf_counter()
+            out = save0(*a, **k)
+            saves.append(time.perf_counter() - t0)
+            return out
+
+        def timed_restore(*a, **k):
+            t0 = time.perf_counter()
+            out = restore0(*a, **k)
+            sync(torch, "cuda")
+            restores.append(time.perf_counter() - t0)
+            return out
+
+        runner.mgr.save, runner.mgr.restore = timed_save, timed_restore
+        t0 = time.perf_counter()
+        got_state = runner.run_with_restarts(n_steps)
+        sync(torch, "cuda")
+        wall = time.perf_counter() - t0
+        d = os.path.join(tmp, f"step_{n_steps:08d}")
+        disk = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: count() for n, (count, _) in count_reset.items()}
+    got = flat(got_state)
+    nbytes = sum(t.numel() * t.element_size() for t in got.values())
+    del got_state
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    if want.keys() != got.keys() or differ:
+        fail(f"{cfg.name} restart drive: {len(differ)} of {len(want)} "
+             f"tensors differ from the uninterrupted run, first {differ[:4]}")
+    ran = [m["step"] for m in runner.metrics_log]
+    scans = cfg.n_layers * (n_steps + len(ran))
+    expect = dict.fromkeys(KERNEL_NAMES, 0)
+    expect.update(ssd_scan=scans, ssd_scan_bwd=scans)
+    if launches != expect or not saves or not restores:
+        fail(f"{cfg.name} restart drive: launches {launches}, expected "
+             f"{expect}; {len(saves)} saves, {len(restores)} restores")
+    res = dict(steps_run=ran, save_s=saves, restore_s=restores,
+               checkpoint_bytes=nbytes, checkpoint_disk_bytes=disk,
+               wall_s=wall)
+    log(f"  {cfg.name} restart drive: {n_steps} steps, a checkpoint every "
+        f"{every}, failure before step {fail_at}; steps run {ran}; all "
+        f"{len(want)} parameter and moment tensors bit-identical to the "
+        f"uninterrupted run; {len(saves)} saves of {nbytes / 1e9:.3f} GB "
+        f"({disk / 1e9:.3f} GB on disk) in "
+        + ", ".join(f"{s:.2f}" for s in saves) + " s; restore "
+        + ", ".join(f"{s:.2f}" for s in restores)
+        + f" s; {wall:.1f} s in all; scans {launches['ssd_scan']} forward, "
+        f"{launches['ssd_scan_bwd']} backward (as expected)")
+    del want, got
+    torch.cuda.empty_cache()
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-e2e", action="store_true",
@@ -3640,6 +4372,7 @@ def main(argv=None) -> int:
         f"{mm64['ms'] / mm['ms']:.2f}x")
     fd = check_fused_decode(torch, cfg, timer)
     fv = check_fused_verify(torch, cfg, timer)
+    rc = check_replay_chunk(torch, cfg, timer)
     pg = check_paged(torch, cfg, timer)
     tv = check_tree_verify(torch, cfg, timer)
     fa = check_flash_attention(torch, cfg, timer)
@@ -3668,6 +4401,7 @@ def main(argv=None) -> int:
     paged_launches = {p[0]: dict.fromkeys(("fused_decode", "fused_verify"))
                       for p in PAGED_PATHS}
     max_err = max(r["max_abs_err"] for r in tv.values())
+    failover_launches, failover_res = {}, {}
     if not args.skip_e2e:
         phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
@@ -3724,9 +4458,17 @@ def main(argv=None) -> int:
         launches.update(vl_launches)
         log("  encoder-decoder and frontend drives: " + json.dumps(
             {**ed_res, **vl_res}))
+        phase("[phase 3] failover: snapshot, restore by chunked replay and "
+              "ExecutorSupervisor chaos drives, full width, one card")
+        failover_launches, failover_res = failover_phase(torch)
     bwd, train_launches, train_res = training_phase(
         torch, cfg, mcfg, timer, full=not args.skip_e2e)
     launches.update(train_launches)
+    if not args.skip_e2e:
+        phase("[phase 4] training: a full-depth Mamba2-370M TrainRunner "
+              "restart, bit for bit")
+        failover_launches["mamba2_restart"], failover_res["mamba2_restart"] \
+            = restart_drive(torch, mcfg)
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
@@ -3757,6 +4499,9 @@ def main(argv=None) -> int:
     def vlm(name):
         return family(name, VLM_PATHS, VLM_DRIVES)
 
+    def failover(name):
+        return {d: c[name] for d, c in failover_launches.items()}
+
     def moe_shapes(kind):
         return {a: {w: r for w, r in res.items()
                     if w.startswith(kind)} for a, res in moe_attn.items()}
@@ -3784,6 +4529,7 @@ def main(argv=None) -> int:
              granite_launches=granite("morph_matmul"),
              encdec_launches=encdec("morph_matmul"),
              vlm_launches=vlm("morph_matmul"),
+             failover_launches=failover("morph_matmul"),
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
                              mms["max_abs_err"], mmsv["max_abs_err"],
                              *(r["max_abs_err"] for r in mmf.values())),
@@ -3811,6 +4557,7 @@ def main(argv=None) -> int:
              granite_launches=granite("fused_decode"),
              encdec_launches=encdec("fused_decode"),
              vlm_launches=vlm("fused_decode"),
+             failover_launches=failover("fused_decode"),
              moe_attention_shapes=moe_shapes("decode"),
              frontend_attention_shapes={a: r["decode"]
                                         for a, r in ed_attn.items()},
@@ -3832,8 +4579,13 @@ def main(argv=None) -> int:
              launches=launches["spec_fused"]["fused_verify"],
              launches_by_path=by_path("fused_verify"),
              granite_launches=granite("fused_verify"),
+             failover_launches=failover("fused_verify"),
+             replay_chunk={k: rc[k] for k in (
+                 "rows", "max_abs_err", "ms", "wall_ms", "paged_ms",
+                 "plain_ms", "bound_ms", "bound_by", "per_launch",
+                 "attention")},
              moe_attention_shapes=moe_shapes("verify"),
-             max_abs_err=max(fv["max_abs_err"], max_err, max(
+             max_abs_err=max(fv["max_abs_err"], rc["max_abs_err"], max_err, max(
                  r[w]["max_abs_err"] for r in moe_attn.values()
                  for w in ("verify linear", "verify tree"))), ms=fv["ms"],
              plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
@@ -3855,6 +4607,7 @@ def main(argv=None) -> int:
              replaces="src/repro/kernels/ssd_scan.py:27",
              launches=launches["mamba2_plain"]["ssd_scan"],
              launches_by_path=by_path("ssd_scan"),
+             failover_launches=failover("ssd_scan"),
              max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
              ms=prompt["ms"], plain_ms=prompt["plain_ms"],
              bound_ms=prompt["bound_ms"], bound_by=prompt["bound_by"],
@@ -3869,6 +4622,7 @@ def main(argv=None) -> int:
              launches_by_path=by_path("flash_attention"),
              encdec_launches=encdec("flash_attention"),
              vlm_launches=vlm("flash_attention"),
+             failover_launches=failover("flash_attention"),
              max_abs_err=max(r["max_abs_err"] for r in fa.values()),
              ms=fa_main["ms"], plain_ms=fa_main["plain_ms"],
              bound_ms=fa_main["bound_ms"], bound_by=fa_main["bound_by"],
@@ -3910,6 +4664,7 @@ def main(argv=None) -> int:
                       "ssd_chunked (src/repro/models/ssm.py:78) with XLA",
         launches=launches["mamba2_train"]["ssd_scan_bwd"],
         launches_by_path=by_path("ssd_scan_bwd"),
+        failover_launches=failover("ssd_scan_bwd"),
         max_abs_err=max(r["max_abs_err"] for r in bwd.values()),
         ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
         bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
@@ -3923,6 +4678,8 @@ def main(argv=None) -> int:
             {k: {m: v for m, v in r.items() if m not in ("history",
                                                           "base_losses")}
              for k, r in train_res.items()}))
+    if failover_res:
+        log("  failover: " + json.dumps(failover_res))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

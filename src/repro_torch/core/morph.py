@@ -112,6 +112,24 @@ class ModeTelemetry:
                 "p99_ms": self.p99_s * 1e3,
                 "tokens_per_s": self.tokens_per_s}
 
+    def state_dict(self) -> Dict:
+        """Copy of the full telemetry state (plain lists and scalars): the
+        snapshot/restore seam of fault-tolerant serving, so a rebuilt engine
+        keeps steering the SLO policy with the measured history of the
+        engine it replaces."""
+        return {"window": self._window, "fifo": list(self._fifo),
+                "steps": self.steps, "tokens": self.tokens,
+                "total_s": self.total_s}
+
+    def load_state(self, st: Dict) -> None:
+        self._window = int(st["window"])
+        self._fifo = deque(st["fifo"])
+        self._sorted = sorted(self._fifo)
+        self.steps = int(st["steps"])
+        self.tokens = int(st["tokens"])
+        self.total_s = float(st["total_s"])
+
+
 class MorphController:
     """Dispatches train/serve steps to specialized executables.
 
@@ -236,9 +254,26 @@ class MorphController:
     def step_for(self, mode: MorphMode) -> Callable:
         return self._get(mode)
 
+    def force_mode(self, mode: MorphMode) -> None:
+        """Set the active mode WITHOUT counting or logging a switch: a
+        snapshot restore re-applies a decision the lost engine already made
+        and logged, which ``set_mode`` would count twice."""
+        if mode.name not in self.mode_by_name:
+            raise KeyError(f"mode {mode.name} not in deployed mode table")
+        self._mode = mode
+
     def telemetry_summary(self) -> Dict[str, Dict[str, float]]:
         return {name: t.summary() for name, t in self.telemetry.items()
                 if t.steps}
+
+    def telemetry_state(self) -> Dict[str, Dict]:
+        """Per-mode telemetry for a snapshot (``ModeTelemetry.state_dict``)."""
+        return {name: t.state_dict() for name, t in self.telemetry.items()}
+
+    def load_telemetry_state(self, st: Dict[str, Dict]) -> None:
+        for name, s in st.items():
+            if name in self.telemetry:
+                self.telemetry[name].load_state(s)
 
 
 def make_serve_controller(params, cfg: ModelConfig,

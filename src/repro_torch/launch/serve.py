@@ -27,6 +27,16 @@ of every launch and request; ``--metrics-dump`` prints the metrics
 registry. Runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given.
 
+Fault-tolerance drill: ``--fail-at site:occ[,site:occ...]`` injects
+executor failures at launch boundaries (sites: decode, paged_decode,
+verify, tree_verify, prefill) and ``--tick-timeout-s`` arms hung-tick
+detection; either routes the drive loop through an ``ExecutorSupervisor``
+that snapshots before every tick and rebuilds and replays on a failure
+(recovery timings are printed per failover). A real CUDA fault is not
+recovered in the process: it ends the run. ``--deadline-s`` gives every
+request a TTL on the virtual serving clock; requests still queued past it
+finish as ``expired``.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 8 --tokens 256 --switch-every 16
@@ -42,6 +52,8 @@ Examples:
       --smoke --device cpu --spec-k 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
       --batch 8 --tokens 256 --fused
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --fail-at decode:2,prefill:1
 
 Encoder-decoder (whisper) and frontend (internvl) models serve on the
 token feed, as the reference's engine serves them: their requests carry no
@@ -53,15 +65,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import zlib
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import elastic
 from repro_torch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.models.paged import PagedLayout
+from repro_torch.runtime.fault_tolerance import (ExecutorSupervisor,
+                                                 FailurePlan)
 from repro_torch.runtime.observability import Observability
 from repro_torch.runtime.serving import Request, ServingEngine, SLOPolicy
 from repro_torch.runtime.speculative import SpecConfig
+
+FAILURE_SITES = ("decode", "paged_decode", "verify", "tree_verify", "prefill")
 
 
 def main(argv=None):
@@ -114,6 +131,21 @@ def main(argv=None):
                          "slot at full length + scratch). Requires "
                          "--kv-page-size; undersizing trades admission "
                          "deferrals for memory")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request TTL in seconds on the virtual serving "
+                         "clock (0 = none): requests still queued past it "
+                         "finish as 'expired' instead of occupying slots")
+    ap.add_argument("--fail-at", default="",
+                    help="inject executor failures: comma-separated "
+                         "site:occurrence pairs, e.g. decode:3,verify:1 "
+                         f"(sites: {', '.join(FAILURE_SITES)}); each kills "
+                         "that site's Nth launch, and an ExecutorSupervisor "
+                         "rebuilds from the pre-tick snapshot and replays")
+    ap.add_argument("--tick-timeout-s", type=float, default=0.0,
+                    help="if > 0, supervise ticks with a wall-time timeout: "
+                         "a slower tick is treated as a hung executor, its "
+                         "results discarded and the tick redone on a "
+                         "rebuilt engine")
     ap.add_argument("--trace-out", default="",
                     help="write Chrome trace-event JSON to this path")
     ap.add_argument("--metrics-dump", action="store_true",
@@ -125,6 +157,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    failure_plan = None
+    if args.fail_at:
+        at_sites = []
+        for part in args.fail_at.split(","):
+            site, sep, occ = part.strip().partition(":")
+            if site not in FAILURE_SITES or not sep or not occ.isdigit() \
+                    or int(occ) < 1:
+                ap.error(f"--fail-at wants site:occurrence pairs with sites "
+                         f"in {FAILURE_SITES} and occurrence >= 1, got "
+                         f"{part!r}")
+            at_sites.append((site, int(occ)))
+        failure_plan = FailurePlan(at_sites=tuple(at_sites))
     if args.batch < 1:
         ap.error(f"--batch must be >= 1, got {args.batch}")
     spec_trees = ()
@@ -166,14 +210,21 @@ def main(argv=None):
                                  trees=spec_trees,
                                  draft_depth=args.spec_draft_depth or None,
                                  top_k=args.top_k)
+    # one Observability shared by every engine this run builds (failover
+    # standbys included), so the trace and metrics cover the whole run
     obs = Observability(trace=bool(args.trace_out))
-    engine = ServingEngine(params, cfg, batch_size=args.batch,
-                           cache_capacity=capacity, modes=modes,
-                           prefill_threshold=args.prefill_threshold,
-                           speculative=speculative,
-                           temperature=args.temperature, top_k=args.top_k,
-                           paged=paged, fused=args.fused, observability=obs,
-                           device=device)
+
+    def build_engine():
+        return ServingEngine(params, cfg, batch_size=args.batch,
+                             cache_capacity=capacity, modes=modes,
+                             prefill_threshold=args.prefill_threshold,
+                             speculative=speculative,
+                             temperature=args.temperature, top_k=args.top_k,
+                             sample_seed=args.seed, paged=paged,
+                             fused=args.fused, observability=obs,
+                             device=device)
+
+    engine = build_engine()
     paged_note = ""
     if paged is not None:
         pool = paged.pool_pages(cfg, args.batch, capacity)
@@ -185,29 +236,73 @@ def main(argv=None):
           f"{f' spec_tree={args.spec_tree}' if spec_trees else ''}"
           f"{f' temperature={args.temperature}' if args.temperature else ''}")
     engine.warmup()
+    supervisor = None
+    if failure_plan is not None or args.tick_timeout_s > 0:
+        warmed = [engine]
+
+        def factory():
+            if warmed:  # the first call adopts the engine warmed above
+                return warmed.pop()
+            eng = build_engine()
+            eng.warmup()
+            return eng
+
+        supervisor = ExecutorSupervisor(
+            factory, failure_plan=failure_plan,
+            tick_timeout_s=args.tick_timeout_s or None)
     for i in range(n_requests):
         engine.submit(Request(rid=i, prompt=(1 + i % (cfg.vocab_size - 1),),
                               max_new_tokens=per_req,
-                              slo_class="interactive" if i % 3 == 0 else "batch"))
+                              slo_class="interactive" if i % 3 == 0 else "batch",
+                              deadline_s=args.deadline_s or None))
     policy = None
     if args.budget_ms > 0:
         policy = SLOPolicy(cfg, engine.ctrl, batch_size=args.batch,
                            cache_capacity=capacity)
+        if supervisor is not None:
+            supervisor.attach_policy(policy)
     mode_idx = len(modes) - 1
     busy = 0.0
-    while engine.queue or engine.n_active:
+    while True:
+        # a failover swaps the engine out from under the loop
+        engine = supervisor.engine if supervisor is not None else engine
+        if not (engine.queue or engine.n_active):
+            break
         if policy is not None:
             engine.set_admission_mode(policy.choose(args.budget_ms * 1e-3))
         elif engine.step_count and engine.step_count % args.switch_every == 0:
             mode_idx = (mode_idx - 1) % len(modes)  # degrade then wrap
             engine.set_admission_mode(modes[mode_idx])
-        busy += engine.step(now_s=busy)
+        if supervisor is not None:
+            busy += supervisor.tick(now_s=busy)
+        else:
+            busy += engine.step(now_s=busy)
+    if supervisor is not None:
+        if failure_plan is not None:
+            missed = set(failure_plan.at_sites) - failure_plan.fired_sites
+            if missed:
+                print(f"[serve] warning: planned failures never reached "
+                      f"(too few launches at those sites): {sorted(missed)}")
+        for e in supervisor.failover_log:
+            ftok = (f"{e['first_token_s'] * 1e3:.0f} ms"
+                    if e["first_token_s"] is not None else "n/a")
+            print(f"[serve] failover @step {e['step']}: {e['cause']} | "
+                  f"rebuild {e['rebuild_s'] * 1e3:.0f} ms, "
+                  f"replay {e['replay_s'] * 1e3:.0f} ms, "
+                  f"first token {ftok}")
     ctrl = engine.ctrl
     assert ctrl.stats["compiles"] == engine.compiles_after_warmup, \
         "runtime switch must not rebuild a step"
     generated = sum(len(r.generated) for r in engine.completed)
+    # one checksum of every completed stream, in request order: a failover
+    # drill prints the fault-free run's value
+    streams = sorted((r.rid, tuple(r.generated)) for r in engine.completed)
+    digest = zlib.crc32(repr(streams).encode())
     print(f"[serve] completed={len(engine.completed)} "
-          f"generated={generated} switches={ctrl.stats['switches']} "
+          f"expired={len(engine.expired)} "
+          f"failovers={supervisor.failovers if supervisor else 0} "
+          f"generated={generated} streams_crc32={digest:08x} "
+          f"switches={ctrl.stats['switches']} "
           f"admission_switches={len(engine.admission_switch_log)} "
           f"recompiles_after_warmup=0 dispatches={ctrl.stats['dispatches']} "
           f"executables={ctrl.stats['compiles']} (per depth, plus draft "

@@ -1,1 +1,56 @@
-"""Serving runtime: continuous-batching engine and observability."""
+"""Serving runtime: continuous-batching engine, observability, failover
+and restart."""
+from repro_torch.runtime.compression import (
+    compress_with_feedback,
+    dequantize,
+    init_error_buffer,
+    quantize,
+)
+from repro_torch.runtime.fault_tolerance import (
+    ExecutorSupervisor,
+    FailurePlan,
+    SimulatedFailure,
+    StragglerMonitor,
+    TrainRunner,
+)
+from repro_torch.runtime.observability import (
+    EventStream,
+    Histogram,
+    MetricsRegistry,
+    Observability,
+    TraceRecorder,
+)
+from repro_torch.runtime.serving import (
+    EngineSnapshot,
+    LocalExecutor,
+    Request,
+    ServingEngine,
+    SLOPolicy,
+    poisson_trace,
+)
+from repro_torch.runtime.speculative import SpecConfig, SpecTelemetry
+
+__all__ = [
+    "EngineSnapshot",
+    "EventStream",
+    "Histogram",
+    "MetricsRegistry",
+    "Observability",
+    "TraceRecorder",
+    "ExecutorSupervisor",
+    "LocalExecutor",
+    "Request",
+    "ServingEngine",
+    "SLOPolicy",
+    "SpecConfig",
+    "SpecTelemetry",
+    "poisson_trace",
+    "compress_with_feedback",
+    "dequantize",
+    "init_error_buffer",
+    "quantize",
+    "FailurePlan",
+    "SimulatedFailure",
+    "StragglerMonitor",
+    "TrainRunner",
+]

@@ -58,11 +58,22 @@ verify kernels (a closure flag on the step callables; SSM layers have no
 fused path and ignore it; a tree draft's level passes take the einsum
 path, as the reference's do). Every tick and the warmup run under
 ``torch.no_grad()``, so parameters that require grad (fresh from
-training) serve as they are. Snapshot/restore and mesh executors arrive
-with later slices of the port and raise here.
+training) serve as they are.
+
+* **Snapshot / restore.** ``snapshot`` cuts the host-side truth (requests,
+  counters, logs, telemetry, metrics; nothing on the device) and
+  ``restore`` rebuilds a geometry-compatible engine from it, re-making
+  every cache by replaying each live slot's committed tokens through the
+  same steps: its prompt through the prefill it was admitted with, the
+  rest in lockstep launches that end together, up to ``c_max = 8`` tokens
+  a launch through one force-committed verify (``replay_chunk_fn``).
+  ``runtime.fault_tolerance.ExecutorSupervisor`` cuts one before every
+  tick and fails over onto a standby engine. Mesh executors arrive with a
+  later slice of the port and raise here.
 """
 from __future__ import annotations
 
+import copy
 import statistics
 from collections import deque
 from dataclasses import dataclass, field, replace
@@ -81,12 +92,14 @@ from repro_torch.core.neuroforge.analytical import estimate_mode
 from repro_torch.core.neuroforge.hw import DEFAULT_HW, HardwareSpec
 from repro_torch.core.neuroforge.space import DesignPoint
 from repro_torch.device import resolve_device
-from repro_torch.models.model import (adopt_cache_slot, init_decode_cache,
-                                      prefill, reset_cache_slots)
+from repro_torch.models.model import (adopt_cache_slot, commit_verify,
+                                      init_decode_cache, prefill,
+                                      reset_cache_slots, verify_step)
 from repro_torch.models.paged import (PagedLayout, adopt_paged_slot,
                                       copy_page, init_paged_cache)
 from repro_torch.runtime import sampling
-from repro_torch.runtime.observability import Observability, _TupleView
+from repro_torch.runtime.observability import (MetricsRegistry,
+                                               Observability, _TupleView)
 from repro_torch.runtime.paged_cache import BlockAllocator, RadixCache
 from repro_torch.runtime.speculative import (SpecConfig, SpecTelemetry,
                                              draft_compile_key,
@@ -190,7 +203,9 @@ class SLOPolicy:
                  batch_size: int, cache_capacity: int,
                  hw: HardwareSpec = DEFAULT_HW, min_samples: int = 3,
                  queue_gamma: float = 0.25,
-                 interactive_weight: float = 2.0):
+                 interactive_weight: float = 2.0,
+                 metrics: Optional[MetricsRegistry] = None,
+                 catchup_ticks: int = 8, catchup_gamma: float = 1.0):
         self.cfg = cfg
         self.controller = controller
         self.min_samples = min_samples
@@ -200,6 +215,16 @@ class SLOPolicy:
         # queued interactive request weighs than a batch one
         self.queue_gamma = queue_gamma
         self.interactive_weight = interactive_weight
+        # post-failover catch-up: for ``catchup_ticks`` choose() calls after
+        # a failover the effective budget is squeezed by the measured
+        # recovery latency (``failover_recovery_ms`` p50 on ``metrics``
+        # unless the supervisor passes it), downshifting while the engine
+        # re-earns the latency the recovery cost its requests
+        self.metrics = metrics
+        self.catchup_ticks = catchup_ticks
+        self.catchup_gamma = catchup_gamma
+        self._catchup_left = 0
+        self._last_recovery_ms = 0.0
         self.last_decision: Dict[str, float] = {}
         cell = ShapeCell("serve_step", seq_len=cache_capacity,
                          global_batch=batch_size, kind="decode")
@@ -252,19 +277,54 @@ class SLOPolicy:
                queue_depths: Optional[Dict[str, int]] = None) -> MorphMode:
         """Admission mode for a latency budget, weighed against the queue:
         a deep queue means admitted requests also pay queueing delay, so the
-        effective budget is ``budget / (1 + queue_gamma * pressure)``. The
-        post-failover catch-up squeeze arrives with the robustness slice."""
+        effective budget is ``budget / (1 + queue_gamma * pressure)``.
+
+        During post-failover catch-up (``note_failover``) the budget is
+        squeezed further: recovery stole ``recovery_ms`` of serving time,
+        so each of the next ``catchup_ticks`` decisions acts as if it owed
+        back its share, ``eff /= 1 + min(catchup_gamma * debt / budget,
+        4)``. The penalty lands in ``last_decision`` and, with a registry
+        attached, in the ``slo_catchup`` event stream."""
         pressure = self._queue_pressure(queue_depths)
         eff = budget_s / (1.0 + self.queue_gamma * pressure)
+        catchup_penalty = 0.0
+        if self._catchup_left > 0 and budget_s > 0:
+            debt_s = self._last_recovery_ms / 1e3 / max(self.catchup_ticks, 1)
+            catchup_penalty = min(self.catchup_gamma * debt_s / budget_s, 4.0)
+            eff /= (1.0 + catchup_penalty)
+            self._catchup_left -= 1
         mode = policy_for_budget(self.cfg, self.controller, eff,
                                  self.est_latency)
         self.last_decision = {
             "budget_s": budget_s, "effective_budget_s": eff,
             "queue_pressure": pressure, "mode": mode.name,
+            "catchup_penalty": catchup_penalty,
             "queued_interactive": (queue_depths or {}).get("interactive", 0),
             "queued_batch": (queue_depths or {}).get("batch", 0),
         }
+        if catchup_penalty > 0 and self.metrics is not None:
+            self.metrics.events(
+                "slo_catchup",
+                ("budget_s", "effective_budget_s", "catchup_penalty",
+                 "recovery_ms", "ticks_left", "mode"),
+            ).emit(budget_s=budget_s, effective_budget_s=eff,
+                   catchup_penalty=catchup_penalty,
+                   recovery_ms=self._last_recovery_ms,
+                   ticks_left=self._catchup_left, mode=mode.name)
         return mode
+
+    def note_failover(self, recovery_ms: Optional[float] = None) -> None:
+        """Start a catch-up window after an executor failover.
+        ``recovery_ms`` defaults to the ``failover_recovery_ms`` histogram's
+        p50 on the attached registry: the typical measured cost, not only
+        the last."""
+        if recovery_ms is None and self.metrics is not None:
+            h = self.metrics.histograms.get("failover_recovery_ms")
+            if h is not None and h.count:
+                recovery_ms = h.p50
+        self._last_recovery_ms = float(recovery_ms or 0.0)
+        self._catchup_left = (self.catchup_ticks
+                              if self._last_recovery_ms > 0 else 0)
 
     def choose_spec_k(self, ks: Sequence[int], accept_rate: float,
                       queue_depths: Optional[Dict[str, int]] = None) -> int:
@@ -435,6 +495,33 @@ class LocalExecutor:
     def copy_page_fn(self):
         """The copy-on-write page copy, in place on the cache."""
         return copy_page
+
+    def replay_chunk_fn(self, depth: int, n_tokens: int):
+        """Multi-token replay: (params, cache, (B, C) committed tokens,
+        active[, (B, cap_pages) page table]) -> cache advanced by C
+        positions on every slot, in place. One ``verify_step`` scores all C
+        positions and ``commit_verify`` force-accepts them (``n_accepted =
+        C - 1``): by the verify path's exactness the cache lands as C
+        one-token decode steps would leave it, in one pass. ``fused``
+        routes the pass through the fused verify kernel; a paged engine
+        reads and writes the pool through the full-width table, planned
+        like its speculative steps."""
+        cfg, fused, paged = self._cfg, self._fused, self._paged
+        ps = paged.page_size if paged is not None else 0
+        plan_len = (max(paged.buckets(cfg, self._cap)) * ps
+                    if paged is not None else 0)
+
+        def chunk(params, cache, tokens, active, pages=None):
+            _, pending = verify_step(params, cache, tokens, cfg, depth=depth,
+                                     active=active, pages=pages,
+                                     page_size=ps, plan_len=plan_len,
+                                     fused=fused)
+            n_acc = torch.full((tokens.shape[0],), n_tokens - 1,
+                               dtype=torch.int64, device=tokens.device)
+            return commit_verify(cache, pending, n_acc, cfg, pages=pages,
+                                 page_size=ps)
+
+        return chunk
 
 
 class _GroupPaging:
@@ -651,6 +738,50 @@ class _DepthGroup:
         return [i for i, r in enumerate(self.slots) if r is None]
 
 
+@dataclass
+class GroupSnapshot:
+    """Host-side truth of one depth group (see ``EngineSnapshot``)."""
+
+    depth: int
+    slots: List[Optional[Request]]  # deep copies: the snapshot owns them
+    widths: List[float]
+    spec_k: int
+    spec_tree: Optional[Tuple[int, ...]]
+    spec_off_until: int
+    accept_window: List[float]
+    accept_window_maxlen: Optional[int]
+
+
+@dataclass
+class EngineSnapshot:
+    """Everything ``ServingEngine.restore`` needs to rebuild serving state
+    on a fresh executor, and nothing on the device.
+
+    Caches are not captured: every committed token is known on the host
+    (``(prompt + generated)[:fed]`` per slot, cache position == ``fed``),
+    so restore re-makes each live slot by replaying its committed stream
+    through the steps that produced it. Speculative work in flight when the
+    snapshot was cut is not state either: the next tick drafts and verifies
+    it again. ``paging_stats`` is informational (occupancy before the
+    failure); the page tables are rebuilt by the replay."""
+
+    step_count: int
+    admission_mode: str
+    queues: Dict[str, List[Request]]
+    completed: List[Request]
+    expired: List[Request]
+    groups: Dict[int, GroupSnapshot]
+    counters: Dict[str, float]
+    logs: Dict[str, list]
+    telemetry: Dict[str, Dict]
+    spec_telemetry: Dict
+    paging_stats: Dict[int, Dict[str, float]]
+    metrics: Optional[Dict] = None  # Observability.state_dict() of the source
+    # the online autoscaler's state; it arrives with the autoscaler slice of
+    # the port, so this engine writes None and refuses to restore a value
+    autoscale: Optional[Dict] = None
+
+
 class ServingEngine:
     """Continuous-batching decode engine over a per-depth MorphController.
 
@@ -811,6 +942,13 @@ class ServingEngine:
         self._buckets = (paged.buckets(cfg, cache_capacity)
                          if paged is not None else ())
         self._prefills: Dict[Tuple, Callable] = {}
+        # replay chunks (restore's batched re-feed of committed history),
+        # keyed by (depth, chunk length); kept on the engine rather than in
+        # the controller's table, since only failover replay runs them
+        self._replay_chunks: Dict[Tuple[int, int], Callable] = {}
+        # chunk launches of this engine's replays (host-side diagnostics;
+        # restore neither snapshots nor restores it)
+        self.replay_chunk_launches = 0
         self.prefill_threshold = prefill_threshold
         self.prefills = 0
         self.prefill_s = 0.0
@@ -1525,6 +1663,330 @@ class ServingEngine:
         dense)."""
         return {d: g.paging.stats() for d, g in self.groups.items()
                 if g.paging is not None}
+
+    # -- snapshot / restore (fault tolerance) -------------------------------
+
+    def snapshot(self) -> EngineSnapshot:
+        """Cut the host-side truth needed to rebuild device state: a deep
+        copy of the requests and the scalar counters, nothing on the
+        device, so a supervisor can cut one before every tick (that cadence
+        is what makes failover replay exact: the interrupted tick is redone
+        whole). Raises for encoder-decoder and frontend models: replay
+        re-feeds committed tokens, and their prompts carry non-token
+        operands the engine does not keep."""
+        if self.cfg.is_encdec or self.cfg.frontend:
+            raise ValueError(
+                "snapshot/restore needs a token-only decoder (enc-dec / "
+                "frontend prompts carry non-token operands replay cannot "
+                "re-feed)")
+        groups = {}
+        for d, g in self.groups.items():
+            groups[d] = GroupSnapshot(
+                depth=d,
+                slots=copy.deepcopy(g.slots),
+                widths=list(g.widths),
+                spec_k=g.spec_k,
+                spec_tree=g.spec_tree,
+                spec_off_until=g.spec_off_until,
+                accept_window=list(g.accept_window or ()),
+                accept_window_maxlen=(g.accept_window.maxlen
+                                      if g.accept_window is not None
+                                      else None),
+            )
+        counters = {attr: getattr(self, attr)
+                    for attr in self._COUNTER_METRICS}
+        logs = dict(
+            admission_switch_log=copy.deepcopy(
+                list(self._ev_admission_switch.rows)),
+            admission_decision_log=copy.deepcopy(
+                list(self._ev_admission_decision.rows)),
+            spec_fallback_log=list(self.spec_fallback_log),
+            backpressure_log=copy.deepcopy(list(self._ev_backpressure.rows)),
+        )
+        return EngineSnapshot(
+            step_count=self.step_count,
+            admission_mode=self.admission_mode.name,
+            queues={c: copy.deepcopy(list(q))
+                    for c, q in self._queues.items()},
+            completed=copy.deepcopy(self.completed),
+            expired=copy.deepcopy(self.expired),
+            groups=groups,
+            counters=counters,
+            logs=logs,
+            telemetry=self.ctrl.telemetry_state(),
+            spec_telemetry=copy.deepcopy(self.spec_telemetry),
+            paging_stats=self.page_pool_stats(),
+            metrics=self.obs.state_dict(),
+        )
+
+    @torch.no_grad()
+    def restore(self, snap: EngineSnapshot) -> None:
+        """Rebuild this engine's whole serving state from ``snap``.
+
+        The engine must be geometry-compatible with the snapshot's source:
+        the same mode table, batch size, capacity, paged layout,
+        speculative plan and sample seed, i.e. another engine from the same
+        factory (per-slot sample keys come from the seed, and restoring
+        ``step_count`` keeps every slot's ``fold_step`` stream). All
+        existing state is discarded, so a warm standby can absorb failovers
+        again and again. Caches are re-made by ``_replay_group``; counters,
+        logs, telemetry and metrics are applied LAST, so replay launches
+        never leak into the restored accounting: the redone tick re-earns
+        its increments and the totals after recovery match a fault-free
+        run's."""
+        if snap.autoscale is not None:
+            raise NotImplementedError(
+                "the snapshot carries autoscaler state; the online autoscaler "
+                "arrives with the autoscaler slice of the port")
+        if snap.admission_mode not in self.ctrl.mode_by_name:
+            raise ValueError(f"snapshot admission mode "
+                             f"{snap.admission_mode!r} not in this engine's "
+                             f"mode table")
+        if set(snap.groups) != set(self.groups):
+            raise ValueError(f"snapshot depth groups "
+                             f"{sorted(snap.groups)} do not match this "
+                             f"engine's {sorted(self.groups)}")
+        for gs in snap.groups.values():
+            if len(gs.slots) != self.batch_size:
+                raise ValueError(f"snapshot batch size {len(gs.slots)} != "
+                                 f"engine batch size {self.batch_size}")
+        self.step_count = snap.step_count
+        mode = self.ctrl.mode_by_name[snap.admission_mode]
+        self.admission_mode = mode
+        self.ctrl.force_mode(mode)
+        self._queues = {c: deque(copy.deepcopy(snap.queues.get(c, [])))
+                        for c in SLO_CLASSES}
+        self.completed = copy.deepcopy(snap.completed)
+        self.expired = copy.deepcopy(snap.expired)
+        for d, gs in snap.groups.items():
+            g = self.groups[d]
+            g.slots = copy.deepcopy(gs.slots)
+            g.widths = list(gs.widths)
+            g.spec_k = gs.spec_k
+            g.spec_tree = gs.spec_tree
+            g.spec_off_until = gs.spec_off_until
+            g.accept_window = (deque(gs.accept_window,
+                                     maxlen=gs.accept_window_maxlen)
+                               if gs.accept_window_maxlen is not None
+                               else None)
+            g.cache = self.executor.init_cache()
+            if self.paged is not None:
+                g.paging = _GroupPaging(self.paged, self.cfg,
+                                        self.batch_size,
+                                        self.cache_capacity)
+                for i, r in enumerate(g.slots):
+                    if r is not None:
+                        booked = self._reserve_pages(g, i, r)
+                        assert booked, (
+                            f"restore: slot {i} budget cannot be re-booked "
+                            f"on a fresh pool")
+            self._replay_group(g)
+        for attr, v in snap.counters.items():
+            setattr(self, attr, v)
+        for stream, key in ((self._ev_admission_switch,
+                             "admission_switch_log"),
+                            (self._ev_admission_decision,
+                             "admission_decision_log"),
+                            (self._ev_backpressure, "backpressure_log")):
+            stream.rows = deque(copy.deepcopy(snap.logs[key]),
+                                maxlen=stream.rows.maxlen)
+        fb = self._ev_spec_fallback
+        fb.rows = deque((dict(zip(fb.fields, t))
+                         for t in snap.logs["spec_fallback_log"]),
+                        maxlen=fb.rows.maxlen)
+        self.ctrl.load_telemetry_state(snap.telemetry)
+        self.spec_telemetry = copy.deepcopy(snap.spec_telemetry)
+        if snap.metrics is not None:
+            # metrics and trace state come back whole and LAST, so whatever
+            # the replay above recorded is discarded: the redone tick
+            # re-earns it, and exports after recovery equal a fault-free
+            # run's
+            self.obs.load_state(snap.metrics)
+        # the gauge callback must be THIS engine's (the standby that took
+        # the snapshot, not the dead source); the key replaces any stale
+        # registration on a shared registry
+        self.metrics.register_callback(self._metric_gauges, key="engine")
+        if self._rec.enabled:
+            for g in self.groups.values():
+                for r in g.slots:
+                    if r is not None:
+                        self._rec.request_event(
+                            r.rid, "failover_replay",
+                            committed=r.fed, generated=len(r.generated))
+
+    def _replay_prefill(self, g: _DepthGroup, slot: int,
+                        req: Request) -> None:
+        # the same prefill and page mapping the admission used, so the
+        # prompt's K/V (and any radix page sharing) come back identical; a
+        # replay is no new admission: no counters, no sampling (the first
+        # generated token is already in ``req.generated``)
+        if g.paging is not None:
+            self._prefill_launch_paged(g, slot, req.prompt)
+        else:
+            self._prefill_launch(g, slot, req.prompt)
+
+    def _replay_launch(self, g: _DepthGroup, toks: np.ndarray,
+                       joined: List[int]) -> None:
+        """One lockstep one-token launch of the replay, through the steps
+        normal ticks use (the per-depth dense step or the bucketed paged
+        step). Every slot's device position advances by one; a paged host
+        mirror advances with it. Only JOINED slots get their mappings
+        grown: a slot that has not joined yet writes its garbage to its
+        scratch page, as a free slot does on normal ticks."""
+        active = self._active_for(g.widths)
+        pg = g.paging
+        if pg is not None:
+            needed = 1
+            for i in joined:
+                pos = int(pg.host_pos[i])
+                pg.ensure_slot(i, pos)
+                for src, dst in pg.cow_pairs(i, pos, pos):
+                    g.cache = self._copy_page(g.cache, src, dst)
+                needed = max(needed, min(pos // pg.ps + 1, pg.cap_pages))
+            bucket = min(b for b in self._buckets if b >= needed)
+            fn = self.ctrl.aux_step(paged_decode_compile_key(g.depth,
+                                                             bucket))
+            _, g.cache = fn(self.params, g.cache, self.executor.put(toks),
+                            active, self._table_op(pg, bucket))
+            pg.host_pos += 1  # mirror the device counter (ALL slots advance)
+        else:
+            fn = self.ctrl.step_for(self._any_mode_at(g.depth))
+            _, g.cache = fn(self.params, g.cache, self.executor.put(toks),
+                            active)
+        self.ctrl.stats["dispatches"] += 1
+
+    def _replay_chunk(self, g: _DepthGroup, toks: np.ndarray,
+                      joined: List[int]) -> None:
+        """One batched replay launch: C >= 2 committed tokens per joined
+        slot are verify-scored and force-committed (``n_accepted = C - 1``)
+        in ONE pass, as C lockstep ``_replay_launch`` calls would leave the
+        cache, C - 1 launches cheaper. Every slot's device position
+        advances by C (slots that have not joined take garbage writes, as
+        under the one-token lockstep); paged mappings are grown and
+        privatized over the whole C-token write range first."""
+        C = toks.shape[1]
+        active = self._active_for(g.widths)
+        pg = g.paging
+        extra = ()
+        if pg is not None:
+            for i in joined:
+                pos = int(pg.host_pos[i])
+                pg.ensure_slot(i, pos + C - 1)
+                for src, dst in pg.cow_pairs(i, pos, pos + C - 1):
+                    g.cache = self._copy_page(g.cache, src, dst)
+            # chunks are cached per (depth, C), not bucketed: replay ships
+            # the full-width table, as the speculative steps do
+            extra = (self._table_op(pg, pg.cap_pages),)
+        key = (g.depth, C)
+        fn = self._replay_chunks.get(key)
+        if fn is None:
+            fn = self.executor.replay_chunk_fn(g.depth, C)
+            self._replay_chunks[key] = fn
+        g.cache = fn(self.params, g.cache, self.executor.put(toks), active,
+                     *extra)
+        if pg is not None:
+            pg.host_pos += C  # mirror the device counter (ALL slots advance)
+        self.ctrl.stats["dispatches"] += 1
+        self.replay_chunk_launches += 1
+
+    def _replay_group(self, g: _DepthGroup) -> None:
+        """Re-make one depth group's cache from host truth.
+
+        A live slot's committed stream is ``(prompt + generated)[:fed]``
+        (its cache position always equals ``fed``). A slot admitted through
+        prefill replays its prompt through the same prefill; everything
+        token-fed (short prompts, every decode- or verify-committed token)
+        is re-fed through the group's own steps at the slot's admitted
+        width. That split matters: a prefill is width-blind (full-width
+        K/V), so a narrow slot's token-fed history must come back through
+        the width-gated steps.
+
+        Feeds are staggered to END together: slot ``i`` joins the lockstep
+        at launch ``T - tail_i`` (reset to position 0, or prefilled to
+        ``plen``) and feeds its remaining tokens in order, so each launch
+        advances every joined slot and each lands at ``pos == fed``. Slots
+        not joined yet and free slots take garbage writes meanwhile (dense:
+        masked by position after their reset or adoption; paged: routed to
+        scratch pages), as normal admission recycles slots. Between joins
+        the feed is batched: up to ``c_max`` tokens ride one
+        ``_replay_chunk`` (bounded by a sliding window, whose rolling
+        scatter must not alias)."""
+        live = [(i, r) for i, r in enumerate(g.slots) if r is not None]
+        pg = g.paging
+        if not live:
+            return
+        tails: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        for i, r in live:
+            committed = (tuple(r.prompt) + tuple(r.generated))[:r.fed]
+            if r.prefilled:
+                tails[i] = (len(r.prompt), committed[len(r.prompt):])
+            else:
+                tails[i] = (0, committed)
+        T = max(len(t) for _, t in tails.values())
+        c_max = max(min(8, self.cfg.sliding_window or 8), 1)
+        joined: List[int] = []
+        t = 0
+        while t < T:
+            mask = np.zeros(self.batch_size, bool)
+            for i, (_, tail) in tails.items():
+                if T - len(tail) != t:
+                    continue
+                r = g.slots[i]
+                if r.prefilled:
+                    self._replay_prefill(g, i, r)  # pos := plen
+                else:
+                    mask[i] = True  # pos := 0
+                    if pg is not None:
+                        pg.host_pos[i] = 0
+                joined.append(i)
+            if mask.any():
+                g.cache = self._reset(g.cache, self.executor.put(mask))
+            # feed until the next slot joins (or the end), in chunks
+            waiting = [T - len(tail) for i2, (_, tail) in tails.items()
+                       if i2 not in joined]
+            t_next = min([w for w in waiting if w > t], default=T)
+            while t < t_next:
+                C = min(c_max, t_next - t)
+                toks = np.zeros((self.batch_size, C), np.int64)
+                for i in joined:
+                    _, tail = tails[i]
+                    off = t - (T - len(tail))
+                    toks[i, :] = tail[off:off + C]
+                if C == 1:
+                    self._replay_launch(g, toks, joined)
+                else:
+                    self._replay_chunk(g, toks, joined)
+                t += C
+        # slots with nothing to feed: fed == 0 (a plain reset) or a
+        # prefilled prompt with no generation fed past it (adopted after
+        # the launches, so the lockstep cannot move its position)
+        end_mask = np.zeros(self.batch_size, bool)
+        for i, (_, tail) in tails.items():
+            if tail:
+                continue
+            r = g.slots[i]
+            if r.prefilled:
+                self._replay_prefill(g, i, r)
+            else:
+                end_mask[i] = True
+                if pg is not None:
+                    pg.host_pos[i] = 0
+        # free slots took garbage advances during the lockstep; rewind them
+        # (admission would reset them anyway; this keeps the device and the
+        # host mirrors exact for the invariant checks)
+        for i in range(self.batch_size):
+            if g.slots[i] is None:
+                end_mask[i] = True
+                if pg is not None:
+                    pg.host_pos[i] = 0
+        if end_mask.any():
+            g.cache = self._reset(g.cache, self.executor.put(end_mask))
+        _block_until_ready(g.cache)
+        if pg is not None:
+            for i, r in live:
+                assert int(pg.host_pos[i]) == r.fed, (
+                    f"replay drift: slot {i} at pos {int(pg.host_pos[i])} "
+                    f"!= fed {r.fed}")
 
     # -- driving loops ------------------------------------------------------
 

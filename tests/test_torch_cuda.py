@@ -1361,3 +1361,129 @@ def test_encdec_smoke_models_on_card_match_cpu(cuda, arch, fused):
         outs.append([t.float().cpu() for t in got])
     for a, c in zip(*outs):
         torch.testing.assert_close(c, a, atol=1e-3, rtol=1e-3)
+
+
+def _fused_factory(cuda, cfg, params):
+    from repro_torch.runtime.serving import ServingEngine
+    from repro_torch.runtime.speculative import SpecConfig
+
+    def make():
+        eng = ServingEngine(params, cfg, batch_size=3, cache_capacity=32,
+                            prefill_threshold=4, fused=True,
+                            speculative=SpecConfig(ks=(2,)), device=cuda)
+        eng.warmup()
+        return eng
+    return make
+
+
+def test_fused_chaos_drive_on_card_is_token_identical(cuda):
+    """The f32 smoke config, fused, linear speculation, on the card: three
+    planned failures (decode, verify, prefill), two standbys ping-ponged;
+    every stream equals the fault-free run's, the counters land on its
+    totals, and the replays ran through chunks on the fused verify
+    kernel."""
+    from repro_torch.kernels import fused_decode as FD
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.fault_tolerance import (ExecutorSupervisor,
+                                                     FailurePlan)
+    from repro_torch.runtime.serving import poisson_trace
+
+    cfg = smoke_config("tinyllama-1.1b")
+    make = _fused_factory(cuda, cfg, init_params(cfg, seed=0, device=cuda))
+
+    def trace():
+        return poisson_trace(10, 1e6, seed=5, vocab=cfg.vocab_size,
+                             prompt_len=(1, 9), interactive_frac=0.3)
+
+    counter = FailurePlan()
+    ref_sup = ExecutorSupervisor(make, failure_plan=counter)
+    ref_sup.run_trace(trace())
+    ref = ref_sup.engine
+    want = ({r.rid: r.generated for r in ref.completed},
+            (ref.step_count, ref.decode_launches, ref.prefills,
+             ref.spec_verify_launches, ref.spec_generated_tokens))
+    plan = FailurePlan(at_sites=tuple(
+        (s, min(2, counter.site_counts[s]))
+        for s in ("decode", "verify", "prefill")))
+    engines, idx = [ref, make()], [0]
+    ref.restore(engines[1].snapshot())  # back to a clean start
+
+    def pingpong():
+        idx[0] ^= 1
+        return engines[idx[0]]
+
+    v0 = FD.verify_launch_count()
+    sup = ExecutorSupervisor(pingpong, failure_plan=plan, max_failovers=3)
+    sup.run_trace(trace())
+    eng = sup.engine
+    assert sup.failovers == 3 and plan.fired_sites == set(plan.at_sites)
+    got = ({r.rid: r.generated for r in eng.completed},
+           (eng.step_count, eng.decode_launches, eng.prefills,
+            eng.spec_verify_launches, eng.spec_generated_tokens))
+    assert got == want
+    assert sum(e.replay_chunk_launches for e in engines) > 0
+    assert FD.verify_launch_count() > v0
+
+
+def test_restored_cache_matches_source_on_card(cuda):
+    """Snapshot a fused f32 engine mid-flight on the card and restore it
+    onto another: on every live slot's committed rows the restored K/V
+    (written by replay chunks on the fused verify kernel, and one-token
+    launches on the fused decode kernel) equal the source's (written by
+    decode and verify ticks) to f32 rounding, 1e-5."""
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serving import poisson_trace
+
+    cfg = smoke_config("tinyllama-1.1b")
+    make = _fused_factory(cuda, cfg, init_params(cfg, seed=0, device=cuda))
+    a, b = make(), make()
+    for r in poisson_trace(6, 1e6, seed=11, vocab=cfg.vocab_size,
+                           prompt_len=(1, 9), new_tokens=(12, 20)):
+        a.submit(r)
+    for _ in range(6):
+        a.step()
+    b.restore(a.snapshot())
+    assert b.replay_chunk_launches > 0
+    for d, g in a.groups.items():
+        live = [(i, r.fed) for i, r in enumerate(g.slots) if r is not None]
+        for layer_a, layer_b in zip(g.cache["stack"].values(),
+                                    b.groups[d].cache["stack"].values()):
+            for k in ("k", "v"):
+                for i, fed in live:
+                    torch.testing.assert_close(
+                        layer_b[k][:, i, :fed], layer_a[k][:, i, :fed],
+                        atol=1e-5, rtol=0)
+
+
+def test_mamba2_restart_is_bit_identical_on_card(cuda, tmp_path):
+    """Full-width Mamba2-370M cut to 4 layers (B = 4, S = 256, AdamW):
+    ``TrainRunner`` with a checkpoint every 2 steps and a failure before
+    step 3 ends with parameters and moments bit-identical to 4
+    uninterrupted steps."""
+    from repro_torch.checkpoint.checkpointing import leaves_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime.fault_tolerance import FailurePlan, TrainRunner
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=4)
+    ocfg = OptimizerConfig(lr=2e-3)
+    dc = DataConfig(seed=0, global_batch=4, seq_len=256)
+
+    def init():
+        return init_train_state(cfg, ocfg, seed=0, device=cuda)
+
+    step = make_train_step(cfg, ocfg, remat="none")
+    state = init()
+    for i in range(4):
+        state, _ = step(state, make_batch(cfg, dc, i))
+    want = {k: t.detach().clone() for k, t in leaves_with_path(state)}
+    runner = TrainRunner(cfg, make_train_step(cfg, ocfg, remat="none"), init,
+                         dc, str(tmp_path), ckpt_every=2,
+                         failure_plan=FailurePlan(at_steps=(3,)))
+    got = dict(leaves_with_path(runner.run_with_restarts(4)))
+    assert [m["step"] for m in runner.metrics_log] == [0, 1, 2, 2, 3]
+    assert want.keys() == got.keys()
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    assert not differ, differ

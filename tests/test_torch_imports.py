@@ -66,6 +66,18 @@ def test_flash_modules_are_in_the_probe():
             "repro_torch.kernels.flash_decode"} <= names
 
 
+def test_robustness_modules_are_in_the_probe():
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.runtime.fault_tolerance",
+            "repro_torch.runtime.compression",
+            "repro_torch.checkpoint.checkpointing"} <= names
+
+
 def test_cuda_without_a_card_raises_instead_of_falling_back():
     from repro_torch.configs import smoke_config
     from repro_torch.device import resolve_device

@@ -240,6 +240,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -4198,6 +4199,9 @@ def failover_drive(torch, name, arch, overrides, spec_kind, page, n_req,
         f"{wall_un:.1f}, supervised {wall_sup:.1f}, chaos {wall_chaos:.1f}, "
         f"drive {time.perf_counter() - t_all:.1f}")
     del e0, e1, engines, eng, chaos, sup, params
+    # the engines sit in reference cycles (the wrapped methods above, the
+    # supervisor class): collect them before the next drive's peak
+    gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     return run_launches, res

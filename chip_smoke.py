@@ -183,6 +183,24 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    Mamba2 drives must be identical). Recovery (rebuild, replay, first
    token after it), replay launches, tokens/s unsupervised / supervised /
    chaos and peak memory are printed.
+   Then the online autoscaler (``autoscale_phase``): full-width
+   ``tinyllama-1.1b`` (22 layers, f32 masters, bf16 activations), fused,
+   greedy, 8 slots, capacity 512, prefill threshold 8, K = 2 warmed and
+   K = 4 the candidate the live MOGA may adopt (interval 1, population 8,
+   2 generations, seed 0, the table budget one step above warmup's), on a
+   two-phase trace (``autoscale_traces``: a burst at t = 0, then sparse
+   arrivals); dense, paged (page 16) and cut to 4 layers in f32, each
+   beside a fixed-mode baseline on the same trace, and a bare pre-warmed
+   standby restoring the dense drive's snapshot and binding an autoscaler
+   that re-publishes K = 4 synchronously. Asserted: adoption off the
+   serving thread on the worker's stream, a retirement, the table within
+   its budget, every build after warmup published, no stalled tick, no
+   dropped build, the fused verify at S = 5 on the serving thread, exact
+   serving launches and, counted apart, exact build launches; paged: a
+   retired bucket and plain launches rounded up to a live one; streams
+   equal the baseline's (f32) or part at near ties only (bf16). Build
+   seconds, MOGA generation host ms, tick host ms with a build in flight
+   and without, and peak memory are printed.
 4. Training, one card. The scan's backward kernel (``ssd_scan_bwd``, on
    the forward kernel's kept workspace) against ``ssd_scan_bwd_plain`` at
    the Mamba2-370M training shape (B = 8, S = 256, 32 heads of 64,
@@ -227,7 +245,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``cross_attention``; ``ssd_scan_bwd`` is the port's kernel with no
    Pallas counterpart; the kernels of the failover drives and the restart
    drive add their counts there under ``failover_launches``, and
-   ``fused_verify`` its replay-chunk shape under ``replay_chunk``), then
+   ``fused_verify`` its replay-chunk shape under ``replay_chunk``; the
+   kernels of the autoscale drives their serving counts under
+   ``autoscale_launches`` and their builds' warm launches under
+   ``autoscale_build_launches``, ``fused_verify`` its S = 5 serving count
+   under ``autoscale_verify_s5_serving``), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -3875,7 +3897,8 @@ def rescore(torch, engine, lanes: dict, fed: int, width: float, tokens):
     return lg[0, -1, :cfg.vocab_size].float()
 
 
-def near_ties(torch, engine, trace, ref, out, lanes):
+def near_ties(torch, engine, trace, ref, out, lanes,
+               labels=("fault-free", "after failover"), step_floor=False):
     """For each request whose chaos stream parted from the fault-free one
     at generated index j (fault-free token a, chaos token b): rescore the
     position P that produced index j from each run's own cache of the
@@ -3883,9 +3906,14 @@ def near_ties(torch, engine, trace, ref, out, lanes):
     completed) cut to rows [0, P), both holding the same tokens, by
     feeding the token at P; it is a near tie when the fault-free cache's
     margin of a over b is at most twice the largest logit change between
-    the two rescorings. Returns the rows printed; fails on a divergence
-    that is not a near tie, and on any in an SSM model (its recurrent
-    state cannot be cut back to P)."""
+    the two rescorings. With ``step_floor`` that change is taken as at
+    least one bf16 step of the top logit: where the two runs computed
+    position P itself through launches of other shapes (a verify of S = 5
+    against one of S = 3, whose QKV plans its sums from the row count),
+    the one-token rescoring reproduces neither's rounding, and identical
+    cache rows give no change to measure. Returns the rows printed; fails
+    on a divergence that is not a near tie, and on any in an SSM model
+    (its recurrent state cannot be cut back to P)."""
     rows = []
     prompts = {r.rid: tuple(r.prompt) for r in trace}
     for rid, s in sorted(ref.items()):
@@ -3905,24 +3933,30 @@ def near_ties(torch, engine, trace, ref, out, lanes):
         top2 = torch.topk(ls, 2).values
         change = float((ls - lr).abs().max())
         margin = float(ls[a] - ls[b])
+        step = (2.0 ** (math.floor(math.log2(abs(float(top2[0])))) - 7)
+                if step_floor and float(top2[0]) != 0.0 else 0.0)
         row = dict(rid=rid, index=j, fault_free=a, chaos=b,
                    margin_a_over_b=margin,
                    top1_top2=float(top2[0] - top2[1]),
-                   max_logit_change=change, near_tie=margin <= 2 * change,
+                   max_logit_change=change, bf16_step=step,
+                   near_tie=margin <= 2 * max(change, step),
                    cache_rows_max_abs_delta=max(
                        lane_delta(cut[0], cut[1]).values()))
         rows.append(row)
-        log(f"    rid {rid} parted at generated index {j} ({a} fault-free, "
-            f"{b} after failover): rescored at position {P} from each "
+        log(f"    rid {rid} parted at generated index {j} ({a} "
+            f"{labels[0]}, {b} {labels[1]}): rescored at position {P} from "
+            f"each "
             f"run's cache of it (rows differ by up to "
             f"{row['cache_rows_max_abs_delta']:.3e}), margin of {a} over "
             f"{b} {margin:.4f} (top-1 / top-2 {row['top1_top2']:.4f}), max "
-            f"logit change {change:.4f}: "
+            f"logit change {change:.4f}"
+            + (f" (one bf16 step of the top logit: {step:.4f})"
+               if step_floor else "") + ": "
             + ("a near tie" if row["near_tie"] else "NOT a near tie"))
         if not row["near_tie"]:
-            fail(f"request {rid} parted from the fault-free run at {j} with "
-                 f"a margin {margin:.4f} above twice the logit change "
-                 f"{change:.4f} between the two runs' caches")
+            fail(f"request {rid} parted from the {labels[0]} run at {j} "
+                 f"with a margin {margin:.4f} above twice the logit change "
+                 f"{max(change, step):.4f} between the two runs' caches")
     return rows
 
 
@@ -4223,6 +4257,600 @@ def failover_phase(torch, device="cuda"):
     return launches, results
 
 
+AUTOSCALE_ARCH = "tinyllama-1.1b"
+AUTOSCALE_K = 2  # the draft length warmup builds
+AUTOSCALE_CANDIDATE = 4  # the one the online MOGA may adopt
+# The dwell (``AutoscaleConfig.cold_dispatches``) of the dense drives:
+# with random weights a draft is accepted a few percent of the time, so a
+# tick's acceptance window is often all zeros, and at a zero rate the
+# policy keeps K = 2 (a longer draft gains nothing). With no dwell, a K = 4
+# published at such a tick goes cold and retires at the next one, before
+# any tick could take it; 32 dispatches (16 speculative ticks) give it
+# that chance. The paged drive keeps none: its first retirement (a page
+# bucket's 3 steps, the coldest unit) brings the table under its budget,
+# so a published K = 4 stays live until a tick takes it, while a dwell
+# would let the inactive depth's K = 2 (as cold, and first by name) go
+# first instead of a bucket.
+AUTOSCALE_DWELL = 32
+# name, config overrides (``exit``: the 4-layer cut's draft exit), page
+# size (0: dense), dwell, streams held strictly
+AUTOSCALE_DRIVES = (
+    ("autoscale_dense", {}, 0, AUTOSCALE_DWELL, False),
+    ("autoscale_paged", {}, PAGE, 0, False),
+    # an exit at 3 of 4 layers: acceptance ~6% (at 2, ~2%: the window
+    # stays at zero too long)
+    ("autoscale_f32_4layers", dict(dtype="float32", n_layers=4, exit=3), 0,
+     AUTOSCALE_DWELL, True),
+)
+
+
+def autoscale_traces(cfg):
+    """Two phases, as the reference's ``_two_phase_traces``: a burst of 8
+    requests arriving at t = 0 (one per slot: all admitted at the first
+    tick, the queue empty after it, so the first publication lands at an
+    empty queue), prompts 16-128 (prefilled), 32-48 new tokens;
+    then 6 sparse arrivals (30 / s, rids from 100), 16-32 new tokens, whose
+    prompts alternate 80-112 tokens (prefilled) and 2-6 (fed token by
+    token: the group steps plainly while one feeds, a paged plain tick at
+    the table width the long ones need)."""
+    import numpy as np
+
+    from repro_torch.runtime.serving import poisson_trace
+
+    t1 = poisson_trace(8, 1e6, seed=1, prompt_len=(16, 128),
+                       new_tokens=(32, 48), vocab=cfg.vocab_size)
+    for r in t1:
+        r.arrival_s = 0.0
+    t2 = poisson_trace(6, 30.0, seed=2, prompt_len=(2, 6),
+                       new_tokens=(16, 32), vocab=cfg.vocab_size)
+    rng = np.random.default_rng(3)
+    for i, r in enumerate(t2):
+        r.rid += 100
+        if i % 2 == 0:
+            n = int(rng.integers(80, 113))
+            r.prompt = tuple(int(x) for x in rng.integers(1, cfg.vocab_size,
+                                                          n))
+    return t1, t2
+
+
+def _pctl(xs, q):
+    if not xs:
+        return float("nan")
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] * 1e3
+
+
+def _unit_label(unit):
+    return ":".join(str(x) for x in unit)
+
+
+def build_launches_expected(cfg, builds):
+    """Kernel launches the autoscaler's builds' warm runs make, from the
+    units built and the keys each returned: a linear (depth, K) unit runs
+    its K-token draft at the draft depth (K fused decode layer-steps a
+    draft layer) and its verify at the depth (one S = K + 1 fused verify a
+    layer), each fused attention layer with its MLP's 3 ``morph_matmul``;
+    a bucket unit one fused decode step per depth it built. Returns
+    (counts per kernel, fused verify launches per S)."""
+    n = dict.fromkeys(KERNEL_NAMES, 0)
+    rows = {}
+    for b in builds:
+        unit = b["unit"]
+        if unit[0] == "bucket":
+            for key in b["keys"]:
+                _add(n, layer_launches(cfg, True, False), key[1])
+            continue
+        _, depth, k = unit
+        _add(n, layer_launches(cfg, True, False), k * b["draft_depth"])
+        _add(n, layer_launches(cfg, True, True), depth)
+        rows[k + 1] = rows.get(k + 1, 0) + depth * cfg.period
+    return n, rows
+
+
+def _run_ticks_timed(eng, trace, ticks, asc=None, policy=None):
+    """``eng.run`` (with ``policy`` when given), every engine tick's host
+    seconds appended to ``ticks["host"]`` and whether a unit of ``asc``
+    was scheduled and not yet published at its start to
+    ``ticks["in_flight"]``."""
+    step = eng.step
+
+    def timed(now_s=0.0):
+        ticks["in_flight"].append(bool(asc is not None and asc._pending))
+        t = time.perf_counter()
+        dt = step(now_s=now_s)
+        ticks["host"].append(time.perf_counter() - t)
+        return dt
+
+    eng.step = timed
+    try:
+        if policy is None:
+            return eng.run(trace)
+        return eng.run(trace, policy=policy, budget_fn=lambda t: 0.5)
+    finally:
+        del eng.step
+
+
+def _tick_split(ticks):
+    """(host seconds of the ticks with a build in flight, of the rest)."""
+    busy = [t for t, f in zip(ticks["host"], ticks["in_flight"]) if f]
+    idle = [t for t, f in zip(ticks["host"], ticks["in_flight"]) if not f]
+    return busy, idle
+
+
+def _instrument(asc, builds, gens):
+    """Record each build (unit, seconds, thread, stream, keys, draft
+    depth) and each MOGA generation's host seconds of ``asc``."""
+    import threading
+
+    build, gen = asc._build_unit, asc._run_generation
+
+    def timed_build(unit, eng, stream=None):
+        t = time.perf_counter()
+        out = build(unit, eng, stream)
+        dd = (eng.ctrl.spec_plan[unit[1]].draft_depth
+              if unit[0] != "bucket" else 0)
+        builds.append(dict(unit=unit, s=time.perf_counter() - t,
+                           thread=threading.get_ident(),
+                           stream=stream is not None, draft_depth=dd,
+                           keys=[k for k, _, _ in out]))
+        return out
+
+    def timed_gen(*a):
+        t = time.perf_counter()
+        out = gen(*a)
+        gens.append(time.perf_counter() - t)
+        return out
+
+    asc._build_unit, asc._run_generation = timed_build, timed_gen
+
+
+def _await_builds(asc, timeout_s=300.0):
+    """Wait for the background builder, publishing finished units on this
+    thread as a serving tick would."""
+    t0 = time.monotonic()
+    while asc._pending and time.monotonic() - t0 < timeout_s:
+        asc._drain_publish()
+        time.sleep(0.01)
+    asc._drain_publish()
+    if asc._pending:
+        fail(f"autoscaler builds {sorted(asc._pending)} never finished")
+
+
+def _expected_now(torch, eng, device):
+    """``expected_launches`` of ``eng`` from its counters as they stand
+    (taken before and after a run: the difference is the run's)."""
+    expect = (expected_launches if eng.cfg.layer_kind(0) == "attn"
+              else expected_launches_ssm)
+    return expect(torch, eng, {m.name: 0 for m in eng.ctrl.modes}, True,
+                  device)
+
+
+def _autoscale_checks(torch, what, cfg, eng, asc, budget, compiles0,
+                      before, spec0, run_launches, builds, bind_builds=()):
+    """The checks every autoscaled run must pass (see ``autoscale_drive``):
+    ``before`` is ``_expected_now`` and ``spec0`` the launches per
+    speculative path as the run began; ``builds`` ran on the worker,
+    ``bind_builds`` (a standby's re-publication) on this thread. Returns
+    (launches expected of the builds, S = K + 1 verify launches on the
+    serving thread)."""
+    import threading
+
+    from repro_torch.kernels import fused_decode as FD
+
+    st = asc.stats
+    device = eng.device
+    on_card = device.type == "cuda"
+    if st["tick_stalls"] or st["dropped"]:
+        fail(f"{what}: {st['tick_stalls']} stalled ticks, {st['dropped']} "
+             f"dropped builds: {st}")
+    if eng.ctrl.compile_table_size > budget:
+        fail(f"{what}: table {eng.ctrl.compile_table_size} over its budget "
+             f"{budget}")
+    if eng.ctrl.stats["compiles"] != compiles0 + st["published_keys"]:
+        fail(f"{what}: {eng.ctrl.stats['compiles']} steps built, "
+             f"{compiles0} at warmup + {st['published_keys']} published")
+    main = threading.get_ident()
+    if main in asc.worker_idents or any(
+            b["thread"] == main or b["stream"] != on_card for b in builds):
+        fail(f"{what}: a background build ran on the serving thread, or "
+             f"off the worker's stream")
+    after, steps = _expected_now(torch, eng, device)
+    want = {k: after[k] - before[k] for k in after}
+    if run_launches != want:
+        fail(f"{what}: serving launches {run_launches}, expected {want} "
+             f"(layer steps {steps})")
+    k1 = AUTOSCALE_CANDIDATE + 1
+    s5 = sum((t.launches - spec0.get(key, 0)) * key[0] * cfg.period
+             for key, t in eng.spec_telemetry.items()
+             if key[2] == AUTOSCALE_CANDIDATE)
+    rows = FD.verify_launches_by_rows()
+    if on_card and rows.get(k1, 0) != s5:
+        fail(f"{what}: fused_verify at S = {k1} on the serving thread "
+             f"{rows.get(k1, 0)} times, the K = {AUTOSCALE_CANDIDATE} "
+             f"ticks ask {s5}")
+    if not s5:
+        fail(f"{what}: the adopted K = {AUTOSCALE_CANDIDATE} never ran on "
+             f"the serving thread after its publication: acceptance "
+             f"(launches, accepted, drafted) per path " + str(
+                 {k: (t.launches, t.accepted, t.drafted)
+                  for k, t in eng.spec_telemetry.items()})
+             + f"; events " + str([
+                 (e["event"], e["unit"], e["step"]) for e in
+                 eng.metrics.events("autoscale_events", (
+                     "step", "event", "unit", "generation", "detail"))
+                 if e["event"] != "generation"]))
+    want_b, want_rows = build_launches_expected(
+        cfg, list(bind_builds) + list(builds))
+    got_b = {k: asc.build_launches.get(k, {}).get("n", 0)
+             for k in KERNEL_NAMES if k != "ssd_scan_bwd"}
+    got_rows = {s_: n for s_, n in
+                asc.build_launches.get("fused_verify_rows", {}).items() if n}
+    if on_card and (got_b != {k: want_b[k] for k in got_b}
+                    or got_rows != want_rows):
+        fail(f"{what}: build launches {got_b} (verify rows {got_rows}), "
+             f"expected {want_b} ({want_rows}) for the units "
+             f"{[_unit_label(b['unit']) for b in builds]}")
+    return want_b, s5
+
+
+def autoscale_drive(torch, name, cfg, params, page, dwell, strict,
+                    standby=False, device="cuda"):
+    """One drive of the online autoscaler (``runtime.autoscale``) on
+    ``cfg``: fused, greedy, 8 slots, capacity 512, prefill threshold 8,
+    ``SpecConfig(ks=(2,), min_accept_rate=0.0)``, a block-paged cache when
+    ``page``. A fixed-mode baseline (no autoscaler) serves
+    ``autoscale_traces``' two phases; then an autoscaled engine
+    (``table_budget`` = its warmup's builds + 1, candidate K = 4, interval
+    1, population 8, 2 generations, seed 0, ``dwell`` dispatches; the
+    admission mode pinned)
+    serves them, the background builds awaited (and published on this
+    thread) between the phases. Kernel counters are zeroed before the
+    autoscaled run and read after it: they hold the serving thread's
+    launches, exactly as the engine's counters ask; the builds' warm
+    launches, counted apart by the autoscaler, exactly as the built units
+    ask. Asserts a publication, a retirement, K = 4 in the published or
+    retired units, the fused verify at S = 5 on the serving thread, the
+    table within its budget, every build after warmup published
+    (``compiles == compiles0 + published_keys``), no stalled tick, no
+    dropped build, no build on the serving thread; paged: a bucket
+    retired and plain launches rounded up to a live bucket. Streams equal
+    the baseline's (``strict``) or part only at near ties (``near_ties``,
+    its change floored at one bf16 step: the parting position's logits
+    come from verify launches of other shapes in the two runs).
+    With ``standby``, a pre-warmed engine with no autoscaler restores the
+    snapshot cut at the phase boundary, an autoscaler binds it
+    (re-publishing K = 4 synchronously) and it serves the second phase
+    under the same checks; its state must equal the snapshot's. Prints
+    generations, publications, retirements, front and table sizes, each
+    build's seconds, the generations' host ms, the serving ticks' host ms
+    p50 / p95 with a build in flight and without one, and peak memory.
+    Returns (launches per run, results)."""
+    from repro_torch.models.paged import PagedLayout
+    from repro_torch.runtime.autoscale import (AutoscaleConfig,
+                                               AutoscalePolicy, Autoscaler)
+    from repro_torch.runtime.serving import ServingEngine
+    from repro_torch.runtime.speculative import SpecConfig
+
+    t_all = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    layout = PagedLayout(page_size=page) if page else None
+    lanes, tag = {}, ["ref"]
+
+    def build():
+        eng = ServingEngine(params, cfg, batch_size=8, cache_capacity=512,
+                            prefill_threshold=8, fused=True,
+                            speculative=SpecConfig(ks=(AUTOSCALE_K,),
+                                                   min_accept_rate=0.0),
+                            paged=layout, device=device)
+        eng.warmup()
+        complete = eng._complete
+
+        def keep_lanes(g, slot, req, now_s):
+            lanes.setdefault(tag[0], {})[req.rid] = (
+                req.fed, g.widths[slot], slot_lanes(g, slot, req.fed))
+            return complete(g, slot, req, now_s)
+
+        eng._complete = keep_lanes
+        return eng
+
+    def scaler():
+        return Autoscaler(AutoscaleConfig(
+            interval_ticks=1, table_budget=budget,
+            spec_ks=(AUTOSCALE_CANDIDATE,), pop_size=8, generations=2,
+            seed=0, cold_dispatches=dwell))
+
+    def streams(eng):
+        return {r.rid: tuple(r.generated) for r in eng.completed}
+
+    t1, t2 = autoscale_traces(cfg)
+    trace = t1 + t2
+    base = build()
+    base.set_admission_mode(base.ctrl.modes[-1])
+    base_ticks = {"host": [], "in_flight": []}
+    t0 = time.perf_counter()
+    _run_ticks_timed(base, copy.deepcopy(t1), base_ticks)
+    _run_ticks_timed(base, copy.deepcopy(t2), base_ticks)
+    sync(torch, device)
+    wall_base = time.perf_counter() - t0
+    ref = streams(base)
+    del base
+
+    tag[0] = "chaos"
+    eng = build()
+    pinned = eng.ctrl.modes[-1]
+    budget = eng.compiles_after_warmup + 1
+    asc = scaler()
+    builds, gens, ticks = [], [], {"host": [], "in_flight": []}
+    _instrument(asc, builds, gens)
+    asc.bind(eng)
+    policy = AutoscalePolicy(cfg, eng.ctrl, autoscaler=asc, batch_size=8,
+                             cache_capacity=512, metrics=eng.metrics)
+    rounded = []  # (needed pages, the ladder's bucket, the live one)
+    if layout is not None:
+        bucket_for = eng._bucket_for
+
+        def counted_bucket_for(needed):
+            got = bucket_for(needed)
+            rounded.append((needed, min(b for b in eng._buckets
+                                        if b >= needed), got))
+            return got
+
+        eng._bucket_for = counted_bucket_for
+    compiles0 = eng.ctrl.stats["compiles"]
+    before, _ = _expected_now(torch, eng, device)
+    count_reset = counters()
+    for _, reset in count_reset.values():
+        reset()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _run_ticks_timed(eng, copy.deepcopy(t1), ticks, asc, policy)
+    published_phase1 = asc.stats["published"]
+    _await_builds(asc)
+    snap = eng.snapshot() if standby else None
+    _run_ticks_timed(eng, copy.deepcopy(t2), ticks, asc, policy)
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    run_launches = {n: count() for n, (count, _) in count_reset.items()}
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else float("nan"))
+    if on_card and cfg.dtype == "float32":
+        check_routes_f32(name, run_launches)
+    elif on_card:
+        check_routes(name, run_launches)
+    st = dict(asc.stats)
+    units = asc._published_units + asc._retired_units
+    if not st["published"] or not st["retired"] or \
+            ("spec_k", pinned.depth, AUTOSCALE_CANDIDATE) not in units:
+        fail(f"{name}: no adoption of K = {AUTOSCALE_CANDIDATE} at depth "
+             f"{pinned.depth} and retirement: {st}, published "
+             f"{asc._published_units}, retired {asc._retired_units}")
+    want_b, s5 = _autoscale_checks(torch, name, cfg, eng, asc, budget,
+                                   compiles0, before, {}, run_launches,
+                                   builds)
+    if layout is not None:
+        eng.check_paged_invariants()
+        up = [r for r in rounded if r[2] > r[1]]
+        if not any(u[0] == "bucket" for u in asc._retired_units) or not up:
+            fail(f"{name}: retired {asc._retired_units}; plain paged "
+                 f"launches rounded up to a live bucket: {len(up)}")
+    out = streams(eng)
+    if sorted(out) != sorted(r.rid for r in trace):
+        fail(f"{name}: requests dropped or completed twice")
+    diverged = {rid: next(j for j, (a, b) in enumerate(zip(out[rid], s))
+                          if a != b)
+                for rid, s in ref.items() if out[rid] != s}
+    if diverged and strict:
+        fail(f"{name}: streams parted from the fixed-mode run in an f32 "
+             f"drive: {diverged}")
+    labels = ("fixed-mode", "autoscaled")
+    ties = (near_ties(torch, eng, trace, ref, out, lanes, labels,
+                      step_floor=True) if diverged else [])
+    gen = sum(len(s) for s in ref.values())
+    busy, idle = _tick_split(ticks)
+    # the ticks a build overlapped come first; the fixed-mode run's ticks
+    # of the same index served the same slots (nothing adopted yet)
+    paired = [i for i, f in enumerate(ticks["in_flight"]) if f]
+    res = dict(
+        generations=st["generations"], published=st["published"],
+        published_in_phase1=published_phase1,
+        published_keys=st["published_keys"], retired=st["retired"],
+        published_units=[_unit_label(u) for u in asc._published_units],
+        retired_units=[_unit_label(u) for u in asc._retired_units],
+        front=len(asc.front), table=eng.ctrl.compile_table_size,
+        budget=budget, tick_stalls=st["tick_stalls"], dropped=st["dropped"],
+        builds=[dict(unit=_unit_label(b["unit"]), s=b["s"],
+                     keys=len(b["keys"])) for b in builds],
+        generation_ms_p50=_pctl(gens, 0.5), generation_ms_p95=_pctl(gens, 0.95),
+        tick_ms_in_flight=[_pctl(busy, q) for q in (0.5, 0.95)],
+        ticks_in_flight=len(busy),
+        tick_ms_idle=[_pctl(idle, q) for q in (0.5, 0.95)],
+        ticks_idle=len(idle),
+        tick_ms_in_flight_each=[ticks["host"][i] * 1e3 for i in paired],
+        tick_ms_fixed_same_index=[base_ticks["host"][i] * 1e3
+                                  for i in paired
+                                  if i < len(base_ticks["host"])],
+        tick_ms_fixed=[_pctl(base_ticks["host"], q) for q in (0.5, 0.95)],
+        verify_s5_serving=s5, build_launches=want_b,
+        tokens_per_s_fixed=gen / wall_base, tokens_per_s_autoscaled=gen / wall,
+        peak_gib=peak, streams_identical=not diverged, diverged=diverged,
+        near_ties=ties)
+    if layout is not None:
+        res["rounded_up_launches"] = len([r for r in rounded if r[2] > r[1]])
+        res["live_buckets"] = sorted(eng._avail_buckets)
+    log(f"  {name} ({cfg.name}, {cfg.dtype}, depth {pinned.depth}, fused, "
+        f"{'paged ' + str(page) if page else 'dense'}, K = {AUTOSCALE_K} "
+        f"warmed, candidate K = {AUTOSCALE_CANDIDATE}, {len(trace)} "
+        f"requests, {gen} tokens): {st['generations']} generations, "
+        f"published {res['published_units']} ({st['published']}; "
+        f"{published_phase1} in the burst), retired {res['retired_units']}, "
+        f"front {len(asc.front)}, table {res['table']} (budget {budget}), "
+        f"stalls 0, dropped 0")
+    log("    background builds (s, on the worker's stream): " + ", ".join(
+        f"{b['unit']} {b['s']:.3f}" for b in res["builds"])
+        + f"; MOGA generation host ms p50 {res['generation_ms_p50']:.3f} "
+        f"p95 {res['generation_ms_p95']:.3f}; serving tick host ms p50 / "
+        f"p95 with a build in flight {res['tick_ms_in_flight'][0]:.3f} / "
+        f"{res['tick_ms_in_flight'][1]:.3f} ({len(busy)} ticks: "
+        + ", ".join(f"{x:.1f}" for x in res["tick_ms_in_flight_each"])
+        + "; the fixed-mode run's same ticks "
+        + ", ".join(f"{x:.1f}" for x in res["tick_ms_fixed_same_index"])
+        + f"), without {res['tick_ms_idle'][0]:.3f} / "
+        f"{res['tick_ms_idle'][1]:.3f} ({len(idle)} ticks); fixed-mode run "
+        f"{res['tick_ms_fixed'][0]:.3f} / {res['tick_ms_fixed'][1]:.3f}; "
+        f"fused_verify at S = {AUTOSCALE_CANDIDATE + 1} on the serving "
+        f"thread {s5}; tokens/s fixed-mode {res['tokens_per_s_fixed']:.1f}, "
+        f"autoscaled {res['tokens_per_s_autoscaled']:.1f}; peak "
+        f"{peak:.2f} GiB"
+        + (f"; {res['rounded_up_launches']} plain paged launches rounded "
+           f"up to a live bucket (live {res['live_buckets']})"
+           if layout is not None else ""))
+    log(f"    serving launches " + ", ".join(
+        f"{n} {c}" for n, c in run_launches.items() if c)
+        + "; the builds' warm launches, apart: " + ", ".join(
+        f"{n} {c}" for n, c in want_b.items() if c) + " (both as expected)")
+    log(f"    streams: " + (f"parted from the fixed-mode run in "
+                            f"{len(diverged)} of {len(ref)} requests, each "
+                            f"a near tie (above)" if diverged else
+                            f"all {len(ref)} token-identical to the "
+                            f"fixed-mode run"))
+    launches = {name: run_launches}
+    if standby:
+        launches[name + "_standby"], res["standby"] = _standby_run(
+            torch, name, cfg, build, scaler, snap, budget, t2, trace, ref,
+            lanes, tag, device)
+    asc.close()
+    log(f"    seconds: drive {time.perf_counter() - t_all:.1f}")
+    del eng, asc, policy
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches, res
+
+
+def _standby_run(torch, name, cfg, build, scaler, snap, budget, t2, trace,
+                 ref, lanes, tag, device):
+    """Drive 3 of the autoscale phase: a pre-warmed standby with no
+    autoscaler restores ``snap`` (cut at the phase boundary), holds its
+    autoscaler state until one binds, which re-publishes the adopted units
+    synchronously (its build on this thread, counted apart); it then
+    serves the second phase under ``_autoscale_checks``."""
+    from repro_torch.runtime.autoscale import AutoscalePolicy
+
+    what = name + "_standby"
+    tag[0] = "standby"
+    sb = build()
+    warm = sb.ctrl.stats["compiles"]
+    sb.restore(snap)
+    if sb._pending_autoscale != snap.autoscale:
+        fail(f"{what}: the bare standby did not hold the snapshot's "
+             f"autoscaler state")
+    asc = scaler()
+    builds, gens, ticks = [], [], {"host": [], "in_flight": []}
+    _instrument(asc, builds, gens)
+    t0 = time.perf_counter()
+    asc.bind(sb)
+    bind_s = time.perf_counter() - t0
+    pinned = sb.ctrl.modes[-1]
+    if sb._pending_autoscale is not None or \
+            AUTOSCALE_CANDIDATE not in sb.ctrl.spec_plan[pinned.depth].ks:
+        fail(f"{what}: bind did not re-publish K = {AUTOSCALE_CANDIDATE}")
+    if sb.ctrl.stats["compiles"] != warm + asc.stats["published_keys"]:
+        fail(f"{what}: {sb.ctrl.stats['compiles']} built, {warm} at warmup "
+             f"+ {asc.stats['published_keys']} re-published")
+    got = asc.state_dict()
+    for key in ("generation", "front", "published", "retired",
+                "active_spec", "avail_buckets"):
+        if got[key] != snap.autoscale[key]:
+            fail(f"{what}: state {key} {got[key]} after bind, "
+                 f"{snap.autoscale[key]} in the snapshot")
+    bind_builds = list(builds)
+    del builds[:]
+    republished = [_unit_label(b["unit"]) for b in bind_builds]
+    policy = AutoscalePolicy(cfg, sb.ctrl, autoscaler=asc, batch_size=8,
+                             cache_capacity=512, metrics=sb.metrics)
+    before, _ = _expected_now(torch, sb, device)
+    spec0 = {k: t.launches for k, t in sb.spec_telemetry.items()}
+    count_reset = counters()
+    for _, reset in count_reset.values():
+        reset()
+    _run_ticks_timed(sb, copy.deepcopy(t2), ticks, asc, policy)
+    sync(torch, device)
+    run_launches = {n: count() for n, (count, _) in count_reset.items()}
+    if torch.device(device).type == "cuda":
+        check_routes(what, run_launches)
+    want_b, s5 = _autoscale_checks(torch, what, cfg, sb, asc, budget, warm,
+                                   before, spec0, run_launches, builds,
+                                   bind_builds)
+    out = {r.rid: tuple(r.generated) for r in sb.completed}
+    if sorted(out) != sorted(r.rid for r in trace):
+        fail(f"{what}: requests dropped or completed twice")
+    diverged = {rid: next(j for j, (a, b) in enumerate(zip(out[rid], s))
+                          if a != b)
+                for rid, s in ref.items() if out[rid] != s}
+    both = {"ref": lanes["ref"], "chaos": {**lanes["chaos"],
+                                           **lanes.get("standby", {})}}
+    ties = (near_ties(torch, sb, trace, ref, out, both,
+                      ("fixed-mode", "standby"), step_floor=True)
+            if diverged else [])
+    res = dict(bind_s=bind_s, republished=republished,
+               republished_keys=asc.stats["published_keys"],
+               published=asc.stats["published"],
+               retired=asc.stats["retired"],
+               table=sb.ctrl.compile_table_size, verify_s5_serving=s5,
+               build_launches=want_b, streams_identical=not diverged,
+               diverged=diverged, near_ties=ties)
+    log(f"  {what}: a bare pre-warmed standby restored the snapshot cut "
+        f"at the phase boundary; bind re-published {republished} "
+        f"({asc.stats['published_keys']} steps) on this thread in "
+        f"{bind_s:.3f} s; generation {got['generation']}, front, "
+        f"published, retired, active shapes and buckets equal to the "
+        f"source's; the second phase served: fused_verify at S = "
+        f"{AUTOSCALE_CANDIDATE + 1} {s5}, table {res['table']}, streams "
+        + (f"parted in {len(diverged)} requests, each a near tie"
+           if diverged else "token-identical to the fixed-mode run"))
+    log(f"    serving launches " + ", ".join(
+        f"{n} {c}" for n, c in run_launches.items() if c)
+        + " (as expected)")
+    asc.close()
+    del sb
+    return run_launches, res
+
+
+def autoscale_phase(torch, device="cuda"):
+    """Phase 3's autoscale drives (``AUTOSCALE_DRIVES``): full-width,
+    full-depth TinyLlama-1.1B (f32 masters, bf16 activations) dense, with
+    the standby drive on its snapshot, and paged (page 16); then cut to 4
+    layers (an exit at 3) in f32, streams held strictly. Returns
+    (launches per run, results per drive)."""
+    from repro_torch.configs import get_config
+
+    launches, results = {}, {}
+    params = None
+    for name, overrides, page, dwell, strict in AUTOSCALE_DRIVES:
+        cfg = get_config(AUTOSCALE_ARCH)
+        overrides = dict(overrides)
+        if "exit" in overrides:
+            cfg = cfg.scaled(elastic=dataclasses.replace(
+                cfg.elastic, exit_layers=(overrides.pop("exit"),)))
+        cfg = cfg.scaled(**overrides)
+        if overrides or params is None:
+            params = None  # the last drive's, freed before the next's
+            gc.collect()
+            params = init_on_card(torch, cfg, device)
+        runs, results[name] = autoscale_drive(
+            torch, name, cfg, params, page, dwell, strict,
+            standby=name == "autoscale_dense", device=device)
+        launches.update(runs)
+        if overrides:
+            params = None
+    del params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return launches, results
+
+
 def restart_drive(torch, cfg, n_steps=4, every=2, fail_at=3):
     """Phase 4's restart drive (PR 23): full-width, full-depth ``cfg``
     (B = 8, S = 256, AdamW lr 2e-3) for ``n_steps`` steps through
@@ -4406,6 +5034,7 @@ def main(argv=None) -> int:
                       for p in PAGED_PATHS}
     max_err = max(r["max_abs_err"] for r in tv.values())
     failover_launches, failover_res = {}, {}
+    autoscale_launches, autoscale_res = {}, {}
     if not args.skip_e2e:
         phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
@@ -4465,6 +5094,10 @@ def main(argv=None) -> int:
         phase("[phase 3] failover: snapshot, restore by chunked replay and "
               "ExecutorSupervisor chaos drives, full width, one card")
         failover_launches, failover_res = failover_phase(torch)
+        phase("[phase 3] the online autoscaler: live MOGA, background "
+              "builds on their own stream, publish / retire under a table "
+              "budget, a bare standby from a snapshot, full width, one card")
+        autoscale_launches, autoscale_res = autoscale_phase(torch)
     bwd, train_launches, train_res = training_phase(
         torch, cfg, mcfg, timer, full=not args.skip_e2e)
     launches.update(train_launches)
@@ -4506,6 +5139,13 @@ def main(argv=None) -> int:
     def failover(name):
         return {d: c[name] for d, c in failover_launches.items()}
 
+    def autoscale(name):
+        return {d: c[name] for d, c in autoscale_launches.items()}
+
+    def autoscale_builds(name):
+        return {d: r["build_launches"][name] for d, r in
+                autoscale_res.items()}
+
     def moe_shapes(kind):
         return {a: {w: r for w, r in res.items()
                     if w.startswith(kind)} for a, res in moe_attn.items()}
@@ -4534,6 +5174,8 @@ def main(argv=None) -> int:
              encdec_launches=encdec("morph_matmul"),
              vlm_launches=vlm("morph_matmul"),
              failover_launches=failover("morph_matmul"),
+             autoscale_launches=autoscale("morph_matmul"),
+             autoscale_build_launches=autoscale_builds("morph_matmul"),
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
                              mms["max_abs_err"], mmsv["max_abs_err"],
                              *(r["max_abs_err"] for r in mmf.values())),
@@ -4562,6 +5204,8 @@ def main(argv=None) -> int:
              encdec_launches=encdec("fused_decode"),
              vlm_launches=vlm("fused_decode"),
              failover_launches=failover("fused_decode"),
+             autoscale_launches=autoscale("fused_decode"),
+             autoscale_build_launches=autoscale_builds("fused_decode"),
              moe_attention_shapes=moe_shapes("decode"),
              frontend_attention_shapes={a: r["decode"]
                                         for a, r in ed_attn.items()},
@@ -4584,6 +5228,10 @@ def main(argv=None) -> int:
              launches_by_path=by_path("fused_verify"),
              granite_launches=granite("fused_verify"),
              failover_launches=failover("fused_verify"),
+             autoscale_launches=autoscale("fused_verify"),
+             autoscale_build_launches=autoscale_builds("fused_verify"),
+             autoscale_verify_s5_serving={
+                 d: r["verify_s5_serving"] for d, r in autoscale_res.items()},
              replay_chunk={k: rc[k] for k in (
                  "rows", "max_abs_err", "ms", "wall_ms", "paged_ms",
                  "plain_ms", "bound_ms", "bound_by", "per_launch",
@@ -4684,6 +5332,8 @@ def main(argv=None) -> int:
              for k, r in train_res.items()}))
     if failover_res:
         log("  failover: " + json.dumps(failover_res))
+    if autoscale_res:
+        log("  autoscale: " + json.dumps(autoscale_res))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,10 @@ activate a subnetwork; nothing is reprogrammed. Here:
 per-mode latency percentiles) and keeps the auxiliary steps
 (``register_aux`` / ``aux_step``): the speculative draft and verify steps,
 and, over a block-paged cache, one decode step per (depth, page-table
-width bucket), keyed by ``paged_decode_compile_key``.
+width bucket), keyed by ``paged_decode_compile_key``. The online
+autoscaler (``runtime.autoscale``) builds more of them after warmup from
+``aux_builders``, installs them with ``publish_aux`` and evicts cold ones
+with ``unregister_aux``, reading ``coldness``.
 """
 from __future__ import annotations
 
@@ -42,14 +45,17 @@ def paged_decode_compile_key(depth: int, bucket: int) -> Tuple:
 
 
 def _block_until_ready(out) -> None:
-    """Wait for the card to finish the work behind ``out`` (a tensor or a
-    tuple/dict holding tensors); a no-op for CPU tensors."""
+    """Wait for the calling thread's current stream to finish the work
+    behind ``out`` (a tensor or a tuple/dict holding tensors); a no-op for
+    CPU tensors. Only that stream: work another thread queued on a stream
+    of its own (the autoscaler's background warm-up) is not waited for, as
+    ``jax.block_until_ready`` waits for ``out`` alone."""
     stack = [out]
     while stack:
         o = stack.pop()
         if isinstance(o, torch.Tensor):
             if o.is_cuda:
-                torch.cuda.synchronize(o.device)
+                torch.cuda.current_stream(o.device).synchronize()
             return
         if isinstance(o, dict):
             stack.extend(o.values())
@@ -151,6 +157,12 @@ class MorphController:
         # auxiliary steps (speculative draft / verify), keyed by tuples
         # disjoint from the per-depth decode keys
         self._aux_factories: Dict[Hashable, Callable[[], Callable]] = {}
+        # builder kinds the serving wiring exposes for registration after
+        # warmup (the autoscaler's frontier points); make_serve_controller
+        self.aux_builders: Dict[str, Callable] = {}
+        # dispatch count at each step's last use: the autoscaler's coldness
+        # signal for evicting from the table
+        self.last_dispatch: Dict[Hashable, int] = {}
         self.stats = {"compiles": 0, "dispatches": 0, "switches": 0}
         self.telemetry: Dict[str, ModeTelemetry] = {m.name: ModeTelemetry()
                                                    for m in self.modes}
@@ -192,6 +204,7 @@ class MorphController:
             fn = self._factory(mode)
             self._compiled[key] = fn
             self.stats["compiles"] += 1
+        self.last_dispatch[key] = self.stats["dispatches"]
         return fn
 
     def register_aux(self, key: Hashable, factory: Callable[[], Callable]) -> None:
@@ -210,11 +223,52 @@ class MorphController:
             fn = self._aux_factories[key]()
             self._compiled[key] = fn
             self.stats["compiles"] += 1
+        self.last_dispatch[key] = self.stats["dispatches"]
         return fn
 
+    def publish_aux(self, key: Hashable, fn: Callable,
+                    factory: Optional[Callable[[], Callable]] = None) -> None:
+        """Install an auxiliary step that was ALREADY built and warmed.
+
+        The autoscaler's publish-then-swap seam: a background thread builds
+        and warms ``fn``, then the serving thread installs it with two dict
+        assignments, so no build lands on a serving tick. Counted in
+        ``stats['compiles']`` (the build happened, only elsewhere);
+        ``factory`` keeps a rebuild path for a later warmup."""
+        if key in self._aux_factories or key in self._compiled:
+            raise KeyError(f"aux executable {key!r} already registered")
+        self._aux_factories[key] = (factory if factory is not None
+                                    else (lambda: fn))
+        self._compiled[key] = fn
+        self.stats["compiles"] += 1
+        self.last_dispatch[key] = self.stats["dispatches"]
+
+    def unregister_aux(self, key: Hashable) -> None:
+        """Retire an auxiliary step: drop its factory and its built step
+        (eviction is explicit, since ``register_aux`` refuses a key twice).
+        The mode table is not evictable; ``stats['compiles']`` stays
+        monotone."""
+        if key not in self._aux_factories:
+            raise KeyError(f"aux executable {key!r} is not registered")
+        del self._aux_factories[key]
+        self._compiled.pop(key, None)
+        self.last_dispatch.pop(key, None)
+
+    @property
+    def compile_table_size(self) -> int:
+        """Live built steps (modes + aux)."""
+        return len(self._compiled)
+
+    def compiled_keys(self) -> Tuple[Hashable, ...]:
+        return tuple(self._compiled)
+
     def aux_keys(self) -> Tuple[Hashable, ...]:
-        """Registered auxiliary keys."""
+        """Registered auxiliary keys (the evictable part of the table)."""
         return tuple(self._aux_factories)
+
+    def coldness(self, key: Hashable) -> int:
+        """Dispatches since ``key`` was last used (0 = hot)."""
+        return self.stats["dispatches"] - self.last_dispatch.get(key, 0)
 
     def warmup(self) -> None:
         """Build every distinct step (the deploy-time 'single bitstream'):
@@ -349,6 +403,7 @@ def make_serve_controller(params, cfg: ModelConfig,
                 return step
             return build
 
+        ctrl.aux_builders["paged_decode"] = paged_factory
         for d in sorted({m.depth for m in ctrl.modes}):
             for b in paged_buckets:
                 ctrl.register_aux(paged_decode_compile_key(d, b),
@@ -394,6 +449,12 @@ def make_serve_controller(params, cfg: ModelConfig,
                     plan_len=plan_len, fused=fused)
             return build
 
+        # the factory kinds, for the autoscaler to build frontier points
+        # no warmup built: the same closures, installed through
+        # publish_aux after a background build instead of register_aux
+        ctrl.aux_builders.update(
+            draft=draft_factory, verify=verify_factory,
+            tree_draft=tree_draft_factory, tree_verify=tree_verify_factory)
         for dd, k in sorted({(e.draft_depth, k) for e in plan.values()
                              for k in e.ks}):
             ctrl.register_aux(_spec.draft_compile_key(dd, k),

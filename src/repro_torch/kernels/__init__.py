@@ -22,7 +22,42 @@ The other kernels have no backward: their launches call ``refuse_grad``,
 which raises under autograd rather than let a loss drop the gradients
 through them. The submodules are not re-exported: a function named like
 its module would shadow the module.
+
+Each wrapper counts its launches (``launch_count()`` and friends). A
+thread may count its own launches apart instead (``counted_apart``): the
+online autoscaler's background warm-up does, so the wrappers' counters
+hold the serving thread's launches alone.
 """
+import contextlib
+import threading
+
+_APART = threading.local()
+
+
+def launch_counter(own: dict, kernel: str) -> dict:
+    """The counter dict a launch of ``kernel`` on this thread adds to: the
+    wrapper's ``own``, or, inside ``counted_apart(tally)``,
+    ``tally[kernel]`` (made with ``own``'s keys at 0)."""
+    tally = getattr(_APART, "tally", None)
+    if tally is None:
+        return own
+    counts = tally.get(kernel)
+    if counts is None:
+        counts = tally[kernel] = dict.fromkeys(own, 0)
+    return counts
+
+
+@contextlib.contextmanager
+def counted_apart(tally: dict):
+    """Count this thread's kernel launches inside the block into ``tally``
+    (kernel name -> that kernel's counters) instead of the wrappers' own
+    counters."""
+    prev = getattr(_APART, "tally", None)
+    _APART.tally = tally
+    try:
+        yield tally
+    finally:
+        _APART.tally = prev
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, launch_counter, refuse_grad
 
 NEG_INF = -1e30
 _LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
@@ -156,8 +156,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention ({route}) kernel launch failed: "
                            f"CUDA error {err}")
-    _LAUNCHES["n"] += 1
-    _LAUNCHES[route] += 1
+    c = launch_counter(_LAUNCHES, "flash_attention")
+    c["n"] += 1
+    c[route] += 1
     return out
 
 

@@ -35,7 +35,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, launch_counter, refuse_grad
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
 
@@ -207,8 +207,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one element on that device. Returns (BH, hd) in q's dtype. Counted,
     and by route."""
     out, route = _launch(q, k, v, kv_len, k_scale, v_scale, group)
-    _LAUNCHES["n"] += 1
-    _LAUNCHES[route] += 1
+    c = launch_counter(_LAUNCHES, "flash_decode")
+    c["n"] += 1
+    c[route] += 1
     return out
 
 

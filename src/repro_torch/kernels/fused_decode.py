@@ -53,7 +53,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, launch_counter, refuse_grad
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
 from repro_torch.models.layers import _cache_kpos
@@ -357,9 +357,10 @@ def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
     out, cache, route = _fused_decode_cuda(params, x.contiguous(), cache,
                                            pos, cfg, a_q, a_kv, pages,
                                            page_size, plan_len)
-    _LAUNCHES["n"] += 1
-    _LAUNCHES[route] += 1
-    _LAUNCHES["paged"] += pages is not None
+    c = launch_counter(_LAUNCHES, "fused_decode")
+    c["n"] += 1
+    c[route] += 1
+    c["paged"] += pages is not None
     return out, cache
 
 
@@ -368,6 +369,7 @@ def fused_decode_step(params, x, cache, pos, cfg, *, active=None, pages=None,
 # ---------------------------------------------------------------------------
 
 _VERIFY_LAUNCHES = {"n": 0, "tc": 0, "fma": 0, "paged": 0}
+_VERIFY_ROWS: Dict[int, int] = {}  # S (positions per slot) -> calls
 _VERIFY_OPERANDS: Dict[tuple, tuple] = {}
 
 
@@ -390,9 +392,17 @@ def verify_route_counts() -> dict:
     return {r: _VERIFY_LAUNCHES[r] for r in ("tc", "fma")}
 
 
+def verify_launches_by_rows() -> dict:
+    """fused_verify calls that launched the verify kernels, per S (the
+    positions scored per slot: K + 1 for a linear draft of K, the node
+    count of a tree)."""
+    return dict(_VERIFY_ROWS)
+
+
 def reset_verify_launch_count() -> None:
     for k in _VERIFY_LAUNCHES:
         _VERIFY_LAUNCHES[k] = 0
+    _VERIFY_ROWS.clear()
 
 
 def ext_mask_np(offs: np.ndarray, window: int,
@@ -411,12 +421,18 @@ def ext_mask_np(offs: np.ndarray, window: int,
 
 def verify_operands(S: int, node_depth, tree_bias, window: int, device):
     """(offs (S,) int32, ext_ok (S, S) int8) on ``device``: built once per
-    topology and cached, so a tree shares the kernel with linear verify."""
+    topology and stream and cached, so a tree shares the kernel with linear
+    verify. Per stream: a pair made on another thread's stream (the
+    autoscaler's warm-up) is never read on this one, where its copy might
+    not have landed yet."""
     offs = (np.arange(S, dtype=np.int32) if node_depth is None
             else np.array(node_depth, np.int32))  # a private, writable copy
     tb = None if tree_bias is None else np.asarray(tree_bias, np.float32)
+    dev = torch.device(device)
+    stream = (torch.cuda.current_stream(dev).stream_id
+              if dev.type == "cuda" else 0)
     key = (offs.tobytes(), None if tb is None else tb.tobytes(), int(window),
-           str(device))
+           str(device), stream)
     ops = _VERIFY_OPERANDS.get(key)
     if ops is None:
         ok = ext_mask_np(offs, window, tb)
@@ -628,7 +644,10 @@ def fused_verify(params, x, cache, pos, cfg, *, active=None, node_depth=None,
     out, kv, route = _fused_verify_cuda(params, x.contiguous(), cache, pos,
                                         cfg, a_q, a_kv, node_depth, tree_bias,
                                         pages, page_size, plan_len)
-    _VERIFY_LAUNCHES["n"] += 1
-    _VERIFY_LAUNCHES[route] += 1
-    _VERIFY_LAUNCHES["paged"] += pages is not None
+    c = launch_counter(_VERIFY_LAUNCHES, "fused_verify")
+    c["n"] += 1
+    c[route] += 1
+    c["paged"] += pages is not None
+    rows = launch_counter(_VERIFY_ROWS, "fused_verify_rows")
+    rows[x.shape[1]] = rows.get(x.shape[1], 0) + 1
     return out, kv

@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, launch_counter, refuse_grad
 
 ActiveDim = Union[int, torch.Tensor, None]
 
@@ -220,5 +220,5 @@ def morph_matmul(x: torch.Tensor, w: torch.Tensor,
     ak = None if ak is None else ak.contiguous()
     out = torch.empty((B, M, N), dtype=x.dtype, device=x.device)
     launch(x3, w, out, an, ak, round_w=x.dtype == torch.bfloat16)
-    _LAUNCHES["n"] += 1
+    launch_counter(_LAUNCHES, "morph_matmul")["n"] += 1
     return out if batched else out[0]

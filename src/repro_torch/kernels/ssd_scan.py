@@ -38,7 +38,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels import _build, launch_counter, refuse_grad
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"n": 0, "bwd": 0}
@@ -207,7 +207,7 @@ def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
                               torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    _LAUNCHES["n"] += 1
+    launch_counter(_LAUNCHES, "ssd_scan")["n"] += 1
     return (y, state, ws) if keep_workspace else (y, state)
 
 
@@ -347,7 +347,7 @@ def launch_bwd(x, dt, A_bh, B, C, fws, dy, dstate):
     if err != 0:
         raise RuntimeError(f"ssd_scan backward kernel launch failed: CUDA "
                            f"error {err}")
-    _LAUNCHES["bwd"] += 1
+    launch_counter(_LAUNCHES, "ssd_scan")["bwd"] += 1
     return dx, ddt, dA, dB, dC
 
 

@@ -54,6 +54,19 @@ Examples:
       --batch 8 --tokens 256 --fused
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu --fail-at decode:2,prefill:1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --spec-k 2 --budget-ms 500 --autoscale \
+      --autoscale-interval 1 --autoscale-ks 4
+
+Online autoscaling: ``--autoscale`` (with ``--budget-ms``, whose SLO loop
+hosts the autoscaler's tick) re-runs the NeuroForge MOGA every
+``--autoscale-interval`` ticks over the live pool of steps (modes x draft
+shapes x page buckets); frontier points are built and warmed on a
+background thread (on a CUDA stream of its own) and published between
+ticks, and cold ones are retired while the table exceeds
+``--autoscale-table-budget``. The run asserts that every build after
+warmup came through publication and that no serving tick stalled, and
+prints the autoscaler's summary and front.
 
 Encoder-decoder (whisper) and frontend (internvl) models serve on the
 token feed, as the reference's engine serves them: their requests carry no
@@ -151,6 +164,33 @@ def main(argv=None):
     ap.add_argument("--metrics-dump", action="store_true",
                     help="print the end-of-run metrics registry as "
                          "Prometheus exposition text plus a JSON snapshot")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="online NeuroForge autoscaler: periodically re-run "
+                         "the MOGA over the live pool of steps (modes x "
+                         "draft shapes x page buckets) with telemetry-"
+                         "blended objectives; frontier points are built on "
+                         "a background thread and published between ticks. "
+                         "Requires --budget-ms (the SLO loop hosts the "
+                         "autoscale tick)")
+    ap.add_argument("--autoscale-interval", type=int, default=8,
+                    help="serving ticks between MOGA generations")
+    ap.add_argument("--autoscale-table-budget", type=int, default=0,
+                    help="step-table budget (live built steps); cold "
+                         "unassigned units are retired while the table "
+                         "exceeds it (0 = no eviction)")
+    ap.add_argument("--autoscale-ks", default="",
+                    help="comma-separated candidate draft lengths the "
+                         "autoscaler may adopt beyond the warmed table, "
+                         "e.g. 4,6")
+    ap.add_argument("--autoscale-pop", type=int, default=16,
+                    help="MOGA population per online generation")
+    ap.add_argument("--autoscale-gens", type=int, default=4,
+                    help="MOGA generations per online re-run")
+    ap.add_argument("--autoscale-explore-modes", action="store_true",
+                    help="let admission move across the front's modes "
+                         "(default: a pinned mode, so adoption changes only "
+                         "draft shapes and buckets and greedy streams stay "
+                         "those of a fixed-mode run)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -255,10 +295,36 @@ def main(argv=None):
                               max_new_tokens=per_req,
                               slo_class="interactive" if i % 3 == 0 else "batch",
                               deadline_s=args.deadline_s or None))
+    scaler = None
+    if args.autoscale and args.budget_ms <= 0:
+        ap.error("--autoscale requires --budget-ms (the SLO loop hosts the "
+                 "autoscale tick)")
     policy = None
     if args.budget_ms > 0:
-        policy = SLOPolicy(cfg, engine.ctrl, batch_size=args.batch,
-                           cache_capacity=capacity)
+        if args.autoscale:
+            from repro_torch.runtime.autoscale import (AutoscaleConfig,
+                                                       AutoscalePolicy,
+                                                       Autoscaler)
+            try:
+                ks = tuple(int(k) for k in args.autoscale_ks.split(",")
+                           if k.strip())
+            except ValueError:
+                ap.error(f"--autoscale-ks wants comma-separated draft "
+                         f"lengths, got {args.autoscale_ks!r}")
+            scaler = Autoscaler(AutoscaleConfig(
+                interval_ticks=args.autoscale_interval,
+                table_budget=args.autoscale_table_budget or None,
+                spec_ks=ks, explore_modes=args.autoscale_explore_modes,
+                pop_size=args.autoscale_pop,
+                generations=args.autoscale_gens,
+                seed=args.seed)).bind(engine)
+            policy = AutoscalePolicy(cfg, engine.ctrl, autoscaler=scaler,
+                                     batch_size=args.batch,
+                                     cache_capacity=capacity,
+                                     metrics=engine.metrics)
+        else:
+            policy = SLOPolicy(cfg, engine.ctrl, batch_size=args.batch,
+                               cache_capacity=capacity)
         if supervisor is not None:
             supervisor.attach_policy(policy)
     mode_idx = len(modes) - 1
@@ -266,6 +332,8 @@ def main(argv=None):
     while True:
         # a failover swaps the engine out from under the loop
         engine = supervisor.engine if supervisor is not None else engine
+        if scaler is not None and scaler.engine is not engine:
+            scaler.bind(engine)  # a failover swapped the engine: re-attach
         if not (engine.queue or engine.n_active):
             break
         if policy is not None:
@@ -291,8 +359,16 @@ def main(argv=None):
                   f"replay {e['replay_s'] * 1e3:.0f} ms, "
                   f"first token {ftok}")
     ctrl = engine.ctrl
-    assert ctrl.stats["compiles"] == engine.compiles_after_warmup, \
-        "runtime switch must not rebuild a step"
+    if scaler is not None:
+        scaler._drain_publish()  # land any adoption still in flight
+        assert ctrl.stats["compiles"] == \
+            engine.compiles_after_warmup + scaler.stats["published_keys"], \
+            "every build after warmup must come through publish_aux"
+        assert scaler.stats["tick_stalls"] == 0, \
+            "a background build stalled a serving tick"
+    else:
+        assert ctrl.stats["compiles"] == engine.compiles_after_warmup, \
+            "runtime switch must not rebuild a step"
     generated = sum(len(r.generated) for r in engine.completed)
     # one checksum of every completed stream, in request order: a failover
     # drill prints the fault-free run's value
@@ -328,6 +404,18 @@ def main(argv=None):
               f"launches {t['launches']}{nodes}")
     if engine.spec_fallback_log:
         print(f"  spec fallbacks: {list(engine.spec_fallback_log)}")
+    if scaler is not None:
+        st = scaler.stats
+        print(f"[serve] autoscale generations={st['generations']} "
+              f"published={st['published']} retired={st['retired']} "
+              f"front={len(scaler.front)} "
+              f"table={ctrl.compile_table_size} "
+              f"tick_stalls={st['tick_stalls']} dropped={st['dropped']}")
+        for pt, obj in zip(scaler.front, scaler.front_objectives):
+            print(f"  front d{pt.depth} w{pt.width} spec_k={pt.spec_k} "
+                  f"tree={pt.spec_tree} bucket={pt.bucket} "
+                  f"lat/tok={obj[0] * 1e3:.2f} ms")
+        scaler.close()
     if paged is not None:
         engine.check_paged_invariants()
         for depth, st in sorted(engine.page_pool_stats().items()):

@@ -1,5 +1,13 @@
 """Serving runtime: continuous-batching engine, observability, failover
-and restart."""
+and restart, and the online autoscaler."""
+from repro_torch.runtime.autoscale import (
+    AutoscaleConfig,
+    AutoscalePolicy,
+    Autoscaler,
+    ServePoint,
+    ServeSpace,
+    measured_accept_rate,
+)
 from repro_torch.runtime.compression import (
     compress_with_feedback,
     dequantize,
@@ -31,6 +39,12 @@ from repro_torch.runtime.serving import (
 from repro_torch.runtime.speculative import SpecConfig, SpecTelemetry
 
 __all__ = [
+    "AutoscaleConfig",
+    "AutoscalePolicy",
+    "Autoscaler",
+    "ServePoint",
+    "ServeSpace",
+    "measured_accept_rate",
     "EngineSnapshot",
     "EventStream",
     "Histogram",

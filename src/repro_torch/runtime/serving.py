@@ -68,7 +68,9 @@ training) serve as they are.
   rest in lockstep launches that end together, up to ``c_max = 8`` tokens
   a launch through one force-committed verify (``replay_chunk_fn``).
   ``runtime.fault_tolerance.ExecutorSupervisor`` cuts one before every
-  tick and fails over onto a standby engine. Mesh executors arrive with a
+  tick and fails over onto a standby engine. The snapshot carries a bound
+  autoscaler's state (``runtime.autoscale``); a standby with none holds it
+  in ``_pending_autoscale`` until one binds. Mesh executors arrive with a
   later slice of the port and raise here.
 """
 from __future__ import annotations
@@ -777,8 +779,7 @@ class EngineSnapshot:
     spec_telemetry: Dict
     paging_stats: Dict[int, Dict[str, float]]
     metrics: Optional[Dict] = None  # Observability.state_dict() of the source
-    # the online autoscaler's state; it arrives with the autoscaler slice of
-    # the port, so this engine writes None and refuses to restore a value
+    # Autoscaler.state_dict() of the source (None when none was bound)
     autoscale: Optional[Dict] = None
 
 
@@ -938,9 +939,13 @@ class ServingEngine:
         self._adopt = self.executor.adopt_fn()
         self._copy_page = (self.executor.copy_page_fn()
                            if paged is not None else None)
-        # page-table widths with a built step (the widest always has one)
+        # the page-table width ladder warmup builds a step for
         self._buckets = (paged.buckets(cfg, cache_capacity)
                          if paged is not None else ())
+        # the buckets whose step is live now: the autoscaler retires and
+        # re-adopts ladder entries through this set (never the widest, so a
+        # covering bucket always exists)
+        self._avail_buckets = set(self._buckets)
         self._prefills: Dict[Tuple, Callable] = {}
         # replay chunks (restore's batched re-feed of committed history),
         # keyed by (depth, chunk length); kept on the engine rather than in
@@ -971,6 +976,12 @@ class ServingEngine:
         # per-slot width tensors memoized by widths tuple: widths only change
         # on admission, so a steady tick makes no host-to-device copy for them
         self._active_cache: Dict[Tuple[float, ...], Dict] = {}
+        # the online autoscaler (runtime.autoscale.Autoscaler.bind attaches
+        # one): admission-switch events record its front's generation, and
+        # a bare standby that restores a snapshot holds the snapshot's
+        # autoscaler state here until one binds
+        self.autoscaler = None
+        self._pending_autoscale: Optional[Dict] = None
 
     def _active_for(self, widths: List[float]) -> Dict:
         key = tuple(widths)
@@ -1199,7 +1210,9 @@ class ServingEngine:
                 step=self.step_count, from_mode=self.admission_mode.name,
                 to_mode=mode.name,
                 queued_interactive=len(self._queues["interactive"]),
-                queued_batch=len(self._queues["batch"]), frontier_gen=-1)
+                queued_batch=len(self._queues["batch"]),
+                frontier_gen=(self.autoscaler.generation
+                              if self.autoscaler is not None else -1))
             self.ctrl.set_mode(mode)
         self.admission_mode = mode
 
@@ -1605,7 +1618,7 @@ class ServingEngine:
             for src, dst in pg.cow_pairs(i, pos, pos):
                 g.cache = self._copy_page(g.cache, src, dst)
             needed = max(needed, min(pos // pg.ps + 1, pg.cap_pages))
-        bucket = min(b for b in self._buckets if b >= needed)
+        bucket = self._bucket_for(needed)
         pages_op = self._table_op(pg, bucket)
         toks = np.zeros((self.batch_size, 1), np.int64)
         for i in active_ix:
@@ -1650,6 +1663,15 @@ class ServingEngine:
         return dt
 
     # -- page-pool accounting ----------------------------------------------
+
+    def _bucket_for(self, needed: int) -> int:
+        """The narrowest LIVE page-table bucket covering ``needed`` pages.
+        The ladder entry ``PagedLayout.bucket_for`` would pick may have
+        been retired by the autoscaler; rounding up to the next live bucket
+        is bit-identical (the extra table columns point at scratch, as a
+        free slot's do, and every paged step plans for the widest bucket).
+        The widest bucket is never retired."""
+        return min(b for b in self._avail_buckets if b >= needed)
 
     def check_paged_invariants(self) -> None:
         """Assert exact page accounting in every depth group (no leaks, no
@@ -1717,6 +1739,8 @@ class ServingEngine:
             spec_telemetry=copy.deepcopy(self.spec_telemetry),
             paging_stats=self.page_pool_stats(),
             metrics=self.obs.state_dict(),
+            autoscale=(self.autoscaler.state_dict()
+                       if self.autoscaler is not None else None),
         )
 
     @torch.no_grad()
@@ -1734,10 +1758,6 @@ class ServingEngine:
         never leak into the restored accounting: the redone tick re-earns
         its increments and the totals after recovery match a fault-free
         run's."""
-        if snap.autoscale is not None:
-            raise NotImplementedError(
-                "the snapshot carries autoscaler state; the online autoscaler "
-                "arrives with the autoscaler slice of the port")
         if snap.admission_mode not in self.ctrl.mode_by_name:
             raise ValueError(f"snapshot admission mode "
                              f"{snap.admission_mode!r} not in this engine's "
@@ -1806,6 +1826,18 @@ class ServingEngine:
         # the snapshot, not the dead source); the key replaces any stale
         # registration on a shared registry
         self.metrics.register_callback(self._metric_gauges, key="engine")
+        if snap.autoscale is not None:
+            if self.autoscaler is not None:
+                # rebuild the published and retired pool, so the next
+                # generation decides as the source's would have (the
+                # recovery path: synchronous builds are allowed)
+                self.autoscaler.load_state(snap.autoscale)
+            else:
+                # a bare standby holds the state until an Autoscaler binds
+                # (Autoscaler.bind applies it); the groups may name draft
+                # shapes this table lacks, so a bind must come before the
+                # next speculative tick
+                self._pending_autoscale = copy.deepcopy(snap.autoscale)
         if self._rec.enabled:
             for g in self.groups.values():
                 for r in g.slots:
@@ -1843,7 +1875,7 @@ class ServingEngine:
                 for src, dst in pg.cow_pairs(i, pos, pos):
                     g.cache = self._copy_page(g.cache, src, dst)
                 needed = max(needed, min(pos // pg.ps + 1, pg.cap_pages))
-            bucket = min(b for b in self._buckets if b >= needed)
+            bucket = self._bucket_for(needed)
             fn = self.ctrl.aux_step(paged_decode_compile_key(g.depth,
                                                              bucket))
             _, g.cache = fn(self.params, g.cache, self.executor.put(toks),

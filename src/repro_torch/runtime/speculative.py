@@ -354,6 +354,12 @@ class DraftStep:
         self.scratch: Optional[Dict] = None
         self._layout = None  # (shape, dtype, device) of every cache leaf
 
+    def release(self) -> None:
+        """Drop the scratch, so the next call allocates its own on the
+        caller's stream (a step warmed on another thread's stream must not
+        hand its memory over)."""
+        self.scratch, self._layout = None, None
+
     def load_scratch(self, cache) -> Dict:
         dd = self.draft_depth
         layout = [(t.shape, t.dtype, t.device) for t in
@@ -471,6 +477,11 @@ class TreeDraftStep:
         self.page_size = page_size
         self.carry: Optional[Dict] = None
         self._layout = None  # (batch, device) the carry was made for
+
+    def release(self) -> None:
+        """Drop the carry, so the next call allocates its own on the
+        caller's stream (as ``DraftStep.release``)."""
+        self.carry, self._layout = None, None
 
     def __call__(self, params, cache, tok0, active, keys, temperature: float,
                  step, pages=None):

@@ -1487,3 +1487,170 @@ def test_mamba2_restart_is_bit_identical_on_card(cuda, tmp_path):
     assert want.keys() == got.keys()
     differ = [k for k in want if not torch.equal(want[k], got[k])]
     assert not differ, differ
+
+
+def _await_unit(asc, timeout_s=120.0):
+    """Wait for the autoscaler's worker, then publish on this thread."""
+    import time
+
+    t0 = time.monotonic()
+    while asc._pending and time.monotonic() - t0 < timeout_s:
+        asc._drain_publish()
+        time.sleep(0.01)
+    asc._drain_publish()
+    assert not asc._pending, "the background build never finished"
+
+
+def test_verify_step_built_on_worker_stream_matches_main_thread(cuda):
+    """A K = 4 draft and verify built and warmed by the autoscaler's worker
+    thread, on its own stream, from parameters that require grad (the
+    worker's thread starts with grad mode on, and the hand kernels refuse
+    autograd): nothing raised (``dropped == 0``), its launches were counted
+    apart (one S = 5 verify per layer), and the published verify gives
+    outputs and a committed cache bit-identical to one built on the main
+    thread, on the same inputs."""
+    import threading
+
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.autoscale import AutoscaleConfig, Autoscaler
+    from repro_torch.runtime.serving import ServingEngine
+    from repro_torch.runtime.speculative import (SpecConfig,
+                                                 verify_compile_key)
+
+    cfg = smoke_config("tinyllama-1.1b")
+    params = init_params(cfg, seed=0, device=cuda)
+    stack = [params]
+    while stack:  # every leaf requires grad, as fresh from training
+        node = stack.pop()
+        for t in node.values():
+            if isinstance(t, dict):
+                stack.append(t)
+            else:
+                t.requires_grad_(True)
+    eng = ServingEngine(params, cfg, batch_size=3, cache_capacity=32,
+                        prefill_threshold=4, fused=True,
+                        speculative=SpecConfig(ks=(2,)), device=cuda)
+    eng.warmup()
+    depth = eng.ctrl.modes[-1].depth
+    asc = Autoscaler(AutoscaleConfig(spec_ks=(4,))).bind(eng)
+    v0 = FD.verify_launch_count()
+    try:
+        asc._schedule(("spec_k", depth, 4))
+        _await_unit(asc)
+    finally:
+        asc.close()
+    assert asc.stats["dropped"] == 0 and asc.stats["published_keys"] == 2
+    assert threading.get_ident() not in asc.worker_idents
+    assert FD.verify_launch_count() == v0
+    rows = asc.build_launches["fused_verify_rows"]
+    assert {s: n for s, n in rows.items() if n} == {5: depth * cfg.period}
+    published = eng.ctrl.aux_step(verify_compile_key(depth, 4))
+    main = eng.ctrl.aux_builders["verify"](depth, 4)()
+    g = eng.groups[depth]
+    gen = torch.Generator().manual_seed(3)
+    cache = eng.executor.init_cache()
+    for layer in cache["stack"].values():
+        for k, t in layer.items():
+            t.copy_(torch.randn(t.shape, generator=gen).to(t.dtype))
+    cache["pos"].copy_(torch.tensor([3, 7, 11], dtype=cache["pos"].dtype))
+    toks = torch.randint(0, cfg.vocab_size, (3, 5), generator=gen).to(cuda)
+    dlg = torch.randn((3, 4, cfg.padded_vocab()), generator=gen).to(cuda)
+    active = eng._active_for([1.0, 0.5, 1.0])
+    outs = []
+    with torch.no_grad():
+        for fn in (published, main):
+            c = {"pos": cache["pos"].clone(),
+                 "stack": {pn: {k: t.clone() for k, t in layer.items()}
+                           for pn, layer in cache["stack"].items()}}
+            tok, n_acc, c = fn(eng.params, c, toks, dlg, active, g.keys,
+                               0.0, 0)
+            outs.append((tok, n_acc, c))
+    (ta, na, ca), (tb, nb, cb) = outs
+    assert torch.equal(ta, tb) and torch.equal(na, nb)
+    for pn in ca["stack"]:
+        for k in ca["stack"][pn]:
+            assert torch.equal(ca["stack"][pn][k], cb["stack"][pn][k]), k
+
+
+def test_block_until_ready_ignores_a_busy_side_stream(cuda):
+    """``_block_until_ready`` waits for the current stream only: a kernel
+    spinning ~0.5 s on another stream is still running when it returns."""
+    import time
+
+    from repro_torch.core.morph import _block_until_ready
+
+    side = torch.cuda.Stream(device=cuda)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(1_000_000_000)
+    x = torch.ones(4, device=cuda) * 2
+    t0 = time.perf_counter()
+    _block_until_ready({"x": (x,)})
+    waited = time.perf_counter() - t0
+    busy = not side.query()
+    side.synchronize()
+    assert busy, "the side stream finished first: the spin was too short"
+    assert waited < 0.1, waited
+    assert float(x.sum()) == 8.0
+
+
+def test_full_width_dense_autoscale_lifecycle_on_card(cuda):
+    """TinyLlama at full width, cut to 4 layers (an exit at 2), f32,
+    fused, K = 2 warmed: the autoscaler adopts K = 4 off-thread, retires a
+    unit to fit the budget, never stalls or drops a build, and the greedy
+    streams equal a fixed-mode run's token for token."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.autoscale import (AutoscaleConfig,
+                                               AutoscalePolicy, Autoscaler)
+    from repro_torch.runtime.serving import ServingEngine, poisson_trace
+    from repro_torch.runtime.speculative import SpecConfig
+
+    cfg = get_config("tinyllama-1.1b")
+    cfg = cfg.scaled(elastic=dataclasses.replace(cfg.elastic,
+                                                 exit_layers=(2,)),
+                     n_layers=4, dtype="float32")
+    params = init_params(cfg, seed=0, device=cuda)
+
+    def engine():
+        eng = ServingEngine(params, cfg, batch_size=4, cache_capacity=128,
+                            prefill_threshold=8, fused=True,
+                            speculative=SpecConfig(ks=(2,),
+                                                   min_accept_rate=0.0),
+                            device=cuda)
+        eng.warmup()
+        return eng
+
+    def trace():
+        return poisson_trace(8, 1e6, seed=6, vocab=cfg.vocab_size,
+                             prompt_len=(1, 16), new_tokens=(16, 24))
+
+    base = engine()
+    reqs = trace()
+    base.run(reqs[:4])
+    base.run(reqs[4:])
+    want = {r.rid: r.generated for r in base.completed}
+    eng = engine()
+    budget = eng.compiles_after_warmup + 1
+    asc = Autoscaler(AutoscaleConfig(interval_ticks=1, table_budget=budget,
+                                     spec_ks=(4,), pop_size=8,
+                                     generations=2)).bind(eng)
+    policy = AutoscalePolicy(cfg, eng.ctrl, autoscaler=asc, batch_size=4,
+                             cache_capacity=128, metrics=eng.metrics)
+    try:
+        reqs = trace()
+        eng.run(reqs[:4], policy=policy, budget_fn=lambda t: 0.5)
+        _await_unit(asc)
+        eng.run(reqs[4:], policy=policy, budget_fn=lambda t: 0.5)
+    finally:
+        asc.close()
+    st = asc.stats
+    assert st["published"] >= 1 and st["retired"] >= 1, st
+    assert st["tick_stalls"] == 0 and st["dropped"] == 0, st
+    assert eng.ctrl.compile_table_size <= budget
+    assert eng.ctrl.stats["compiles"] == \
+        eng.compiles_after_warmup + st["published_keys"]
+    assert threading.get_ident() not in asc.worker_idents
+    assert {r.rid: r.generated for r in eng.completed} == want

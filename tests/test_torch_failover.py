@@ -289,10 +289,22 @@ def test_restore_validates_geometry_and_refuses_encdec():
     snap.admission_mode = shallow[0].name
     with pytest.raises(ValueError, match="depth groups"):
         TS.ServingEngine(PARAMS, CFG, **KW, modes=shallow).restore(snap)
+    # a snapshot's autoscaler state: a bare standby holds it until an
+    # autoscaler binds, which loads it
+    from repro_torch.runtime.autoscale import AutoscaleConfig, Autoscaler
+
+    asc = Autoscaler(AutoscaleConfig(pop_size=4, generations=1)).bind(eng)
+    asc.generation = 3
     snap = eng.snapshot()
-    snap.autoscale = {"generation": 0}
-    with pytest.raises(NotImplementedError, match="autoscaler slice"):
-        eng.restore(snap)
+    asc.close()
+    assert snap.autoscale["generation"] == 3
+    standby = _factory()()
+    standby.restore(snap)
+    assert standby._pending_autoscale == snap.autoscale
+    assert standby._pending_autoscale is not snap.autoscale
+    asc2 = Autoscaler(AutoscaleConfig(pop_size=4, generations=1)).bind(standby)
+    asc2.close()
+    assert standby._pending_autoscale is None and asc2.generation == 3
     wcfg = smoke_config("whisper-base")
     whisper = TS.ServingEngine(init_params(wcfg, seed=0, device="cpu"), wcfg,
                                **KW)

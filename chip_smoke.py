@@ -80,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``ServingEngine`` (8 slots, a Poisson trace with prompts of 16-256 and
    32-64 new tokens, cache 512, prefill threshold 8, the admission mode
    moved every 12 ticks along a schedule of every (depth, width) mode):
-   full-width ``tinyllama-1.1b`` (12 requests) nine times: plain decode
+   full-width ``tinyllama-1.1b`` (6 requests) nine times: plain decode
    unfused, ``fused=True``, and ``fused=True`` with
    ``attn_impl="chunked"`` (every prompt pass through ``flash_attention``),
    then linear self-speculation
@@ -93,17 +93,17 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    dense cache and over a block-paged one (page 16, the worst-case pool of
    264 pages), asserting identical tokens pair by pair, radix hits, the
    page accounting after every tick, every fused launch paged; then
-   full-width, full-depth ``mamba2-370m`` (8 requests) three times: plain
-   greedy, speculative greedy and tree speculative greedy (depth 48 drafts
-   at exit 36, depth 36 at exit 24). Before each model's drives, its f32
+   full-width ``mamba2-370m`` cut to 24 of its 48 layers (exits 12 and
+   18; 4 requests) three times: plain greedy, speculative greedy and tree
+   speculative greedy (depth 24 drafts at exit 18, depth 18 at exit 12). Before each model's drives, its f32
    smoke config serves greedily on the card with the tree (unfused; for
    TinyLlama also fused, and fused over pages) and on the CPU, every
    engine's tokens asserted equal to the card's plain engine's. Then the
    smoke configs of granite, mixtral (window 8) and jamba on the card
    against the CPU (decode, capacity-dispatch prefill and verify, unfused
-   and fused; jamba's fused kernels run without RoPE), and full-width,
-   full-depth ``granite-moe-1b-a400m`` (24 layers, 32 experts of 512,
-   top-8, 12 requests) four ways: plain unfused, plain fused, speculative
+   and fused; jamba's fused kernels run without RoPE), and full-width
+   ``granite-moe-1b-a400m`` cut to 12 of its 24 layers (exits 6 and 9; 32
+   experts of 512, top-8, 6 requests) four ways: plain unfused, plain fused, speculative
    K = 4 fused greedy and tree (2, 2, 1) fused greedy, each drive printing
    its step or tick (host and device ms, idle share, heaviest kernels),
    the step's byte bound and the bytes the experts' per-step cast to bf16
@@ -201,6 +201,20 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    equal the baseline's (f32) or part at near ties only (bf16). Build
    seconds, MOGA generation host ms, tick host ms with a build in flight
    and without, and peak memory are printed.
+   Then mesh serving (``mesh_phase``): ``MeshExecutor`` at world size 1
+   over NCCL in this process, full-width fused bf16 TinyLlama on 8
+   requests, tokens and launch counts identical to ``LocalExecutor``'s;
+   then tp = 2 as two ranks sharing the card over gloo (``mesh_ranks``,
+   started by ``launch.mesh.spawn_ranks``; a rank's failure fails the
+   run), ``MESH_DRIVES``: full-width fused TinyLlama (8 requests, mixed
+   widths, a depth switch every 4 ticks, prefill admission) plain and
+   K = 2, Mamba2 cut to 24 layers (4 requests), and both cut to 4 layers in
+   f32; each rank's streams identical to rank 0's, f32 streams identical
+   to the local drive's, bf16 ones parting only at near ties, each rank's
+   launches of a plain drive equal to the local drive's. Two ranks on one
+   card measure the collectives' placement, not multi-card speed. Phase 2
+   holds ``morph_matmul``, the fused decode and the fused verify (S = 5)
+   at TinyLlama's tp = 2 rank shapes (``check_shard_shapes``).
 4. Training, one card. The scan's backward kernel (``ssd_scan_bwd``, on
    the forward kernel's kept workspace) against ``ssd_scan_bwd_plain`` at
    the Mamba2-370M training shape (B = 8, S = 256, 32 heads of 64,
@@ -249,7 +263,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    kernels of the autoscale drives their serving counts under
    ``autoscale_launches`` and their builds' warm launches under
    ``autoscale_build_launches``, ``fused_verify`` its S = 5 serving count
-   under ``autoscale_verify_s5_serving``), then
+   under ``autoscale_verify_s5_serving``; ``morph_matmul``, ``fused_decode``,
+   ``fused_verify`` and ``ssd_scan`` rank 0's counts in the mesh drives
+   under ``mesh_launches``, the first three their tp = 2 shard-shape rows
+   under ``shard_shapes_tp2``), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -594,14 +611,15 @@ def read_rate(torch, timer, cfg):
     return res
 
 
-def check_morph_matmul(torch, cfg, timer):
+def check_morph_matmul(torch, cfg, timer, act=None):
     """``morph_matmul`` over the seven projections of one TinyLlama decoder
-    layer, B = 8 decode rows at mixed widths {0.25, 0.5, 1.0}, plus a width
-    that is not tile-aligned."""
+    layer, B = 8 decode rows at mixed widths {0.25, 0.5, 1.0} (or the gates
+    ``act``), plus a width that is not tile-aligned."""
     from repro_torch.core import elastic
 
     widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
-    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    if act is None:
+        act = elastic.active_widths_batch(cfg, widths, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     dm = cfg.d_model
     odd_n = torch.tensor([1000, 2048, 37, 512, 1999, 64, 2048, 1],
@@ -635,7 +653,7 @@ def check_morph_matmul_frontend(torch, timer):
     return res
 
 
-def check_fused_decode(torch, cfg, timer):
+def check_fused_decode(torch, cfg, timer, act=None):
     import dataclasses
 
     from repro_torch.core import elastic
@@ -652,7 +670,8 @@ def check_fused_decode(torch, cfg, timer):
         "wo": torch.randn(H * hd, dm, generator=gen, device="cuda") / math.sqrt(H * hd),
     }
     widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
-    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    if act is None:
+        act = elastic.active_widths_batch(cfg, widths, device="cuda")
     pos = torch.tensor([0, 1, 63, 64, 200, 511, 777, 1023], dtype=torch.int32,
                        device="cuda")
     x = torch.randn(B, 1, dm, generator=gen, device="cuda").to(torch.bfloat16)
@@ -836,7 +855,7 @@ def tree_np(branching):
     return np.asarray(depths, np.int32), bias
 
 
-def check_fused_verify(torch, cfg, timer):
+def check_fused_verify(torch, cfg, timer, act=None):
     """The verify kernels vs ``fused_verify_plain`` at full TinyLlama shapes:
     B = 8 slots, cache 512 with mixed committed counts, mixed widths; a bf16
     cache with the linear mask (S = 5) and an int8 cache with a (2, 2)
@@ -857,7 +876,8 @@ def check_fused_verify(torch, cfg, timer):
         "wo": torch.randn(H * hd, dm, generator=gen, device="cuda") / math.sqrt(H * hd),
     }
     widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
-    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    if act is None:
+        act = elastic.active_widths_batch(cfg, widths, device="cuda")
     pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 505], dtype=torch.int32,
                        device="cuda")
     depths, bias = tree_np((2, 2))
@@ -4954,6 +4974,330 @@ def restart_drive(torch, cfg, n_steps=4, every=2, fail_at=3):
     return launches, res
 
 
+MESH_TP = 2  # two ranks sharing the one card
+# the mesh drives' device ("cpu" rehearses them with the smoke configs)
+MESH_DEVICE = "cuda"
+MESH_SWITCH = 4  # ticks between admission-mode moves in the mesh drives
+# name, arch, config overrides, speculative (K or 0), requests, new tokens,
+# streams held strictly (f32) or by near ties (bf16)
+MESH_DRIVES = (
+    ("tinyllama_tp2", "tinyllama-1.1b", {}, 0, 8, (16, 32), False),
+    ("tinyllama_tp2_k2", "tinyllama-1.1b", {}, 2, 8, (16, 32), False),
+    ("tinyllama_tp2_f32_4layers", "tinyllama-1.1b",
+     dict(dtype="float32", n_layers=4), 2, 8, (16, 32), True),
+    ("mamba2_tp2_24layers", "mamba2-370m", dict(n_layers=24), 0, 4, (8, 16),
+     False),
+    ("mamba2_tp2_f32_4layers", "mamba2-370m",
+     dict(dtype="float32", n_layers=4), 0, 4, (8, 16), True),
+)
+
+
+def check_shard_shapes(torch, cfg, timer, tp=MESH_TP):
+    """B1, B2 and B3 (linear S = 5) at the shapes a tp = ``tp`` rank of
+    TinyLlama gives them (``sharding.plan_serve_shard``: 32 / 4 heads of 64
+    over 2 ranks is 16 / 2 per rank, the MLP's 5632 columns 2816, the
+    attention ``wo`` and MLP ``down`` contractions 1024 and 2816 rows),
+    with rank 0's localized width gates (``tensor_parallel.localize`` of
+    widths {0.25, 0.5, 1.0}: a global width past the rank's half clamps to
+    its whole half). Each against its plain version, timed beside its
+    bound and the library call as the full-shape rows are."""
+    from repro_torch.core import elastic
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.tensor_parallel import localize
+
+    sh = SH.plan_serve_shard(cfg, {"data": 1, "model": tp}, n_slots=8,
+                             coord={"data": 0, "model": 0})
+    widths = [0.25, 0.5, 1.0, 0.25, 0.5, 1.0, 0.5, 0.25]
+    act = localize(elastic.active_widths_batch(cfg, widths, device="cuda"),
+                   sh)
+    log(f"  rank 0 of tp = {tp}: {sh.cfg.n_heads} / {sh.cfg.n_kv_heads} "
+        f"heads of {sh.cfg.head_dim}, d_ff {sh.cfg.d_ff}; local gates "
+        + json.dumps({k: v.tolist() for k, v in act.items()}))
+    return dict(morph_matmul=check_morph_matmul(torch, sh.cfg, timer, act),
+                fused_decode=check_fused_decode(torch, sh.cfg, timer, act),
+                fused_verify=check_fused_verify(torch, sh.cfg, timer, act))
+
+
+def shard_row(res):
+    return {k: res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "library_ms") if k in res}
+
+
+def depth_cut(cfg, n_layers, exits):
+    """``cfg`` cut to ``n_layers`` layers with its exits at ``exits``."""
+    return cfg.scaled(n_layers=n_layers, elastic=dataclasses.replace(
+        cfg.elastic, exit_layers=tuple(exits)))
+
+
+def mesh_config(arch, overrides):
+    from repro_torch.configs import get_config, smoke_config
+
+    cfg = (get_config(arch) if MESH_DEVICE == "cuda"
+           else smoke_config(arch))
+    if "n_layers" in overrides:
+        cfg = cfg.scaled(elastic=dataclasses.replace(
+            cfg.elastic, exit_layers=(overrides["n_layers"] // 2,)))
+    return cfg.scaled(**overrides)
+
+
+def mesh_engine(cfg, params, executor, spec_k, threshold=8, batch=8):
+    from repro_torch.runtime.serving import ServingEngine
+    from repro_torch.runtime.speculative import SpecConfig
+
+    spec = (SpecConfig(ks=(spec_k,), min_accept_rate=0.0) if spec_k
+            else None)
+    eng = ServingEngine(params, cfg, batch_size=batch, cache_capacity=256,
+                        prefill_threshold=threshold, fused=True,
+                        speculative=spec, executor=executor,
+                        device=MESH_DEVICE)
+    eng.warmup()
+    return eng
+
+
+def mesh_trace(cfg, n, new_tokens):
+    from repro_torch.runtime.serving import poisson_trace
+
+    return poisson_trace(n, 1e6, seed=17, prompt_len=(1, 32),
+                         new_tokens=new_tokens, vocab=cfg.vocab_size)
+
+
+def counted_drive(torch, eng, trace):
+    """``drive`` with every launch counter zeroed just before and read just
+    after: (host s, streams, launches)."""
+    cs = counters()
+    for _, reset in cs.values():
+        reset()
+    sync(torch, MESH_DEVICE)
+    secs, out = drive(eng, trace, MESH_SWITCH)
+    sync(torch, MESH_DEVICE)
+    return secs, out, {k: c() for k, (c, _) in cs.items()}
+
+
+def rescore_batch(eng, items, rid0):
+    """Next-token logits after feeding each ``(prefix, mode name)`` of
+    ``items`` one token a tick (prefill off) through ``eng``, an engine
+    with one slot per item: each admitted at its own mode on a tick of its
+    own, all fed together; a row is taken from the launch whose token
+    completes its request."""
+    from repro_torch.runtime.serving import Request
+
+    rows, last = {}, {}
+    sample, complete = eng._sample, eng._complete
+
+    def keep(lg, keys):
+        last["lg"] = lg
+        return sample(lg, keys)
+
+    def done(g, slot, req, now_s):
+        rows[req.rid] = last["lg"][slot].float().clone()
+        return complete(g, slot, req, now_s)
+
+    eng._sample, eng._complete = keep, done
+    for k, (prefix, mode_name) in enumerate(items):
+        eng.set_admission_mode(eng.ctrl.mode_by_name[mode_name])
+        eng.submit(Request(rid=rid0 + k, prompt=tuple(prefix),
+                           max_new_tokens=1))
+        eng.step()
+    while eng.queue or eng.n_active:
+        eng.step()
+    eng._sample, eng._complete = sample, complete
+    return [rows[rid0 + k] for k in range(len(items))]
+
+
+def mesh_ranks(rank, world, out_dir):
+    """One rank of ``mesh_phase``'s tp = 2 drives (``MESH_DRIVES``), both
+    ranks on the one card over gloo. Every drive serves the same trace
+    through a ``MeshExecutor`` engine on both ranks; rank 0 also serves it
+    through a ``LocalExecutor`` engine. Streams must be identical on both
+    ranks; f32 drives must give the local drive's streams, bf16 drives may
+    part from it only at near ties (a parted request's common prefix is
+    rescored through mesh and local engines with a slot per parted
+    request, fed token by token at its mode: the local margin of its token
+    over the mesh's must be at most twice the largest logit change between
+    the two, or one bf16 step of the top logit). Each
+    rank's launch counts of a plain drive must equal the local drive's
+    (a rank launches its shard's kernels at the same shapes' count). Rank 0
+    writes the results to ``out_dir/mesh.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serving import LocalExecutor, MeshExecutor
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serve_mesh(1, world, device=MESH_DEVICE)
+    results = {}
+    for name, arch, overrides, spec_k, n_req, new_tokens, strict in \
+            MESH_DRIVES:
+        t_all = time.perf_counter()
+        cfg = mesh_config(arch, overrides)
+        params = init_params(cfg, seed=0, device=MESH_DEVICE)
+        trace = mesh_trace(cfg, n_req, new_tokens)
+        eng = mesh_engine(cfg, params, MeshExecutor(mesh, device=MESH_DEVICE),
+                          spec_k)
+        secs, out, launches = counted_drive(torch, eng, trace)
+        gen = sum(len(s) for s in out.values())
+        res = dict(tokens_per_s=gen / secs, generated=gen, host_s=secs,
+                   launches=launches, decode_launches=eng.decode_launches,
+                   verify_launches=eng.spec_verify_launches,
+                   prefills=eng.prefills)
+        if not spec_k:
+            host, dev = step_width_ms(torch, eng, 1.0, iters=5)
+            res.update(step_host_ms=host, step_device_ms=dev)
+        got = [None] * world
+        dist.all_gather_object(got, (out, launches))
+        if any(g[0] != got[0][0] for g in got):
+            fail(f"{name}: the ranks' streams differ")
+        res["launches_per_rank"] = [g[1] for g in got]
+        modes = {r.rid: r.mode_name for r in eng.completed}
+        parted = None
+        if rank == 0:
+            loc = mesh_engine(cfg, params, LocalExecutor(MESH_DEVICE), spec_k)
+            l_secs, ref, l_launches = counted_drive(torch, loc, trace)
+            res.update(local_tokens_per_s=gen / l_secs,
+                       local_launches=l_launches)
+            if not spec_k:
+                host, dev = step_width_ms(torch, loc, 1.0, iters=5)
+                res.update(local_step_host_ms=host, local_step_device_ms=dev)
+                if launches != l_launches:
+                    fail(f"{name}: rank 0 launched {launches}, the local "
+                         f"drive {l_launches}")
+            del loc
+            prompts = {r.rid: tuple(r.prompt) for r in trace}
+            parted = []
+            for rid, s in sorted(ref.items()):
+                if out[rid] != s:
+                    j = next(k for k, (a, b) in enumerate(zip(s, out[rid]))
+                             if a != b)
+                    parted.append((rid, j, prompts[rid] + tuple(s[:j]),
+                                   s[j], out[rid][j]))
+            if strict and parted:
+                fail(f"{name}: f32 mesh streams parted from the local "
+                     f"drive's at {[(p[0], p[1]) for p in parted]}")
+        box = [parted]
+        dist.broadcast_object_list(box, src=0)
+        parted = box[0]
+        rows = []
+        if parted:
+            items = [(prefix, modes[rid]) for rid, _, prefix, _, _ in parted]
+            lms = rescore_batch(mesh_engine(cfg, params,
+                                      MeshExecutor(mesh, device=MESH_DEVICE),
+                                      0, threshold=10**6,
+                                      batch=len(items)), items, 10**6)
+            lls = (rescore_batch(mesh_engine(cfg, params,
+                                       LocalExecutor(MESH_DEVICE), 0,
+                                       threshold=10**6, batch=len(items)),
+                           items, 10**6) if rank == 0 else [])
+            for (rid, j, prefix, a, b), lm, ll in zip(parted, lms, lls):
+                top = float(ll.max())
+                step = 2.0 ** (math.floor(math.log2(abs(top))) - 7) \
+                    if top else 0.0
+                change = float((ll - lm).abs().max())
+                margin = float(ll[a] - ll[b])
+                row = dict(rid=rid, index=j, local=a, mesh=b,
+                           margin=margin, max_logit_change=change,
+                           bf16_step=step,
+                           near_tie=margin <= 2 * max(change, step))
+                rows.append(row)
+                log(f"    {name}: rid {rid} parted at generated index {j} "
+                    f"({a} local, {b} mesh): local margin {margin:.4f}, "
+                    f"max logit change mesh vs local {change:.4f}, bf16 "
+                    f"step {step:.4f}: "
+                    + ("a near tie" if row["near_tie"] else "NOT a near tie"))
+                if not row["near_tie"]:
+                    fail(f"{name}: rid {rid} parted from the local drive at "
+                         f"{j} with margin {margin:.4f} above twice the "
+                         f"logit change {max(change, step):.4f}")
+        res.update(parted=len(parted), requests=n_req, near_ties=rows,
+                   seconds=time.perf_counter() - t_all)
+        results[name] = res
+        if rank == 0:
+            log(f"  {name}: {gen} tokens, {res['tokens_per_s']:.1f} tok/s "
+                f"over tp = {world} ranks sharing the card (local "
+                f"{res['local_tokens_per_s']:.1f}); launches per rank "
+                f"{res['launches_per_rank']}, local {res['local_launches']}"
+                + (f"; full-depth w1.0 step host {res['step_host_ms']:.3f} "
+                   f"ms device {res['step_device_ms']} ms (local host "
+                   f"{res['local_step_host_ms']:.3f} device "
+                   f"{res['local_step_device_ms']})"
+                   if not spec_k else "")
+                + f"; {len(parted)} of {n_req} streams parted; "
+                f"{res['seconds']:.1f} s")
+        del eng, params
+        if MESH_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    if rank == 0:
+        with open(os.path.join(out_dir, "mesh.json"), "w") as f:
+            json.dump(results, f)
+
+
+def mesh_world_one(torch):
+    """``MeshExecutor`` at world size 1 over NCCL in this process: the
+    full-width fused TinyLlama drive must give the ``LocalExecutor``
+    drive's tokens and per-kernel launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.runtime.serving import LocalExecutor, MeshExecutor
+
+    cfg = mesh_config("tinyllama-1.1b", {})
+    params = init_on_card(torch, cfg)
+    trace = mesh_trace(cfg, 8, (16, 32))
+    try:
+        mesh = make_serve_mesh(1, 1, device="cuda")
+        if dist.get_backend() != "nccl":
+            fail(f"world size 1 on one card chose {dist.get_backend()}")
+        eng = mesh_engine(cfg, params, MeshExecutor(mesh), 0)
+        secs, out, launches = counted_drive(torch, eng, trace)
+        del eng
+        loc = mesh_engine(cfg, params, LocalExecutor("cuda"), 0)
+        l_secs, ref, l_launches = counted_drive(torch, loc, trace)
+        del loc
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if out != ref:
+        fail("MeshExecutor at world size 1 parted from LocalExecutor")
+    if launches != l_launches:
+        fail(f"MeshExecutor at world size 1 launched {launches}, "
+             f"LocalExecutor {l_launches}")
+    gen = sum(len(s) for s in out.values())
+    log(f"  world size 1 over NCCL: {gen} tokens identical to the local "
+        f"drive's, launches identical {launches}; {gen / secs:.1f} tok/s "
+        f"(local {gen / l_secs:.1f})")
+    del params
+    torch.cuda.empty_cache()
+    return dict(tokens_per_s=gen / secs, local_tokens_per_s=gen / l_secs,
+                launches=launches, generated=gen)
+
+
+def mesh_phase(torch):
+    """Phase 3's mesh drives: (a) world size 1 over NCCL in this process
+    (``mesh_world_one``), (b) tp = 2 as two ranks sharing the card over
+    gloo (``mesh_ranks``, started by ``launch.mesh.spawn_ranks``; a rank's
+    failure fails the phase). Two ranks on one card measure the
+    collectives' placement, not multi-card speed. Returns (launches per
+    drive: rank 0's, results)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    results = {"world1_nccl": mesh_world_one(torch)}
+    out_dir = tempfile.mkdtemp(prefix="mesh_phase_")
+    spawn_ranks(mesh_ranks, MESH_TP, (out_dir,), device=MESH_DEVICE)
+    with open(os.path.join(out_dir, "mesh.json")) as f:
+        results.update(json.load(f))
+    launches = {"mesh_world1_nccl": results["world1_nccl"]["launches"]}
+    for name, *_ in MESH_DRIVES:
+        launches[name] = results[name]["launches_per_rank"][0]
+    log(f"  mesh phase: {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-e2e", action="store_true",
@@ -5019,6 +5363,9 @@ def main(argv=None) -> int:
     mmf = check_morph_matmul_frontend(torch, timer)
     ed_attn = check_fused_attention_shapes(torch, timer, archs=FRONTEND_ARCHS,
                                            whats=("decode",))
+    phase(f"[phase 2] morph_matmul, fused decode and fused verify at "
+          f"TinyLlama's tp = {MESH_TP} shard shapes")
+    shard = check_shard_shapes(torch, cfg, timer)
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
     mms, mmsv = check_morph_matmul_ssm(torch, mcfg, timer)
     ssd = check_ssd_scan(torch, mcfg, timer)
@@ -5035,13 +5382,15 @@ def main(argv=None) -> int:
     max_err = max(r["max_abs_err"] for r in tv.values())
     failover_launches, failover_res = {}, {}
     autoscale_launches, autoscale_res = {}, {}
+    mesh_launches, mesh_res = {}, {}
     if not args.skip_e2e:
         phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
         smoke_reference(torch)
         smoke_tree_engines(torch)
         params = init_on_card(torch, cfg)
-        # 12 requests: the Mamba2 drives below share the run's time
-        launches, _ = end_to_end(torch, cfg, params, timer, n_requests=12)
+        # 6 requests (12 until the mesh phase came): the later phases
+        # share the run's time
+        launches, _ = end_to_end(torch, cfg, params, timer, n_requests=6)
         phase("[phase 3] end to end: tinyllama-1.1b over a block-paged KV "
               "cache, one card")
         pl, paged_launches, _ = paged_end_to_end(torch, cfg, params)
@@ -5052,19 +5401,21 @@ def main(argv=None) -> int:
         phase("[phase 3] the flash_decode entry point at the serving cache's "
               "shape")
         launches["flash_decode_entry"] = flash_decode_drive(torch, cfg)
-        phase("[phase 3] end to end: mamba2-370m, full width, one card")
+        phase("[phase 3] end to end: mamba2-370m, full width, 24 of its 48 "
+              "layers, one card")
         smoke_reference(torch, "mamba2-370m")
         smoke_tree_engines(torch, "mamba2-370m")
-        mparams = init_on_card(torch, mcfg)
-        # 8 requests: the tree drives and the granite drives share the
-        # run's time
-        ssm_launches, _ = end_to_end(torch, mcfg, mparams,
-                                     timer, n_requests=8, paths=SSM_PATHS,
+        # half depth and 4 requests (full depth and 8 until the mesh phase
+        # came): the later phases share the run's time
+        mcut = depth_cut(mcfg, 24, (12, 18))
+        mparams = init_on_card(torch, mcut)
+        ssm_launches, _ = end_to_end(torch, mcut, mparams,
+                                     timer, n_requests=4, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
-        phase("[phase 3] a full-depth Mamba2-370M prompt pass")
-        prompt_pass_ms(torch, mparams, mcfg, impls=(None,))
+        phase("[phase 3] a 24-layer Mamba2-370M prompt pass")
+        prompt_pass_ms(torch, mparams, mcut, impls=(None,))
         del mparams
         torch.cuda.empty_cache()
         phase("[phase 3] end to end: granite-moe-1b-a400m, full width, one "
@@ -5072,10 +5423,12 @@ def main(argv=None) -> int:
         smoke_reference(torch, "granite-moe-1b-a400m")
         smoke_reference(torch, "mixtral-8x22b", sliding_window=8)
         smoke_reference(torch, "jamba-v0.1-52b")
-        gcfg = get_config("granite-moe-1b-a400m")
+        # half depth (12 of 24 layers, exits 6 and 9; full depth until the
+        # mesh phase came): the later phases share the run's time
+        gcfg = depth_cut(get_config("granite-moe-1b-a400m"), 12, (6, 9))
         gparams = init_on_card(torch, gcfg)
         moe_launches, _ = end_to_end(torch, gcfg, gparams, timer,
-                                     n_requests=12, paths=MOE_PATHS,
+                                     n_requests=6, paths=MOE_PATHS,
                                      expect=expected_launches_moe,
                                      agreements=MOE_AGREE)
         launches.update(moe_launches)
@@ -5098,6 +5451,10 @@ def main(argv=None) -> int:
               "builds on their own stream, publish / retire under a table "
               "budget, a bare standby from a snapshot, full width, one card")
         autoscale_launches, autoscale_res = autoscale_phase(torch)
+        phase(f"[phase 3] mesh serving: MeshExecutor at world size 1 over "
+              f"NCCL, then tp = {MESH_TP} as two ranks sharing the card "
+              f"over gloo (placement, not multi-card speed)")
+        mesh_launches, mesh_res = mesh_phase(torch)
     bwd, train_launches, train_res = training_phase(
         torch, cfg, mcfg, timer, full=not args.skip_e2e)
     launches.update(train_launches)
@@ -5142,6 +5499,9 @@ def main(argv=None) -> int:
     def autoscale(name):
         return {d: c[name] for d, c in autoscale_launches.items()}
 
+    def mesh(name):
+        return {d: c[name] for d, c in mesh_launches.items()}
+
     def autoscale_builds(name):
         return {d: r["build_launches"][name] for d, r in
                 autoscale_res.items()}
@@ -5176,7 +5536,10 @@ def main(argv=None) -> int:
              failover_launches=failover("morph_matmul"),
              autoscale_launches=autoscale("morph_matmul"),
              autoscale_build_launches=autoscale_builds("morph_matmul"),
+             mesh_launches=mesh("morph_matmul"),
+             shard_shapes_tp2=shard_row(shard["morph_matmul"]),
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
+                             shard["morph_matmul"]["max_abs_err"],
                              mms["max_abs_err"], mmsv["max_abs_err"],
                              *(r["max_abs_err"] for r in mmf.values())),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
@@ -5206,10 +5569,13 @@ def main(argv=None) -> int:
              failover_launches=failover("fused_decode"),
              autoscale_launches=autoscale("fused_decode"),
              autoscale_build_launches=autoscale_builds("fused_decode"),
+             mesh_launches=mesh("fused_decode"),
+             shard_shapes_tp2=shard_row(shard["fused_decode"]),
              moe_attention_shapes=moe_shapes("decode"),
              frontend_attention_shapes={a: r["decode"]
                                         for a, r in ed_attn.items()},
-             max_abs_err=max(fd["max_abs_err"], max(
+             max_abs_err=max(fd["max_abs_err"],
+                             shard["fused_decode"]["max_abs_err"], max(
                  r["decode"]["max_abs_err"] for r in list(moe_attn.values())
                  + list(ed_attn.values()))),
              ms=fd["ms"],
@@ -5230,6 +5596,8 @@ def main(argv=None) -> int:
              failover_launches=failover("fused_verify"),
              autoscale_launches=autoscale("fused_verify"),
              autoscale_build_launches=autoscale_builds("fused_verify"),
+             mesh_launches=mesh("fused_verify"),
+             shard_shapes_tp2=shard_row(shard["fused_verify"]),
              autoscale_verify_s5_serving={
                  d: r["verify_s5_serving"] for d, r in autoscale_res.items()},
              replay_chunk={k: rc[k] for k in (
@@ -5237,7 +5605,8 @@ def main(argv=None) -> int:
                  "plain_ms", "bound_ms", "bound_by", "per_launch",
                  "attention")},
              moe_attention_shapes=moe_shapes("verify"),
-             max_abs_err=max(fv["max_abs_err"], rc["max_abs_err"], max_err, max(
+             max_abs_err=max(fv["max_abs_err"], rc["max_abs_err"], max_err,
+                             shard["fused_verify"]["max_abs_err"], max(
                  r[w]["max_abs_err"] for r in moe_attn.values()
                  for w in ("verify linear", "verify tree"))), ms=fv["ms"],
              plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
@@ -5260,6 +5629,7 @@ def main(argv=None) -> int:
              launches=launches["mamba2_plain"]["ssd_scan"],
              launches_by_path=by_path("ssd_scan"),
              failover_launches=failover("ssd_scan"),
+             mesh_launches=mesh("ssd_scan"),
              max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
              ms=prompt["ms"], plain_ms=prompt["plain_ms"],
              bound_ms=prompt["bound_ms"], bound_by=prompt["bound_by"],
@@ -5334,6 +5704,8 @@ def main(argv=None) -> int:
         log("  failover: " + json.dumps(failover_res))
     if autoscale_res:
         log("  autoscale: " + json.dumps(autoscale_res))
+    if mesh_res:
+        log("  mesh: " + json.dumps(mesh_res))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -332,7 +332,7 @@ class MorphController:
 
 def make_serve_controller(params, cfg: ModelConfig,
                           modes: Optional[Tuple[MorphMode, ...]] = None, *,
-                          mesh=None, speculative=None,
+                          mesh=None, shard=None, speculative=None,
                           paged_page_size: int = 0,
                           paged_buckets: Tuple[int, ...] = (),
                           fused: bool = False) -> MorphController:
@@ -365,12 +365,31 @@ def make_serve_controller(params, cfg: ModelConfig,
     dense cache does.
 
     ``fused=True`` routes every attention decode and verify through the
-    fused kernels; it is a closure flag, so compile keys are unchanged. Mesh
-    executors arrive with a later slice of the port and raise here.
+    fused kernels; it is a closure flag, so compile keys are unchanged.
+
+    ``mesh`` (a ``DeviceMesh``) with ``shard`` (this rank's
+    ``tensor_parallel.ShardComm``) builds the same steps for one rank of a
+    (data, model) mesh: each runs on the shard-local config and is wrapped
+    in a ``tensor_parallel.MeshStep`` (per-slot operands cut to the rank's
+    slots, widths localized, the collectives on, per-slot results gathered
+    over ``data``). The compile keys, ``trace_counter`` and the build
+    count are those of the local path.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh serving arrives with the multi-device "
-                                  "slice of the port")
+    if (mesh is None) != (shard is None):
+        raise ValueError("a mesh controller needs both the mesh and this "
+                         "rank's shard")
+    if shard is not None:
+        from repro_torch.parallel.tensor_parallel import MeshStep
+
+        cfg_l = shard.shard.cfg
+
+        def wrap(fn):
+            return MeshStep(fn, shard)
+    else:
+        cfg_l = cfg
+
+        def wrap(fn):
+            return fn
     if paged_page_size and not paged_buckets:
         raise ValueError("paged serving needs its page-table buckets")
     plan_len = max(paged_buckets, default=0) * paged_page_size
@@ -381,10 +400,10 @@ def make_serve_controller(params, cfg: ModelConfig,
         trace_counter["n"] += 1  # runs once per built step
 
         def step(p, cache, tokens, active):
-            return decode_step(p, cache, tokens, cfg, depth=depth,
+            return decode_step(p, cache, tokens, cfg_l, depth=depth,
                                active=active, fused=fused)
 
-        return step
+        return wrap(step)
 
     ctrl = MorphController(cfg, factory, modes, compile_key=lambda m: m.depth)
     ctrl.trace_counter = trace_counter
@@ -395,12 +414,12 @@ def make_serve_controller(params, cfg: ModelConfig,
                 trace_counter["n"] += 1
 
                 def step(p, cache, tokens, active, pages):
-                    return decode_step(p, cache, tokens, cfg, depth=depth,
+                    return decode_step(p, cache, tokens, cfg_l, depth=depth,
                                        active=active, pages=pages,
                                        page_size=paged_page_size,
                                        plan_len=plan_len, fused=fused)
 
-                return step
+                return wrap(step)
             return build
 
         ctrl.aux_builders["paged_decode"] = paged_factory
@@ -420,33 +439,34 @@ def make_serve_controller(params, cfg: ModelConfig,
         def draft_factory(draft_depth: int, k: int):
             def build():
                 trace_counter["n"] += 1
-                return _spec.make_draft_step(cfg, draft_depth, k, top_k,
-                                             page_size=paged_page_size,
-                                             plan_len=plan_len, fused=fused)
+                return wrap(_spec.make_draft_step(
+                    cfg_l, draft_depth, k, top_k, page_size=paged_page_size,
+                    plan_len=plan_len, fused=fused))
             return build
 
         def verify_factory(depth: int, k: int):
             def build():
                 trace_counter["n"] += 1
-                return _spec.make_verify_step(cfg, depth, k, top_k,
-                                              page_size=paged_page_size,
-                                              plan_len=plan_len, fused=fused)
+                return wrap(_spec.make_verify_step(
+                    cfg_l, depth, k, top_k, page_size=paged_page_size,
+                    plan_len=plan_len, fused=fused))
             return build
 
         def tree_draft_factory(draft_depth: int, branching):
             def build():
                 trace_counter["n"] += 1
-                return _spec.make_tree_draft_step(cfg, draft_depth,
-                                                  branching, top_k,
-                                                  page_size=paged_page_size)
+                return wrap(_spec.make_tree_draft_step(
+                    cfg_l, draft_depth, branching, top_k,
+                    page_size=paged_page_size))
             return build
 
         def tree_verify_factory(depth: int, branching):
             def build():
                 trace_counter["n"] += 1
-                return _spec.make_tree_verify_step(
-                    cfg, depth, branching, top_k, page_size=paged_page_size,
-                    plan_len=plan_len, fused=fused)
+                return wrap(_spec.make_tree_verify_step(
+                    cfg_l, depth, branching, top_k,
+                    page_size=paged_page_size, plan_len=plan_len,
+                    fused=fused))
             return build
 
         # the factory kinds, for the autoscaler to build frontier points

@@ -57,6 +57,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --smoke --device cpu --spec-k 2 --budget-ms 500 --autoscale \
       --autoscale-interval 1 --autoscale-ks 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --mesh 1x2 --device cuda --fused
 
 Online autoscaling: ``--autoscale`` (with ``--budget-ms``, whose SLO loop
 hosts the autoscaler's tick) re-runs the NeuroForge MOGA every
@@ -68,6 +70,16 @@ ticks, and cold ones are retired while the table exceeds
 warmup came through publication and that no serving tick stalled, and
 prints the autoscaler's summary and front.
 
+Mesh serving: ``--mesh DPxTP`` serves over a (data, model) mesh of
+``DP * TP`` ranks (``runtime.serving.MeshExecutor``): the CLI starts its
+own ranks (``torch.multiprocessing``), or runs as one rank under
+``torchrun`` when ``WORLD_SIZE`` is set. Only rank 0 prints. The backend
+follows from the layout (``launch.mesh``): NCCL with a card per rank, gloo
+when ranks share one card and on the CPU. The other flags combine with
+``--mesh`` as without it, except ``--autoscale``, whose mesh lifecycle
+arrives with a later slice; MoE, encoder-decoder and frontend models under
+a mesh raise the executor's ``NotImplementedError``.
+
 Encoder-decoder (whisper) and frontend (internvl) models serve on the
 token feed, as the reference's engine serves them: their requests carry no
 frames or patches, so no prompt is prefilled and the cross-attention
@@ -77,7 +89,11 @@ reads the zeros of a fresh cache. ``--spec-k``, ``--spec-tree`` and
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import sys
 import zlib
 
 from repro_torch.configs import get_config, smoke_config
@@ -88,10 +104,26 @@ from repro_torch.models.paged import PagedLayout
 from repro_torch.runtime.fault_tolerance import (ExecutorSupervisor,
                                                  FailurePlan)
 from repro_torch.runtime.observability import Observability
-from repro_torch.runtime.serving import Request, ServingEngine, SLOPolicy
+from repro_torch.runtime.serving import (MeshExecutor, Request,
+                                         ServingEngine, SLOPolicy)
 from repro_torch.runtime.speculative import SpecConfig
 
 FAILURE_SITES = ("decode", "paged_decode", "verify", "tree_verify", "prefill")
+
+
+def _parse_mesh(spec: str):
+    try:
+        dp, tp = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh wants DPxTP (e.g. 2x4), got {spec!r}")
+    if dp < 1 or tp < 1:
+        raise SystemExit(f"--mesh wants degrees >= 1, got {spec!r}")
+    return dp, tp
+
+
+def _mesh_rank(rank: int, world: int, argv):
+    """One rank of a ``--mesh`` run started by ``main``."""
+    main(argv)
 
 
 def main(argv=None):
@@ -195,7 +227,33 @@ def main(argv=None):
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="",
+                    help="serve over a DPxTP (data x model) mesh of ranks, "
+                         "e.g. 1x2; started here, or one rank of a "
+                         "torchrun launch when WORLD_SIZE is set")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
+    if args.mesh:
+        dp, tp = _parse_mesh(args.mesh)
+        if args.autoscale:
+            ap.error("--autoscale with --mesh: the autoscaler's mesh "
+                     "lifecycle arrives with a later slice of the port")
+        if "WORLD_SIZE" not in os.environ:
+            from repro_torch.launch.mesh import spawn_ranks
+
+            spawn_ranks(_mesh_rank, dp * tp, (argv,), device=args.device)
+            return 0
+        from repro_torch.launch.mesh import make_serve_mesh
+
+        mesh = make_serve_mesh(dp, tp, device=args.device)
+        if int(os.environ.get("RANK", 0)) != 0:
+            with contextlib.redirect_stdout(io.StringIO()):
+                return _serve(args, ap, mesh)
+        return _serve(args, ap, mesh)
+    return _serve(args, ap, None)
+
+
+def _serve(args, ap, mesh):
 
     failure_plan = None
     if args.fail_at:
@@ -255,6 +313,8 @@ def main(argv=None):
     obs = Observability(trace=bool(args.trace_out))
 
     def build_engine():
+        executor = (MeshExecutor(mesh, device=device) if mesh is not None
+                    else None)
         return ServingEngine(params, cfg, batch_size=args.batch,
                              cache_capacity=capacity, modes=modes,
                              prefill_threshold=args.prefill_threshold,
@@ -262,14 +322,16 @@ def main(argv=None):
                              temperature=args.temperature, top_k=args.top_k,
                              sample_seed=args.seed, paged=paged,
                              fused=args.fused, observability=obs,
-                             device=device)
+                             executor=executor, device=device)
 
     engine = build_engine()
     paged_note = ""
     if paged is not None:
         pool = paged.pool_pages(cfg, args.batch, capacity)
         paged_note = f" kv=paged({args.kv_page_size} tok/page, {pool} pages)"
-    print(f"[serve] {cfg.name} on {device}: modes = {[m.name for m in modes]} "
+    mesh_note = f" mesh={args.mesh}" if mesh is not None else ""
+    print(f"[serve] {cfg.name} on {device}{mesh_note}: "
+          f"modes = {[m.name for m in modes]} "
           f"requests={n_requests} x {per_req} tokens, batch={args.batch}"
           f"{paged_note}{' fused' if args.fused else ''}"
           f"{f' spec_k={args.spec_k}' if args.spec_k else ''}"
@@ -324,7 +386,8 @@ def main(argv=None):
                                      metrics=engine.metrics)
         else:
             policy = SLOPolicy(cfg, engine.ctrl, batch_size=args.batch,
-                               cache_capacity=capacity)
+                               cache_capacity=capacity,
+                               executor=engine.executor)
         if supervisor is not None:
             supervisor.attach_policy(policy)
     mode_idx = len(modes) - 1

@@ -97,14 +97,20 @@ def apply_norm(params, x, cfg: ModelConfig, eps: float = 1e-6):
 
 def apply_norm_masked(params, x, cfg: ModelConfig, n_active, eps: float = 1e-6):
     """RMSNorm whose mean-square spans only the first ``n_active`` channels
-    (x is exactly zero beyond them). ``n_active``: scalar or per-batch (B,)."""
+    (x is exactly zero beyond them). ``n_active``: scalar or per-batch (B,).
+    Under a mesh whose model axis splits the channels, ``x`` and
+    ``n_active`` are this rank's, and the sum of squares and the count are
+    all-reduced first (``tensor_parallel.norm_sum``)."""
+    from repro_torch.parallel import tensor_parallel as TP
+
     assert "bias" not in params, "masked norm is rmsnorm-only"
     dt = x.dtype
     xf = x.float()
     n = torch.as_tensor(n_active, dtype=torch.float32, device=x.device)
     if n.dim():
         n = n.reshape(tuple(n.shape) + (1,) * (x.dim() - n.dim()))
-    var = xf.square().sum(-1, keepdim=True) / torch.clamp(n, min=1.0)
+    ss, n = TP.norm_sum(xf.square().sum(-1, keepdim=True), n)
+    var = ss / torch.clamp(n, min=1.0)
     y = xf * torch.rsqrt(var + eps) * params["scale"].float()
     return y.to(dt)
 

@@ -45,6 +45,13 @@ view). A ``vision_stub`` frontend (internvl) prepends the projected
 Models without RoPE outside the SSM families add sinusoidal positions.
 Speculative scoring (``verify_step``, ``verify_tree``,
 ``draft_tree_level``) refuses both families, as the reference does.
+
+Under a serving mesh (``runtime.serving.MeshExecutor``) the same code runs
+one rank's shard on a shard-local config; the collectives of
+``parallel.tensor_parallel`` stand where the reference constrains a
+sharding: the vocab-sharded embedding lookup, the all-reduce after every
+row-parallel mixer and MLP output, and the all-gather of the logits.
+Outside a shard context they are the identity.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.paged import cache_rows
+from repro_torch.parallel import tensor_parallel as TP
 
 Params = Dict
 Cache = Dict
@@ -186,8 +194,9 @@ def _ffn(lp, h, cfg: ModelConfig, p: int, active=None, dropless=False):
         return h + y, a
     if cfg.d_ff:
         hn = L.apply_norm(lp["norm2"], h, cfg)
-        h = h + L.apply_mlp(lp["mlp"], hn, cfg,
-                            active_ff=active.get("d_ff") if active else None)
+        h = h + TP.reduce_partial(L.apply_mlp(
+            lp["mlp"], hn, cfg,
+            active_ff=active.get("d_ff") if active else None))
     return h, None
 
 
@@ -215,7 +224,7 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, enc_out=None,
                 (x_tail, bc_tail), state = st
                 caches[f"pos{p}"] = {"conv_x": x_tail, "conv_bc": bc_tail,
                                      "state": state}
-        h = h + mix
+        h = h + TP.reduce_partial(mix)
         if cfg.is_encdec:
             hn = L.apply_norm(lp["norm_cross"], h, cfg)
             mix, (ck, cv) = L.mha(lp["cross"], hn, cfg, positions,
@@ -336,7 +345,7 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     over them, non-causal, ending in the encoder's final norm."""
     dt = dtype_of(cfg.dtype)
     tokens = batch["tokens"]
-    h = params["embed"][tokens].to(dt)
+    h = TP.embed_lookup(params["embed"], tokens).to(dt)
     enc_out = enc_pos = None
     if cfg.frontend == "vision_stub":
         ph = L.matmul(batch["patches"].to(dt), params["frontend_proj"], dt)
@@ -360,7 +369,7 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
 def _logits(params, h, cfg: ModelConfig, norm_params):
     h = L.apply_norm(norm_params, h, cfg)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return L.matmul(h, w, h.dtype)
+    return TP.gather_vocab(L.matmul(h, w, h.dtype))
 
 
 def _exit_norm(params, cfg: ModelConfig, depth: int):
@@ -529,7 +538,7 @@ def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
         else:  # no fused path: ``fused`` reaches attention layers only
             mix, _ = SSM.ssm_decode_step(lp["ssm"], hn, self_keys, cfg,
                                          active=active)
-        h = h + mix
+        h = h + TP.reduce_partial(mix)
         if cfg.is_encdec:
             hn = L.apply_norm(lp["norm_cross"], h, cfg)
             mix, _ = L.mha_decode(lp["cross"], hn,
@@ -605,7 +614,8 @@ def _group_verify(group_params, group_cache, h, pos, cfg: ModelConfig,
             mix, cand[f"pos{p}"] = SSM.ssm_verify_tree(
                 lp["ssm"], hn, group_cache[f"pos{p}"], cfg, tree,
                 active=active)
-        h, _ = _ffn(lp, h + mix, cfg, p, active, dropless=True)
+        h, _ = _ffn(lp, h + TP.reduce_partial(mix), cfg, p, active,
+                    dropless=True)
     return h, cand
 
 
@@ -648,7 +658,7 @@ def _embed_at(params, tokens, cfg: ModelConfig, qpos):
     """Token embedding of (B, S) ``tokens``, plus sinusoidal positions at
     ``qpos`` (B, S) in a model that has them."""
     dt = dtype_of(cfg.dtype)
-    h = params["embed"][tokens].to(dt)
+    h = TP.embed_lookup(params["embed"], tokens).to(dt)
     if pos_kind(cfg) == "sinusoidal":
         h = h + L.sinusoidal_pos(qpos, cfg.d_model).to(dt)
     return h
@@ -738,7 +748,8 @@ def _group_tree_level(group_params, group_cache, group_carry, h, pos,
             mix, rows[f"pos{p}"] = SSM.ssm_tree_level(
                 lp["ssm"], hn, cp, cr, cfg, parents=tree.parents[f0:f1],
                 active=active)
-        h, _ = _ffn(lp, h + mix, cfg, p, active, dropless=True)
+        h, _ = _ffn(lp, h + TP.reduce_partial(mix), cfg, p, active,
+                    dropless=True)
     return h, rows
 
 

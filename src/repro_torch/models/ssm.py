@@ -42,6 +42,7 @@ from repro_torch.kernels.ref import ssd_reference  # noqa: F401 (re-export)
 from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: F401 (re-export)
 from repro_torch.models.layers import (apply_norm, apply_norm_masked,
                                        dense_init, matmul, morph_proj)
+from repro_torch.parallel import tensor_parallel as TP
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None):
     """Seeded SSM block parameters with the JAX tree keys, shapes and init
@@ -111,10 +112,13 @@ def _gated_out(params, y, z, cfg: ModelConfig, dt_, a_in):
     hp = cfg.ssm_head_dim
     y = y * F.silu(z.float())
     norm = {"scale": params["ssm_norm"]["scale"][: nh * hp]}
-    if a_in is None:
+    if a_in is None and not TP.model_sharded():
         y = apply_norm(norm, y.to(dt_), cfg)
     else:
-        y = apply_norm_masked(norm, y.to(dt_), cfg, a_in)
+        # channels split over a mesh's model axis: the mean square spans
+        # every rank's channels (``apply_norm_masked`` all-reduces)
+        y = apply_norm_masked(norm, y.to(dt_), cfg,
+                              y.shape[-1] if a_in is None else a_in)
     return morph_proj(y, params["out_proj"], active_k=a_in)
 
 

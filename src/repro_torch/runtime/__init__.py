@@ -1,5 +1,5 @@
-"""Serving runtime: continuous-batching engine, observability, failover
-and restart, and the online autoscaler."""
+"""Serving runtime: continuous-batching engine (on one card or over a
+mesh), observability, failover and restart, and the online autoscaler."""
 from repro_torch.runtime.autoscale import (
     AutoscaleConfig,
     AutoscalePolicy,
@@ -10,6 +10,7 @@ from repro_torch.runtime.autoscale import (
 )
 from repro_torch.runtime.compression import (
     compress_with_feedback,
+    compressed_psum,
     dequantize,
     init_error_buffer,
     quantize,
@@ -20,6 +21,7 @@ from repro_torch.runtime.fault_tolerance import (
     SimulatedFailure,
     StragglerMonitor,
     TrainRunner,
+    elastic_reshard,
 )
 from repro_torch.runtime.observability import (
     EventStream,
@@ -31,6 +33,7 @@ from repro_torch.runtime.observability import (
 from repro_torch.runtime.serving import (
     EngineSnapshot,
     LocalExecutor,
+    MeshExecutor,
     Request,
     ServingEngine,
     SLOPolicy,
@@ -53,6 +56,7 @@ __all__ = [
     "TraceRecorder",
     "ExecutorSupervisor",
     "LocalExecutor",
+    "MeshExecutor",
     "Request",
     "ServingEngine",
     "SLOPolicy",
@@ -60,6 +64,8 @@ __all__ = [
     "SpecTelemetry",
     "poisson_trace",
     "compress_with_feedback",
+    "compressed_psum",
+    "elastic_reshard",
     "dequantize",
     "init_error_buffer",
     "quantize",

@@ -233,8 +233,14 @@ class Autoscaler:
 
         Publishes the engine's stashed autoscale snapshot if a bare standby
         absorbed one before any autoscaler existed, registers the gauge
-        callback + event stream, and starts the compile worker.
+        callback + event stream, and starts the compile worker. An engine
+        over a mesh raises: the autoscaler's mesh lifecycle arrives with a
+        later slice of the port.
         """
+        if engine.executor.mesh is not None:
+            raise NotImplementedError(
+                "the autoscaler's mesh lifecycle arrives with a later slice "
+                "of the port (ROADMAP.md, A)")
         self.engine = engine
         engine.autoscaler = self
         self._events = autoscale_events(engine.metrics)

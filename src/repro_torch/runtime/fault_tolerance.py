@@ -22,8 +22,8 @@ runtimes and lets tests *inject* the failures:
 
 Only ``SimulatedFailure`` (and the tick timeout) is recovered: a real CUDA
 fault poisons the process's context, so the supervisor catches no error
-from torch and such a fault ends the run. ``elastic_reshard`` arrives with
-the mesh item of the port.
+from torch and such a fault ends the run. ``elastic_reshard`` moves a
+sharded state from one mesh layout to another.
 """
 from __future__ import annotations
 
@@ -166,6 +166,20 @@ class TrainRunner:
         raise RuntimeError("unreachable")
 
 
+def elastic_reshard(state, src, dst):
+    """Re-place a sharded state pytree onto another mesh layout (a mesh
+    change). ``src`` and ``dst`` are ``(mesh, specs)`` pairs over the same
+    ranks, ``specs`` a spec tree matching ``state`` (``sharding.Spec``
+    tuples): every leaf is all-gathered over the source mesh, then cut to
+    this rank's slice under the destination layout."""
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.tensor_parallel import gather_tree
+
+    (src_mesh, src_specs), (dst_mesh, dst_specs) = src, dst
+    return SH.shard_params(gather_tree(state, src_specs, src_mesh),
+                           dst_specs, dst_mesh)
+
+
 class ExecutorSupervisor:
     """Failover seam around a ``ServingEngine``: snapshot every tick,
     rebuild on a launch failure, resume with exact replay.
@@ -304,7 +318,9 @@ class ExecutorSupervisor:
                                self._clock() - t0)
                 continue
             wall = self._clock() - t0
-            if self.tick_timeout_s is not None and wall > self.tick_timeout_s:
+            # a clock's verdict: every rank of a mesh takes rank 0's
+            if self.tick_timeout_s is not None and self.engine.executor.agree(
+                    wall > self.tick_timeout_s):
                 self._failover(
                     snap, f"tick wall time {wall:.3f}s exceeded timeout "
                           f"{self.tick_timeout_s}s", wall)

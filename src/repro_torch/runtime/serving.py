@@ -191,6 +191,10 @@ def poisson_trace(n_requests: int, rate_per_s: float, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def _same(value):
+    return value
+
+
 class SLOPolicy:
     """Pick the widest mode whose predicted step latency fits the budget.
 
@@ -199,6 +203,10 @@ class SLOPolicy:
     learned from the controller's per-mode telemetry. Once a mode has
     ``min_samples`` measured steps its own p50 is used directly, and the
     measured/analytical ratio of observed modes corrects the rest.
+
+    ``executor`` (the engine's) sets the design point's ``dp`` / ``tp`` and,
+    over a mesh, makes every choice rank 0's (``LocalExecutor.agree``): the
+    measured latencies differ from rank to rank.
     """
 
     def __init__(self, cfg: ModelConfig, controller: MorphController, *,
@@ -207,9 +215,13 @@ class SLOPolicy:
                  queue_gamma: float = 0.25,
                  interactive_weight: float = 2.0,
                  metrics: Optional[MetricsRegistry] = None,
-                 catchup_ticks: int = 8, catchup_gamma: float = 1.0):
+                 catchup_ticks: int = 8, catchup_gamma: float = 1.0,
+                 executor: Optional["LocalExecutor"] = None):
         self.cfg = cfg
         self.controller = controller
+        # every choice reads measured latencies, a clock: on a mesh all
+        # ranks take rank 0's (``LocalExecutor.agree``)
+        self._agree = executor.agree if executor is not None else _same
         self.min_samples = min_samples
         self.batch_size = batch_size
         # budget-aware admission: how strongly queue depth squeezes the
@@ -230,8 +242,9 @@ class SLOPolicy:
         self.last_decision: Dict[str, float] = {}
         cell = ShapeCell("serve_step", seq_len=cache_capacity,
                          global_batch=batch_size, kind="decode")
-        # one card: no data or tensor parallelism until the mesh slice
-        pt = DesignPoint(dp=1, tp=1, microbatches=1, remat="none",
+        pt = DesignPoint(dp=executor.dp if executor is not None else 1,
+                         tp=executor.tp if executor is not None else 1,
+                         microbatches=1, remat="none",
                          param_dtype=cfg.param_dtype
                          if cfg.param_dtype in ("bfloat16", "float32") else "bfloat16",
                          moment_dtype="float32", grad_comm="allreduce",
@@ -295,8 +308,8 @@ class SLOPolicy:
             catchup_penalty = min(self.catchup_gamma * debt_s / budget_s, 4.0)
             eff /= (1.0 + catchup_penalty)
             self._catchup_left -= 1
-        mode = policy_for_budget(self.cfg, self.controller, eff,
-                                 self.est_latency)
+        mode = self._agree(policy_for_budget(self.cfg, self.controller, eff,
+                                             self.est_latency))
         self.last_decision = {
             "budget_s": budget_s, "effective_budget_s": eff,
             "queue_pressure": pressure, "mode": mode.name,
@@ -344,7 +357,7 @@ class SLOPolicy:
             prev = expected_tokens_per_launch(accept_rate, best)
             if gain - prev > cut * (k - best) / max(max(ks), 1):
                 best = k
-        return best
+        return self._agree(best)
 
     def choose_tree(self, trees: Sequence[Tuple[int, ...]],
                     ks: Sequence[int], accept_rate: float,
@@ -361,12 +374,12 @@ class SLOPolicy:
         None)``. Returns ``("tree", branching)``, ``("linear", k)`` or
         ``("plain", None)``."""
         if accept_rate < min_accept_rate:
-            return ("plain", None)
+            return self._agree(("plain", None))
         cands = ([("linear", k, k) for k in sorted(set(ks))]
                  + [("tree", tuple(br), tree_node_budget(br))
                     for br in trees])
         if not cands:
-            return ("plain", None)
+            return self._agree(("plain", None))
         pressure = self._queue_pressure(queue_depths)
         cut = self.queue_gamma * pressure / (1.0 + self.queue_gamma * pressure)
         max_nodes = max(nodes for _, _, nodes in cands)
@@ -378,7 +391,7 @@ class SLOPolicy:
             return e - cut * nodes / max(max_nodes, 1)
 
         best = max(cands, key=lambda c: value(*c))
-        return (best[0], best[1])
+        return self._agree((best[0], best[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -411,10 +424,18 @@ class LocalExecutor:
         if self.launch_hook is not None:
             self.launch_hook(site)
 
+    def agree(self, value):
+        """A host decision every rank must share, taken from a clock (a
+        deadline, a measured latency): the identity on one device; a mesh
+        executor takes rank 0's value."""
+        return value
+
     def bind(self, cfg: ModelConfig, batch_size: int, cache_capacity: int,
              paged: Optional[PagedLayout] = None,
              fused: bool = False) -> "LocalExecutor":
         self._cfg = cfg
+        # the config the steps run on: a mesh rank's is its shard's
+        self._step_cfg = cfg
         self._batch = batch_size
         self._cap = cache_capacity
         self._paged = paged
@@ -481,7 +502,7 @@ class LocalExecutor:
         logits, cache with the prompt written into the pool in place). The
         prefill runs over ``ncp * page_size`` positions; pages masked False
         are resident through the shared-prefix radix and not rewritten."""
-        cfg, n_slots = self._cfg, self._batch
+        cfg, n_slots = self._step_cfg, self._batch
         ps = self._paged.page_size
 
         def pf(params, tokens, slot, cache, pages, wmask):
@@ -508,7 +529,7 @@ class LocalExecutor:
         routes the pass through the fused verify kernel; a paged engine
         reads and writes the pool through the full-width table, planned
         like its speculative steps."""
-        cfg, fused, paged = self._cfg, self._fused, self._paged
+        cfg, fused, paged = self._step_cfg, self._fused, self._paged
         ps = paged.page_size if paged is not None else 0
         plan_len = (max(paged.buckets(cfg, self._cap)) * ps
                     if paged is not None else 0)
@@ -524,6 +545,159 @@ class LocalExecutor:
                                  page_size=ps)
 
         return chunk
+
+
+class MeshExecutor(LocalExecutor):
+    """SPMD execution over a (data, model) ``DeviceMesh``: one rank's shard.
+
+    Every rank runs the same engine on the same requests. The rank holds
+    its shard of every parameter (``sharding.shard_serve_params``) and of
+    every cache (the shard-local config's cache over its slots), and its
+    steps (``make_serve_controller(mesh=...)``) launch only its shard's
+    kernels, with the collectives of ``parallel.tensor_parallel`` where the
+    JAX partitioner places them; the logits every step returns are
+    replicated, so host decisions taken from them agree on every rank.
+    Decisions taken from a clock go through ``agree`` (rank 0's value,
+    broadcast).
+
+    ``policy`` defaults to ``sharding.serve_policy(cfg, tp)``; only
+    ``serve_tp`` has a layout in the port. Slots split over ``data`` where
+    ``n_slots % dp == 0`` and the cache is dense (``plan_serve_shard``);
+    the batch-1 prompt pass runs on every rank, as the reference's
+    replicated prefill does, and only the slot's owner keeps its rows.
+    ``device`` defaults to the card this process has selected.
+    """
+
+    def __init__(self, mesh, policy: Optional[str] = None, device=None):
+        from repro_torch.parallel import sharding as SH
+
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.mesh = mesh
+        self._policy_arg = policy
+        sizes = SH.axis_sizes(mesh)
+        self.tp = sizes.get("model", 1)
+        self.dp = 1
+        for a in SH.data_axes(mesh):
+            self.dp *= sizes[a]
+
+    def bind(self, cfg: ModelConfig, batch_size: int, cache_capacity: int,
+             paged: Optional[PagedLayout] = None,
+             fused: bool = False) -> "MeshExecutor":
+        import torch.distributed as dist
+
+        from repro_torch.parallel import sharding as SH
+        from repro_torch.parallel.tensor_parallel import ShardComm
+
+        if cfg.n_experts or cfg.is_encdec or cfg.frontend:
+            raise NotImplementedError(
+                f"{cfg.name}: mesh serving covers the dense GQA and SSM "
+                f"families; MoE, encoder-decoder and frontend models under "
+                f"a mesh arrive with a later slice of the port "
+                f"(ROADMAP.md, A)")
+        super().bind(cfg, batch_size, cache_capacity, paged=paged,
+                     fused=fused)
+        self.policy = self._policy_arg or SH.serve_policy(cfg, self.tp)
+        if self.policy != "serve_tp":
+            raise NotImplementedError(
+                f"policy {self.policy!r}: the port serves over a mesh under "
+                f"serve_tp only; serve_2d (weights split over data too) "
+                f"arrives with a later slice (ROADMAP.md, A)")
+        shard = SH.plan_serve_shard(cfg, self.mesh, n_slots=batch_size,
+                                    paged=paged is not None)
+        groups = self.mesh.mesh_dim_names
+        self.comm = ShardComm(
+            shard,
+            model_group=(self.mesh.get_group("model")
+                         if "model" in groups else None),
+            data_group=(self.mesh.get_group("data")
+                        if "data" in groups else None),
+            stage=dist.get_backend() == "gloo" and self.device.type == "cuda")
+        self.world = dist.get_world_size()
+        self.shard = shard
+        self._step_cfg = shard.cfg
+        return self
+
+    def agree(self, value):
+        if self.world == 1:
+            return value
+        import torch.distributed as dist
+
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def place_params(self, params):
+        from repro_torch.parallel import sharding as SH
+
+        return super().place_params(
+            SH.shard_serve_params(params, self.shard, self._cfg))
+
+    def make_controller(self, params, cfg: ModelConfig, modes,
+                        speculative=None) -> MorphController:
+        return make_serve_controller(params, cfg, modes, mesh=self.mesh,
+                                     shard=self.comm, speculative=speculative,
+                                     fused=self._fused,
+                                     **self._paged_kwargs(cfg))
+
+    def _wrap(self, fn, n_lead: int = 2, slots: bool = True):
+        from repro_torch.parallel.tensor_parallel import MeshStep
+
+        return MeshStep(fn, self.comm, n_lead, slots=slots)
+
+    def init_cache(self):
+        lcfg = self.shard.cfg
+        if self._paged is not None:
+            return init_paged_cache(lcfg, self._batch, self._cap,
+                                    self._paged, device=self.device)
+        return init_decode_cache(lcfg, self.shard.slots[1], self._cap,
+                                 per_slot=True, device=self.device)
+
+    def reset_fn(self):
+        sl = self.shard.slots
+
+        def reset(cache, mask):
+            return reset_cache_slots(cache, mask[sl[0]:sl[0] + sl[1]])
+
+        return reset
+
+    def adopt_fn(self):
+        """Adopt a prompt pass's one-lane cache (``prefill_fn``) into the
+        slot's lane, on the slot's owner only."""
+        s0, n = self.shard.slots
+
+        def adopt(cache, pre, slot):
+            if s0 <= slot < s0 + n:
+                for pn, layer in cache["stack"].items():
+                    for k, full in layer.items():
+                        full[:, slot - s0] = pre["stack"][pn][k][:, 0].to(
+                            full.dtype)
+                cache["pos"][slot - s0] = pre["pos"][0]
+            return cache
+
+        return adopt
+
+    def prefill_fn(self, prompt_len: int, depth: int):
+        """The batch-1 prompt pass on every rank, its cache one lane wide
+        (``adopt_fn`` keeps it on the slot's owner)."""
+        lcfg, cap = self.shard.cfg, self._cap
+
+        def pf(params, tokens, slot):
+            return prefill(params, {"tokens": tokens}, lcfg,
+                           cache_extra=cap - prompt_len, per_slot=True,
+                           slot=0, n_slots=1, depth=depth)
+
+        return self._wrap(pf, n_lead=1, slots=False)
+
+    def prefill_adopt_fn(self, prompt_len: int, depth: int, ncp: int):
+        # paged: slots stay replicated over data, every rank adopts
+        return self._wrap(super().prefill_adopt_fn(prompt_len, depth, ncp),
+                          n_lead=1, slots=False)
+
+    def replay_chunk_fn(self, depth: int, n_tokens: int):
+        return self._wrap(super().replay_chunk_fn(depth, n_tokens))
 
 
 class _GroupPaging:
@@ -859,9 +1033,6 @@ class ServingEngine:
             raise ValueError("speculative serving needs a token-only decoder "
                              "(enc-dec / frontend archs carry non-token "
                              "prompt operands the draft loop cannot feed)")
-        if executor is not None and executor.mesh is not None:
-            raise NotImplementedError("mesh executors arrive with the "
-                                      "multi-device slice of the port")
         self.cfg = cfg
         self.batch_size = batch_size
         self.cache_capacity = cache_capacity
@@ -1226,7 +1397,12 @@ class ServingEngine:
                 and not self.cfg.is_encdec and not self.cfg.frontend)
 
     def _expire_queued(self, now_s: float) -> None:
-        """Retire queued requests past their deadline (terminal ``expired``)."""
+        """Retire queued requests past their deadline (terminal
+        ``expired``), against rank 0's clock on a mesh."""
+        if not any(r.deadline_s is not None
+                   for q in self._queues.values() for r in q):
+            return
+        now_s = self.executor.agree(now_s)
         for cls in SLO_CLASSES:
             q = self._queues[cls]
             if not any(r.deadline_s is not None for r in q):
@@ -1542,7 +1718,9 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self, now_s: float = 0.0) -> float:
-        """One engine tick. Returns device wall-time spent (seconds)."""
+        """One engine tick. Returns device wall-time spent (seconds): rank
+        0's on a mesh, so a virtual clock advanced by it agrees on every
+        rank."""
         self._admit(now_s)
         spent = 0.0
         ticked = False
@@ -1600,7 +1778,7 @@ class ServingEngine:
                     key=["decode", g.depth])
         self.ticks_with_work += ticked
         self.step_count += 1
-        return spent
+        return self.executor.agree(spent)
 
     def _paged_tick(self, g: _DepthGroup, active_ix: List[int],
                     now_s: float) -> float:

@@ -1654,3 +1654,87 @@ def test_full_width_dense_autoscale_lifecycle_on_card(cuda):
         eng.compiles_after_warmup + st["published_keys"]
     assert threading.get_ident() not in asc.worker_idents
     assert {r.rid: r.generated for r in eng.completed} == want
+
+
+def test_mesh_world_one_nccl_engine_matches_local(cuda):
+    """``MeshExecutor`` at world size 1 (NCCL: one rank, one card) serves
+    the fused smoke engine's tokens, launch for launch."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serving import (LocalExecutor, MeshExecutor,
+                                             ServingEngine, poisson_trace)
+
+    cfg = smoke_config("tinyllama-1.1b")
+    params = init_params(cfg, seed=0, device=cuda)
+
+    def run(executor):
+        eng = ServingEngine(params, cfg, batch_size=4, cache_capacity=64,
+                            prefill_threshold=4, fused=True,
+                            executor=executor, device=cuda)
+        eng.warmup()
+        FD.reset_launch_count()
+        eng.run(poisson_trace(8, 1e6, seed=3, vocab=cfg.vocab_size,
+                              prompt_len=(1, 8), new_tokens=(4, 12)))
+        return ({r.rid: r.generated for r in eng.completed},
+                FD.launch_count())
+
+    assert not dist.is_initialized()
+    try:
+        mesh = make_serve_mesh(1, 1, device="cuda")
+        assert dist.get_backend() == "nccl"
+        got = run(MeshExecutor(mesh))
+    finally:
+        dist.destroy_process_group()
+    assert got == run(LocalExecutor("cuda"))
+    assert got[1] > 0
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_kernels_at_tinyllama_tp2_shard_shapes_match_plain(cuda, rank):
+    """B1 over a tp = 2 rank's projections of TinyLlama (16 / 2 heads of
+    64, d_ff 2816: ``wo`` and ``down`` contract 1024 and 2816 rows) and B2
+    at its attention, with the rank's localized width gates (rank 1 runs
+    zero columns for the slots at widths 0.25 and 0.5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import elastic
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.tensor_parallel import localize
+
+    full = get_config("tinyllama-1.1b")
+    sh = SH.plan_serve_shard(full, {"data": 1, "model": 2}, n_slots=4,
+                             coord={"data": 0, "model": rank})
+    cfg = dataclasses.replace(sh.cfg, dtype="bfloat16")
+    act = localize(elastic.active_widths_batch(full, [0.25, 0.5, 1.0, 0.5],
+                                               device=cuda), sh)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dm, H, KV, hd, B = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim, 4
+    x = torch.randn(B, 1, dm, generator=g, device=cuda).to(torch.bfloat16)
+    for K, N, an, ak in ((dm, H * hd, act["q_dim"], None),
+                         (dm, KV * hd, act["kv_dim"], None),
+                         (H * hd, dm, None, act["q_dim"]),
+                         (dm, cfg.d_ff, act["d_ff"], None),
+                         (cfg.d_ff, dm, None, act["d_ff"])):
+        xi = torch.randn(B, 1, K, generator=g, device=cuda).to(
+            torch.bfloat16)
+        w = torch.randn(K, N, generator=g, device=cuda) / np.sqrt(K)
+        _close(MM.morph_matmul(xi, w, an, ak),
+               MM.morph_matmul_plain(xi, w, an, ak), torch.bfloat16)
+    params = {n: torch.randn(*s, generator=g, device=cuda) / np.sqrt(s[0])
+              for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
+                           ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
+    S = 256
+    cache = {k: torch.randn(B, S, KV, hd, generator=g, device=cuda).to(
+        torch.bfloat16) for k in ("k", "v")}
+    pos = torch.tensor([0, 17, 130, 255], dtype=torch.int32, device=cuda)
+    c_k = {n: t.clone() for n, t in cache.items()}
+    c_p = {n: t.clone() for n, t in cache.items()}
+    o_k, _ = FD.fused_decode_step(params, x, c_k, pos, cfg, active=act)
+    o_p, _ = FD.fused_decode_plain(params, x, c_p, pos, cfg, act["q_dim"],
+                                   act["kv_dim"])
+    torch.cuda.synchronize()
+    _close(o_k, o_p, torch.bfloat16)
+    for n in cache:
+        _close(c_k[n], c_p[n], torch.bfloat16)

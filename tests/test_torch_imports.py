@@ -138,3 +138,28 @@ def test_serve_cli_speculative_on_cpu(capsys):
                  "2x2"]) == 0
     out = capsys.readouterr().out
     assert "recompiles_after_warmup=0" in out and "spec d3<-d1t2x2" in out
+
+
+def test_mesh_modules_are_in_the_probe():
+    import pkgutil
+
+    import repro_torch
+
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.parallel.sharding",
+            "repro_torch.parallel.tensor_parallel",
+            "repro_torch.parallel.pipeline_parallel",
+            "repro_torch.launch.mesh"} <= names
+
+
+def test_mesh_entry_points_refuse_a_missing_card():
+    from repro_torch.launch.mesh import choose_backend, make_serve_mesh
+
+    assert choose_backend(2, "cpu") == "gloo"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        choose_backend(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_serve_mesh(1, 2, device="cuda")

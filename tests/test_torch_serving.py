@@ -121,7 +121,10 @@ def test_slo_policy_run_and_metrics():
 
 
 def test_unported_options_raise():
-    """Mesh executors are a later slice and raise. (Sampling and linear
+    """A mesh executor raises for the families a later slice brings under a
+    mesh (MoE, encoder-decoder, frontend), before any rank is asked for
+    anything; the dense GQA and SSM families serve over a mesh since the
+    mesh slice (``test_torch_mesh.py``). (Sampling and linear
     speculation arrived with the speculative slice,
     ``test_torch_speculative.py``; paged caches with the paged slice,
     ``test_torch_paged.py``: a page size that does not divide the capacity
@@ -135,10 +138,11 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="capacity"):
         TS.ServingEngine({}, cfg, device="cpu", cache_capacity=16,
                          paged=PagedLayout(page_size=5))
-    mesh_exec = TS.LocalExecutor("cpu")
-    mesh_exec.mesh = object()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TS.ServingEngine({}, cfg, device="cpu", executor=mesh_exec)
+    for arch in ("granite-moe-1b-a400m", "whisper-base", "internvl2-2b"):
+        mesh_exec = TS.MeshExecutor({"data": 1, "model": 2}, device="cpu")
+        with pytest.raises(NotImplementedError, match="mesh"):
+            TS.ServingEngine({}, smoke_config(arch), device="cpu",
+                             executor=mesh_exec)
     with pytest.raises(ValueError, match="sliding_window"):
         TS.ServingEngine({}, cfg.scaled(sliding_window=2), device="cpu",
                          speculative=SpecConfig(ks=(), trees=((1, 1),)))

@@ -80,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``ServingEngine`` (8 slots, a Poisson trace with prompts of 16-256 and
    32-64 new tokens, cache 512, prefill threshold 8, the admission mode
    moved every 12 ticks along a schedule of every (depth, width) mode):
-   full-width ``tinyllama-1.1b`` (6 requests) nine times: plain decode
+   full-width ``tinyllama-1.1b`` (12 requests) nine times: plain decode
    unfused, ``fused=True``, and ``fused=True`` with
    ``attn_impl="chunked"`` (every prompt pass through ``flash_attention``),
    then linear self-speculation
@@ -94,8 +94,10 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    264 pages), asserting identical tokens pair by pair, radix hits, the
    page accounting after every tick, every fused launch paged; then
    full-width ``mamba2-370m`` cut to 24 of its 48 layers (exits 12 and
-   18; 4 requests) three times: plain greedy, speculative greedy and tree
-   speculative greedy (depth 24 drafts at exit 18, depth 18 at exit 12). Before each model's drives, its f32
+   18; 10 requests) three times: plain greedy, speculative greedy and tree
+   speculative greedy (depth 24 drafts at exit 18, depth 18 at exit 12).
+   Each drive with more requests than slots must admit them at two modes
+   or more (the queued ones at later modes). Before each model's drives, its f32
    smoke config serves greedily on the card with the tree (unfused; for
    TinyLlama also fused, and fused over pages) and on the CPU, every
    engine's tokens asserted equal to the card's plain engine's. Then the
@@ -103,7 +105,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    against the CPU (decode, capacity-dispatch prefill and verify, unfused
    and fused; jamba's fused kernels run without RoPE), and full-width
    ``granite-moe-1b-a400m`` cut to 12 of its 24 layers (exits 6 and 9; 32
-   experts of 512, top-8, 6 requests) four ways: plain unfused, plain fused, speculative
+   experts of 512, top-8, 12 requests) four ways: plain unfused, plain fused, speculative
    K = 4 fused greedy and tree (2, 2, 1) fused greedy, each drive printing
    its step or tick (host and device ms, idle share, heaviest kernels),
    the step's byte bound and the bytes the experts' per-step cast to bf16
@@ -206,12 +208,16 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    requests, tokens and launch counts identical to ``LocalExecutor``'s;
    then tp = 2 as two ranks sharing the card over gloo (``mesh_ranks``,
    started by ``launch.mesh.spawn_ranks``; a rank's failure fails the
-   run), ``MESH_DRIVES``: full-width fused TinyLlama (8 requests, mixed
-   widths, a depth switch every 4 ticks, prefill admission) plain and
+   run), ``MESH_DRIVES``: full-width fused TinyLlama (8 requests) plain and
    K = 2, Mamba2 cut to 24 layers (4 requests), and both cut to 4 layers in
-   f32; each rank's streams identical to rank 0's, f32 streams identical
-   to the local drive's, bf16 ones parting only at near ties, each rank's
-   launches of a plain drive equal to the local drive's. Two ranks on one
+   f32. Every mesh drive submits one request a tick, each at the next mode
+   (``staggered_drive``: mixed widths in several depth groups, prefill
+   admission and the token feed), and must cover a narrow width and a
+   shallower depth; each rank's streams and launches identical to rank
+   0's, f32 streams identical to the local drive's, bf16 ones parting only
+   at near ties (the logits' change capped at ``MESH_MAX_CHANGE_STEPS``
+   bf16 steps), each rank's launches of a plain or f32 drive equal to the
+   local drive's. Two ranks on one
    card measure the collectives' placement, not multi-card speed. Phase 2
    holds ``morph_matmul``, the fused decode and the fused verify (S = 5)
    at TinyLlama's tp = 2 rank shapes (``check_shard_shapes``).
@@ -2418,6 +2424,13 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
         gen = sum(len(s) for s in streams.values())
         if len(engine.completed) != len(trace):
             fail(f"{tag}: {len(engine.completed)} of {len(trace)} done")
+        admitted = sorted({r.mode_name for r in engine.completed})
+        # more requests than slots: the queued ones wait for a slot and are
+        # admitted at a later mode of the schedule (slot reuse, concurrent
+        # depth groups, mixed widths)
+        if len(trace) > engine.batch_size and len(admitted) < 2:
+            fail(f"{tag}: {len(trace)} requests on {engine.batch_size} "
+                 f"slots all admitted at {admitted}")
         for r in trace:
             s = streams[r.rid]
             if len(s) != r.max_new_tokens or not all(0 <= t < cfg.vocab_size
@@ -2431,8 +2444,8 @@ def end_to_end(torch, cfg, params, timer=None, device="cuda", n_requests=24,
             f"{engine.spec_verify_launches} speculative ticks "
             f"({engine.spec_tree_launches} tree), "
             f"{engine.prefills} prefills, admission switches "
-            f"{len(engine.admission_switch_log)}; peak device memory "
-            f"{peak:.2f} GiB")
+            f"{len(engine.admission_switch_log)}, admitted at "
+            f"{', '.join(admitted)}; peak device memory {peak:.2f} GiB")
         for name, t in sorted(engine.ctrl.telemetry_summary().items()):
             log(f"    mode {name:8s} steps {t['steps']:4d}  p50 "
                 f"{t['p50_ms']:8.3f} ms  p95 {t['p95_ms']:8.3f} ms")
@@ -4977,12 +4990,16 @@ def restart_drive(torch, cfg, n_steps=4, every=2, fail_at=3):
 MESH_TP = 2  # two ranks sharing the one card
 # the mesh drives' device ("cpu" rehearses them with the smoke configs)
 MESH_DEVICE = "cuda"
-MESH_SWITCH = 4  # ticks between admission-mode moves in the mesh drives
+# a bf16 parting's largest logit change between the mesh and local
+# rescorings may be at most this many bf16 steps of the top logit (the
+# tp = 2 drives measured up to 0.067 at a top logit in [2, 4), about 4
+# steps; a wrong shard or a missing collective moves logits by their size)
+MESH_MAX_CHANGE_STEPS = 16
 # name, arch, config overrides, speculative (K or 0), requests, new tokens,
 # streams held strictly (f32) or by near ties (bf16)
 MESH_DRIVES = (
     ("tinyllama_tp2", "tinyllama-1.1b", {}, 0, 8, (16, 32), False),
-    ("tinyllama_tp2_k2", "tinyllama-1.1b", {}, 2, 8, (16, 32), False),
+    ("tinyllama_tp2_k2", "tinyllama-1.1b", {}, 2, 8, (8, 16), False),
     ("tinyllama_tp2_f32_4layers", "tinyllama-1.1b",
      dict(dtype="float32", n_layers=4), 2, 8, (16, 32), True),
     ("mamba2_tp2_24layers", "mamba2-370m", dict(n_layers=24), 0, 4, (8, 16),
@@ -5061,25 +5078,66 @@ def mesh_trace(cfg, n, new_tokens):
                          new_tokens=new_tokens, vocab=cfg.vocab_size)
 
 
+def staggered_drive(engine, trace):
+    """Submit the trace one request a tick, each admitted at the next mode
+    of ``mode_schedule`` (so the slots run mixed widths in several depth
+    groups at once), then tick until all are done. Returns (host s,
+    streams)."""
+    reqs = copy.deepcopy(trace)
+    sched = mode_schedule(engine.ctrl.modes)
+    t0 = time.perf_counter()
+    for i, r in enumerate(reqs):
+        engine.set_admission_mode(sched[i % len(sched)])
+        engine.submit(r)
+        engine.step()
+    while engine.queue or engine.n_active:
+        engine.step()
+    return time.perf_counter() - t0, {r.rid: list(r.generated) for r in reqs}
+
+
+def check_mixed_modes(name, eng):
+    """Fail unless ``eng``'s completed requests ran at a narrow width and
+    at a shallower depth than the full model's."""
+    full = eng.ctrl.modes[-1]
+    modes = {eng.ctrl.mode_by_name[r.mode_name] for r in eng.completed}
+    if not any(m.width < full.width for m in modes) or not any(
+            m.depth < full.depth for m in modes):
+        fail(f"{name}: requests ran only at {sorted(m.name for m in modes)}"
+             f": no narrow width or no shallower depth")
+    return sorted(m.name for m in modes)
+
+
 def counted_drive(torch, eng, trace):
-    """``drive`` with every launch counter zeroed just before and read just
-    after: (host s, streams, launches)."""
+    """``staggered_drive`` with every launch counter zeroed just before and
+    read just after: (host s, streams, launches)."""
     cs = counters()
     for _, reset in cs.values():
         reset()
     sync(torch, MESH_DEVICE)
-    secs, out = drive(eng, trace, MESH_SWITCH)
+    secs, out = staggered_drive(eng, trace)
     sync(torch, MESH_DEVICE)
     return secs, out, {k: c() for k, (c, _) in cs.items()}
 
 
 def rescore_batch(eng, items, rid0):
-    """Next-token logits after feeding each ``(prefix, mode name)`` of
-    ``items`` one token a tick (prefill off) through ``eng``, an engine
-    with one slot per item: each admitted at its own mode on a tick of its
-    own, all fed together; a row is taken from the launch whose token
-    completes its request."""
+    """The logits that decide generated index ``len(forced)`` of each
+    ``(prompt, forced, mode name)`` of ``items`` through ``eng``, a plain
+    engine with a free slot per item and the drive's prefill threshold
+    (the drive's own engine, once it is idle): each request
+    admitted at its own mode on a tick of its own (its prompt prefilled or
+    fed, as in the drive), then fed ``forced`` in place of its own samples,
+    all together; a row is taken from the launch whose token completes its
+    request. So the rescoring takes the drive's route to that index."""
     from repro_torch.runtime.serving import Request
+
+    @dataclasses.dataclass
+    class Forced(Request):
+        forced: tuple = ()
+
+        def next_input(self):
+            if self.fed < len(self.prompt):
+                return self.prompt[self.fed]
+            return self.forced[len(self.generated) - 1]
 
     rows, last = {}, {}
     sample, complete = eng._sample, eng._complete
@@ -5089,14 +5147,17 @@ def rescore_batch(eng, items, rid0):
         return sample(lg, keys)
 
     def done(g, slot, req, now_s):
-        rows[req.rid] = last["lg"][slot].float().clone()
+        lg = last["lg"]  # a prompt pass's logits have one row
+        row = lg[0 if lg.shape[0] == 1 else slot, :eng.cfg.vocab_size]
+        rows[req.rid] = row.float().clone()  # the vocab's, not the padding's
         return complete(g, slot, req, now_s)
 
     eng._sample, eng._complete = keep, done
-    for k, (prefix, mode_name) in enumerate(items):
+    for k, (prompt, forced, mode_name) in enumerate(items):
         eng.set_admission_mode(eng.ctrl.mode_by_name[mode_name])
-        eng.submit(Request(rid=rid0 + k, prompt=tuple(prefix),
-                           max_new_tokens=1))
+        eng.submit(Forced(rid=rid0 + k, prompt=tuple(prompt),
+                          max_new_tokens=len(forced) + 1,
+                          forced=tuple(forced)))
         eng.step()
     while eng.queue or eng.n_active:
         eng.step()
@@ -5107,17 +5168,22 @@ def rescore_batch(eng, items, rid0):
 def mesh_ranks(rank, world, out_dir):
     """One rank of ``mesh_phase``'s tp = 2 drives (``MESH_DRIVES``), both
     ranks on the one card over gloo. Every drive serves the same trace
-    through a ``MeshExecutor`` engine on both ranks; rank 0 also serves it
-    through a ``LocalExecutor`` engine. Streams must be identical on both
-    ranks; f32 drives must give the local drive's streams, bf16 drives may
-    part from it only at near ties (a parted request's common prefix is
-    rescored through mesh and local engines with a slot per parted
-    request, fed token by token at its mode: the local margin of its token
-    over the mesh's must be at most twice the largest logit change between
-    the two, or one bf16 step of the top logit). Each
-    rank's launch counts of a plain drive must equal the local drive's
-    (a rank launches its shard's kernels at the same shapes' count). Rank 0
-    writes the results to ``out_dir/mesh.json``."""
+    (``staggered_drive``: one request a tick, each at the next mode, so the
+    requests must cover a narrow width and a shallower depth) through a
+    ``MeshExecutor`` engine on both ranks; rank 0 also serves it through a
+    ``LocalExecutor`` engine. Streams and launch counts must be identical
+    on both ranks; f32 drives must give the local drive's streams, bf16
+    drives may part from it only at near ties (a parted request's common
+    prefix is rescored through mesh and local engines with a slot per
+    parted request along the drive's route (``rescore_batch``): the local
+    margin of its token over the mesh's must lie within twice the largest
+    logit change between the two, or one bf16 step of the top logit, either
+    way, and that change at most ``MESH_MAX_CHANGE_STEPS`` bf16 steps of
+    the top logit). Every
+    rank's launch counts of a plain or an f32 drive must equal the local
+    drive's (a rank launches its shard's kernels as often as the local
+    drive launches the whole ones). Rank 0 writes the results to
+    ``out_dir/mesh.json``."""
     import torch
     import torch.distributed as dist
 
@@ -5142,7 +5208,8 @@ def mesh_ranks(rank, world, out_dir):
         res = dict(tokens_per_s=gen / secs, generated=gen, host_s=secs,
                    launches=launches, decode_launches=eng.decode_launches,
                    verify_launches=eng.spec_verify_launches,
-                   prefills=eng.prefills)
+                   prefills=eng.prefills,
+                   modes=check_mixed_modes(name, eng))
         if not spec_k:
             host, dev = step_width_ms(torch, eng, 1.0, iters=5)
             res.update(step_host_ms=host, step_device_ms=dev)
@@ -5150,9 +5217,11 @@ def mesh_ranks(rank, world, out_dir):
         dist.all_gather_object(got, (out, launches))
         if any(g[0] != got[0][0] for g in got):
             fail(f"{name}: the ranks' streams differ")
+        if any(g[1] != got[0][1] for g in got):
+            fail(f"{name}: the ranks' launches differ: {[g[1] for g in got]}")
         res["launches_per_rank"] = [g[1] for g in got]
         modes = {r.rid: r.mode_name for r in eng.completed}
-        parted = None
+        parted = loc = None
         if rank == 0:
             loc = mesh_engine(cfg, params, LocalExecutor(MESH_DEVICE), spec_k)
             l_secs, ref, l_launches = counted_drive(torch, loc, trace)
@@ -5161,17 +5230,19 @@ def mesh_ranks(rank, world, out_dir):
             if not spec_k:
                 host, dev = step_width_ms(torch, loc, 1.0, iters=5)
                 res.update(local_step_host_ms=host, local_step_device_ms=dev)
-                if launches != l_launches:
-                    fail(f"{name}: rank 0 launched {launches}, the local "
-                         f"drive {l_launches}")
-            del loc
+            # a speculative bf16 drive's launches follow its acceptance,
+            # which follows its streams: only plain and f32 drives are held
+            if (not spec_k or strict) and any(
+                    lp != l_launches for lp in res["launches_per_rank"]):
+                fail(f"{name}: the ranks launched {res['launches_per_rank']}"
+                     f", the local drive {l_launches}")
             prompts = {r.rid: tuple(r.prompt) for r in trace}
             parted = []
             for rid, s in sorted(ref.items()):
                 if out[rid] != s:
                     j = next(k for k, (a, b) in enumerate(zip(s, out[rid]))
                              if a != b)
-                    parted.append((rid, j, prompts[rid] + tuple(s[:j]),
+                    parted.append((rid, j, (prompts[rid], tuple(s[:j])),
                                    s[j], out[rid][j]))
             if strict and parted:
                 fail(f"{name}: f32 mesh streams parted from the local "
@@ -5181,35 +5252,43 @@ def mesh_ranks(rank, world, out_dir):
         parted = box[0]
         rows = []
         if parted:
-            items = [(prefix, modes[rid]) for rid, _, prefix, _, _ in parted]
-            lms = rescore_batch(mesh_engine(cfg, params,
-                                      MeshExecutor(mesh, device=MESH_DEVICE),
-                                      0, threshold=10**6,
-                                      batch=len(items)), items, 10**6)
-            lls = (rescore_batch(mesh_engine(cfg, params,
-                                       LocalExecutor(MESH_DEVICE), 0,
-                                       threshold=10**6, batch=len(items)),
-                           items, 10**6) if rank == 0 else [])
-            for (rid, j, prefix, a, b), lm, ll in zip(parted, lms, lls):
+            items = [(*fed, modes[rid]) for rid, _, fed, _, _ in parted]
+            # a plain drive's own engines rescore (their slots are free
+            # now); a speculative one's would verify, so plain ones are built
+            lms = rescore_batch(eng if not spec_k else mesh_engine(
+                cfg, params, MeshExecutor(mesh, device=MESH_DEVICE), 0),
+                items, 10**6)
+            lls = (rescore_batch(loc if not spec_k else mesh_engine(
+                cfg, params, LocalExecutor(MESH_DEVICE), 0), items, 10**6)
+                if rank == 0 else [])
+            for (rid, j, _, a, b), lm, ll in zip(parted, lms, lls):
                 top = float(ll.max())
                 step = 2.0 ** (math.floor(math.log2(abs(top))) - 7) \
                     if top else 0.0
                 change = float((ll - lm).abs().max())
                 margin = float(ll[a] - ll[b])
+                cap = MESH_MAX_CHANGE_STEPS * step
                 row = dict(rid=rid, index=j, local=a, mesh=b,
                            margin=margin, max_logit_change=change,
-                           bf16_step=step,
-                           near_tie=margin <= 2 * max(change, step))
+                           bf16_step=step, change_cap=cap,
+                           near_tie=abs(margin) <= 2 * max(change, step)
+                           and change <= cap)
                 rows.append(row)
                 log(f"    {name}: rid {rid} parted at generated index {j} "
                     f"({a} local, {b} mesh): local margin {margin:.4f}, "
-                    f"max logit change mesh vs local {change:.4f}, bf16 "
-                    f"step {step:.4f}: "
+                    f"max logit change mesh vs local {change:.4f} (cap "
+                    f"{cap:.4f}), bf16 step {step:.4f}: "
                     + ("a near tie" if row["near_tie"] else "NOT a near tie"))
+                if change > cap:
+                    fail(f"{name}: rid {rid}: the mesh's logits moved by "
+                         f"{change:.4f} from the local drive's, above "
+                         f"{MESH_MAX_CHANGE_STEPS} bf16 steps ({cap:.4f})")
                 if not row["near_tie"]:
                     fail(f"{name}: rid {rid} parted from the local drive at "
-                         f"{j} with margin {margin:.4f} above twice the "
-                         f"logit change {max(change, step):.4f}")
+                         f"{j} with a margin of {margin:.4f} (the rescoring "
+                         f"must reproduce the local choice to within it) "
+                         f"beyond twice the logit change "
+                         f"{max(change, step):.4f}")
         res.update(parted=len(parted), requests=n_req, near_ties=rows,
                    seconds=time.perf_counter() - t_all)
         results[name] = res
@@ -5223,9 +5302,10 @@ def mesh_ranks(rank, world, out_dir):
                    f"{res['local_step_host_ms']:.3f} device "
                    f"{res['local_step_device_ms']})"
                    if not spec_k else "")
-                + f"; {len(parted)} of {n_req} streams parted; "
+                + f"; modes {res['modes']}; {len(parted)} of {n_req} "
+                f"streams parted; "
                 f"{res['seconds']:.1f} s")
-        del eng, params
+        del eng, loc, params
         if MESH_DEVICE == "cuda":
             torch.cuda.empty_cache()
         dist.barrier()
@@ -5236,8 +5316,9 @@ def mesh_ranks(rank, world, out_dir):
 
 def mesh_world_one(torch):
     """``MeshExecutor`` at world size 1 over NCCL in this process: the
-    full-width fused TinyLlama drive must give the ``LocalExecutor``
-    drive's tokens and per-kernel launch counts."""
+    full-width fused TinyLlama drive (``staggered_drive``, mixed widths and
+    depths) must give the ``LocalExecutor`` drive's tokens and per-kernel
+    launch counts."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_serve_mesh
@@ -5252,6 +5333,7 @@ def mesh_world_one(torch):
             fail(f"world size 1 on one card chose {dist.get_backend()}")
         eng = mesh_engine(cfg, params, MeshExecutor(mesh), 0)
         secs, out, launches = counted_drive(torch, eng, trace)
+        modes = check_mixed_modes("world size 1", eng)
         del eng
         loc = mesh_engine(cfg, params, LocalExecutor("cuda"), 0)
         l_secs, ref, l_launches = counted_drive(torch, loc, trace)
@@ -5267,11 +5349,11 @@ def mesh_world_one(torch):
     gen = sum(len(s) for s in out.values())
     log(f"  world size 1 over NCCL: {gen} tokens identical to the local "
         f"drive's, launches identical {launches}; {gen / secs:.1f} tok/s "
-        f"(local {gen / l_secs:.1f})")
+        f"(local {gen / l_secs:.1f}); modes {modes}")
     del params
     torch.cuda.empty_cache()
     return dict(tokens_per_s=gen / secs, local_tokens_per_s=gen / l_secs,
-                launches=launches, generated=gen)
+                launches=launches, generated=gen, modes=modes)
 
 
 def mesh_phase(torch):
@@ -5388,9 +5470,8 @@ def main(argv=None) -> int:
         smoke_reference(torch)
         smoke_tree_engines(torch)
         params = init_on_card(torch, cfg)
-        # 6 requests (12 until the mesh phase came): the later phases
-        # share the run's time
-        launches, _ = end_to_end(torch, cfg, params, timer, n_requests=6)
+        # 12 requests on 8 slots: the queued 4 are admitted at later modes
+        launches, _ = end_to_end(torch, cfg, params, timer, n_requests=12)
         phase("[phase 3] end to end: tinyllama-1.1b over a block-paged KV "
               "cache, one card")
         pl, paged_launches, _ = paged_end_to_end(torch, cfg, params)
@@ -5405,12 +5486,12 @@ def main(argv=None) -> int:
               "layers, one card")
         smoke_reference(torch, "mamba2-370m")
         smoke_tree_engines(torch, "mamba2-370m")
-        # half depth and 4 requests (full depth and 8 until the mesh phase
-        # came): the later phases share the run's time
+        # half depth (full depth until the mesh phase came: the later
+        # phases share the run's time); 10 requests on 8 slots
         mcut = depth_cut(mcfg, 24, (12, 18))
         mparams = init_on_card(torch, mcut)
         ssm_launches, _ = end_to_end(torch, mcut, mparams,
-                                     timer, n_requests=4, paths=SSM_PATHS,
+                                     timer, n_requests=10, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
@@ -5428,7 +5509,7 @@ def main(argv=None) -> int:
         gcfg = depth_cut(get_config("granite-moe-1b-a400m"), 12, (6, 9))
         gparams = init_on_card(torch, gcfg)
         moe_launches, _ = end_to_end(torch, gcfg, gparams, timer,
-                                     n_requests=6, paths=MOE_PATHS,
+                                     n_requests=12, paths=MOE_PATHS,
                                      expect=expected_launches_moe,
                                      agreements=MOE_AGREE)
         launches.update(moe_launches)

@@ -373,7 +373,8 @@ class ExecutorSupervisor:
                 eng.set_admission_mode(mode)
                 if eng.speculative is not None:
                     eng._retune_spec(policy, qd)
-            dt = self.tick(now_s=clock)
+            # the virtual clock decides admissions: rank 0's on a mesh
+            dt = self.engine.executor.agree(self.tick(now_s=clock))
             busy += dt
             clock += dt
         eng = self.engine

@@ -1718,9 +1718,7 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self, now_s: float = 0.0) -> float:
-        """One engine tick. Returns device wall-time spent (seconds): rank
-        0's on a mesh, so a virtual clock advanced by it agrees on every
-        rank."""
+        """One engine tick. Returns device wall-time spent (seconds)."""
         self._admit(now_s)
         spent = 0.0
         ticked = False
@@ -1778,7 +1776,7 @@ class ServingEngine:
                     key=["decode", g.depth])
         self.ticks_with_work += ticked
         self.step_count += 1
-        return self.executor.agree(spent)
+        return spent
 
     def _paged_tick(self, g: _DepthGroup, active_ix: List[int],
                     now_s: float) -> float:
@@ -2255,7 +2253,8 @@ class ServingEngine:
                 self.set_admission_mode(mode)
                 if self.speculative is not None:
                     self._retune_spec(policy, qd)
-            dt = self.step(now_s=clock)
+            # the virtual clock decides admissions: rank 0's on a mesh
+            dt = self.executor.agree(self.step(now_s=clock))
             busy += dt
             clock += dt
         total_generated = self._generated_total() - generated0

@@ -80,7 +80,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``ServingEngine`` (8 slots, a Poisson trace with prompts of 16-256 and
    32-64 new tokens, cache 512, prefill threshold 8, the admission mode
    moved every 12 ticks along a schedule of every (depth, width) mode):
-   full-width ``tinyllama-1.1b`` (12 requests) nine times: plain decode
+   full-width ``tinyllama-1.1b`` cut to 11 of its 22 layers (exits 5 and
+   8; 10 requests) nine times: plain decode
    unfused, ``fused=True``, and ``fused=True`` with
    ``attn_impl="chunked"`` (every prompt pass through ``flash_attention``),
    then linear self-speculation
@@ -93,9 +94,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    dense cache and over a block-paged one (page 16, the worst-case pool of
    264 pages), asserting identical tokens pair by pair, radix hits, the
    page accounting after every tick, every fused launch paged; then
-   full-width ``mamba2-370m`` cut to 24 of its 48 layers (exits 12 and
-   18; 10 requests) three times: plain greedy, speculative greedy and tree
-   speculative greedy (depth 24 drafts at exit 18, depth 18 at exit 12).
+   full-width ``mamba2-370m`` cut to 12 of its 48 layers (exits 6 and 9;
+   10 requests) three times: plain greedy, speculative greedy and tree
+   speculative greedy (depth 12 drafts at exit 9, depth 9 at exit 6).
    Each drive with more requests than slots must admit them at two modes
    or more (the queued ones at later modes). Before each model's drives, its f32
    smoke config serves greedily on the card with the tree (unfused; for
@@ -104,7 +105,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    smoke configs of granite, mixtral (window 8) and jamba on the card
    against the CPU (decode, capacity-dispatch prefill and verify, unfused
    and fused; jamba's fused kernels run without RoPE), and full-width
-   ``granite-moe-1b-a400m`` cut to 12 of its 24 layers (exits 6 and 9; 32
+   ``granite-moe-1b-a400m`` cut to 6 of its 24 layers (exits 3 and 4; 32
    experts of 512, top-8, 12 requests) four ways: plain unfused, plain fused, speculative
    K = 4 fused greedy and tree (2, 2, 1) fused greedy, each drive printing
    its step or tick (host and device ms, idle share, heaviest kernels),
@@ -128,9 +129,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``morph_matmul`` per layer and level of a tree draft (its experts run
    ``torch.matmul`` over the expert axis); every ``fused_decode``,
    ``fused_verify`` and ``flash_decode`` launch on the tensor-core route.
-   Then one full-depth 256-token prompt pass under the einsum and under the
-   chunked attention (host and device ms), one full-depth 256-token
-   Mamba2 prompt pass (48 scans), and the ``flash_decode`` entry point (the
+   Then one 256-token prompt pass of the drives' TinyLlama under the
+   einsum and under the chunked attention (host and device ms), one of
+   their Mamba2 (12 scans), and the ``flash_decode`` entry point (the
    reference's only caller of that kernel) driven once per TinyLlama layer
    at the serving cache's shape. Speculative drives
    report acceptance, tokens per verify launch per slot, tick p50/p95 and
@@ -163,7 +164,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    Then failover (``failover_phase``), each drive fused and greedy with 8
    slots, capacity 512 and all 12 (Mamba2: 8) Poisson requests arriving at
    t ~ 0 (rate 1e6, seed 5, 30% interactive, prompts 1-64): full-width
-   ``tinyllama-1.1b`` with ``attn_impl="chunked"``, linear K = 2 over a
+   ``tinyllama-1.1b`` cut to 11 layers (an exit at 5) with
+   ``attn_impl="chunked"``, linear K = 2 over a
    dense cache and tree (2, 2, 1) over a paged one (page 16), 32-64 new
    tokens; full-depth ``mamba2-370m``, linear K = 2, 16 new tokens; and
    TinyLlama cut to 4 layers in f32 (an exit at 2). Each runs the trace
@@ -208,19 +210,35 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    requests, tokens and launch counts identical to ``LocalExecutor``'s;
    then tp = 2 as two ranks sharing the card over gloo (``mesh_ranks``,
    started by ``launch.mesh.spawn_ranks``; a rank's failure fails the
-   run), ``MESH_DRIVES``: full-width fused TinyLlama (8 requests) plain and
-   K = 2, Mamba2 cut to 24 layers (4 requests), and both cut to 4 layers in
-   f32. Every mesh drive submits one request a tick, each at the next mode
+   run), ``MESH_DRIVES``: full-width fused TinyLlama cut to 11 layers (8
+   requests) plain and K = 2, Mamba2 cut to 12 layers (4 requests), and
+   both cut to 4 layers in
+   f32; full-width whisper-base and internvl2-2b (12 of its 24 layers; the
+   token feed) and full-depth granite-moe-1b-a400m in f32 (16 of its 32
+   experts a rank) plain and K = 2. Every mesh drive submits one request a tick, each at the next mode
    (``staggered_drive``: mixed widths in several depth groups, prefill
    admission and the token feed), and must cover a narrow width and a
    shallower depth; each rank's streams and launches identical to rank
    0's, f32 streams identical to the local drive's, bf16 ones parting only
    at near ties (the logits' change capped at ``MESH_MAX_CHANGE_STEPS``
    bf16 steps), each rank's launches of a plain or f32 drive equal to the
-   local drive's. Two ranks on one
+   local drive's. Then ``mesh_model_drives``: whisper-base and
+   internvl2-2b at full width in f32, 8 requests through a prompt pass
+   with frames or patches under ``attn_impl="chunked"`` (``flash_attention``)
+   and fused decode steps (whisper's cross-attention on ``flash_decode``),
+   each rank's launches equal to the local drive's and the logits to
+   ``MESH_F32_ATOL``; ``mesh_autoscale_drive``: the autoscale phase's
+   4-layer f32 drive with every engine over the mesh, each rank held to
+   that phase's checks, the ranks' publish and retire ticks, launches and
+   streams equal; ``serve_2d_drive``: ``serve_2d`` over (2, 1), TinyLlama
+   at full width, 4 layers, f32, each rank holding ``param_specs``' cut,
+   streams and launches equal to the local drive's, the gathers' host ms
+   per step printed. Two ranks on one
    card measure the collectives' placement, not multi-card speed. Phase 2
    holds ``morph_matmul``, the fused decode and the fused verify (S = 5)
-   at TinyLlama's tp = 2 rank shapes (``check_shard_shapes``).
+   at TinyLlama's tp = 2 rank shapes (``check_shard_shapes``), and those,
+   ``flash_decode`` and ``flash_attention`` at granite's, whisper's and
+   internvl's (``check_family_shard_shapes``).
 4. Training, one card. The scan's backward kernel (``ssd_scan_bwd``, on
    the forward kernel's kept workspace) against ``ssd_scan_bwd_plain`` at
    the Mamba2-370M training shape (B = 8, S = 256, 32 heads of 64,
@@ -231,13 +249,13 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    S = 256): ``loss_fn`` gradients on the card against the CPU plain route.
    Then two seeded runs of 2 full-depth Mamba2-370M train steps in one
    process, whose parameters and optimizer moments must be bit-identical
-   (``check_reproducible``). Then full-width, full-depth Mamba2-370M from
-   seeded random weights: 20
+   (``check_reproducible``). Then full-width Mamba2-370M cut to 24 layers
+   (exits 12 and 18) from seeded random weights: 20
    ``make_train_step`` steps (B = 8, S = 256, AdamW, over 4 batches; the
    loss must fall), DistillCycle over ``default_schedule`` (6 stages, 2
    teacher + 2 student steps each) and ``eval_modes(with_agreement=True)``,
    every step's forward and backward scan launches checked (a base step:
-   48 and 48; a teacher step at grown depth D: D and D; a student step at
+   24 and 24; a teacher step at grown depth D: D and D; a student step at
    depth d: D + d and d); 5 TinyLlama-1.1B train steps (no hand kernel
    on its path); and 5 whisper-base train steps (B = 8, 1500 frames and 64
    decoder tokens a sequence; no hand kernel on its path; the fifth step
@@ -245,8 +263,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    history and agreement per path are printed. The DistillCycle-trained
    Mamba2 parameters (which require grad) then serve 4 requests x 16 new
    tokens, plain and linear-speculative, with exact launch counts and the
-   acceptance printed. Last, a full-depth Mamba2-370M ``TrainRunner``
-   restart (``restart_drive``): 4 steps with a checkpoint every 2 and a
+   acceptance printed. Last, a Mamba2-370M ``TrainRunner`` cut to 24
+   layers restart (``restart_drive``): 4 steps with a checkpoint every 2 and a
    failure injected before step 3, resumed by ``run_with_restarts``, must
    end bit-identical to 4 uninterrupted steps; save and restore seconds
    and bytes printed, the checkpoints in a temporary directory removed
@@ -270,9 +288,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``autoscale_launches`` and their builds' warm launches under
    ``autoscale_build_launches``, ``fused_verify`` its S = 5 serving count
    under ``autoscale_verify_s5_serving``; ``morph_matmul``, ``fused_decode``,
-   ``fused_verify`` and ``ssd_scan`` rank 0's counts in the mesh drives
-   under ``mesh_launches``, the first three their tp = 2 shard-shape rows
-   under ``shard_shapes_tp2``), then
+   ``fused_verify``, ``ssd_scan``, ``flash_attention`` and ``flash_decode``
+   rank 0's counts in the mesh drives under ``mesh_launches``, their tp = 2
+   shard-shape rows under ``shard_shapes_tp2`` (the families' under
+   ``family_shard_shapes_tp2``, ``flash_decode``'s under
+   ``cross_attention_shard_tp2``)), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``. Needs one CUDA
@@ -283,6 +303,7 @@ kernel of phase 4).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import dataclasses
 import gc
@@ -638,25 +659,44 @@ def check_morph_matmul(torch, cfg, timer, act=None):
                     "one decoder layer (7 projections, B=8, mixed widths)")
 
 
-def check_morph_matmul_frontend(torch, timer):
+def check_morph_matmul_frontend(torch, timer, shard_tp=0, archs=None):
     """``morph_matmul`` over the projections of one whisper-base decoder
     layer (d_model 512: self- and cross-attention 512 x 512, GELU MLP 512
     x 2048) and one internvl2-2b layer (d_model 2048, 16 / 8 heads of 128,
     SwiGLU 8192), B = 8 decode rows at widths (0.5, 1) x 4 as the model
-    drives run them, bf16 activations (the tensor-core route)."""
-    from repro_torch.configs import get_config
-    from repro_torch.core import elastic
-
+    drives run them, bf16 activations (the tensor-core route); with
+    ``shard_tp``, rank 0's shard of each layer (``layer_config``)."""
     gen = torch.Generator(device="cuda").manual_seed(41)
     res = {}
-    for arch in FRONTEND_ARCHS:
-        c = get_config(arch)
-        act = elastic.active_widths_batch(c, [0.5, 1.0] * 4, device="cuda")
+    for arch in archs or FRONTEND_ARCHS:
+        c, act = layer_config(torch, arch, [0.5, 1.0] * 4, shard_tp)
         n = sum(k for *_, k in _layer_cases(c, act))
         res[arch] = mm_cases(torch, timer, gen, _layer_cases(c, act), 1,
                              f"one {arch} decoder layer ({n} projections, "
-                             f"B=8, widths (0.5, 1))")
+                             f"B=8, widths (0.5, 1)"
+                             + (f", rank 0 of tp = {shard_tp}"
+                                if shard_tp else "") + ")")
     return res
+
+
+def layer_config(torch, arch, widths, shard_tp=0):
+    """``arch``'s published config and the width gates of ``widths``, or,
+    with ``shard_tp``, rank 0's shard of it under ``serve_tp`` over
+    ``shard_tp`` ranks (``sharding.plan_serve_shard``) and the gates
+    localized to it (``tensor_parallel.localize``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import elastic
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel.tensor_parallel import localize
+
+    cfg = get_config(arch)
+    act = elastic.active_widths_batch(cfg, widths, device="cuda")
+    if not shard_tp:
+        return cfg, act
+    sh = SH.plan_serve_shard(cfg, {"data": 1, "model": shard_tp},
+                             n_slots=len(widths),
+                             coord={"data": 0, "model": 0})
+    return sh.cfg, localize(act, sh)
 
 
 def check_fused_decode(torch, cfg, timer, act=None):
@@ -1094,7 +1134,7 @@ ATTN_WHATS = ("decode", "verify linear", "verify tree")
 
 
 def check_fused_attention_shapes(torch, timer, archs=MOE_ATTN_ARCHS,
-                                 whats=ATTN_WHATS):
+                                 whats=ATTN_WHATS, shard_tp=0):
     """B2 and B3 at the attention shapes of ``archs``, published widths
     (the MoE families: ``granite-moe-1b-a400m``, 16 query heads of 64 over
     8 KV heads: group 2, RoPE; ``jamba-v0.1-52b``, 32 of 128 over 8: group
@@ -1102,23 +1142,21 @@ def check_fused_attention_shapes(torch, timer, archs=MOE_ATTN_ARCHS,
     at mixed positions: of ``whats``, the decode, the linear verify (S = 5)
     and the TREE verify, each against its plain version, on the
     tensor-core route, and timed beside it (profiler, cold L2); the decode
-    beside its byte bound (f32 weights, the live cache rows, x and out)."""
-    from repro_torch.configs import get_config
-    from repro_torch.core import elastic
+    beside its byte bound (f32 weights, the live cache rows, x and out).
+    With ``shard_tp``, at rank 0's shard of each (``layer_config``)."""
     from repro_torch.kernels import fused_decode as FD
 
     B, Sc = 8, 512
     depths, bias = tree_np(TREE)
     out = {}
     for arch in archs:
-        cfg = get_config(arch)
+        cfg, act = layer_config(torch, arch, [0.5, 1.0] * 4, shard_tp)
         dm, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         gen = torch.Generator(device="cuda").manual_seed(12)
         params = {n: torch.randn(*s, generator=gen, device="cuda")
                   / math.sqrt(s[0])
                   for n, s in (("wq", (dm, H * hd)), ("wk", (dm, KV * hd)),
                                ("wv", (dm, KV * hd)), ("wo", (H * hd, dm)))}
-        act = elastic.active_widths_batch(cfg, [0.5, 1.0] * 4, device="cuda")
         aq, akv = act["q_dim"], act["kv_dim"]
         pos = torch.tensor([0, 1, 63, 64, 200, 333, 450, 505],
                            dtype=torch.int32, device="cuda")
@@ -1790,10 +1828,7 @@ def check_flash_attention(torch, cfg, timer):
     ``scaled_dot_product_attention`` with ``enable_gqa`` (``is_causal``
     without a window, a boolean mask with one, neither when unmasked)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops
 
-    F = torch.nn.functional
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     wc = get_config(ENCDEC_ARCH)
     wh, wkv, whd, wse = wc.n_heads, wc.n_kv_heads, wc.head_dim, wc.enc_seq
@@ -1802,9 +1837,7 @@ def check_flash_attention(torch, cfg, timer):
     # text tokens for each of 8 requests
     vs = vc.frontend_seq + VLM_TEXT
     bf, f32 = torch.bfloat16, torch.float32
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    res = {}
-    for tag, (b, sq, sk, h, kv, d, causal, window, dt) in (
+    return flash_attention_cases(torch, timer, (
             ("prompt S=256", (1, 256, 256, H, KV, hd, True, 0, bf)),
             ("prompt S=200", (1, 200, 200, H, KV, hd, True, 0, bf)),
             ("kernel_bench win0", (2, 256, 256, 4, 2, 64, True, 0, f32)),
@@ -1815,7 +1848,38 @@ def check_flash_attention(torch, cfg, timer):
              (1, 16, wse, wh, wkv, whd, False, 0, bf)),
             (f"internvl prompt 8x{vs}",
              (8, vs, vs, vc.n_heads, vc.n_kv_heads, vc.head_dim, True, 0,
-              bf))):
+              bf))))
+
+
+def check_flash_attention_shards(torch, timer, tp=None):
+    """``flash_attention`` at the prompt-pass shapes of rank 0 of tp =
+    ``tp`` (``layer_config``): whisper's encoder (1 x 1500 x 1500)
+    unmasked over 4 of its 8 heads, internvl's
+    chunked prompt pass (8 x 320, causal) over 8 / 4 heads of 128; bf16,
+    as ``check_flash_attention`` holds the full shapes."""
+    tp = tp or MESH_TP
+    wc, _ = layer_config(torch, ENCDEC_ARCH, [1.0], tp)
+    vc, _ = layer_config(torch, VLM_ARCH, [1.0], tp)
+    wse, vs, bf = wc.enc_seq, vc.frontend_seq + VLM_TEXT, torch.bfloat16
+    w = (wc.n_heads, wc.n_kv_heads, wc.head_dim)
+    return flash_attention_cases(torch, timer, (
+        (f"whisper encoder 1500x1500 tp{tp}",
+         (1, wse, wse, *w, False, 0, bf)),
+        (f"internvl prompt 8x{vs} tp{tp}",
+         (8, vs, vs, vc.n_heads, vc.n_kv_heads, vc.head_dim, True, 0, bf))))
+
+
+def flash_attention_cases(torch, timer, cases):
+    """Each ``(tag, (b, sq, sk, h, kv, d, causal, window, dtype))`` of
+    ``cases`` through ``ops.flash_attention_bshd`` against the plain
+    version, timed beside it, SDPA and the bound."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    res = {}
+    for tag, (b, sq, sk, h, kv, d, causal, window, dt) in cases:
         q = torch.randn(b, sq, h, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(b, sk, kv, d, generator=gen, device="cuda").to(dt)
@@ -2916,25 +2980,27 @@ VLM_DRIVES = ("internvl_prefill_einsum", "internvl_prefill_chunked",
               "internvl_decode_fused", "internvl_vs_cpu")
 
 
-def check_cross_decode(torch, timer):
+def check_cross_decode(torch, timer, shard_tp=0,
+                       qdts=("bfloat16", "float32")):
     """B5 at whisper-base's cross-attention decode shape: 8 slots x 8
     heads over 64 KV rows of all 1500 encoder positions (kv_len 1500), hd
     64, group 1, a bf16 cache (the tensor-core route), with bf16 queries
     (the model's) and f32 ones (an f32 model's), against its plain version,
     timed beside it, beside SDPA over the same keys (bf16 queries) and
-    beside its byte bound (K and V read once)."""
-    from repro_torch.configs import get_config
+    beside its byte bound (K and V read once). With ``shard_tp``, at rank
+    0's shard (``layer_config``: 4 of the 8 heads over 32 KV rows at
+    tp = 2)."""
     from repro_torch.kernels import flash_decode as FDK
 
     F = torch.nn.functional
-    cfg = get_config(ENCDEC_ARCH)
+    cfg, _ = layer_config(torch, ENCDEC_ARCH, [1.0] * 8, shard_tp)
     B, H, KV, hd, Se = 8, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.enc_seq
     g = H // KV
     gen = torch.Generator(device="cuda").manual_seed(31)
     kc, vc, _, _ = decode_cache(torch, gen, B * KV, Se, hd, False)
     res = {}
-    for qdt in (torch.bfloat16, torch.float32):
+    for qdt in (getattr(torch, n) for n in qdts):
         q = torch.randn(B * H, hd, generator=gen, device="cuda").to(qdt)
 
         def kern():
@@ -3031,7 +3097,8 @@ def expected_launches_frontend(torch, engine, steps0, fused: bool, device):
     return {k: v * steps[0] for k, v in per.items()}, steps
 
 
-def frontend_batch(torch, cfg, n: int, text: int, seed: int = 0):
+def frontend_batch(torch, cfg, n: int, text: int, seed: int = 0,
+                   device="cuda"):
     """``n`` requests of ``text`` prompt tokens each and the frontend's
     seeded inputs (``data.make_batch``: whisper ``frames`` (n, 1500, 512),
     internvl ``patches`` (n, 256, 1024)), on the card."""
@@ -3041,7 +3108,7 @@ def frontend_batch(torch, cfg, n: int, text: int, seed: int = 0):
     b = make_batch(cfg, DataConfig(seed=seed, global_batch=n,
                                    seq_len=extra + text), 0)
     b.pop("targets")
-    return to_device(b, "cuda")
+    return to_device(b, device)
 
 
 def check_routes(what: str, launches: dict) -> None:
@@ -3753,14 +3820,16 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
     phase("[phase 4] training: full-depth Mamba2-370M steps reproduce bit for "
           "bit")
     check_reproducible(torch, mcfg)
-    phase("[phase 4] training: full-width, full-depth Mamba2-370M base steps "
-          "and DistillCycle, one card")
-    ml, mres, mparams = train_drive(torch, mcfg, 20, True, dict(lr=2e-3))
+    phase("[phase 4] training: full-width Mamba2-370M cut to 24 layers: base "
+          "steps and DistillCycle, one card")
+    # 24 of its 48 layers since PR 26 (the run's time)
+    mcut = depth_cut(mcfg, 24, (12, 18))
+    ml, mres, mparams = train_drive(torch, mcut, 20, True, dict(lr=2e-3))
     phase("[phase 4] serving the DistillCycle-trained Mamba2-370M parameters")
     n_grad = sum(t.requires_grad for t in _leaves(mparams))
     log(f"  {n_grad} of {len(list(_leaves(mparams)))} trained parameter "
         f"tensors require grad; served as they are")
-    sl, sres = end_to_end(torch, mcfg, mparams, n_requests=4,
+    sl, sres = end_to_end(torch, mcut, mparams, n_requests=4,
                           prompt_len=(16, 64), new_tokens=(16, 16),
                           capacity=128, paths=TRAINED_PATHS,
                           expect=expected_launches_ssm,
@@ -3794,11 +3863,14 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
 # at t ~ 0, so the schedule does not depend on step times), seed 5, 30%
 # interactive.
 FAILOVER_DRIVES = (
-    ("tinyllama_fused_linear", "tinyllama-1.1b", dict(attn_impl="chunked"),
-     "linear", 0, 12, (1, 64), (32, 64), ("decode", "verify", "prefill")),
-    ("tinyllama_paged_tree", "tinyllama-1.1b", dict(attn_impl="chunked"),
-     "tree", PAGE, 12, (1, 64), (32, 64),
-     ("paged_decode", "tree_verify", "prefill")),
+    # TinyLlama at 11 of its 22 layers (an exit at 5) since PR 26: the later
+    # phases share the run's time
+    ("tinyllama_fused_linear", "tinyllama-1.1b",
+     dict(attn_impl="chunked", n_layers=11), "linear", 0, 12, (1, 64),
+     (32, 64), ("decode", "verify", "prefill")),
+    ("tinyllama_paged_tree", "tinyllama-1.1b",
+     dict(attn_impl="chunked", n_layers=11), "tree", PAGE, 12, (1, 64),
+     (32, 64), ("paged_decode", "tree_verify", "prefill")),
     ("mamba2_linear", "mamba2-370m", {}, "linear", 0, 8, (1, 64), (16, 16),
      ("decode", "verify", "prefill")),
     # full width cut to 4 layers, f32 (an exit at 2 to draft from): the
@@ -4439,13 +4511,8 @@ def _instrument(asc, builds, gens):
 
 def _await_builds(asc, timeout_s=300.0):
     """Wait for the background builder, publishing finished units on this
-    thread as a serving tick would."""
-    t0 = time.monotonic()
-    while asc._pending and time.monotonic() - t0 < timeout_s:
-        asc._drain_publish()
-        time.sleep(0.01)
-    asc._drain_publish()
-    if asc._pending:
+    thread as a serving tick would (over a mesh, on every rank at once)."""
+    if not asc.await_builds(timeout_s):
         fail(f"autoscaler builds {sorted(asc._pending)} never finished")
 
 
@@ -4527,7 +4594,7 @@ def _autoscale_checks(torch, what, cfg, eng, asc, budget, compiles0,
 
 
 def autoscale_drive(torch, name, cfg, params, page, dwell, strict,
-                    standby=False, device="cuda"):
+                    standby=False, device="cuda", executor=None):
     """One drive of the online autoscaler (``runtime.autoscale``) on
     ``cfg``: fused, greedy, 8 slots, capacity 512, prefill threshold 8,
     ``SpecConfig(ks=(2,), min_accept_rate=0.0)``, a block-paged cache when
@@ -4557,6 +4624,8 @@ def autoscale_drive(torch, name, cfg, params, page, dwell, strict,
     generations, publications, retirements, front and table sizes, each
     build's seconds, the generations' host ms, the serving ticks' host ms
     p50 / p95 with a build in flight and without one, and peak memory.
+    ``executor`` (a factory) serves every engine through it: a mesh
+    rank's ``MeshExecutor`` runs the same drive on every rank.
     Returns (launches per run, results)."""
     from repro_torch.models.paged import PagedLayout
     from repro_torch.runtime.autoscale import (AutoscaleConfig,
@@ -4574,7 +4643,8 @@ def autoscale_drive(torch, name, cfg, params, page, dwell, strict,
                             prefill_threshold=8, fused=True,
                             speculative=SpecConfig(ks=(AUTOSCALE_K,),
                                                    min_accept_rate=0.0),
-                            paged=layout, device=device)
+                            paged=layout, device=device,
+                            executor=executor() if executor else None)
         eng.warmup()
         complete = eng._complete
 
@@ -4617,7 +4687,8 @@ def autoscale_drive(torch, name, cfg, params, page, dwell, strict,
     _instrument(asc, builds, gens)
     asc.bind(eng)
     policy = AutoscalePolicy(cfg, eng.ctrl, autoscaler=asc, batch_size=8,
-                             cache_capacity=512, metrics=eng.metrics)
+                             cache_capacity=512, metrics=eng.metrics,
+                             executor=eng.executor)
     rounded = []  # (needed pages, the ladder's bucket, the live one)
     if layout is not None:
         bucket_for = eng._bucket_for
@@ -4707,7 +4778,11 @@ def autoscale_drive(torch, name, cfg, params, page, dwell, strict,
         verify_s5_serving=s5, build_launches=want_b,
         tokens_per_s_fixed=gen / wall_base, tokens_per_s_autoscaled=gen / wall,
         peak_gib=peak, streams_identical=not diverged, diverged=diverged,
-        near_ties=ties)
+        near_ties=ties, run_launches=run_launches,
+        events=[[e["step"], e["event"], e["unit"]] for e in
+                eng.metrics.events("autoscale_events", (
+                    "step", "event", "unit", "generation", "detail"))
+                if e["event"] != "generation"])
     if layout is not None:
         res["rounded_up_launches"] = len([r for r in rounded if r[2] > r[1]])
         res["live_buckets"] = sorted(eng._avail_buckets)
@@ -4885,7 +4960,8 @@ def autoscale_phase(torch, device="cuda"):
 
 
 def restart_drive(torch, cfg, n_steps=4, every=2, fail_at=3):
-    """Phase 4's restart drive (PR 23): full-width, full-depth ``cfg``
+    """Phase 4's restart drive (PR 23): full-width ``cfg`` (cut to 24 layers
+    since PR 26)
     (B = 8, S = 256, AdamW lr 2e-3) for ``n_steps`` steps through
     ``TrainRunner`` with a checkpoint every ``every`` steps and a failure
     injected before step ``fail_at``; ``run_with_restarts`` resumes from
@@ -4998,15 +5074,43 @@ MESH_MAX_CHANGE_STEPS = 16
 # name, arch, config overrides, speculative (K or 0), requests, new tokens,
 # streams held strictly (f32) or by near ties (bf16)
 MESH_DRIVES = (
-    ("tinyllama_tp2", "tinyllama-1.1b", {}, 0, 8, (16, 32), False),
-    ("tinyllama_tp2_k2", "tinyllama-1.1b", {}, 2, 8, (8, 16), False),
+    # TinyLlama's bf16 drives at 11 of its 22 layers and Mamba2's at 12 of
+    # its 48 since PR 26 (full depth and 24 in PR 25): the run's time
+    ("tinyllama_tp2", "tinyllama-1.1b", dict(n_layers=11), 0, 8, (16, 32),
+     False),
+    ("tinyllama_tp2_k2", "tinyllama-1.1b", dict(n_layers=11), 2, 8, (8, 16),
+     False),
     ("tinyllama_tp2_f32_4layers", "tinyllama-1.1b",
      dict(dtype="float32", n_layers=4), 2, 8, (16, 32), True),
-    ("mamba2_tp2_24layers", "mamba2-370m", dict(n_layers=24), 0, 4, (8, 16),
+    ("mamba2_tp2_12layers", "mamba2-370m", dict(n_layers=12), 0, 4, (8, 16),
      False),
     ("mamba2_tp2_f32_4layers", "mamba2-370m",
      dict(dtype="float32", n_layers=4), 0, 4, (8, 16), True),
+    # the encoder-decoder, frontend and MoE families at full width and
+    # depth; granite (16 of its 32 experts a rank) in f32: in bf16 a
+    # rank's rounding moves the router's top-8 choice at near ties, and a
+    # moved expert changes its token's logits by more than the near-tie cap
+    # (a parting's change of 0.091 over a cap of 0.063 on an H100)
+    ("whisper_tp2", "whisper-base", {}, 0, 8, (8, 16), False),
+    ("internvl_tp2", "internvl2-2b", dict(n_layers=12), 0, 8, (8, 16),
+     False),
+    ("granite_tp2_f32", "granite-moe-1b-a400m", dict(dtype="float32"), 0, 8,
+     (8, 16), True),
+    ("granite_tp2_f32_k2", "granite-moe-1b-a400m", dict(dtype="float32"), 2,
+     8, (4, 8), True),
 )
+# the model-level drives of the encoder-decoder and frontend families at
+# tp = 2, in f32 (held to the local drive's logits to MESH_F32_ATOL): a
+# prompt pass with frames or patches under attn_impl="chunked" (B6), then
+# fused decode steps (whisper's cross-attention on B5)
+MESH_MODEL_DRIVES = (("whisper_model_tp2", "whisper-base", 4, 8),
+                     ("internvl_model_tp2", "internvl2-2b", 64, 4))
+MESH_F32_ATOL = 1e-3
+# serve_2d at (2, 1): TinyLlama at full width, 4 layers, f32, every prompt
+# prefilled; each step call gathers 0.62 GB a rank through the host
+# (gloo), ~2 s (PR 26, call 3): 4 requests of 2-4 new tokens
+SERVE_2D_DRIVE = ("tinyllama_serve2d_dp2", "tinyllama-1.1b",
+                  dict(dtype="float32", n_layers=4), 4, (2, 4))
 
 
 def check_shard_shapes(torch, cfg, timer, tp=MESH_TP):
@@ -5033,6 +5137,31 @@ def check_shard_shapes(torch, cfg, timer, tp=MESH_TP):
     return dict(morph_matmul=check_morph_matmul(torch, sh.cfg, timer, act),
                 fused_decode=check_fused_decode(torch, sh.cfg, timer, act),
                 fused_verify=check_fused_verify(torch, sh.cfg, timer, act))
+
+
+def check_family_shard_shapes(torch, timer, tp=MESH_TP):
+    """The kernels at the shapes a tp = ``tp`` rank of the MoE,
+    encoder-decoder and frontend families gives them (rank 0's shard,
+    ``layer_config``): ``morph_matmul`` over one internvl decoder layer;
+    ``fused_decode`` at granite's (8 / 4 heads of 64),
+    whisper's (4 / 4 of 64) and internvl's (8 / 4 of 128) attention and
+    ``fused_verify`` (S = 5) at granite's; ``flash_decode`` at whisper's
+    cross-attention (32 KV rows x 1500, bf16 queries); ``flash_attention``
+    at whisper's encoder and internvl's chunked prompt pass. Each
+    against its plain version, timed beside its bound and the library
+    call where the full-shape checks time one."""
+    return dict(
+        morph_matmul=check_morph_matmul_frontend(torch, timer, shard_tp=tp,
+                                                 archs=(VLM_ARCH,)),
+        granite=check_fused_attention_shapes(
+            torch, timer, archs=("granite-moe-1b-a400m",),
+            whats=("decode", "verify linear"), shard_tp=tp),
+        frontend=check_fused_attention_shapes(
+            torch, timer, archs=FRONTEND_ARCHS, whats=("decode",),
+            shard_tp=tp),
+        flash_decode=check_cross_decode(torch, timer, shard_tp=tp,
+                                        qdts=("bfloat16",)),
+        flash_attention=check_flash_attention_shards(torch, timer, tp))
 
 
 def shard_row(res):
@@ -5309,9 +5438,240 @@ def mesh_ranks(rank, world, out_dir):
         if MESH_DEVICE == "cuda":
             torch.cuda.empty_cache()
         dist.barrier()
+    results.update(mesh_model_drives(torch, rank, world, mesh))
+    results.update(mesh_autoscale_drive(torch, rank, world, mesh))
+    results.update(serve_2d_drive(torch, rank, world))
     if rank == 0:
         with open(os.path.join(out_dir, "mesh.json"), "w") as f:
             json.dump(results, f)
+
+
+def _f32_model_drive(torch, cfg, params, shard, batch, n_steps):
+    """``frontend_model_drive``'s prompt pass (``attn_impl="chunked"``)
+    and ``n_steps`` greedy fused decode steps at full width on ``params``,
+    inside ``shard``'s context (None: the local drive); counters zeroed
+    before and read after. Returns (logits (B, 1 + n_steps, V), launches,
+    prompt-pass host ms)."""
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.parallel.tensor_parallel import shard_context
+
+    count_reset = counters()
+    for _, reset in count_reset.values():
+        reset()
+    sync(torch, MESH_DEVICE)
+    with torch.no_grad(), shard_context(shard):
+        t0 = time.perf_counter()
+        lg, cache = prefill(params, batch, cfg, cache_extra=n_steps + 4,
+                            per_slot=True)
+        sync(torch, MESH_DEVICE)
+        host = (time.perf_counter() - t0) * 1e3
+        out = [lg[:, -1:, :cfg.vocab_size].float()]
+        for _ in range(n_steps):
+            tok = out[-1][:, -1].argmax(-1)[:, None]
+            lg, cache = decode_step(params, cache, tok, cfg, fused=True)
+            out.append(lg[:, -1:, :cfg.vocab_size].float())
+    sync(torch, MESH_DEVICE)
+    return (torch.cat(out, 1),
+            {n: count() for n, (count, _) in count_reset.items()}, host)
+
+
+def mesh_model_drives(torch, rank, world, mesh):
+    """``MESH_MODEL_DRIVES``: whisper-base and internvl2-2b at full width
+    in f32 on every rank (a ``MeshExecutor``'s shard, the model code under
+    its context), 8 requests through a prompt pass with frames or patches
+    under ``attn_impl="chunked"`` and greedy fused decode steps; rank 0
+    runs the same drive on the whole model. Every rank's launches must
+    equal the local drive's (B6 once per attention of the prompt pass, B5
+    once per decoder layer-step for whisper's cross-attention) and the
+    logits the local drive's to ``MESH_F32_ATOL``."""
+    import torch.distributed as dist
+
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serving import MeshExecutor
+
+    results = {}
+    for name, arch, text, n_steps in MESH_MODEL_DRIVES:
+        t_all = time.perf_counter()
+        cfg = mesh_config(arch, dict(dtype="float32")).scaled(
+            attn_impl="chunked")
+        params = init_params(cfg, seed=0, device=MESH_DEVICE)
+        batch = frontend_batch(torch, cfg, 8, text, device=MESH_DEVICE)
+        ex = MeshExecutor(mesh, device=MESH_DEVICE).bind(cfg, 8, 64)
+        shard_params = ex.place_params(params)
+        got, launches, host = _f32_model_drive(
+            torch, ex.shard.cfg, shard_params, ex.comm, batch, n_steps)
+        every = [None] * world
+        dist.all_gather_object(every, launches)
+        if any(e != launches for e in every):
+            fail(f"{name}: the ranks' launches differ: {every}")
+        res = dict(launches_per_rank=every, prompt_host_ms=host,
+                   steps=n_steps)
+        if rank == 0:
+            want, l_launches, l_host = _f32_model_drive(
+                torch, cfg, params, None, batch, n_steps)
+            err = float((got - want).abs().max())
+            same = bool((got.argmax(-1) == want.argmax(-1)).all())
+            if l_launches != launches:
+                fail(f"{name}: a rank launched {launches}, the local drive "
+                     f"{l_launches}")
+            if not math.isfinite(err) or err > MESH_F32_ATOL or not same:
+                fail(f"{name}: logits {err:.3e} from the local drive's "
+                     f"(atol {MESH_F32_ATOL:.0e}), tokens same: {same}")
+            if MESH_DEVICE == "cuda" and (
+                    not launches["flash_attention"] or (
+                        cfg.is_encdec and not launches["flash_decode"])):
+                fail(f"{name}: the prompt pass or the cross-attention "
+                     f"decode left its kernel: {launches}")
+            res.update(max_abs_err=err, local_prompt_host_ms=l_host,
+                       local_launches=l_launches)
+            log(f"  {name}: 8 requests, prompt pass (chunked) + {n_steps} "
+                f"fused steps in f32 at tp = {world}: launches per rank "
+                + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+                + f" (= local); logits max |mesh - local| {err:.3e} (atol "
+                f"{MESH_F32_ATOL:.0e}), greedy tokens identical; prompt "
+                f"pass host {host:.1f} ms (local {l_host:.1f}); "
+                f"{time.perf_counter() - t_all:.1f} s")
+        res["seconds"] = time.perf_counter() - t_all
+        results[name] = res
+        del params, shard_params, ex, batch
+        if MESH_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return results
+
+
+def mesh_autoscale_drive(torch, rank, world, mesh):
+    """The autoscale phase's f32 drive (``autoscale_drive``: TinyLlama 4
+    layers in f32, exit 3, K = 2 warmed, candidate K = 4, table budget
+    warmup + 1, the two-phase trace) with every engine a ``MeshExecutor``
+    over tp = ``world``, beside the same trace fixed-mode on the mesh
+    (streams identical: f32). Each rank runs ``autoscale_drive``'s checks
+    (a publication and a retirement, K = 4 taken on the serving thread,
+    fused_verify at S = 5, serving launches as the engine's counters ask
+    of a local engine, build launches apart, no stall, no drop, the table
+    within its budget); then every rank's publish and retire ticks,
+    serving launches, build launches and streams must be equal."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime.serving import MeshExecutor
+
+    name = "autoscale_tp2_f32_4layers"
+    t_all = time.perf_counter()
+    base = (get_config(AUTOSCALE_ARCH) if MESH_DEVICE == "cuda"
+            else smoke_config(AUTOSCALE_ARCH))
+    cfg = base.scaled(elastic=dataclasses.replace(base.elastic,
+                                                  exit_layers=(3,)),
+                      dtype="float32", n_layers=4)
+    params = init_params(cfg, seed=0, device=MESH_DEVICE)
+    quiet = (contextlib.nullcontext() if rank == 0
+             else contextlib.redirect_stdout(io.StringIO()))
+    with quiet:
+        launches, res = autoscale_drive(
+            torch, name, cfg, params, 0, AUTOSCALE_DWELL, True,
+            device=MESH_DEVICE,
+            executor=lambda: MeshExecutor(mesh, device=MESH_DEVICE))
+    mine = {k: res[k] for k in ("events", "run_launches", "build_launches",
+                                "published", "retired", "table")}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    for k in mine:
+        if any(e[k] != mine[k] for e in every):
+            fail(f"{name}: the ranks' {k} differ: {[e[k] for e in every]}")
+    res.update(launches_per_rank=[e["run_launches"] for e in every],
+               seconds=time.perf_counter() - t_all)
+    if rank == 0:
+        log(f"  {name}: publish / retire ticks on every rank "
+            f"{res['events']}; serving launches per rank "
+            f"{res['run_launches']}, builds' apart {res['build_launches']}"
+            f"; tokens/s fixed-mode {res['tokens_per_s_fixed']:.1f}, "
+            f"autoscaled {res['tokens_per_s_autoscaled']:.1f}; "
+            f"{res['seconds']:.1f} s")
+    del params
+    if MESH_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return {name: res}
+
+
+def serve_2d_drive(torch, rank, world):
+    """``SERVE_2D_DRIVE``: ``serve_2d`` over a (``world``, 1) mesh (the
+    weights split over ``data``, 4 slots a rank): each rank must hold
+    ``param_specs(..., "serve_2d")``'s cut (half the weights), serve the
+    local drive's streams (f32) with its launches, and the ranks the same;
+    prints the gathers' host ms per step call and a full-depth step's host
+    and device ms beside the local engine's."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.runtime.serving import LocalExecutor, MeshExecutor
+
+    name, arch, overrides, n_req, new_tokens = SERVE_2D_DRIVE
+    t_all = time.perf_counter()
+    mesh = make_serve_mesh(world, 1, device=MESH_DEVICE)
+    cfg = mesh_config(arch, overrides)
+    params = init_params(cfg, seed=0, device=MESH_DEVICE)
+    trace = mesh_trace(cfg, n_req, new_tokens)
+    eng = mesh_engine(cfg, params, MeshExecutor(
+        mesh, policy="serve_2d", device=MESH_DEVICE), 0, threshold=1)
+    s2d = eng.executor.comm.serve2d
+    specs = SH.param_specs(params, cfg, mesh, "serve_2d")
+    held = SH.shard_params(params, specs, mesh)
+    flat = list(_leaves(eng.params))
+    if not all(torch.equal(a, b) for a, b in zip(flat, _leaves(held))):
+        fail(f"{name}: a held leaf is not param_specs' serve_2d cut")
+    held_gb = sum(t.numel() * t.element_size() for t in flat) / 1e9
+    full_gb = sum(t.numel() * t.element_size()
+                  for t in _leaves(params)) / 1e9
+    s2d.gather_s, s2d.views = 0.0, 0
+    secs, out, launches = counted_drive(torch, eng, trace)
+    gather_ms = s2d.gather_s / max(s2d.views, 1) * 1e3
+    host, dev = step_width_ms(torch, eng, 1.0, iters=1)
+    gen = sum(len(x) for x in out.values())
+    every = [None] * world
+    dist.all_gather_object(every, (out, launches))
+    if any(e != every[0] for e in every):
+        fail(f"{name}: the ranks' streams or launches differ")
+    res = dict(tokens_per_s=gen / secs, generated=gen, held_gb=held_gb,
+               full_gb=full_gb, gather_ms_per_step=gather_ms,
+               step_calls=s2d.views, step_host_ms=host, step_device_ms=dev,
+               launches_per_rank=[e[1] for e in every],
+               modes=check_mixed_modes(name, eng))
+    del eng
+    if rank == 0:
+        loc = mesh_engine(cfg, params, LocalExecutor(MESH_DEVICE), 0,
+                          threshold=1)
+        l_secs, ref, l_launches = counted_drive(torch, loc, trace)
+        l_host, l_dev = step_width_ms(torch, loc, 1.0, iters=1)
+        if out != ref:
+            fail(f"{name}: f32 serve_2d streams parted from the local "
+                 f"drive's")
+        if launches != l_launches:
+            fail(f"{name}: a rank launched {launches}, the local drive "
+                 f"{l_launches}")
+        res.update(local_tokens_per_s=gen / l_secs, local_launches=l_launches,
+                   local_step_host_ms=l_host, local_step_device_ms=l_dev)
+        log(f"  {name}: serve_2d over ({world}, 1), each rank holding "
+            f"{held_gb:.3f} of {full_gb:.3f} GB (param_specs' cut); {gen} "
+            f"tokens identical to the local drive's, launches per rank "
+            f"{launches} (= local); {gen / secs:.1f} tok/s (local "
+            f"{gen / l_secs:.1f}); gathers {gather_ms:.3f} host ms per step "
+            f"call ({s2d.views} calls); full-depth w1.0 step host "
+            f"{host:.3f} ms device {dev} ms (local {l_host:.3f} / {l_dev}); "
+            f"modes {res['modes']}; {time.perf_counter() - t_all:.1f} s")
+        del loc
+    res["seconds"] = time.perf_counter() - t_all
+    del params
+    if MESH_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return {name: res}
 
 
 def mesh_world_one(torch):
@@ -5374,8 +5734,9 @@ def mesh_phase(torch):
     with open(os.path.join(out_dir, "mesh.json")) as f:
         results.update(json.load(f))
     launches = {"mesh_world1_nccl": results["world1_nccl"]["launches"]}
-    for name, *_ in MESH_DRIVES:
-        launches[name] = results[name]["launches_per_rank"][0]
+    for name, res in results.items():
+        if "launches_per_rank" in res:
+            launches[name] = res["launches_per_rank"][0]
     log(f"  mesh phase: {time.perf_counter() - t0:.1f} s")
     return launches, results
 
@@ -5413,9 +5774,11 @@ def main(argv=None) -> int:
     for name in _build.KERNELS:
         for ln in _build.ptxas_report(name):
             log(f"    {name}: {ln}")
-    for name in ("morph_matmul", "flash_attention", "fused_decode",
-                 "flash_decode", "fused_verify", "ssd_scan"):
-        log(f"  {name}: {sass_mma(name)}")
+    tc_libs = ("morph_matmul", "flash_attention", "fused_decode",
+               "flash_decode", "fused_verify", "ssd_scan")
+    with concurrent.futures.ThreadPoolExecutor(len(tc_libs)) as pool:
+        for name, sass in zip(tc_libs, pool.map(sass_mma, tc_libs)):
+            log(f"  {name}: {sass}")
 
     cfg = get_config("tinyllama-1.1b")
     mcfg = get_config("mamba2-370m")
@@ -5448,6 +5811,10 @@ def main(argv=None) -> int:
     phase(f"[phase 2] morph_matmul, fused decode and fused verify at "
           f"TinyLlama's tp = {MESH_TP} shard shapes")
     shard = check_shard_shapes(torch, cfg, timer)
+    phase(f"[phase 2] morph_matmul, fused decode and verify, flash_decode "
+          f"and flash_attention at the granite, whisper and internvl tp = "
+          f"{MESH_TP} shard shapes")
+    fam = check_family_shard_shapes(torch, timer)
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
     mms, mmsv = check_morph_matmul_ssm(torch, mcfg, timer)
     ssd = check_ssd_scan(torch, mcfg, timer)
@@ -5466,36 +5833,40 @@ def main(argv=None) -> int:
     autoscale_launches, autoscale_res = {}, {}
     mesh_launches, mesh_res = {}, {}
     if not args.skip_e2e:
-        phase("[phase 3] end to end: tinyllama-1.1b, full width, one card")
+        phase("[phase 3] end to end: tinyllama-1.1b, full width, 11 of its "
+              "22 layers, one card")
         smoke_reference(torch)
         smoke_tree_engines(torch)
-        params = init_on_card(torch, cfg)
-        # 12 requests on 8 slots: the queued 4 are admitted at later modes
-        launches, _ = end_to_end(torch, cfg, params, timer, n_requests=12)
+        # 11 of its 22 layers (exits 5 and 8) since PR 26: the run's time
+        tcut = depth_cut(cfg, 11, (5, 8))
+        params = init_on_card(torch, tcut)
+        # 10 requests on 8 slots: the queued 2 are admitted at later modes
+        launches, _ = end_to_end(torch, tcut, params, timer, n_requests=10)
         phase("[phase 3] end to end: tinyllama-1.1b over a block-paged KV "
               "cache, one card")
-        pl, paged_launches, _ = paged_end_to_end(torch, cfg, params)
+        pl, paged_launches, _ = paged_end_to_end(torch, tcut, params)
         launches.update(pl)
-        prompt_pass_ms(torch, params, cfg)
+        prompt_pass_ms(torch, params, tcut)
         del params
         torch.cuda.empty_cache()
         phase("[phase 3] the flash_decode entry point at the serving cache's "
               "shape")
         launches["flash_decode_entry"] = flash_decode_drive(torch, cfg)
-        phase("[phase 3] end to end: mamba2-370m, full width, 24 of its 48 "
+        phase("[phase 3] end to end: mamba2-370m, full width, 12 of its 48 "
               "layers, one card")
         smoke_reference(torch, "mamba2-370m")
         smoke_tree_engines(torch, "mamba2-370m")
-        # half depth (full depth until the mesh phase came: the later
-        # phases share the run's time); 10 requests on 8 slots
-        mcut = depth_cut(mcfg, 24, (12, 18))
+        # a quarter of its depth (full depth until the mesh phase came,
+        # half until its PR 26 drives: the later phases share the run's
+        # time); 10 requests on 8 slots
+        mcut = depth_cut(mcfg, 12, (6, 9))
         mparams = init_on_card(torch, mcut)
         ssm_launches, _ = end_to_end(torch, mcut, mparams,
                                      timer, n_requests=10, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
-        phase("[phase 3] a 24-layer Mamba2-370M prompt pass")
+        phase("[phase 3] a 12-layer Mamba2-370M prompt pass")
         prompt_pass_ms(torch, mparams, mcut, impls=(None,))
         del mparams
         torch.cuda.empty_cache()
@@ -5504,9 +5875,11 @@ def main(argv=None) -> int:
         smoke_reference(torch, "granite-moe-1b-a400m")
         smoke_reference(torch, "mixtral-8x22b", sliding_window=8)
         smoke_reference(torch, "jamba-v0.1-52b")
-        # half depth (12 of 24 layers, exits 6 and 9; full depth until the
-        # mesh phase came): the later phases share the run's time
-        gcfg = depth_cut(get_config("granite-moe-1b-a400m"), 12, (6, 9))
+        # a quarter of its depth (6 of 24 layers, exits 3 and 4; full depth
+        # until the mesh phase came, 12 layers until its PR 26 drives, which
+        # serve granite at full depth): the later phases share the run's
+        # time
+        gcfg = depth_cut(get_config("granite-moe-1b-a400m"), 6, (3, 4))
         gparams = init_on_card(torch, gcfg)
         moe_launches, _ = end_to_end(torch, gcfg, gparams, timer,
                                      n_requests=12, paths=MOE_PATHS,
@@ -5540,10 +5913,10 @@ def main(argv=None) -> int:
         torch, cfg, mcfg, timer, full=not args.skip_e2e)
     launches.update(train_launches)
     if not args.skip_e2e:
-        phase("[phase 4] training: a full-depth Mamba2-370M TrainRunner "
+        phase("[phase 4] training: a 24-layer Mamba2-370M TrainRunner "
               "restart, bit for bit")
         failover_launches["mamba2_restart"], failover_res["mamba2_restart"] \
-            = restart_drive(torch, mcfg)
+            = restart_drive(torch, depth_cut(mcfg, 24, (12, 18)))
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
@@ -5619,8 +5992,12 @@ def main(argv=None) -> int:
              autoscale_build_launches=autoscale_builds("morph_matmul"),
              mesh_launches=mesh("morph_matmul"),
              shard_shapes_tp2=shard_row(shard["morph_matmul"]),
+             family_shard_shapes_tp2={a: shard_row(r) for a, r in
+                                      fam["morph_matmul"].items()},
              max_abs_err=max(mm["max_abs_err"], mmv["max_abs_err"],
                              shard["morph_matmul"]["max_abs_err"],
+                             *(r["max_abs_err"] for r in
+                               fam["morph_matmul"].values()),
                              mms["max_abs_err"], mmsv["max_abs_err"],
                              *(r["max_abs_err"] for r in mmf.values())),
              ms=mm["ms"], plain_ms=mm["plain_ms"], bound_ms=mm["bound_ms"],
@@ -5652,13 +6029,17 @@ def main(argv=None) -> int:
              autoscale_build_launches=autoscale_builds("fused_decode"),
              mesh_launches=mesh("fused_decode"),
              shard_shapes_tp2=shard_row(shard["fused_decode"]),
+             family_shard_shapes_tp2={
+                 a: r["decode"] for a, r in
+                 list(fam["granite"].items()) + list(fam["frontend"].items())},
              moe_attention_shapes=moe_shapes("decode"),
              frontend_attention_shapes={a: r["decode"]
                                         for a, r in ed_attn.items()},
              max_abs_err=max(fd["max_abs_err"],
                              shard["fused_decode"]["max_abs_err"], max(
                  r["decode"]["max_abs_err"] for r in list(moe_attn.values())
-                 + list(ed_attn.values()))),
+                 + list(ed_attn.values()) + list(fam["granite"].values())
+                 + list(fam["frontend"].values()))),
              ms=fd["ms"],
              plain_ms=fd["plain_ms"], bound_ms=fd["bound_ms"],
              bound_by=fd["bound_by"], library_ms=None,
@@ -5679,6 +6060,8 @@ def main(argv=None) -> int:
              autoscale_build_launches=autoscale_builds("fused_verify"),
              mesh_launches=mesh("fused_verify"),
              shard_shapes_tp2=shard_row(shard["fused_verify"]),
+             family_shard_shapes_tp2={
+                 a: r["verify linear"] for a, r in fam["granite"].items()},
              autoscale_verify_s5_serving={
                  d: r["verify_s5_serving"] for d, r in autoscale_res.items()},
              replay_chunk={k: rc[k] for k in (
@@ -5687,7 +6070,9 @@ def main(argv=None) -> int:
                  "attention")},
              moe_attention_shapes=moe_shapes("verify"),
              max_abs_err=max(fv["max_abs_err"], rc["max_abs_err"], max_err,
-                             shard["fused_verify"]["max_abs_err"], max(
+                             shard["fused_verify"]["max_abs_err"], *(
+                                 r["verify linear"]["max_abs_err"]
+                                 for r in fam["granite"].values()), max(
                  r[w]["max_abs_err"] for r in moe_attn.values()
                  for w in ("verify linear", "verify tree"))), ms=fv["ms"],
              plain_ms=fv["plain_ms"], bound_ms=fv["bound_ms"],
@@ -5726,7 +6111,10 @@ def main(argv=None) -> int:
              encdec_launches=encdec("flash_attention"),
              vlm_launches=vlm("flash_attention"),
              failover_launches=failover("flash_attention"),
-             max_abs_err=max(r["max_abs_err"] for r in fa.values()),
+             mesh_launches=mesh("flash_attention"),
+             shard_shapes_tp2=others(fam["flash_attention"], None),
+             max_abs_err=max(r["max_abs_err"] for r in list(fa.values())
+                             + list(fam["flash_attention"].values())),
              ms=fa_main["ms"], plain_ms=fa_main["plain_ms"],
              bound_ms=fa_main["bound_ms"], bound_by=fa_main["bound_by"],
              library_ms=fa_main["library_ms"], library=fa_main["library"],
@@ -5746,8 +6134,11 @@ def main(argv=None) -> int:
                          "encdec_launches; times at that shape: "
                          "cross_attention)",
              cross_attention=cross,
+             mesh_launches=mesh("flash_decode"),
+             cross_attention_shard_tp2=fam["flash_decode"],
              max_abs_err=max(r["max_abs_err"] for r in list(fdk.values())
-                             + list(cross.values())),
+                             + list(cross.values())
+                             + list(fam["flash_decode"].values())),
              ms=fd_main["ms"], plain_ms=fd_main["plain_ms"],
              bound_ms=fd_main["bound_ms"], bound_by=fd_main["bound_by"],
              library_ms=fd_main["library_ms"],

@@ -7,10 +7,13 @@ rest of that script's phases.
 Builds the kernels, then calls ``chip_smoke``'s own functions:
 ``check_shard_shapes`` (``morph_matmul``, the fused decode and the fused
 verify at TinyLlama's tp = 2 shard shapes, each against its plain version,
-timed beside its bound and the library call) and ``mesh_phase``
+timed beside its bound and the library call), ``check_family_shard_shapes``
+(the same kernels, ``flash_decode`` and ``flash_attention`` at the granite,
+whisper and internvl tp = 2 shard shapes) and ``mesh_phase``
 (``MeshExecutor`` at world size 1 over NCCL against ``LocalExecutor``,
-then every drive of ``MESH_DRIVES`` as two ranks sharing the card over
-gloo), with the same assertions as in ``chip_smoke.py``. A failing part is
+then every drive of ``MESH_DRIVES``, the model drives, the autoscaled
+drive and ``serve_2d`` as two ranks sharing the card over gloo), with the
+same assertions as in ``chip_smoke.py``. A failing part is
 reported and the next one still runs; the exit code is 1 if any failed.
 Prints one JSON line of the results. Needs one CUDA card; weights are
 random from a seed.
@@ -61,6 +64,7 @@ def main() -> int:
     run("shard_shapes", lambda: {k: CS.shard_row(v) for k, v in
                                  CS.check_shard_shapes(torch, cfg,
                                                        timer).items()})
+    run("family_shard_shapes", CS.check_family_shard_shapes, torch, timer)
     run("mesh", CS.mesh_phase, torch)
     print(json.dumps({"failed": failed, "results": results}, default=str))
     return 1 if failed else 0

@@ -59,6 +59,9 @@ Examples:
       --autoscale-interval 1 --autoscale-ks 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --mesh 1x2 --device cuda --fused
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --mesh 1x2 --spec-k 2 --budget-ms 500 \
+      --autoscale --autoscale-interval 1 --autoscale-ks 4
 
 Online autoscaling: ``--autoscale`` (with ``--budget-ms``, whose SLO loop
 hosts the autoscaler's tick) re-runs the NeuroForge MOGA every
@@ -75,10 +78,13 @@ Mesh serving: ``--mesh DPxTP`` serves over a (data, model) mesh of
 own ranks (``torch.multiprocessing``), or runs as one rank under
 ``torchrun`` when ``WORLD_SIZE`` is set. Only rank 0 prints. The backend
 follows from the layout (``launch.mesh``): NCCL with a card per rank, gloo
-when ranks share one card and on the CPU. The other flags combine with
-``--mesh`` as without it, except ``--autoscale``, whose mesh lifecycle
-arrives with a later slice; MoE, encoder-decoder and frontend models under
-a mesh raise the executor's ``NotImplementedError``.
+when ranks share one card and on the CPU. Every family serves under it,
+and every other flag combines with it as without it: with ``--autoscale``
+each rank runs its own autoscaler, and all of them build, publish and
+retire the same units on the same tick (``runtime.autoscale``). The
+weights split as ``sharding.serve_policy`` picks: ``serve_tp`` (over
+``model``), or ``serve_2d`` (over ``data`` too) for a model whose bf16
+weights exceed 8 GB a rank under ``serve_tp``.
 
 Encoder-decoder (whisper) and frontend (internvl) models serve on the
 token feed, as the reference's engine serves them: their requests carry no
@@ -235,9 +241,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh:
         dp, tp = _parse_mesh(args.mesh)
-        if args.autoscale:
-            ap.error("--autoscale with --mesh: the autoscaler's mesh "
-                     "lifecycle arrives with a later slice of the port")
         if "WORLD_SIZE" not in os.environ:
             from repro_torch.launch.mesh import spawn_ranks
 
@@ -383,7 +386,8 @@ def _serve(args, ap, mesh):
             policy = AutoscalePolicy(cfg, engine.ctrl, autoscaler=scaler,
                                      batch_size=args.batch,
                                      cache_capacity=capacity,
-                                     metrics=engine.metrics)
+                                     metrics=engine.metrics,
+                                     executor=engine.executor)
         else:
             policy = SLOPolicy(cfg, engine.ctrl, batch_size=args.batch,
                                cache_capacity=capacity,

@@ -49,10 +49,13 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
     summed in f32 and averaged, then cast to each param's dtype. The LR
     scale is ``lr_schedule(opt.step)`` read before the step increments.
     ``grad_shardings`` constrains a sharded gradient accumulator in the
-    reference; the port has no mesh yet (ROADMAP A7), so it must be None."""
+    reference. The port's mesh serves but does not train yet: data-parallel
+    training, with the training half of ``parallel.sharding``, is the
+    port's remaining slice (ROADMAP.md, A), so it must be None."""
     if grad_shardings is not None:
-        raise NotImplementedError("grad_shardings arrives with the mesh item "
-                                  "of the port (ROADMAP A7)")
+        raise NotImplementedError("grad_shardings: data-parallel training "
+                                  "arrives with the port's training-side "
+                                  "mesh slice (ROADMAP.md, A)")
     sched = lr_schedule or (lambda step: 1.0)
     gdt = dtype_of(grad_dtype)
 

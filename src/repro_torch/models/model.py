@@ -96,7 +96,10 @@ def _check_token_only(cfg: ModelConfig, what: str) -> None:
 
 
 def _tree_index(tree, i):
-    """Per-group view: ``a[i]`` on every leaf of a nested dict."""
+    """Per-group view: ``a[i]`` on every leaf of a nested dict (a
+    ``serve_2d`` stack gathers group ``i`` here)."""
+    if isinstance(tree, TP.GroupGather):
+        return tree.group(i)
     return {k: _tree_index(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
 
@@ -191,7 +194,7 @@ def _ffn(lp, h, cfg: ModelConfig, p: int, active=None, dropless=False):
             y, a = MOE.apply_moe_dense(lp["moe"], hn, cfg)
         else:
             y, a = MOE.apply_moe(lp["moe"], hn, cfg)
-        return h + y, a
+        return h + TP.reduce_partial(y).to(h.dtype), a
     if cfg.d_ff:
         hn = L.apply_norm(lp["norm2"], h, cfg)
         h = h + TP.reduce_partial(L.apply_mlp(
@@ -232,7 +235,7 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, enc_out=None,
                                   causal=False)
             if want_cache:
                 caches[f"pos{p}"].update(cross_k=ck, cross_v=cv)
-            h = h + mix
+            h = h + TP.reduce_partial(mix)
         h, a = _ffn(lp, h, cfg, p)
         if a is not None:
             aux = aux + a
@@ -267,7 +270,10 @@ def _group_views(tree):
     """One tree of views per group: ``a.unbind(0)`` once per leaf, so that
     under autograd every leaf's groups share one backward node (a stack of
     the group gradients), where indexing each group would build a
-    full-size gradient per group and sum them."""
+    full-size gradient per group and sum them. A ``serve_2d`` stack
+    gathers each group when it is indexed."""
+    if isinstance(tree, TP.GroupGather):
+        return tree
     leaves = {k: _group_views(v) if isinstance(v, dict) else v.unbind(0)
               for k, v in tree.items()}
     n = len(next(iter(leaves.values())))
@@ -544,7 +550,7 @@ def _group_decode(group_params, group_cache, h, pos, cfg: ModelConfig,
             mix, _ = L.mha_decode(lp["cross"], hn,
                                   {"k": cp["cross_k"], "v": cp["cross_v"]},
                                   pos, cfg, cross=True, active=active)
-            h = h + mix
+            h = h + TP.reduce_partial(mix)
         h, _ = _ffn(lp, h, cfg, p, active, dropless=True)
     return h
 

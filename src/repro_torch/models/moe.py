@@ -27,6 +27,12 @@ top-k at the narrower k because the top-k is sorted.
 Both return ``(y, aux)`` with aux the Switch load-balancing loss
 ``e * sum_e frac_e * pmean_e`` over the first choices.
 
+On a rank of a tensor-parallel mesh (``parallel.tensor_parallel``) the
+router is replicated and scores every expert, but the rank holds only
+``expert_range``'s experts (expert parallelism) or a ``moe_d_ff`` column
+slice of each: it runs those under their gates and returns a partial sum
+for ``reduce_partial``, in f32 (the caller rounds the reduced sum once).
+
 With bf16 activations the gate projection and the expert outputs come out
 of their products rounded to bf16, where the reference keeps them in f32
 until the gated sum; in f32 the two are the same arithmetic.
@@ -42,6 +48,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel import tensor_parallel as TP
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, *, lead=(), device=None):
@@ -130,13 +137,17 @@ def apply_moe(params, x, cfg: ModelConfig, top_k: Optional[int] = None
     xt_pad = torch.cat([xt, xt.new_zeros(ng, 1, d)], dim=1)
     xe = torch.gather(xt_pad, 1, tok[..., None].expand(ng, e * cap, d))
     xe = xe.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
-    ye = _experts(params, xe, cfg)  # (e, ng * cap, d)
+    e0, ne = TP.expert_range(e)
+    ye = _experts(params, xe[e0:e0 + ne], cfg)  # (ne, ng * cap, d)
+    if ne != e:  # the other ranks' experts add nothing here
+        ye = torch.cat([ye.new_zeros(e0, ng * cap, d), ye,
+                        ye.new_zeros(e - e0 - ne, ng * cap, d)])
     ye = ye.reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)
     ye = torch.cat([ye, ye.new_zeros(ng, 1, d)], dim=1)
     yk = torch.gather(ye, 1, slot.reshape(ng, g * k, 1).expand(ng, g * k, d))
     w = torch.where(keep, gate_vals, 0.0).to(dt).float()
-    y = (yk.reshape(ng, g, k, d).float() * w[..., None]).sum(2).to(dt)
-    return y.reshape(B, S, d), _aux(probs, idx, e)
+    y = (yk.reshape(ng, g, k, d).float() * w[..., None]).sum(2)
+    return _out(y, dt).reshape(B, S, d), _aux(probs, idx, e)
 
 
 def apply_moe_dense(params, x, cfg: ModelConfig, top_k: Optional[int] = None,
@@ -158,6 +169,15 @@ def apply_moe_dense(params, x, cfg: ModelConfig, top_k: Optional[int] = None,
     gate_vals = _renorm(gate_vals)
     gates = torch.zeros(B, S, e, dtype=torch.float32, device=x.device)
     gates = gates.scatter(-1, idx, gate_vals)  # top-k experts are distinct
-    ye = _experts(params, x.reshape(1, B * S, d).expand(e, B * S, d), cfg)
-    y = torch.einsum("etd,te->td", ye.float(), gates.reshape(B * S, e))
-    return y.to(dt).reshape(B, S, d), _aux(probs, idx, e)
+    e0, ne = TP.expert_range(e)
+    ye = _experts(params, x.reshape(1, B * S, d).expand(ne, B * S, d), cfg)
+    y = torch.einsum("etd,te->td", ye.float(),
+                     gates.reshape(B * S, e)[:, e0:e0 + ne])
+    return _out(y, dt).reshape(B, S, d), _aux(probs, idx, e)
+
+
+def _out(y, dt):
+    """The gated sum in the activation dtype; a rank's partial stays in
+    f32, rounded once after ``reduce_partial`` sums the ranks' (as the
+    whole sum is rounded once on one device)."""
+    return y if TP.model_sharded() else y.to(dt)

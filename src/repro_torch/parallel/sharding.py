@@ -31,12 +31,30 @@ piece of each split dim:
   group ``H_local / KV_local`` stays integral (JAX splits ``wk`` / ``wv``
   columns and lets XLA all-gather through ``decode_kv``);
 * the SSM per-head vectors (``w_dt``, ``A_log``, ``D``, ``dt_bias``; JAX
-  replicates them) are held as the slice of this rank's heads.
+  replicates them) are held as the slice of this rank's heads;
+* MoE experts as ``param_specs`` splits them: ``n_experts / tp`` whole
+  experts a rank where ``n_experts % tp == 0`` (expert parallelism), else
+  every expert's ``moe_d_ff / tp`` columns; the router stays replicated,
+  so every rank routes every token over all experts and runs only its
+  own experts (or columns) under their gates, a partial sum;
+* an encoder-decoder model's encoder stack and its decoder layers'
+  cross-attention (``cross``) are cut as the self-attention and the MLP
+  are; the frontend projection is replicated.
+
+``serve_2d`` holds each parameter as ``param_specs(..., "serve_2d")`` cuts
+it (dim 0, d_model or the vocabulary's other dim, over the data axes too),
+a rank keeping ``1 / (dp * tp)`` of the weights, and gathers a layer
+group's data-split dims over ``data`` just before the group runs
+(``tensor_parallel.Serve2D``): every kernel then runs at the ``serve_tp``
+shard's shapes and arithmetic.
 
 The cache layout differs from JAX's on purpose: JAX shards the KV sequence
 dim on ``model`` under ``serve_tp`` and lets XLA reshard; the port shards
 the dense cache and the page pool by KV head, the same split as the K/V
-projections, and the SSM state by head (``serve_cache_specs``). Slots split
+projections, the cross-attention's encoder K/V by KV head too, and the SSM
+state by head (``serve_cache_specs``). ``serve_2d`` keeps that layout: the
+reference replicates its slots and splits the KV sequence over (data,
+model). Slots split
 over ``data`` when ``n_slots % dp == 0`` and the cache is dense; a paged
 pool has no slot dim (and a shared prefix page is read by slots of any
 data rank), so paged slots stay replicated over ``data``.
@@ -336,8 +354,11 @@ _ACTIVE_KEYS = ("q_dim", "kv_dim", "d_ff", "d_inner", "ssm_heads")
 class ServeShard:
     """One rank's piece of a served model over a (data, model) mesh.
 
-    ``cfg`` is the shard-local config (local head, KV-head, d_ff and SSM
-    head counts): the model code and the kernels run on it unchanged.
+    ``cfg`` is the shard-local config (local head, KV-head, d_ff, SSM head
+    and expert ``moe_d_ff`` counts; ``n_experts`` stays global, since the
+    router scores every expert): the model code and the kernels run on it
+    unchanged. ``experts`` is (start, size) of the rank's experts (all of
+    them where it holds columns of each, ``moe_ff``).
     ``ranges`` maps each width operand to the (start, size) of this rank's
     slice of the global dim, for turning a global prefix width into a local
     one. ``slots`` is (start, size) of this rank's slots when they split
@@ -357,6 +378,8 @@ class ServeShard:
     ssm_heads: Tuple[int, int]
     vocab: Tuple[int, int]
     ranges: Dict[str, Tuple[int, int]]
+    experts: Tuple[int, int] = (0, 0)
+    moe_ff: Tuple[int, int] = (0, 0)
 
 
 def plan_serve_shard(cfg: ModelConfig, mesh, *, n_slots: int,
@@ -400,11 +423,20 @@ def plan_serve_shard(cfg: ModelConfig, mesh, *, n_slots: int,
         ff = split(cfg.d_ff, "d_ff")
     if cfg.ssm_state:
         sh = split(cfg.ssm_nheads, "ssm heads")
+    experts = moe_ff = (0, 0)
+    if cfg.n_experts:
+        if cfg.n_experts % tp == 0:  # param_specs' expert parallelism
+            experts, moe_ff = split(cfg.n_experts, "n_experts"), \
+                (0, cfg.moe_d_ff)
+        else:
+            experts, moe_ff = (0, cfg.n_experts), split(cfg.moe_d_ff,
+                                                        "moe_d_ff")
     vocab = split(cfg.padded_vocab(), "padded vocab")
     hp = cfg.ssm_head_dim
     lcfg = dataclasses.replace(
         cfg, n_heads=heads[1], n_kv_heads=kv[1],
         d_ff=ff[1] if cfg.d_ff else 0,
+        moe_d_ff=moe_ff[1] if cfg.n_experts else cfg.moe_d_ff,
         ssm_d_inner_override=sh[1] * hp if cfg.ssm_state else 0)
     ranges = {"q_dim": (heads[0] * hd, heads[1] * hd),
               "kv_dim": (kv[0] * hd, kv[1] * hd),
@@ -417,7 +449,8 @@ def plan_serve_shard(cfg: ModelConfig, mesh, *, n_slots: int,
     return ServeShard(cfg=lcfg, tp=tp, dp=dp, model_rank=r, data_rank=d,
                       n_slots=n_slots, split_slots=split_slots, slots=slots,
                       heads=heads, kv_heads=kv, ff=ff, ssm_heads=sh,
-                      vocab=vocab, ranges=ranges)
+                      vocab=vocab, ranges=ranges, experts=experts,
+                      moe_ff=moe_ff)
 
 
 def _serve_leaf_slices(keys, shape, shard: ServeShard, cfg: ModelConfig
@@ -434,12 +467,16 @@ def _serve_leaf_slices(keys, shape, shard: ServeShard, cfg: ModelConfig
         return {0: shard.vocab}
     if name == "unembed":
         return {1: shard.vocab}
-    if parent == "attn":
+    if parent in ("attn", "cross"):
         return {"wq": {o + 1: q}, "wk": {o + 1: kv}, "wv": {o + 1: kv},
                 "wo": {o: q}}.get(name, {})
     if parent == "mlp":
         return {"wi": {o + 1: shard.ff}, "wg": {o + 1: shard.ff},
                 "wo": {o: shard.ff}}.get(name, {})
+    if parent == "moe" and name != "router":
+        if shard.experts[1] != cfg.n_experts:  # whole experts
+            return {o: shard.experts}
+        return {o + (1 if name == "wo" else 2): shard.moe_ff}
     if parent == "ssm_norm":
         return {o: din}
     if parent == "ssm":
@@ -465,6 +502,69 @@ def shard_serve_params(params, shard: ServeShard, cfg: ModelConfig):
         t, _serve_leaf_slices(keys, t.shape, shard, cfg)))
 
 
+@dataclasses.dataclass(frozen=True)
+class Serve2DLeaf:
+    """How one ``serve_2d`` leaf turns into its ``serve_tp`` piece: the
+    held piece is all-gathered over ``data`` on ``data_dim`` (None: not
+    split over ``data``), then cut to ``after`` ({dim: (start, size)} of
+    the gathered tensor: the slice the ``serve_tp`` shard reads of a dim
+    ``param_specs`` replicates). Dims count from the leaf's first dim,
+    the group axis of a stacked leaf included."""
+
+    data_dim: Optional[int]
+    after: Slices
+    shape: Tuple[int, ...]  # the serve_tp piece's
+
+
+def serve_2d_plan(params, shard: ServeShard, cfg: ModelConfig, mesh
+                  ) -> Tuple[Any, Any]:
+    """``(specs, recipes)`` of ``serve_2d``: ``param_specs(..., "serve_2d")``
+    and, leaf for leaf, the ``Serve2DLeaf`` that rebuilds the ``serve_tp``
+    piece (``_serve_leaf_slices``) from the held one. Raises where a
+    ``serve_tp`` piece needs a gather over ``model`` too: KV heads fewer
+    than tp, whose K/V projections the rank holds a column slice of, where
+    it reads a whole head."""
+    sizes = axis_sizes(mesh)
+    if data_axes(mesh) != ("data",):
+        raise ValueError(f"serve_2d serves over a (data, model) mesh, got "
+                         f"axes {tuple(sizes)}")
+    specs = param_specs(params, cfg, mesh, "serve_2d")
+    coord = {"data": 0, "model": shard.model_rank}
+
+    def recipe(keys, t):
+        spec = _at(specs, keys)
+        want = (_serve_leaf_slices(keys, t.shape, shard, cfg)
+                if shard.tp > 1 else {})
+        held = spec_slices(t.shape, spec, sizes, coord)
+        data_dim = None
+        for dim, ax in enumerate(spec):
+            axes = _axes_of(ax)
+            if "data" in axes and sizes["data"] > 1:
+                data_dim = dim
+            if "model" in axes and dim in held and \
+                    want.get(dim, held[dim]) != held[dim]:
+                raise ValueError(
+                    f"{cfg.name}: serve_2d holds {'/'.join(keys)} split "
+                    f"over model where the serve_tp shard reads another "
+                    f"slice of dim {dim} ({cfg.n_kv_heads} KV heads under "
+                    f"tp = {shard.tp})")
+        after = {d: r for d, r in want.items()
+                 if not (d in held and "model" in _axes_of(spec[d]))}
+        shape = list(t.shape)
+        for d, (_, n) in want.items():
+            shape[d] = n
+        return Serve2DLeaf(data_dim=data_dim, after=after,
+                           shape=tuple(shape))
+
+    return specs, _map_with_path(params, recipe)
+
+
+def _axes_of(ax) -> Tuple[str, ...]:
+    if ax is None:
+        return ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
 def serve_cache_specs(cfg: ModelConfig, mesh, *, n_slots: int,
                       paged: bool = False) -> Dict[str, Spec]:
     """The port's serving-cache layout, per leaf name (leaves carry the
@@ -474,7 +574,10 @@ def serve_cache_specs(cfg: ModelConfig, mesh, *, n_slots: int,
     ``plan_serve_shard``) and by slot on the data axes where the slot count
     divides; the page pool (G, pages, page, KV, hd) by KV head only; the
     SSM ``state`` (G, slots, nh, hp, n) and ``conv_x`` (G, slots, K-1,
-    d_inner) by head or channel; ``conv_bc`` and ``pos`` by slot only."""
+    d_inner) by head or channel; an encoder-decoder layer's ``cross_k`` /
+    ``cross_v`` (G, slots, KV, enc_seq, hd) by KV head as ``k`` and by
+    slot; ``conv_bc`` and ``pos`` by slot only. ``serve_tp`` and
+    ``serve_2d`` share it."""
     sizes = axis_sizes(mesh)
     dp = _axes_size(sizes, data_axes(mesh) or None)
     b: Any = (_spec_axes(data_axes(mesh))
@@ -483,6 +586,7 @@ def serve_cache_specs(cfg: ModelConfig, mesh, *, n_slots: int,
     return {"pos": (b,),
             "k": (None, None, None, m, None) if paged
             else (None, b, None, m, None),
+            "cross_k": (None, b, m, None, None),
             "state": (None, b, m, None, None),
             "conv_x": (None, b, None, m),
             "conv_bc": (None, b, None, None)}

@@ -39,6 +39,22 @@ published/retired units) so post-failover behaviour is deterministic: a
 standby that absorbs a snapshot re-publishes the adopted units
 synchronously (the recovery path may compile) and re-applies retirements
 before serving resumes.
+
+Over a mesh (an engine on a ``MeshExecutor``) every rank runs its own
+autoscaler, and all of them build, publish and retire the same units on
+the same tick, where the reference drives one SPMD program from one
+process:
+
+* decisions taken from a clock go through the executor's ``agree`` (rank
+  0's value): a generation's front (its objectives read measured
+  latencies, so only rank 0 runs the MOGA) and each retirement;
+* the builder's warm runs issue their collectives on process groups of
+  their own, made at ``bind`` over the mesh's ranks in the same order on
+  every rank (``tensor_parallel.route``), so they never interleave with
+  the serving thread's; under NCCL they run on the worker's stream;
+* while a build is pending, each drain gathers every rank's finished
+  units on the serving thread and publishes the units finished on all of
+  them, in one order; a unit any rank failed to build is dropped on all.
 """
 from __future__ import annotations
 
@@ -48,6 +64,7 @@ import dataclasses
 import itertools
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
@@ -55,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.parallel import tensor_parallel as TP
 from repro_torch.configs.base import MorphMode
 from repro_torch.core import elastic
 from repro_torch.core.elastic import flops_fraction
@@ -64,7 +82,7 @@ from repro_torch.core.neuroforge.analytical import estimate_mode
 from repro_torch.core.neuroforge.moga import (Constraints, Individual,
                                               non_dominated, run_moga)
 from repro_torch.runtime.observability import autoscale_events
-from repro_torch.runtime.serving import SLOPolicy
+from repro_torch.runtime.serving import SLOPolicy, _same
 from repro_torch.runtime.speculative import (draft_compile_key,
                                              expected_tokens_per_launch,
                                              expected_tokens_per_tree_launch,
@@ -223,6 +241,16 @@ class Autoscaler:
         self._expected_compiles: Optional[int] = None
         self._events = None
         self._worker: Optional[threading.Thread] = None
+        # over a mesh: the ranks, rank 0's choice, every rank's finished
+        # units (unit -> (built, ok)) until all ranks have them, and the
+        # builder's process groups (made once per mesh)
+        self._world = 1
+        self._lead = True
+        self._agree = _same
+        self._finished: Dict[Tuple, Tuple] = {}
+        self._builder_mesh = None
+        self._builder_groups = (None, None)
+        self._builder_comm = None
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -233,14 +261,12 @@ class Autoscaler:
 
         Publishes the engine's stashed autoscale snapshot if a bare standby
         absorbed one before any autoscaler existed, registers the gauge
-        callback + event stream, and starts the compile worker. An engine
-        over a mesh raises: the autoscaler's mesh lifecycle arrives with a
-        later slice of the port.
+        callback + event stream, and starts the compile worker. Over a mesh
+        every rank binds its own autoscaler at the same point: the first
+        bind on a mesh makes the builder's process groups (a collective
+        call).
         """
-        if engine.executor.mesh is not None:
-            raise NotImplementedError(
-                "the autoscaler's mesh lifecycle arrives with a later slice "
-                "of the port (ROADMAP.md, A)")
+        self._bind_mesh(engine.executor)
         self.engine = engine
         engine.autoscaler = self
         self._events = autoscale_events(engine.metrics)
@@ -256,11 +282,41 @@ class Autoscaler:
             self._worker.start()
         return self
 
+    def _bind_mesh(self, ex) -> None:
+        """Take the executor's ``agree`` and, over a mesh of more than one
+        rank, a ``ShardComm`` for the builder on groups of its own."""
+        import torch.distributed as dist
+
+        self._agree = ex.agree
+        self._world = dist.get_world_size() if ex.mesh is not None else 1
+        self._lead = self._world == 1 or dist.get_rank() == 0
+        if self._world == 1:
+            self._builder_comm = None
+            return
+        if self._builder_mesh is not ex.mesh:
+            ranks = ex.mesh.mesh
+            me = dist.get_rank()
+            mine = {}
+            for name in ("model", "data"):
+                if name not in ex.mesh.mesh_dim_names:
+                    continue
+                dim = ex.mesh.mesh_dim_names.index(name)
+                rows = ranks.movedim(dim, -1).reshape(-1, ranks.shape[dim])
+                for row in rows.tolist():  # every rank, in one order
+                    g = dist.new_group(ranks=row)
+                    if me in row:
+                        mine[name] = g
+            self._builder_mesh = ex.mesh
+            self._builder_groups = (mine.get("model"), mine.get("data"))
+        self._builder_comm = ex.comm.over(*self._builder_groups)
+
     def close(self) -> None:
-        """Stop the compile worker (tests; daemon thread otherwise)."""
+        """Stop the compile worker (tests; daemon thread otherwise). Over a
+        mesh it first finishes every queued build: the other ranks'
+        builders wait for this one's collectives."""
         if self._worker is not None:
             self._jobs.put(None)
-            self._worker.join(timeout=5.0)
+            self._worker.join(timeout=None if self._world > 1 else 5.0)
             self._worker = None
 
     # ------------------------------------------------------------------
@@ -289,6 +345,28 @@ class Autoscaler:
 
     def _run_generation(self, policy: SLOPolicy, budget_s: float,
                         queue_depths: Optional[Dict[str, int]]) -> None:
+        """One generation: the front (rank 0's over a mesh), then the
+        builds of the units it wants."""
+        found = (self._search(policy, budget_s, queue_depths)
+                 if self._lead else None)
+        if self._world > 1:
+            found = self._agree(found)
+        front, objectives, evaluations = found
+        self.generation += 1
+        self.stats["generations"] += 1
+        self.front = [ServePoint(*p) for p in front]
+        self.front_objectives = [tuple(o) for o in objectives]
+        self._events.emit(step=self.engine.step_count, event="generation",
+                          unit="", generation=self.generation,
+                          detail=f"front={len(self.front)} "
+                                 f"evals={evaluations}")
+        for unit in self._front_units():
+            self._schedule(unit)
+
+    def _search(self, policy: SLOPolicy, budget_s: float,
+                queue_depths: Optional[Dict[str, int]]):
+        """The MOGA over the live pool: (front points as tuples, their
+        objectives, evaluations)."""
         eng = self.engine
         cfg = eng.cfg
         space = ServeSpace(eng, self.config.spec_ks, self.config.spec_trees)
@@ -375,16 +453,9 @@ class Autoscaler:
             if ind.point not in seen_pts:
                 seen_pts.add(ind.point)
                 uniq.append(ind)
-        self.generation += 1
-        self.stats["generations"] += 1
-        self.front = [ind.point for ind in uniq]
-        self.front_objectives = [ind.objectives for ind in uniq]
-        self._events.emit(step=eng.step_count, event="generation", unit="",
-                          generation=self.generation,
-                          detail=f"front={len(self.front)} "
-                                 f"evals={res.evaluations}")
-        for unit in self._front_units():
-            self._schedule(unit)
+        return ([dataclasses.astuple(ind.point) for ind in uniq],
+                [tuple(float(x) for x in ind.objectives) for ind in uniq],
+                res.evaluations)
 
     # ------------------------------------------------------------------
     # adoption: background build, serving-thread publish
@@ -429,7 +500,8 @@ class Autoscaler:
             try:
                 if stream is None and eng.device.type == "cuda":
                     stream = torch.cuda.Stream(device=eng.device)
-                built = self._build_unit(unit, eng, stream)
+                with TP.route(self._builder_comm):
+                    built = self._build_unit(unit, eng, stream)
                 err = None
             except Exception as exc:  # surfaced through stats, not a crash
                 built, err = None, repr(exc)
@@ -523,23 +595,63 @@ class Autoscaler:
         return built
 
     def _drain_publish(self) -> None:
-        """Install every finished unit (serving thread; dict swaps only)."""
+        """Install every finished unit (serving thread; dict swaps only).
+        Over a mesh, while a build is pending, a collective: only the
+        units every rank has finished are installed, on every rank in one
+        order."""
         while True:
             try:
                 unit, built, eng_id, ident, err = self._done.get_nowait()
             except queue.Empty:
-                return
-            self._pending.discard(unit)
+                break
             self.worker_idents.add(ident)
-            if built is not None:
-                for key, _fn, _fac in built:
-                    self._inflight_keys.discard(key)
-            if eng_id != id(self.engine) or err is not None or built is None:
-                # stale engine after a failover, or a failed build: drop —
-                # the next generation reschedules against the live engine
-                self.stats["dropped"] += 1
-                continue
-            self._activate(unit, built)
+            # a stale engine after a failover, or a failed build: dropped,
+            # the next generation reschedules against the live engine
+            ok = eng_id == id(self.engine) and err is None \
+                and built is not None
+            if self._world == 1:
+                self._install(unit, built, ok)
+            else:
+                self._finished[unit] = (built, ok)
+        if self._world == 1 or not self._pending:
+            return
+        import torch.distributed as dist
+
+        got = [None] * self._world
+        dist.all_gather_object(got, sorted(
+            (repr(u), ok) for u, (_b, ok) in self._finished.items()))
+        every = [dict(g) for g in got]
+        for unit in sorted(self._finished, key=repr):
+            oks = [e.get(repr(unit)) for e in every]
+            if None in oks:
+                continue  # another rank is still building it
+            built, _ok = self._finished.pop(unit)
+            self._install(unit, built, all(oks))
+
+    def _install(self, unit: Tuple, built, ok: bool) -> None:
+        self._pending.discard(unit)
+        if built is not None:
+            for key, _fn, _fac in built:
+                self._inflight_keys.discard(key)
+        if not ok:
+            self.stats["dropped"] += 1
+            return
+        self._activate(unit, built)
+
+    def await_builds(self, timeout_s: float = 300.0,
+                     poll_s: float = 0.01) -> bool:
+        """Drain until no build is pending or ``timeout_s`` has passed (on
+        rank 0's clock over a mesh); True if none is left pending."""
+        t0 = time.monotonic()
+        while self._pending:
+            self._drain_publish()
+            late = time.monotonic() - t0 > timeout_s
+            if self._world > 1:
+                late = self._agree(late)
+            if not self._pending or late:
+                break
+            time.sleep(poll_s)
+        return not self._pending
 
     def _unit_active(self, unit: Tuple) -> bool:
         eng = self.engine
@@ -657,14 +769,23 @@ class Autoscaler:
         guard = 0
         while ctrl.compile_table_size > budget and guard < 64:
             guard += 1
-            cands = self._retirable_units()
-            if not cands:
+            unit = self._retire_choice() if self._lead else None
+            if self._world > 1:
+                unit = self._agree(unit)
+            if unit is None:
                 return
-            unit = max(cands,
-                       key=lambda u: (self._unit_coldness(u), repr(u)))
-            if self._unit_coldness(unit) <= self.config.cold_dispatches:
-                return  # everything eligible is still within its dwell
             self._retire(unit)
+
+    def _retire_choice(self) -> Optional[Tuple]:
+        """The coldest retirable unit, or None when there is none or every
+        one is still within its dwell."""
+        cands = self._retirable_units()
+        if not cands:
+            return None
+        unit = max(cands, key=lambda u: (self._unit_coldness(u), repr(u)))
+        if self._unit_coldness(unit) <= self.config.cold_dispatches:
+            return None
+        return unit
 
     def _retire(self, unit: Tuple, *, record: bool = True) -> None:
         """Evict ``unit``: detach it from the live tables FIRST (so the
@@ -887,6 +1008,7 @@ class AutoscalePolicy(SLOPolicy):
         for m in ranked:
             if self.est_latency(m) <= eff:
                 pick = m
+        pick = self._agree(pick)  # measured latencies: rank 0's
         if pick.name != mode.name:
             self.last_decision = dict(self.last_decision, mode=pick.name)
         return pick

@@ -70,8 +70,7 @@ training) serve as they are.
   ``runtime.fault_tolerance.ExecutorSupervisor`` cuts one before every
   tick and fails over onto a standby engine. The snapshot carries a bound
   autoscaler's state (``runtime.autoscale``); a standby with none holds it
-  in ``_pending_autoscale`` until one binds. Mesh executors arrive with a
-  later slice of the port and raise here.
+  in ``_pending_autoscale`` until one binds.
 """
 from __future__ import annotations
 
@@ -560,8 +559,16 @@ class MeshExecutor(LocalExecutor):
     Decisions taken from a clock go through ``agree`` (rank 0's value,
     broadcast).
 
-    ``policy`` defaults to ``sharding.serve_policy(cfg, tp)``; only
-    ``serve_tp`` has a layout in the port. Slots split over ``data`` where
+    ``policy`` defaults to ``sharding.serve_policy(cfg, tp)``. Under
+    ``serve_tp`` a rank holds its ``serve_tp`` shard; under ``serve_2d`` it
+    holds ``param_specs(..., "serve_2d")``'s cut (split over ``data`` too)
+    and each step gathers a layer group's data-split dims over ``data``
+    just before the group runs (``tensor_parallel.Serve2D``), so both run
+    the same kernels at the same shapes. Every family serves: MoE experts
+    split as ``param_specs`` splits them, the encoder-decoder and frontend
+    families with their encoder, cross-attention and frontend projection
+    (their token prompts fed step by step, as on one device). Slots split
+    over ``data`` where
     ``n_slots % dp == 0`` and the cache is dense (``plan_serve_shard``);
     the batch-1 prompt pass runs on every rank, as the reference's
     replicated prefill does, and only the slot's owner keeps its rows.
@@ -591,20 +598,12 @@ class MeshExecutor(LocalExecutor):
         from repro_torch.parallel import sharding as SH
         from repro_torch.parallel.tensor_parallel import ShardComm
 
-        if cfg.n_experts or cfg.is_encdec or cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name}: mesh serving covers the dense GQA and SSM "
-                f"families; MoE, encoder-decoder and frontend models under "
-                f"a mesh arrive with a later slice of the port "
-                f"(ROADMAP.md, A)")
         super().bind(cfg, batch_size, cache_capacity, paged=paged,
                      fused=fused)
         self.policy = self._policy_arg or SH.serve_policy(cfg, self.tp)
-        if self.policy != "serve_tp":
-            raise NotImplementedError(
-                f"policy {self.policy!r}: the port serves over a mesh under "
-                f"serve_tp only; serve_2d (weights split over data too) "
-                f"arrives with a later slice (ROADMAP.md, A)")
+        if self.policy not in ("serve_tp", "serve_2d"):
+            raise ValueError(f"serving policy {self.policy!r}; expected "
+                             f"serve_tp or serve_2d")
         shard = SH.plan_serve_shard(cfg, self.mesh, n_slots=batch_size,
                                     paged=paged is not None)
         groups = self.mesh.mesh_dim_names
@@ -631,7 +630,15 @@ class MeshExecutor(LocalExecutor):
 
     def place_params(self, params):
         from repro_torch.parallel import sharding as SH
+        from repro_torch.parallel.tensor_parallel import Serve2D
 
+        if self.policy == "serve_2d":
+            specs, recipes = SH.serve_2d_plan(params, self.shard, self._cfg,
+                                              self.mesh)
+            self.comm.serve2d = Serve2D(recipes, self.comm.data_group,
+                                        self.dp, self.comm.stage)
+            return super().place_params(
+                SH.shard_params(params, specs, self.mesh))
         return super().place_params(
             SH.shard_serve_params(params, self.shard, self._cfg))
 

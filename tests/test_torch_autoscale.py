@@ -45,6 +45,7 @@ from repro_torch.runtime import autoscale as TA
 from repro_torch.runtime import serving as TS
 from repro_torch.runtime.observability import autoscale_events
 from repro_torch.runtime.speculative import SpecConfig
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ARCH = "tinyllama-1.1b"
 CFG = smoke_config(ARCH)

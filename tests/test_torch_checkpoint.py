@@ -35,6 +35,7 @@ from repro_torch.optim import optimizer as TO
 from repro_torch.optim import schedule as TSCH
 from repro_torch.runtime import compression as TC
 from repro_torch.runtime import fault_tolerance as TFT
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 
 def _tree(dtype, seed=0):

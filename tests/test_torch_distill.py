@@ -38,6 +38,7 @@ from repro_torch.data import pipeline as TD
 from repro_torch.launch import steps as TST
 from repro_torch.models import model as TM
 from repro_torch.optim import optimizer as TO
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-370m")
 LR = 1e-3

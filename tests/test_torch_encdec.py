@@ -45,6 +45,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.optim import optimizer as TO
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-4
 ATOL_SIN = 2e-4

@@ -30,6 +30,7 @@ from repro_torch.models import model as TM
 from repro_torch.models.paged import PagedLayout
 from repro_torch.runtime import serving as TS
 from repro_torch.runtime import speculative as TSP
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 KW = dict(batch_size=3, cache_capacity=32, prefill_threshold=4)
 ARCHS = ("whisper-base", "internvl2-2b")

@@ -42,6 +42,7 @@ from repro_torch.runtime import fault_tolerance as TFT
 from repro_torch.runtime import serving as TS
 from repro_torch.runtime.observability import Observability
 from repro_torch.runtime.speculative import SpecConfig
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 CFG = smoke_config("tinyllama-1.1b")
 PARAMS = init_params(CFG, seed=0, device="cpu")

@@ -38,6 +38,7 @@ from repro_torch.kernels import ops as TOPS
 from repro_torch.kernels import ref as TREF
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-3, rtol=2.0 ** -7)

@@ -7,6 +7,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

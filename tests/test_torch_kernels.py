@@ -32,6 +32,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import fused_decode as FD
 from repro_torch.kernels import morph_matmul as MM
 from repro_torch.kernels.ref import morph_matmul_ref
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 MM_CASES = {
     # (B, M, K, N), block, active_n, active_k

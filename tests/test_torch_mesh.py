@@ -40,6 +40,7 @@ from repro_torch.runtime.serving import ServingEngine
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tests"))
 import torch_mesh_ranks as R  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-370m")
 

@@ -22,6 +22,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.convert import cache_from_jax, params_from_jax, to_numpy
 from repro_torch.core import elastic
 from repro_torch.models import model as TM
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-4
 VARIANTS = {"full": {}, "kv_quant": {"kv_quant": True},

@@ -46,6 +46,7 @@ from repro_torch.core import elastic
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMOE
 from repro_torch.runtime import speculative as TSP
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-4
 ARCHS = {"granite": ("granite-moe-1b-a400m", {}),

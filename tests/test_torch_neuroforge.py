@@ -24,6 +24,7 @@ from repro.core.neuroforge import validate as JVAL
 from repro_torch.configs import SHAPE_BY_NAME, get_config
 from repro_torch.core import neuroforge as TNF
 from repro_torch.core.neuroforge import validate as TVAL
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-370m", "granite-moe-1b-a400m")
 

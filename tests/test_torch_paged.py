@@ -49,6 +49,7 @@ from repro_torch.models import paged as TP
 from repro_torch.runtime import paged_cache as TPC
 from repro_torch.runtime import serving as TS
 from repro_torch.runtime.speculative import SpecConfig
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 PS = 4
 VARIANTS = {"full": {}, "swa": {"sliding_window": 8},

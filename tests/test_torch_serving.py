@@ -23,6 +23,7 @@ from repro.runtime import serving as JS
 from repro_torch.configs import smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.runtime import serving as TS
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 SCHEDULE = ("d3w100", "d3w50", "d1w100", "d3w100", "d1w50", "d3w50")
 LOGIT_TOL = 1e-4
@@ -121,11 +122,11 @@ def test_slo_policy_run_and_metrics():
 
 
 def test_unported_options_raise():
-    """A mesh executor raises for the families a later slice brings under a
-    mesh (MoE, encoder-decoder, frontend), before any rank is asked for
-    anything; the dense GQA and SSM families serve over a mesh since the
-    mesh slice (``test_torch_mesh.py``). (Sampling and linear
-    speculation arrived with the speculative slice,
+    """A mesh executor raises for a serving policy it has no layout for
+    (only ``serve_tp`` and ``serve_2d``), before any rank is asked for
+    anything; every family serves over a mesh since the mesh slices
+    (``test_torch_mesh.py``, ``test_torch_mesh_serving.py``). (Sampling
+    and linear speculation arrived with the speculative slice,
     ``test_torch_speculative.py``; paged caches with the paged slice,
     ``test_torch_paged.py``: a page size that does not divide the capacity
     is refused before anything is built; token trees with the tree slice,
@@ -139,8 +140,9 @@ def test_unported_options_raise():
         TS.ServingEngine({}, cfg, device="cpu", cache_capacity=16,
                          paged=PagedLayout(page_size=5))
     for arch in ("granite-moe-1b-a400m", "whisper-base", "internvl2-2b"):
-        mesh_exec = TS.MeshExecutor({"data": 1, "model": 2}, device="cpu")
-        with pytest.raises(NotImplementedError, match="mesh"):
+        mesh_exec = TS.MeshExecutor({"data": 1, "model": 2}, policy="train",
+                                    device="cpu")
+        with pytest.raises(ValueError, match="serving policy"):
             TS.ServingEngine({}, smoke_config(arch), device="cpu",
                              executor=mesh_exec)
     with pytest.raises(ValueError, match="sliding_window"):

@@ -5,7 +5,9 @@ abstract (2, 4) ``("data", "model")`` mesh (no devices needed) for every
 family's smoke config and the ``train``, ``serve_tp`` and ``serve_2d``
 policies; ``decode_specs`` / ``verify_specs`` and ``serve_policy`` likewise;
 the shard -> unshard round trip; the serving shard plan (the KV heads a rank
-holds, the local width gates); ``bubble_fraction``; and, at world size 1
+holds, the experts and the cross-attention's leaves, the local width
+gates); ``serve_2d``'s pieces against the ``serve_tp`` shard they gather
+into; ``bubble_fraction``; and, at world size 1
 over gloo, ``MeshExecutor`` against ``LocalExecutor`` token for token.
 """
 import jax
@@ -22,6 +24,7 @@ from repro_torch.models.model import init_params
 from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.pipeline_parallel import bubble_fraction
 from repro_torch.parallel.tensor_parallel import localize
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 MESH = {"data": 2, "model": 4}
 POLICIES = ("train", "serve_tp", "serve_2d")
@@ -169,6 +172,81 @@ def test_serve_cache_specs_split_by_kv_head_not_by_sequence():
     assert paged["k"] == (None, None, None, "model", None)
     assert paged["pos"] == (None,)
     assert dense["state"] == (None, "data", "model", None, None)
+
+
+def test_moe_cross_and_frontend_leaves_cut_as_specs():
+    """The families a tp-only split now serves: granite's 4 experts at
+    tp = 2 (2 whole experts a rank), 6 experts at tp = 4 (a quarter of each
+    expert's columns), whisper's encoder and cross-attention, internvl's
+    frontend projection (replicated): every leaf is the ``serve_tp``
+    spec's slice (but the K/V projections of a KV head replicated at
+    tp = 4); the encoder K/V cache splits by KV head."""
+    cases = (("granite-moe-1b-a400m", {}, 2), ("granite-moe-1b-a400m",
+                                               dict(n_experts=6), 4),
+             ("whisper-base", {}, 2), ("internvl2-2b", {}, 2))
+    for arch, over, tp in cases:
+        cfg = smoke_config(arch).scaled(**over)
+        params = init_params(cfg, seed=0, device="cpu")
+        mesh = {"data": 1, "model": tp}
+        specs = SH.param_specs(params, cfg, mesh, "serve_tp")
+        for r in range(tp):
+            coord = {"data": 0, "model": r}
+            shard = SH.plan_serve_shard(cfg, mesh, n_slots=3, coord=coord)
+            got = _flat(SH.shard_serve_params(params, shard, cfg))
+            want = _flat(SH.shard_params(params, specs, mesh, coord=coord))
+            for k in got:
+                if cfg.n_kv_heads % tp and k.split("/")[-1] in ("wk", "wv"):
+                    continue  # the KV head a rank reads, replicated
+                assert torch.equal(got[k], want[k]), (arch, tp, k)
+        if cfg.n_experts:
+            ep = cfg.n_experts % tp == 0
+            assert shard.experts == ((tp - 1) * cfg.n_experts // tp,
+                                     cfg.n_experts // tp) if ep \
+                else shard.experts == (0, cfg.n_experts)
+            assert shard.cfg.moe_d_ff == (cfg.moe_d_ff if ep
+                                          else cfg.moe_d_ff // tp)
+            assert shard.cfg.n_experts == cfg.n_experts  # routing: global
+    specs = SH.serve_cache_specs(smoke_config("whisper-base"),
+                                 {"data": 2, "model": 2}, n_slots=4)
+    assert specs["cross_k"] == (None, "data", "model", None, None)
+
+
+def test_serve_2d_pieces_gather_into_the_serve_tp_shard():
+    """``serve_2d`` at (2, 2): each rank holds ``param_specs(...,
+    "serve_2d")``'s cut; concatenating the data ranks' pieces on the
+    recipe's dim and cutting the replicated dims the recipe names gives
+    the ``serve_tp`` shard, leaf for leaf. KV heads fewer than tp need a
+    gather over ``model`` too, and are refused."""
+    mesh = {"data": 2, "model": 2}
+    for arch in ("tinyllama-1.1b", "mamba2-370m", "granite-moe-1b-a400m",
+                 "whisper-base"):
+        _serve_2d_pieces(arch, mesh)
+    cfg = smoke_config("tinyllama-1.1b")
+    shard = SH.plan_serve_shard(cfg, {"data": 2, "model": 4}, n_slots=4,
+                                coord={"data": 0, "model": 0})
+    with pytest.raises(ValueError, match="KV heads"):
+        SH.serve_2d_plan(init_params(cfg, seed=0, device="cpu"), shard, cfg,
+                         {"data": 2, "model": 4})
+
+
+def _serve_2d_pieces(arch, mesh):
+    cfg = smoke_config(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    for r in range(2):
+        shard = SH.plan_serve_shard(cfg, mesh, n_slots=4,
+                                    coord={"data": 0, "model": r})
+        specs, recipes = SH.serve_2d_plan(params, shard, cfg, mesh)
+        held = [_flat(SH.shard_params(params, specs, mesh,
+                                      coord={"data": d, "model": r}))
+                for d in range(2)]
+        want = _flat(SH.shard_serve_params(params, shard, cfg))
+        for k, rec in _flat(recipes).items():
+            t = (held[0][k] if rec.data_dim is None else
+                 torch.cat([h[k] for h in held], dim=rec.data_dim))
+            for dim, (start, size) in rec.after.items():
+                t = t.narrow(dim, start, size)
+            assert tuple(t.shape) == rec.shape, k
+            assert torch.equal(t, want[k]), (arch, r, k)
 
 
 def test_local_gates_clamp_global_prefix_widths():

@@ -40,6 +40,7 @@ from repro_torch.models import model as TM
 from repro_torch.runtime import sampling as TSA
 from repro_torch.runtime import serving as TS
 from repro_torch.runtime import speculative as TSP
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-4
 VARIANTS = {"full": {}, "kv_quant": {"kv_quant": True},

@@ -44,6 +44,7 @@ from repro_torch.models import model as TM
 from repro_torch.models import ssm as TSSM
 from repro_torch.runtime import serving as TS
 from repro_torch.runtime import speculative as TSP
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ARCH = "mamba2-370m"
 ATOL = 1e-4

@@ -74,6 +74,7 @@ from repro_torch.kernels import fused_decode as FD
 from repro_torch.kernels import morph_matmul as MM
 from repro_torch.kernels import ssd_scan as TSSD
 from repro_torch.models.layers import _cache_kpos
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 BF16_TOL = dict(atol=1e-3, rtol=2.0 ** -7)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -44,6 +44,7 @@ from repro_torch.launch import train as TTRAIN
 from repro_torch.models import model as TM
 from repro_torch.optim import optimizer as TO
 from repro_torch.optim import schedule as TSCH
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ARCHS = ("tinyllama-1.1b", "mamba2-370m")
 GRAD_RTOL = 1e-4

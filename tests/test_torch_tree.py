@@ -47,6 +47,7 @@ from repro_torch.core import elastic
 from repro_torch.models import model as TM
 from repro_torch.runtime import sampling as TSA
 from repro_torch.runtime import speculative as TSP
+from torch_threads import one_thread  # noqa: E402,F401  (autouse)
 
 ATOL = 1e-4
 TOPOLOGIES = [(2,), (2, 1), (2, 2), (2, 2, 1), (3, 2, 1)]

@@ -80,8 +80,8 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``ServingEngine`` (8 slots, a Poisson trace with prompts of 16-256 and
    32-64 new tokens, cache 512, prefill threshold 8, the admission mode
    moved every 12 ticks along a schedule of every (depth, width) mode):
-   full-width ``tinyllama-1.1b`` cut to 11 of its 22 layers (exits 5 and
-   8; 10 requests) nine times: plain decode
+   full-width ``tinyllama-1.1b`` cut to 8 of its 22 layers (exits 4 and
+   6; 10 requests) nine times: plain decode
    unfused, ``fused=True``, and ``fused=True`` with
    ``attn_impl="chunked"`` (every prompt pass through ``flash_attention``),
    then linear self-speculation
@@ -94,9 +94,9 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    dense cache and over a block-paged one (page 16, the worst-case pool of
    264 pages), asserting identical tokens pair by pair, radix hits, the
    page accounting after every tick, every fused launch paged; then
-   full-width ``mamba2-370m`` cut to 12 of its 48 layers (exits 6 and 9;
+   full-width ``mamba2-370m`` cut to 8 of its 48 layers (exits 4 and 6;
    10 requests) three times: plain greedy, speculative greedy and tree
-   speculative greedy (depth 12 drafts at exit 9, depth 9 at exit 6).
+   speculative greedy (depth 8 drafts at exit 6, depth 6 at exit 4).
    Each drive with more requests than slots must admit them at two modes
    or more (the queued ones at later modes). Before each model's drives, its f32
    smoke config serves greedily on the card with the tree (unfused; for
@@ -131,7 +131,7 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    ``fused_verify`` and ``flash_decode`` launch on the tensor-core route.
    Then one 256-token prompt pass of the drives' TinyLlama under the
    einsum and under the chunked attention (host and device ms), one of
-   their Mamba2 (12 scans), and the ``flash_decode`` entry point (the
+   their Mamba2 (8 scans), and the ``flash_decode`` entry point (the
    reference's only caller of that kernel) driven once per TinyLlama layer
    at the serving cache's shape. Speculative drives
    report acceptance, tokens per verify launch per slot, tick p50/p95 and
@@ -164,10 +164,11 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    Then failover (``failover_phase``), each drive fused and greedy with 8
    slots, capacity 512 and all 12 (Mamba2: 8) Poisson requests arriving at
    t ~ 0 (rate 1e6, seed 5, 30% interactive, prompts 1-64): full-width
-   ``tinyllama-1.1b`` cut to 11 layers (an exit at 5) with
+   ``tinyllama-1.1b`` cut to 8 layers (an exit at 4) with
    ``attn_impl="chunked"``, linear K = 2 over a
    dense cache and tree (2, 2, 1) over a paged one (page 16), 32-64 new
-   tokens; full-depth ``mamba2-370m``, linear K = 2, 16 new tokens; and
+   tokens; ``mamba2-370m`` cut to 24 layers (an exit at 12), linear K = 2,
+   16 new tokens; and
    TinyLlama cut to 4 layers in f32 (an exit at 2). Each runs the trace
    unsupervised, under a counting ``ExecutorSupervisor`` (the fault-free
    reference; each tick's snapshot timed) and as a chaos run over two
@@ -210,12 +211,12 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    requests, tokens and launch counts identical to ``LocalExecutor``'s;
    then tp = 2 as two ranks sharing the card over gloo (``mesh_ranks``,
    started by ``launch.mesh.spawn_ranks``; a rank's failure fails the
-   run), ``MESH_DRIVES``: full-width fused TinyLlama cut to 11 layers (8
-   requests) plain and K = 2, Mamba2 cut to 12 layers (4 requests), and
+   run), ``MESH_DRIVES``: full-width fused TinyLlama cut to 6 layers (8
+   requests) plain and K = 2, Mamba2 cut to 6 layers (4 requests), and
    both cut to 4 layers in
-   f32; full-width whisper-base and internvl2-2b (12 of its 24 layers; the
-   token feed) and full-depth granite-moe-1b-a400m in f32 (16 of its 32
-   experts a rank) plain and K = 2. Every mesh drive submits one request a tick, each at the next mode
+   f32; full-width whisper-base and internvl2-2b (6 of its 24 layers; the
+   token feed) and granite-moe-1b-a400m cut to 12 of its 24 layers in f32
+   (16 of its 32 experts a rank) plain and K = 2. Every mesh drive submits one request a tick, each at the next mode
    (``staggered_drive``: mixed widths in several depth groups, prefill
    admission and the token feed), and must cover a narrow width and a
    shallower depth; each rank's streams and launches identical to rank
@@ -268,7 +269,26 @@ Phases (any failure exits non-zero; nothing is caught into a pass):
    failure injected before step 3, resumed by ``run_with_restarts``, must
    end bit-identical to 4 uninterrupted steps; save and restore seconds
    and bytes printed, the checkpoints in a temporary directory removed
-   afterwards.
+   afterwards. Then training on a (data, model) mesh (``train_mesh_phase``):
+   a full-width TinyLlama-1.1B train step cut to 2 layers (f32,
+   B = 1, S = 4096) under ``attn_impl="chunked"`` must launch no
+   ``flash_attention`` and give the einsum route's loss, while the fused
+   chunked serving drive launched it (its count asserted exact there);
+   ``make_train_step(
+   grad_shardings=...)`` at world size 1 over NCCL in this process (3
+   Mamba2 steps) bit for bit the one-card step's; then two ranks sharing
+   the card over gloo (``train_mesh_ranks``): full-width Mamba2-370M cut
+   to 8 layers (f32, B = 8, S = 256, AdamW, 3 steps, step-1 gradients
+   checked) at (dp, tp) = (2, 1) and (1, 2), and TinyLlama-1.1B cut to 2
+   layers (bf16 activations, 2 steps) at (1, 2) with sequence parallelism
+   and the bf16-dW matmul and at (2, 1) with bf16 gradients, each held to
+   the one-card step (``TRAIN_MESH_TOL``), each rank's kernel launches
+   exact (a Mamba2 rank: 8 ``ssd_scan`` and 8 ``ssd_scan_bwd`` a step, at
+   its shard's rows and heads; none on TinyLlama's), each rank's state
+   bytes beside the dry-run's reckoning; step wall and device ms, idle
+   share and the host-staged collectives' ms a step printed. Phase 2 holds
+   ``ssd_scan`` and ``ssd_scan_bwd`` at those rank shapes
+   (``check_ssd_train_shards``).
 5. A ``{"kernels": [...]}`` JSON line (``fused_decode`` and
    ``fused_verify`` add their paged timings under ``paged`` and the paged
    drives' counts under ``paged_launches_by_path``; ``fused_verify`` its
@@ -3863,16 +3883,16 @@ def training_phase(torch, cfg, mcfg, timer, full=True):
 # at t ~ 0, so the schedule does not depend on step times), seed 5, 30%
 # interactive.
 FAILOVER_DRIVES = (
-    # TinyLlama at 11 of its 22 layers (an exit at 5) since PR 26: the later
-    # phases share the run's time
+    # TinyLlama at 8 of its 22 layers (an exit at 4) and Mamba2 at 24 of
+    # 48: the later phases share the run's time
     ("tinyllama_fused_linear", "tinyllama-1.1b",
-     dict(attn_impl="chunked", n_layers=11), "linear", 0, 12, (1, 64),
+     dict(attn_impl="chunked", n_layers=8), "linear", 0, 12, (1, 64),
      (32, 64), ("decode", "verify", "prefill")),
     ("tinyllama_paged_tree", "tinyllama-1.1b",
-     dict(attn_impl="chunked", n_layers=11), "tree", PAGE, 12, (1, 64),
+     dict(attn_impl="chunked", n_layers=8), "tree", PAGE, 12, (1, 64),
      (32, 64), ("paged_decode", "tree_verify", "prefill")),
-    ("mamba2_linear", "mamba2-370m", {}, "linear", 0, 8, (1, 64), (16, 16),
-     ("decode", "verify", "prefill")),
+    ("mamba2_linear", "mamba2-370m", dict(n_layers=24), "linear", 0, 8,
+     (1, 64), (16, 16), ("decode", "verify", "prefill")),
     # full width cut to 4 layers, f32 (an exit at 2 to draft from): the
     # kernels' f32 routes, where a replay's cache should land within f32
     # rounding of the source's
@@ -5074,30 +5094,32 @@ MESH_MAX_CHANGE_STEPS = 16
 # name, arch, config overrides, speculative (K or 0), requests, new tokens,
 # streams held strictly (f32) or by near ties (bf16)
 MESH_DRIVES = (
-    # TinyLlama's bf16 drives at 11 of its 22 layers and Mamba2's at 12 of
-    # its 48 since PR 26 (full depth and 24 in PR 25): the run's time
-    ("tinyllama_tp2", "tinyllama-1.1b", dict(n_layers=11), 0, 8, (16, 32),
+    # TinyLlama's bf16 drives at 6 of its 22 layers and Mamba2's at 6 of
+    # its 48: the run's time
+    ("tinyllama_tp2", "tinyllama-1.1b", dict(n_layers=6), 0, 8, (16, 32),
      False),
-    ("tinyllama_tp2_k2", "tinyllama-1.1b", dict(n_layers=11), 2, 8, (8, 16),
+    ("tinyllama_tp2_k2", "tinyllama-1.1b", dict(n_layers=6), 2, 8, (8, 16),
      False),
     ("tinyllama_tp2_f32_4layers", "tinyllama-1.1b",
      dict(dtype="float32", n_layers=4), 2, 8, (16, 32), True),
-    ("mamba2_tp2_12layers", "mamba2-370m", dict(n_layers=12), 0, 4, (8, 16),
+    ("mamba2_tp2_6layers", "mamba2-370m", dict(n_layers=6), 0, 4, (8, 16),
      False),
     ("mamba2_tp2_f32_4layers", "mamba2-370m",
      dict(dtype="float32", n_layers=4), 0, 4, (8, 16), True),
-    # the encoder-decoder, frontend and MoE families at full width and
-    # depth; granite (16 of its 32 experts a rank) in f32: in bf16 a
+    # the encoder-decoder, frontend and MoE families at full width
+    # (internvl at 6 of its 24 layers, granite at 12 of 24: the run's
+    # time); granite (16 of its 32 experts a rank) in f32: in
+    # bf16 a
     # rank's rounding moves the router's top-8 choice at near ties, and a
     # moved expert changes its token's logits by more than the near-tie cap
     # (a parting's change of 0.091 over a cap of 0.063 on an H100)
     ("whisper_tp2", "whisper-base", {}, 0, 8, (8, 16), False),
-    ("internvl_tp2", "internvl2-2b", dict(n_layers=12), 0, 8, (8, 16),
+    ("internvl_tp2", "internvl2-2b", dict(n_layers=6), 0, 8, (8, 16),
      False),
-    ("granite_tp2_f32", "granite-moe-1b-a400m", dict(dtype="float32"), 0, 8,
-     (8, 16), True),
-    ("granite_tp2_f32_k2", "granite-moe-1b-a400m", dict(dtype="float32"), 2,
-     8, (4, 8), True),
+    ("granite_tp2_f32", "granite-moe-1b-a400m",
+     dict(dtype="float32", n_layers=12), 0, 8, (8, 16), True),
+    ("granite_tp2_f32_k2", "granite-moe-1b-a400m",
+     dict(dtype="float32", n_layers=12), 2, 8, (4, 8), True),
 )
 # the model-level drives of the encoder-decoder and frontend families at
 # tp = 2, in f32 (held to the local drive's logits to MESH_F32_ATOL): a
@@ -5741,6 +5763,494 @@ def mesh_phase(torch):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_MESHES = ((2, 1), (1, 2))  # (dp, tp): two ranks sharing the card
+TRAIN_MESH_LR = 1e-3
+TRAIN_MESH_BATCH = (8, 256)  # B, S
+# name, arch, (dp, tp), steps, grad dtype, sequence parallelism,
+# bf16-gradient matmul
+TRAIN_MESH_DRIVES = (
+    ("mamba2_dp2", "mamba2-370m", (2, 1), 3, "float32", False, False),
+    ("mamba2_tp2", "mamba2-370m", (1, 2), 3, "float32", False, False),
+    ("tinyllama_tp2_sp_bf16mm", "tinyllama-1.1b", (1, 2), 2, "float32", True,
+     True),
+    ("tinyllama_dp2_grad_bf16", "tinyllama-1.1b", (2, 1), 2, "bfloat16",
+     False, False),
+)
+# Tolerances of a mesh drive against the one-card step on the same seeded
+# state and batches. f32 activations (Mamba2): the first step's loss rtol
+# 1e-5, later steps' 1e-4 (their parameters may already differ by a few lr
+# where a near-zero gradient took the other sign); step-1 gradients before
+# the optimizer |mesh - card| <= 1e-4 max |g| of each leaf; parameters after
+# the last step at most 0.1% of the elements beyond 0.01 lr. bf16
+# activations (TinyLlama; the tensor-parallel partials are rounded to bf16
+# before their f32 sum): losses within 8 bf16 steps (8 x 2^-8 relative);
+# step-1 gradients within twice the card's own bf16-vs-f32 gradient
+# difference plus 2^-8 of the leaf's max |g|, leaf by leaf: rounding noise
+# (an H100 run saw a fifth of the elements moved by over 0.25 lr after two
+# AdamW steps, so a parameter count is no check in bf16). Every drive: max |mesh - card| of a parameter <= 2 lr
+# a step (AdamW moves an element by about lr a step) + 1e-6.
+TRAIN_MESH_TOL = {"float32": dict(loss1=1e-5, loss=1e-4, near=0.01,
+                                  share=1e-3),
+                  "bfloat16": dict(loss1=8 * 2.0 ** -8, loss=8 * 2.0 ** -8,
+                                   near=None, share=None)}
+
+
+def train_mesh_cfg(arch):
+    from repro_torch.configs import get_config
+
+    if arch == "mamba2-370m":  # f32 activations, 8 of its 48 layers
+        return depth_cut(get_config(arch), 8, (4, 6)).scaled(dtype="float32")
+    return depth_cut(get_config(arch), 2, (1,))  # bf16 activations
+
+
+def train_mesh_batches(cfg, n):
+    from repro_torch.data import DataConfig, make_batch
+
+    B, S = TRAIN_MESH_BATCH
+    dc = DataConfig(seed=0, global_batch=B, seq_len=S)
+    return [make_batch(cfg, dc, i) for i in range(n)]
+
+
+def _cpu_tree(tree):
+    return {k: _cpu_tree(v) if isinstance(v, dict) else
+            v.detach().float().cpu() for k, v in tree.items()}
+
+
+def train_mesh_local(torch, arch, steps, gdt, bf16mm):
+    """The one-card reference of a mesh drive: the seeded state, the same
+    batches, ``make_train_step`` without a mesh. Returns (losses, the
+    parameters after the last step, the step-1 gradients and, for bf16
+    activations, the step-1 gradients with f32 activations, on the
+    host)."""
+    from repro_torch.data import to_device
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.layers import set_bf16_grad_matmul
+    from repro_torch.models.model import loss_fn
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.optim.optimizer import grads_of
+
+    cfg = train_mesh_cfg(arch)
+    ocfg = OptimizerConfig(lr=TRAIN_MESH_LR)
+    batches = [to_device(b, "cuda") for b in train_mesh_batches(cfg, steps)]
+    state = init_train_state(cfg, ocfg, seed=0, device="cuda")
+    step = make_train_step(cfg, ocfg, remat="none", grad_dtype=gdt)
+    g32 = None
+    if cfg.dtype != "float32":
+        loss, _ = loss_fn(state["params"], batches[0],
+                          cfg.scaled(dtype="float32"))
+        g32 = _cpu_tree(grads_of(loss, state["params"]))
+    set_bf16_grad_matmul(bf16mm)
+    try:
+        loss, _ = loss_fn(state["params"], batches[0], cfg)
+        g = _cpu_tree(grads_of(loss, state["params"]))
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+    finally:
+        set_bf16_grad_matmul(False)
+    out = (losses, _cpu_tree(state["params"]), g, g32)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _flat_paths(tree, prefix=""):
+    for k, v in tree.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat_paths(v, p)
+        else:
+            yield p, v
+
+
+def compare_train(name, act, steps, losses, params, grads, ref):
+    """A mesh drive's losses, gathered step-1 gradients and parameters
+    against its one-card reference ``ref`` (``TRAIN_MESH_TOL`` of the
+    activation dtype ``act``). Returns the worst errors."""
+    r_losses, r_params, r_grads, r_g32 = ref
+    tol = TRAIN_MESH_TOL[act]
+    for i, (a, b) in enumerate(zip(losses, r_losses)):
+        rt = tol["loss1"] if i == 0 else tol["loss"]
+        if not (math.isfinite(a) and abs(a - b) <= rt * abs(b)):
+            fail(f"train mesh {name}: step {i} loss {a!r} vs one card "
+                 f"{b!r} beyond rtol {rt:.1e}")
+    worst = {"loss_rel": max(abs(a - b) / abs(b)
+                             for a, b in zip(losses, r_losses))}
+    gw, got_g = 0.0, dict(_flat_paths(grads))
+    g32 = dict(_flat_paths(r_g32)) if r_g32 is not None else None
+    for path, want in _flat_paths(r_grads):
+        got = got_g[path]
+        scale = max(float(want.abs().max()), 1e-30)
+        e = float((got - want).abs().max())
+        lim = 1e-4 * scale if g32 is None else (
+            2 * float((want - g32[path]).abs().max()) + 2.0 ** -8 * scale)
+        if e > lim:
+            fail(f"train mesh {name}: step-1 gradient {path} max |err| "
+                 f"{e:.3e} beyond {lim:.3e} (max |g| {scale:.3e})")
+        gw = max(gw, e / scale)
+    worst["grad_rel"] = gw
+    lim = 2 * steps * TRAIN_MESH_LR + 1e-6
+    got_p = dict(_flat_paths(params))
+    n_far = n_all = 0
+    pw = 0.0
+    for path, want in _flat_paths(r_params):
+        d = (got_p[path] - want).abs()
+        e = float(d.max())
+        if e > lim:
+            fail(f"train mesh {name}: parameter {path} max |err| {e:.3e} "
+                 f"beyond 2 lr a step ({lim:.3e})")
+        if tol["near"] is not None:
+            n_far += int((d > tol["near"] * TRAIN_MESH_LR).sum())
+        n_all += d.numel()
+        pw = max(pw, e)
+    if tol["share"] is not None and n_far > tol["share"] * n_all:
+        fail(f"train mesh {name}: {n_far} of {n_all} parameter elements "
+             f"beyond {tol['near']} lr of the one-card step (at most "
+             f"{tol['share']:.0e} of them may be)")
+    worst.update(param_max_abs=pw, param_share_beyond=n_far / n_all)
+    return worst
+
+
+def _ref_key(arch, steps, gdt, bf16mm):
+    return f"ref_{arch}_{steps}_{gdt}_{int(bf16mm)}"
+
+
+def train_mesh_ranks(rank, world, out_dir, drives=TRAIN_MESH_DRIVES,
+                     shapes=TRAIN_MESHES):
+    """One rank of ``train_mesh_phase``'s drives (``drives``, by default
+    ``TRAIN_MESH_DRIVES``: both ranks on the one card over gloo, the (2, 1)
+    and (1, 2) meshes of ``shapes`` over the same two ranks; with a card a
+    rank, NCCL). Each drive builds the sharded state
+    (``init_train_state(mesh=...)``; the rise of ``memory_allocated``
+    beside the dry-run's reckoning of it), takes the step-1 gradients where
+    takes the step-1 gradients (``step.grads``) and ``steps`` mesh steps (the last one
+    profiled on rank 0), counting every kernel launch on this rank; rank 0
+    gathers the gradients and parameters and holds them to the one-card
+    reference (``out_dir/ref_*.pt``), and writes the results to
+    ``out_dir/train_mesh.json``."""
+    import torch
+
+    from repro_torch.data import to_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.layers import set_bf16_grad_matmul
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel import tensor_parallel as TP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {s: _mesh(s, ("data", "model"), device="cuda") for s in shapes}
+    results = {}
+    for name, arch, shape, steps, gdt, sp, bf16mm in drives:
+        t_all = time.perf_counter()
+        mesh = meshes[shape]
+        cfg = train_mesh_cfg(arch)
+        ocfg = OptimizerConfig(lr=TRAIN_MESH_LR)
+        batches = [to_device(b, "cuda")
+                   for b in train_mesh_batches(cfg, steps)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        state = init_train_state(cfg, ocfg, seed=0, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        rise = torch.cuda.memory_allocated() - before
+        pred = dryrun.train_state_bytes(cfg, ocfg, SH.axis_sizes(mesh),
+                                        SH.mesh_coord(mesh))
+        pred_all = pred["params_bytes"] + pred["opt_bytes"]
+        if abs(rise - pred_all) > 0.01 * pred_all + 2**20:
+            fail(f"train mesh {name} rank {rank}: the sharded state took "
+                 f"{rise} B of device memory, the dry-run reckons {pred_all} B")
+        gsh = SH.shardings_for(SH.param_specs(
+            init_params(cfg, device="meta"), cfg, mesh, "train"), mesh)
+        step = make_train_step(cfg, ocfg, remat="none", grad_dtype=gdt,
+                               grad_shardings=gsh)
+        shards = SH.train_state_shardings(cfg, ocfg, mesh)
+        sp_ctx = SH.activation_sharding(mesh, SH.residual_specs(
+            mesh, "train") if sp else {})
+        count_reset = counters()
+        for _, reset in count_reset.values():
+            reset()
+        TP.reset_staged()
+        set_bf16_grad_matmul(bf16mm)
+        losses, wall, grads = [], [], None
+        dev_ms = float("nan")
+        try:
+            with sp_ctx:
+                _, g = step.grads(state["params"], batches[0])
+                grads = _cpu_tree(TP.gather_tree(g, shards["params"], mesh))
+                del g
+                torch.cuda.synchronize()
+                staged0 = TP.staged_seconds()
+                for i, b in enumerate(batches):
+                    if i == len(batches) - 1 and rank == 0:
+                        box = {}
+
+                        def one(b=b, box=box):
+                            box["out"] = step(state, b)
+
+                        per = kernel_us(torch, one, 1)
+                        state, m = box["out"]
+                        dev_ms = sum(per.values()) / 1e3
+                    else:
+                        t0 = time.perf_counter()
+                        state, m = step(state, b)
+                        torch.cuda.synchronize()
+                        wall.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(m["loss"].item())
+                staged1 = TP.staged_seconds()
+        finally:
+            set_bf16_grad_matmul(False)
+        launches = {k: count() for k, (count, _) in count_reset.items()}
+        L = cfg.n_layers if "ssm" in cfg.layer_pattern else 0
+        calls = steps + 1  # and the step-1 gradients
+        want = {k: 0 for k in launches}
+        want.update(ssd_scan=L * calls, ssd_scan_bwd=L * calls)
+        if launches != want:
+            fail(f"train mesh {name} rank {rank}: launches {launches}, "
+                 f"expected {want}")
+        params = _cpu_tree(TP.gather_tree(state["params"], shards["params"],
+                                          mesh))
+        res = dict(mesh=list(shape), steps=steps, grad_dtype=gdt, sp=sp,
+                   bf16_grad_matmul=bf16mm, losses=losses,
+                   launches_per_rank=launches,
+                   state_bytes_allocated=rise, state_bytes_dryrun=pred_all,
+                   step_wall_ms=_ms(wall[1:] or wall), step_device_ms=dev_ms,
+                   staged_collective_ms_per_step=(
+                       staged1["s"] - staged0["s"]) * 1e3 / steps,
+                   staged_collectives_per_step=(
+                       staged1["n"] - staged0["n"]) / steps)
+        if rank == 0:
+            ref = torch.load(os.path.join(out_dir, f"{_ref_key(
+                arch, steps, gdt, bf16mm)}.pt"), weights_only=False)
+            res.update(compare_train(name, cfg.dtype, steps, losses, params,
+                                     grads, ref))
+            del ref
+            res["idle_share"] = 1 - dev_ms / res["step_wall_ms"]
+            res["seconds"] = time.perf_counter() - t_all
+            log(f"  {name} ({arch} {cfg.n_layers} layers, (dp, tp) = "
+                f"{shape}, {gdt} gradients{', SP' if sp else ''}"
+                f"{', bf16-dW matmul' if bf16mm else ''}): losses {losses}; "
+                f"step {res['step_wall_ms']:.1f} ms wall, "
+                f"{dev_ms:.1f} ms device (rank 0), idle share "
+                f"{res['idle_share']:.3f}, host-staged collectives "
+                f"{res['staged_collective_ms_per_step']:.1f} ms a step "
+                f"({res['staged_collectives_per_step']:.0f} calls); state "
+                f"{rise / 2**20:.1f} MiB allocated vs {pred_all / 2**20:.1f} "
+                f"MiB reckoned by the dry-run; launches {launches}; worst "
+                + json.dumps({k: res[k] for k in ('loss_rel', 'grad_rel',
+                                                  'param_max_abs',
+                                                  'param_share_beyond')
+                              if k in res}))
+        results[name] = res
+        del state, step, params, grads, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(out_dir, "train_mesh.json"), "w") as f:
+            json.dump(results, f)
+
+
+def train_mesh_world_one(torch, ref):
+    """``make_train_step(grad_shardings=...)`` at world size 1 over NCCL in
+    this process (the Mamba2 drive's 3 steps): bit for bit the one-card
+    step's losses and parameters."""
+    import torch.distributed as dist
+
+    from repro_torch.data import to_device
+    from repro_torch.launch.mesh import _mesh
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.parallel import sharding as SH
+
+    name, arch, _, steps = TRAIN_MESH_DRIVES[0][:4]
+    cfg = train_mesh_cfg(arch)
+    ocfg = OptimizerConfig(lr=TRAIN_MESH_LR)
+    batches = [to_device(b, "cuda") for b in train_mesh_batches(cfg, steps)]
+    try:
+        mesh = _mesh((1, 1), ("data", "model"), device="cuda")
+        if dist.get_backend() != "nccl":
+            fail(f"world size 1 on one card chose {dist.get_backend()}")
+        state = init_train_state(cfg, ocfg, seed=0, device="cuda", mesh=mesh)
+        step = make_train_step(cfg, ocfg, remat="none", grad_shardings=SH.
+                               shardings_for(SH.param_specs(init_params(
+                                   cfg, device="meta"), cfg, mesh, "train"),
+                                   mesh))
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+        params = _cpu_tree(state["params"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    r_losses, r_params = ref[:2]
+    differ = [p for p, t in _flat_paths(r_params)
+              if not torch.equal(dict(_flat_paths(params))[p], t)]
+    if losses != r_losses or differ:
+        fail(f"mesh train step at world size 1 parted from the one-card "
+             f"step: losses {losses} vs {r_losses}; parameters {differ}")
+    log(f"  world size 1 over NCCL: {steps} Mamba2 mesh steps bit for bit "
+        f"the one-card step's (losses {losses})")
+    del state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, bitwise=True)
+
+
+def chunked_train_check(torch, prompt_launches):
+    """A full-width TinyLlama-1.1B train step cut to 2 layers, f32, B = 1,
+    S = 4096 under ``attn_impl="chunked"``: no ``flash_attention`` launch
+    (the gradient pass takes the plain ``attention_chunked``) and the
+    ``"einsum"`` route's loss within 1e-5; the fused chunked serving drive
+    did launch it (``prompt_launches``, its exact count asserted by
+    ``end_to_end``; None under ``--skip-e2e``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import OptimizerConfig
+
+    base = depth_cut(get_config("tinyllama-1.1b"), 2, (1,)).scaled(
+        dtype="float32")
+    ocfg = OptimizerConfig(lr=1e-4)
+    batch = make_batch(base, DataConfig(seed=0, global_batch=1,
+                                        seq_len=4096), 0)
+    out = {}
+    for impl in ("chunked", "einsum"):
+        cfg = base.scaled(attn_impl=impl)
+        state = init_train_state(cfg, ocfg, seed=0, device="cuda")
+        step = make_train_step(cfg, ocfg, remat="full")
+        FA.reset_launch_count()
+        t0 = time.perf_counter()
+        state, m = step(state, to_device(batch, "cuda"))
+        torch.cuda.synchronize()
+        out[impl] = dict(loss=m["loss"].item(), launches=FA.launch_count(),
+                         ms=(time.perf_counter() - t0) * 1e3)
+        del state, step
+        torch.cuda.empty_cache()
+    c, e = out["chunked"], out["einsum"]
+    if c["launches"] or e["launches"]:
+        fail(f"a train step launched flash_attention: {out}")
+    if not abs(c["loss"] - e["loss"]) <= 1e-5 * abs(e["loss"]):
+        fail(f"chunked train step loss {c['loss']!r} vs einsum "
+             f"{e['loss']!r} beyond rtol 1e-5")
+    if prompt_launches is not None and not prompt_launches:
+        fail("the fused chunked drive launched no flash_attention")
+    log(f"  TinyLlama 2 layers f32 train step at S = 4096 under "
+        f"attn_impl=\"chunked\": loss {c['loss']:.6f} (einsum "
+        f"{e['loss']:.6f}), 0 flash_attention launches ({c['ms']:.0f} ms; "
+        f"einsum {e['ms']:.0f} ms); the fused chunked prompt drive: "
+        f"{prompt_launches} launches")
+    return dict(chunked=c, einsum=e, prompt_drive_launches=prompt_launches)
+
+
+def train_mesh_phase(torch, prompt_launches):
+    """Phase 4's mesh training: the chunked train step routed around the
+    flash kernel (``chunked_train_check``), the one-card references of
+    ``TRAIN_MESH_DRIVES``, the world-size-1 NCCL drive
+    (``train_mesh_world_one``) and the drives as two gloo ranks sharing the
+    card (``train_mesh_ranks``; a rank's failure fails the phase). Two
+    ranks on one card measure the collectives' placement, not multi-card
+    speed. Returns (rank 0's launches per drive, results)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    log(f"  card: {card_line()}")
+    results = {"chunked_train": chunked_train_check(torch, prompt_launches)}
+    out_dir = tempfile.mkdtemp(prefix="train_mesh_")
+    for i, (_, arch, _, steps, gdt, _, bf16mm) in enumerate(
+            TRAIN_MESH_DRIVES):
+        path = os.path.join(out_dir, f"{_ref_key(arch, steps, gdt, bf16mm)}.pt")
+        if os.path.exists(path):
+            continue
+        ref = train_mesh_local(torch, arch, steps, gdt, bf16mm)
+        if i == 0:
+            results["world1_nccl"] = train_mesh_world_one(torch, ref)
+        torch.save(ref, path)
+        del ref
+    spawn_ranks(train_mesh_ranks, 2, (out_dir,), device="cuda")
+    with open(os.path.join(out_dir, "train_mesh.json")) as f:
+        results.update(json.load(f))
+    launches = {n: r["launches_per_rank"] for n, r in results.items()
+                if "launches_per_rank" in r}
+    log(f"  train mesh phase: {time.perf_counter() - t0:.1f} s")
+    return launches, results
+
+
+def check_ssd_train_shards(torch, mcfg, timer):
+    """The scan kernel and its backward at the Mamba2-370M mesh step's
+    rank shapes (S = 256, f32): dp = 2, 4 rows of 32 heads; tp = 2, 8 rows
+    of 16 heads. Each against its plain version (``ssd_chunked`` /
+    ``ssd_scan_bwd_plain``), timed beside it and its bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+
+    h, p, g, n, q = (mcfg.ssm_nheads, mcfg.ssm_head_dim, mcfg.ssm_ngroups,
+                     mcfg.ssm_state, mcfg.ssm_chunk)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    res = {}
+    for tag, (b, hh) in (("dp2 rank (4 rows, 32 heads)", (4, h)),
+                         ("tp2 rank (8 rows, 16 heads)", (8, h // 2))):
+        s = TRAIN_MESH_BATCH[1]
+        x, dt, A, B, C = scan_inputs(torch, gen, b, s, hh, p, g, n)
+        (yk, sk), (yp, sp_) = (ops.ssd_scan_bshn(x, dt, A, B, C, chunk=q),
+                               SSD.ssd_chunked(x, dt, A, B, C, q))
+        torch.cuda.synchronize()
+        ferr = 0.0
+        for what, got, want in (("y", yk, yp), ("state", sk, sp_)):
+            ok, e = close(torch, got, want, rtol=RTOL_SCAN, atol=ATOL_SCAN)
+            if not ok or not bool(torch.isfinite(got).all()):
+                fail(f"ssd_scan {tag} {what}: max |err| {e:.3e}")
+            ferr = max(ferr, e)
+        t_f = timer.ms(lambda: ops.ssd_scan_bshn(x, dt, A, B, C, chunk=q))
+        t_fp = timer.ms(lambda: SSD.ssd_chunked(x, dt, A, B, C, q))
+        fb, fby, _, _, _ = scan_bound(b, s, hh, p, g, n)
+        A_bh = A.expand(b, hh).contiguous()
+        dy = torch.randn(b, s, hh, p, generator=gen, device="cuda")
+        ds = torch.randn(b, hh, p, n, generator=gen, device="cuda")
+        _, _, ws = SSD.launch_bshn(x, dt, A_bh, B, C, keep_workspace=True)
+
+        def kern():
+            return SSD.launch_bwd(x, dt, A_bh, B, C, ws, dy, ds)
+
+        def plain():
+            return SSD.ssd_scan_bwd_plain(x, dt, A_bh, B, C, dy, ds)
+
+        berr = 0.0
+        for nm, gk, gp in zip(("dx", "ddt", "dA", "dB", "dC"), kern(),
+                              plain()):
+            scale = float(gp.abs().max())
+            err = (gk.float() - gp.float()).abs()
+            if not (bool(torch.isfinite(gk).all()) and bool(
+                    (err <= ATOL_BWD * scale + RTOL_BWD * gp.abs()).all())):
+                fail(f"ssd_scan_bwd {tag} {nm}: max |err| "
+                     f"{float(err.max()):.3e} (scale {scale:.3e})")
+            berr = max(berr, float(err.max()))
+        t_b = timer.ms(kern)
+        t_bp = timer.ms(plain)
+        bb, bby, _, _ = scan_bwd_bound(b, s, hh, p, g, n, 4)
+        log(f"  ssd_scan at the Mamba2 mesh step's {tag}: forward max|err| "
+            f"{ferr:.3e}, kernel {t_f:.4f} ms, plain {t_fp:.4f} ms, bound "
+            f"{fb:.4f} ms ({fby}); backward max|err| {berr:.3e}, kernel "
+            f"{t_b:.4f} ms, plain {t_bp:.4f} ms, bound {bb:.4f} ms ({bby})")
+        res[tag] = dict(
+            forward=dict(max_abs_err=ferr, ms=t_f, plain_ms=t_fp,
+                         bound_ms=fb, bound_by=fby, library_ms=None),
+            backward=dict(max_abs_err=berr, ms=t_b, plain_ms=t_bp,
+                          bound_ms=bb, bound_by=bby, library_ms=None))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-e2e", action="store_true",
@@ -5818,6 +6328,9 @@ def main(argv=None) -> int:
     phase("[phase 2] kernels vs plain versions (full Mamba2-370M shapes)")
     mms, mmsv = check_morph_matmul_ssm(torch, mcfg, timer)
     ssd = check_ssd_scan(torch, mcfg, timer)
+    phase("[phase 2] ssd_scan and its backward at the Mamba2 mesh train "
+          "step's rank shapes")
+    ssd_tr = check_ssd_train_shards(torch, mcfg, timer)
     torch.cuda.empty_cache()
 
     launches = {p[0]: dict.fromkeys(KERNEL_NAMES)
@@ -5832,13 +6345,14 @@ def main(argv=None) -> int:
     failover_launches, failover_res = {}, {}
     autoscale_launches, autoscale_res = {}, {}
     mesh_launches, mesh_res = {}, {}
+    train_mesh_launches, train_mesh_res = {}, {}
     if not args.skip_e2e:
-        phase("[phase 3] end to end: tinyllama-1.1b, full width, 11 of its "
+        phase("[phase 3] end to end: tinyllama-1.1b, full width, 8 of its "
               "22 layers, one card")
         smoke_reference(torch)
         smoke_tree_engines(torch)
-        # 11 of its 22 layers (exits 5 and 8) since PR 26: the run's time
-        tcut = depth_cut(cfg, 11, (5, 8))
+        # 8 of its 22 layers (exits 4 and 6): the run's time
+        tcut = depth_cut(cfg, 8, (4, 6))
         params = init_on_card(torch, tcut)
         # 10 requests on 8 slots: the queued 2 are admitted at later modes
         launches, _ = end_to_end(torch, tcut, params, timer, n_requests=10)
@@ -5852,21 +6366,20 @@ def main(argv=None) -> int:
         phase("[phase 3] the flash_decode entry point at the serving cache's "
               "shape")
         launches["flash_decode_entry"] = flash_decode_drive(torch, cfg)
-        phase("[phase 3] end to end: mamba2-370m, full width, 12 of its 48 "
+        phase("[phase 3] end to end: mamba2-370m, full width, 8 of its 48 "
               "layers, one card")
         smoke_reference(torch, "mamba2-370m")
         smoke_tree_engines(torch, "mamba2-370m")
-        # a quarter of its depth (full depth until the mesh phase came,
-        # half until its PR 26 drives: the later phases share the run's
-        # time); 10 requests on 8 slots
-        mcut = depth_cut(mcfg, 12, (6, 9))
+        # a sixth of its depth: the later phases share the run's time; 10
+        # requests on 8 slots
+        mcut = depth_cut(mcfg, 8, (4, 6))
         mparams = init_on_card(torch, mcut)
         ssm_launches, _ = end_to_end(torch, mcut, mparams,
                                      timer, n_requests=10, paths=SSM_PATHS,
                                      expect=expected_launches_ssm,
                                      agreements=SSM_AGREE)
         launches.update(ssm_launches)
-        phase("[phase 3] a 12-layer Mamba2-370M prompt pass")
+        phase("[phase 3] an 8-layer Mamba2-370M prompt pass")
         prompt_pass_ms(torch, mparams, mcut, impls=(None,))
         del mparams
         torch.cuda.empty_cache()
@@ -5917,6 +6430,12 @@ def main(argv=None) -> int:
               "restart, bit for bit")
         failover_launches["mamba2_restart"], failover_res["mamba2_restart"] \
             = restart_drive(torch, depth_cut(mcfg, 24, (12, 18)))
+        phase("[phase 4] training on a (data, model) mesh: attention under "
+              "autograd off the flash kernel, the world-size-1 NCCL step, "
+              "Mamba2-370M and TinyLlama-1.1B at (2, 1) and (1, 2) as two "
+              "ranks sharing the card over gloo")
+        train_mesh_launches, train_mesh_res = train_mesh_phase(
+            torch, launches["fused_chunked"]["flash_attention"])
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
@@ -5955,6 +6474,9 @@ def main(argv=None) -> int:
 
     def mesh(name):
         return {d: c[name] for d, c in mesh_launches.items()}
+
+    def mesh_train(name):
+        return {d: c[name] for d, c in train_mesh_launches.items()}
 
     def autoscale_builds(name):
         return {d: r["build_launches"][name] for d, r in
@@ -6096,7 +6618,11 @@ def main(argv=None) -> int:
              launches_by_path=by_path("ssd_scan"),
              failover_launches=failover("ssd_scan"),
              mesh_launches=mesh("ssd_scan"),
-             max_abs_err=max(r["max_abs_err"] for r in ssd.values()),
+             mesh_train_launches_per_rank=mesh_train("ssd_scan"),
+             train_shard_shapes={k: r["forward"] for k, r in ssd_tr.items()},
+             max_abs_err=max([r["max_abs_err"] for r in ssd.values()]
+                             + [r["forward"]["max_abs_err"]
+                                for r in ssd_tr.values()]),
              ms=prompt["ms"], plain_ms=prompt["plain_ms"],
              bound_ms=prompt["bound_ms"], bound_by=prompt["bound_by"],
              library_ms=None, per_launch=prompt["per_launch"],
@@ -6112,6 +6638,9 @@ def main(argv=None) -> int:
              vlm_launches=vlm("flash_attention"),
              failover_launches=failover("flash_attention"),
              mesh_launches=mesh("flash_attention"),
+             train_step_s4096_chunked_launches=train_mesh_res.get(
+                 "chunked_train", {}).get("chunked", {}).get("launches"),
+             mesh_train_launches_per_rank=mesh_train("flash_attention"),
              shard_shapes_tp2=others(fam["flash_attention"], None),
              max_abs_err=max(r["max_abs_err"] for r in list(fa.values())
                              + list(fam["flash_attention"].values())),
@@ -6159,7 +6688,11 @@ def main(argv=None) -> int:
         launches=launches["mamba2_train"]["ssd_scan_bwd"],
         launches_by_path=by_path("ssd_scan_bwd"),
         failover_launches=failover("ssd_scan_bwd"),
-        max_abs_err=max(r["max_abs_err"] for r in bwd.values()),
+        mesh_train_launches_per_rank=mesh_train("ssd_scan_bwd"),
+        train_shard_shapes={k: r["backward"] for k, r in ssd_tr.items()},
+        max_abs_err=max([r["max_abs_err"] for r in bwd.values()]
+                        + [r["backward"]["max_abs_err"]
+                           for r in ssd_tr.values()]),
         ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
         bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
         library_ms=None, per_launch=bwd_main["per_launch"],
@@ -6178,6 +6711,8 @@ def main(argv=None) -> int:
         log("  autoscale: " + json.dumps(autoscale_res))
     if mesh_res:
         log("  mesh: " + json.dumps(mesh_res))
+    if train_mesh_res:
+        log("  train mesh: " + json.dumps(train_mesh_res))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

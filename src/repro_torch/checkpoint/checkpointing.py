@@ -15,7 +15,10 @@ leaves. ``restore`` takes a template of the same structure and places each
 leaf on the template leaf's device, with its dtype and ``requires_grad``.
 
 The port writes from one process (``proc_0``); it does not read a JAX
-checkpoint.
+checkpoint. A state sharded over a mesh is saved gathered
+(``save_gathered``: the full leaves, written by rank 0, as the reference's
+``np.asarray`` of a global array gathers) and restored onto any mesh
+(``restore(..., shardings=)`` cuts each leaf to the rank's piece).
 """
 from __future__ import annotations
 
@@ -184,11 +187,33 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: Optional[int] = None
-                ) -> Tuple[Any, Dict[str, Any]]:
+    def save_gathered(self, step: int, tree, shardings, mesh,
+                      extra_meta: Optional[Dict[str, Any]] = None
+                      ) -> Optional[str]:
+        """Save a sharded ``tree`` (this rank's pieces under ``shardings``,
+        ``sharding.train_state_shardings``' for a train state) as its full
+        leaves: every rank joins the gather (``tensor_parallel.
+        gather_tree``), rank 0 writes. Returns the step's directory on rank
+        0, else None."""
+        import torch.distributed as dist
+
+        from repro_torch.parallel.tensor_parallel import gather_tree
+
+        full = gather_tree(tree, shardings, mesh)
+        if dist.get_rank() != 0:
+            return None
+        return self.save(step, full, extra_meta)
+
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None) -> Tuple[Any, Dict[str, Any]]:
         """(tree shaped like ``template``, META) of ``step`` (default: the
         latest). ``KeyError`` when the checkpoint lacks a template key,
-        ``ValueError`` when a shape differs."""
+        ``ValueError`` when a shape differs.
+
+        ``shardings`` (a tree like ``template`` of ``sharding.Sharding``)
+        restores a full checkpoint, saved on any mesh or none, onto this
+        rank of another: each leaf is cut to this rank's piece under its
+        sharding, and ``template`` holds the pieces' shapes."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -202,11 +227,26 @@ class CheckpointManager:
                 with np.load(os.path.join(d, name)) as z:
                     flat.update({k: z[k] for k in z.files})
         dtypes = meta.get("dtypes", {})
+        cuts = {}
+        if shardings is not None:
+            from repro_torch.parallel.sharding import sharding_leaves
+
+            cuts = {"/".join(p): sh for p, sh in sharding_leaves(shardings)}
 
         def leaf(key, tmpl):
             if key not in flat:
                 raise KeyError(f"checkpoint missing {key}")
             arr = flat[key]
+            if key in cuts:
+                full = _from_host(arr, dtypes.get(key, arr.dtype.name),
+                                  torch.empty(0, dtype=tmpl.dtype))
+                arr = cuts[key].cut(full)
+                if tuple(arr.shape) != tuple(tmpl.shape):
+                    raise ValueError(f"{key}: this rank's piece "
+                                     f"{tuple(arr.shape)} of the checkpoint "
+                                     f"!= template {tuple(tmpl.shape)}")
+                return arr.to(device=tmpl.device, copy=True).requires_grad_(
+                    tmpl.requires_grad)
             shape = tuple(getattr(tmpl, "shape", np.shape(tmpl)))
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{key}: ckpt shape {arr.shape} != "

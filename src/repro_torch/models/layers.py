@@ -37,6 +37,9 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
     stacking axes (the ``n_groups`` axis of the layer stack)."""
     fan_in = shape[in_axis] if in_axis >= 0 else int(math.prod(shape[:-1]))
     std = scale / math.sqrt(fan_in)
+    if gen is None:  # meta tensors (``init_params(device="meta")``)
+        return torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
+                           device=device)
     t = torch.empty(tuple(lead) + tuple(shape), dtype=torch.float32,
                     device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -45,8 +48,48 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
 
 def matmul(x, w, dtype):
     """x @ w with w cast to ``dtype``; f32 accumulation, ``dtype`` result.
-    Left to ``torch.matmul`` as the JAX package leaves it to XLA."""
+    Left to ``torch.matmul`` as the JAX package leaves it to XLA. Under
+    ``set_bf16_grad_matmul(True)`` the product's backward writes dW in the
+    weight's dtype (``_MatmulBF16G``)."""
+    if _BF16_GRAD_MATMUL:
+        return _MatmulBF16G.apply(x.to(dtype), w.to(dtype)).to(dtype)
     return torch.matmul(x.to(dtype), w.to(dtype))
+
+
+# --- bf16-cotangent matmul ---------------------------------------------------
+#
+# Autograd's matmul backward gives dW in f32 when the activations are f32
+# and sums it over a mesh's data axis in that dtype. This backward writes
+# dW in the weight's dtype straight from its product, so the reduction over
+# ``data`` that follows runs in it (bf16 halves its bytes). The reference's
+# ``_matmul_bf16g`` custom VJP.
+
+_BF16_GRAD_MATMUL = False
+
+
+def set_bf16_grad_matmul(on: bool) -> None:
+    global _BF16_GRAD_MATMUL
+    _BF16_GRAD_MATMUL = bool(on)
+
+
+class _MatmulBF16G(torch.autograd.Function):
+    """x @ w, f32 sums cast to the operands' dtype; the backward casts dy
+    to x's dtype, gives dx in x's dtype and dW = x^T dy (every leading
+    dim of x contracted) in w's dtype, each from one f32-summed product."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = torch.matmul(dy.float(), w.float().T).to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        dw = torch.matmul(x2.T, dy.reshape(-1, dy.shape[-1]).float())
+        return dx, dw.to(w.dtype)
 
 
 def morph_proj(x, w, active_n=None, active_k=None):
@@ -297,7 +340,12 @@ def mha(params, x, cfg: ModelConfig, positions, *, kv_x=None,
     impl = cfg.attn_impl
     if impl == "auto":
         impl = "chunked" if Sk > 2048 else "einsum"
-    if impl == "chunked" and q.device.type == "cuda":
+    # The flash kernel has no backward: a pass that takes a gradient runs
+    # the plain ``attention_chunked`` (the reference's own computation),
+    # chosen here, before any launch.
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if impl == "chunked" and q.device.type == "cuda" and not grad:
         # The flash kernel masks by index, not by ``positions``. That is the
         # same mask in two cases: a sequence over its own keys (the prompt
         # pass numbers its tokens 0..S-1, ``model._embed_inputs``), and an

@@ -51,7 +51,11 @@ one rank's shard on a shard-local config; the collectives of
 ``parallel.tensor_parallel`` stand where the reference constrains a
 sharding: the vocab-sharded embedding lookup, the all-reduce after every
 row-parallel mixer and MLP output, and the all-gather of the logits.
-Outside a shard context they are the identity.
+Training on a mesh (``launch.steps.make_train_step(grad_shardings=...)``)
+adds ``col_input`` after every norm that feeds a column-parallel
+projection (Megatron's ``f``) and, under sequence parallelism,
+``seq_scatter`` after the embedding. Outside a shard context they are the
+identity.
 """
 from __future__ import annotations
 
@@ -121,7 +125,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     ``repro_torch.convert.params_from_jax`` instead."""
     dev = resolve_device(device)
     gen = generator
-    if gen is None:
+    if gen is None and dev.type != "meta":  # meta: shapes and dtypes only
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
     pd = dtype_of(cfg.param_dtype)
@@ -185,7 +189,7 @@ def _ffn(lp, h, cfg: ModelConfig, p: int, active=None, dropless=False):
     the tree draft) takes ``apply_moe_dense`` gated at ``active["top_k"]``;
     otherwise ``cfg.moe_impl`` picks the full pass's route."""
     if cfg.layer_is_moe(p):
-        hn = L.apply_norm(lp["norm2"], h, cfg)
+        hn = TP.col_input(L.apply_norm(lp["norm2"], h, cfg))
         if dropless:
             y, a = MOE.apply_moe_dense(
                 lp["moe"], hn, cfg,
@@ -196,7 +200,7 @@ def _ffn(lp, h, cfg: ModelConfig, p: int, active=None, dropless=False):
             y, a = MOE.apply_moe(lp["moe"], hn, cfg)
         return h + TP.reduce_partial(y).to(h.dtype), a
     if cfg.d_ff:
-        hn = L.apply_norm(lp["norm2"], h, cfg)
+        hn = TP.col_input(L.apply_norm(lp["norm2"], h, cfg))
         h = h + TP.reduce_partial(L.apply_mlp(
             lp["mlp"], hn, cfg,
             active_ff=active.get("d_ff") if active else None))
@@ -214,7 +218,7 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, enc_out=None,
     caches = {}
     for p in range(cfg.period):
         lp = group_params[f"pos{p}"]
-        hn = L.apply_norm(lp["norm1"], h, cfg)
+        hn = TP.col_input(L.apply_norm(lp["norm1"], h, cfg))
         if cfg.layer_kind(p) == "attn":
             mix, (k_, v_) = L.mha(lp["attn"], hn, cfg, positions,
                                   causal=causal)
@@ -229,7 +233,7 @@ def _group_fwd(group_params, h, cfg: ModelConfig, positions, *, enc_out=None,
                                      "state": state}
         h = h + TP.reduce_partial(mix)
         if cfg.is_encdec:
-            hn = L.apply_norm(lp["norm_cross"], h, cfg)
+            hn = TP.col_input(L.apply_norm(lp["norm_cross"], h, cfg))
             mix, (ck, cv) = L.mha(lp["cross"], hn, cfg, positions,
                                   kv_x=enc_out, kv_positions=enc_positions,
                                   causal=False)
@@ -360,20 +364,24 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     positions = torch.arange(S, dtype=torch.int32, device=h.device)
     if pos_kind(cfg) == "sinusoidal":
         h = h + L.sinusoidal_pos(positions, cfg.d_model).to(dt)
+    h = TP.seq_scatter(h)  # training with sequence parallelism: a slice
     if cfg.is_encdec:
         eh = L.matmul(batch["frames"].to(dt), params["frontend_proj"], dt)
         enc_pos = torch.arange(eh.shape[1], dtype=torch.int32,
                                device=h.device)
-        eh = eh + L.sinusoidal_pos(enc_pos, cfg.d_model).to(dt)
+        eh = TP.seq_scatter(eh + L.sinusoidal_pos(enc_pos, cfg.d_model).to(dt))
         ecfg = _encoder_cfg(cfg)
         for gp in _group_views(params["encoder"]["stack"]):
             eh = _group_fwd(gp, eh, ecfg, enc_pos, causal=False)[0]
-        enc_out = L.apply_norm(params["encoder"]["final_norm"], eh, cfg)
+        # read by every decoder layer's column-parallel cross K/V: Megatron's
+        # ``f`` once (training on a mesh), as after any norm
+        enc_out = TP.col_input(L.apply_norm(params["encoder"]["final_norm"],
+                                            eh, cfg))
     return h, positions, enc_out, enc_pos
 
 
 def _logits(params, h, cfg: ModelConfig, norm_params):
-    h = L.apply_norm(norm_params, h, cfg)
+    h = TP.col_input(L.apply_norm(norm_params, h, cfg))
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return TP.gather_vocab(L.matmul(h, w, h.dtype))
 
@@ -433,13 +441,21 @@ def _mask_pad(logits, cfg: ModelConfig):
     return torch.cat([lg[..., :v], neg], dim=-1)
 
 
-def cross_entropy(logits, targets, cfg: ModelConfig, loss_mask=None):
+def cross_entropy(logits, targets, cfg: ModelConfig, loss_mask=None,
+                  count=None):
     """Next-token CE with padded-vocab masking. logits: (B,S,Vp), targets:
-    (B,S) integer."""
+    (B,S) integer. ``count`` (a batch split over a mesh's data ranks) is
+    the whole batch's token count (masked: its mask's sum): the result is
+    this rank's sum of ``nll * mask`` over it, and the ranks' results sum
+    to the whole batch's loss."""
     lg = _mask_pad(logits, cfg)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
     nll = logz - gold
+    if count is not None:
+        if loss_mask is not None:
+            nll = nll * loss_mask.float()
+        return nll.sum() / torch.clamp(count, min=1.0)
     if loss_mask is None:
         return nll.mean()
     loss_mask = loss_mask.float()
@@ -447,16 +463,17 @@ def cross_entropy(logits, targets, cfg: ModelConfig, loss_mask=None):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, depth=None,
-            remat: str = "none", aux_weight: float = 0.01):
+            remat: str = "none", aux_weight: float = 0.01, count=None):
     """Standard LM loss (teacher phase / plain training). Returns
     (loss, {"ce": ..., "moe_aux": ...}). A ``vision_stub`` model's logits
-    cover the patches and the text; the loss takes the text's only."""
+    cover the patches and the text; the loss takes the text's only.
+    ``count``: ``cross_entropy``'s, for a rank of a data-split batch."""
     outs, aux = forward(params, batch, cfg, depth=depth, remat=remat)
     logits = outs["final"]
     if cfg.frontend == "vision_stub":
         logits = logits[:, cfg.frontend_seq:]
     loss = cross_entropy(logits, batch["targets"], cfg,
-                         batch.get("loss_mask"))
+                         batch.get("loss_mask"), count=count)
     return loss + aux_weight * aux, {"ce": loss, "moe_aux": aux}
 
 

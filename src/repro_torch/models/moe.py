@@ -82,9 +82,13 @@ def _renorm(gate_vals):
 
 
 def _aux(probs, idx, e: int):
-    """Switch load-balancing loss over every axis but the experts'."""
+    """Switch load-balancing loss over every axis but the experts'. On a
+    rank of a training mesh, this rank's share of the whole batch's
+    (``tensor_parallel.train_aux_means``)."""
     top1 = F.one_hot(idx[..., 0], e).float().reshape(-1, e)
-    return e * torch.sum(top1.mean(0) * probs.reshape(-1, e).mean(0))
+    frac, pmean = TP.train_aux_means(top1.mean(0),
+                                     probs.reshape(-1, e).mean(0))
+    return e * torch.sum(frac * pmean)
 
 
 def _experts(params, xe, cfg: ModelConfig):

@@ -65,14 +65,34 @@ def _leaves(tree):
     return [v for _, v in leaves_with_path(tree)]
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(a.float()))
-                          for a in _leaves(tree)))
+def global_norm(tree, replicas=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf. On a mesh, ``tree`` holds
+    this rank's pieces and ``replicas`` (a tree like it of ints) how many
+    ranks hold each piece's elements: each leaf's sum of squares is
+    divided by it and the sums are all-reduced over ``group`` (the world
+    by default), so every distinct element counts once."""
+    if replicas is None:
+        return torch.sqrt(sum(torch.sum(torch.square(a.float()))
+                              for a in _leaves(tree)))
+    import torch.distributed as dist
+
+    reps = dict(leaves_with_path(replicas))
+    total = sum(torch.sum(torch.square(a.float())) / reps[p] if reps[p] > 1
+                else torch.sum(torch.square(a.float()))
+                for p, a in leaves_with_path(tree))
+    if dist.get_backend(group) == "gloo" and total.is_cuda:
+        host = total.cpu()
+        dist.all_reduce(host, group=group)
+        total = host.to(total.device)
+    else:
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(clipped grads, global norm); the grads keep their dtypes."""
-    gn = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, replicas=None, group=None):
+    """(clipped grads, global norm); the grads keep their dtypes.
+    ``replicas`` / ``group``: ``global_norm``'s, for a mesh's pieces."""
+    gn = global_norm(grads, replicas, group)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
@@ -99,10 +119,17 @@ def init_opt_state(params, cfg: OptimizerConfig) -> OptState:
 
 @torch.no_grad()
 def apply_updates(params, grads, state: OptState, cfg: OptimizerConfig,
-                  lr_scale=1.0) -> Tuple[Dict, OptState, Dict]:
+                  lr_scale=1.0, *, replicas=None, group=None
+                  ) -> Tuple[Dict, OptState, Dict]:
     """One optimizer step, in place on ``params`` and ``state``. Returns
-    (params, state, metrics) with metrics ``grad_norm`` and ``lr``."""
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+    (params, state, metrics) with metrics ``grad_norm`` and ``lr``.
+
+    On a mesh ``params``, ``grads`` and the moments are this rank's pieces
+    (``sharding.opt_specs`` lays the moments out as the parameters): the
+    update is elementwise, so each rank updates its pieces alone, and only
+    the clipping norm spans the mesh (``global_norm`` with ``replicas``
+    and ``group``)."""
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip, replicas, group)
     state.step += 1
     step = state.step.float()
     lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32,

@@ -48,6 +48,22 @@ group's data-split dims over ``data`` just before the group runs
 (``tensor_parallel.Serve2D``): every kernel then runs at the ``serve_tp``
 shard's shapes and arithmetic.
 
+Training (``launch.steps.make_train_step(grad_shardings=...)``) holds each
+parameter, and its optimizer moments, in the *training layout*
+(``Sharding`` with a ``cfg``, ``train_slices``): the ``model`` cut is
+``plan_serve_shard``'s (so the model code and the kernels run at the
+serving shard's shapes, KV heads replicated where ``KV % tp != 0`` and
+the SSM per-head vectors held as the rank's slice), and dim 0 of
+``param_specs(..., "train")`` (d_model or the vocabulary's other dim) is
+cut further over ``data`` (FSDP), as ``serve_2d_plan`` cuts it.
+``train_reduction`` says how a rank's gradient of each leaf is completed.
+``batch_specs``, ``cache_specs``, ``opt_specs``, ``residual_specs`` and
+``shardings_for`` give the reference's specs leaf for leaf.
+``activation_sharding`` sets the activation specs in force; ``constrain``
+is the identity (explicit SPMD places its collectives itself), and the
+train step turns on sequence parallelism where the ``residual`` spec in
+force splits the sequence over ``model`` (``sequence_parallel``).
+
 The cache layout differs from JAX's on purpose: JAX shards the KV sequence
 dim on ``model`` under ``serve_tp`` and lets XLA reshard; the port shards
 the dense cache and the page pool by KV head, the same split as the K/V
@@ -61,8 +77,10 @@ data rank), so paged slots stay replicated over ``data``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -590,3 +608,295 @@ def serve_cache_specs(cfg: ModelConfig, mesh, *, n_slots: int,
             "state": (None, b, m, None, None),
             "conv_x": (None, b, None, m),
             "conv_bc": (None, b, None, None)}
+
+
+# ---------------------------------------------------------------------------
+# the training half: activation specs, batch / cache / optimizer specs
+# ---------------------------------------------------------------------------
+
+_ACT = threading.local()
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, specs: Dict[str, Spec]):
+    """Set the activation specs in force (``residual_specs``' names)."""
+    prev = getattr(_ACT, "val", None)
+    _ACT.val = (mesh, dict(specs))
+    try:
+        yield
+    finally:
+        _ACT.val = prev
+
+
+def activation_specs() -> Dict[str, Spec]:
+    """The activation specs in force ({} outside ``activation_sharding``)."""
+    val = getattr(_ACT, "val", None)
+    return {} if val is None else val[1]
+
+
+def constrain(x, name: str):
+    """The reference's sharding hint at ``name``. The port runs explicit
+    SPMD: its collectives stand at these sites (``tensor_parallel``), so
+    this returns ``x``."""
+    return x
+
+
+def sequence_parallel() -> bool:
+    """True where the ``residual`` spec in force splits the sequence (dim
+    1) over ``model``: Megatron-style sequence parallelism."""
+    spec = activation_specs().get("residual")
+    return spec is not None and len(spec) > 1 and "model" in _axes_of(spec[1])
+
+
+def batch_specs(batch, mesh, policy: str) -> Any:
+    """Every batch leaf's dim 0 over the data axes (replicated under
+    ``serve_2d``)."""
+    d: Any = _spec_axes(data_axes(mesh))
+    if policy == "serve_2d":
+        d = None
+    return _map_with_path(batch, lambda keys, leaf: (d,) + (None,) * (
+        len(leaf.shape) - 1))
+
+
+def cache_specs(cache, cfg: ModelConfig, mesh, policy: str,
+                paged: bool = False) -> Any:
+    """The reference's decode-cache specs (leaves carry the group axis): KV
+    sequence over ``model`` (``serve_tp``) or (data..., model)
+    (``serve_2d``), batch over the data axes (not under ``serve_2d``), SSM
+    state heads and ``conv_x`` channels over ``model``; an axis that does
+    not divide its dim replicates it. ``paged=True``: the pool (G, pages,
+    page, KV, hd) by KV head on ``model`` only. The port's own serving
+    cache is ``serve_cache_specs``'."""
+    sizes = axis_sizes(mesh)
+    m = model_axis(mesh)
+    d: Any = _spec_axes(data_axes(mesh))
+    batch_ax = d if policy != "serve_2d" else None
+    if policy != "serve_2d":
+        seq_ax: Any = m
+    else:
+        seq_ax = _spec_axes(tuple(data_axes(mesh)) + ((m,) if m else ()))
+
+    def fit(ax, dim):
+        return ax if ax is not None and dim % _axes_size(sizes, ax) == 0 \
+            else None
+
+    def leaf(keys, t) -> Spec:
+        name, sh = keys[-1], t.shape
+        if name == "pos":
+            return ()
+        if paged and name in ("k", "v", "k_scale", "v_scale"):
+            return (None, None, None, fit(m, sh[3]), None)
+        if name in ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v"):
+            return (None, fit(batch_ax, sh[1]), fit(seq_ax, sh[2]), None,
+                    None)
+        if name == "state":
+            return (None, fit(batch_ax, sh[1]), fit(m, sh[2]), None, None)
+        if name == "conv_x":
+            return (None, fit(batch_ax, sh[1]), None, fit(m, sh[3]))
+        if name == "conv_bc":
+            return (None, fit(batch_ax, sh[1]), None, None)
+        return (None,) * len(sh)
+
+    return _map_with_path(cache, leaf)
+
+
+def opt_specs(opt, pspecs) -> Any:
+    """The optimizer state's specs: moments mirror the parameters', the
+    step is replicated, and sgdm's empty ``nu`` placeholders are
+    ``(None,)``."""
+    from repro_torch.optim.optimizer import OptState
+
+    def nu(spec, t):
+        if isinstance(spec, dict):
+            return {k: nu(spec[k], t[k]) for k in spec}
+        return (None,) if tuple(t.shape) == (0,) else spec
+
+    return OptState(step=(), mu=pspecs, nu=nu(pspecs, opt.nu))
+
+
+def residual_specs(mesh, policy: str) -> Dict[str, Spec]:
+    """The residual stream's (B, S, d) spec: under ``train`` batch over
+    the data axes and the sequence over ``model`` (sequence parallelism),
+    also for the logits."""
+    m = model_axis(mesh)
+    d: Any = _spec_axes(data_axes(mesh))
+    if policy == "train":
+        return {"residual": (d, m, None), "logits": (d, m, None)}
+    if policy == "serve_tp":
+        return {"residual": (d, None, None)}
+    return {"residual": (None, None, None)}
+
+
+# ---------------------------------------------------------------------------
+# shardings: (mesh, spec) per leaf, and the training layout
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharding:
+    """One leaf's placement: the reference's ``NamedSharding(mesh, spec)``.
+    With ``cfg`` it is the port's training layout of the leaf at path
+    ``keys`` (``train_slices``), else the plain cut by ``spec``. ``shape``
+    is the full leaf's shape where known (``train_state_shardings``)."""
+
+    mesh: Any
+    spec: Spec
+    keys: Tuple[str, ...] = ()
+    cfg: Optional[ModelConfig] = None
+    shape: Optional[Tuple[int, ...]] = None
+
+    def slices(self, shape, coord: Optional[Dict[str, int]] = None) -> Slices:
+        """{dim: (start, size)} of the piece the rank at ``coord`` (this
+        rank's by default) holds of a full ``shape`` leaf."""
+        sizes = axis_sizes(self.mesh)
+        coord = mesh_coord(self.mesh) if coord is None else coord
+        if self.cfg is None or not self.keys or tuple(shape) == (0,):
+            return spec_slices(shape, self.spec, sizes, coord)
+        return train_slices(self.keys, shape, self.spec, self.cfg, sizes,
+                            coord)
+
+    def cut(self, t: torch.Tensor, coord: Optional[Dict[str, int]] = None
+            ) -> torch.Tensor:
+        return take(t, self.slices(t.shape, coord))
+
+
+def _map_specs(tree, fn, path=()):
+    """``fn(path, spec)`` over a spec tree of dicts and dataclasses (an
+    ``OptState``) whose leaves are spec tuples."""
+    if isinstance(tree, dict):
+        return {k: _map_specs(v, fn, path + (str(k),)) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, Sharding):
+        return type(tree)(**{f.name: _map_specs(getattr(tree, f.name), fn,
+                                                path + (f.name,))
+                             for f in dataclasses.fields(tree)})
+    return fn(path, tree)
+
+
+def shardings_for(specs, mesh, cfg: Optional[ModelConfig] = None,
+                  like=None) -> Any:
+    """``Sharding(mesh, spec)`` for every spec of ``specs`` (the
+    reference's ``NamedSharding`` tree). ``cfg`` makes each the port's
+    training layout of its leaf; ``like`` (a tree of the full leaves, meta
+    tensors will do) records their shapes."""
+    shapes = {}
+    if like is not None:
+        _map_specs(like, lambda p, t: shapes.__setitem__(p, tuple(t.shape)))
+    return _map_specs(specs, lambda p, s: Sharding(
+        mesh, tuple(s), keys=p, cfg=cfg, shape=shapes.get(p)))
+
+
+def sharding_leaves(tree, path=()):
+    """(path, ``Sharding``) for every leaf of a shardings tree."""
+    if isinstance(tree, Sharding):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from sharding_leaves(v, path + (str(k),))
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from sharding_leaves(getattr(tree, f.name), path + (f.name,))
+
+
+def _data_dim(spec: Spec) -> Optional[int]:
+    for dim, ax in enumerate(spec):
+        if any(a in ("pod", "data") for a in _axes_of(ax)):
+            return dim
+    return None
+
+
+def train_slices(keys, shape, spec: Spec, cfg: ModelConfig,
+                 sizes: Dict[str, int], coord: Dict[str, int]) -> Slices:
+    """The training layout's piece of the leaf at ``keys``: the serving
+    shard's ``model`` cut (``plan_serve_shard``), then ``spec``'s data
+    dim split over the data axes (FSDP)."""
+    shard = plan_serve_shard(cfg, sizes, n_slots=1, coord=coord)
+    out = dict(_serve_leaf_slices(keys, shape, shard, cfg)) \
+        if shard.tp > 1 else {}
+    dim = _data_dim(spec)
+    if dim is not None and shard.dp > 1:
+        start, size = out.get(dim, (0, shape[dim]))
+        if size % shard.dp:
+            raise ValueError(f"{'/'.join(keys)}: dim {dim} ({size}) does not "
+                             f"split over dp = {shard.dp}")
+        n = size // shard.dp
+        out[dim] = (start + shard.data_rank * n, n)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainReduction:
+    """How one rank's gradient of a training-layout leaf is completed.
+    ``data_dim``: the dim split over ``data`` (its gather's backward
+    reduce-scatters the gradient; None: the gradient is all-reduced over
+    ``data``). ``model_sum``: None (the rank's gradient is whole),
+    ``"model"`` (a partial sum over ``model``: the router and the SSM's
+    B/C projection and conv, read by every rank's heads; under sequence
+    parallelism the norm scales, which see one sequence shard) or
+    ``"kv"`` (a KV head replicated over ``tp / KV`` ranks: summed over
+    them). ``replicas``: the ranks holding each element, for the global
+    norm."""
+
+    data_dim: Optional[int]
+    model_sum: Optional[str]
+    replicas: int
+
+
+def train_reduction(keys, spec: Spec, cfg: ModelConfig, mesh,
+                    sp: bool = False) -> TrainReduction:
+    sizes = axis_sizes(mesh)
+    tp = sizes.get("model", 1)
+    dp = _axes_size(sizes, data_axes(mesh) or None)
+    name = keys[-1]
+    parent = keys[-2] if len(keys) >= 2 else ""
+    ddim = _data_dim(spec) if dp > 1 else None
+    model_sum = None
+    if tp > 1:
+        if parent in ("attn", "cross") and name in ("wk", "wv") \
+                and cfg.n_kv_heads % tp:
+            model_sum = "kv"
+        elif (parent == "moe" and name == "router") or (
+                parent == "ssm" and name in ("w_bc", "conv_bc_w",
+                                             "conv_bc_b")):
+            model_sum = "model"
+        elif name in ("scale", "bias") and parent != "ssm_norm" and sp:
+            model_sum = "model"
+    coord0 = {a: 0 for a in sizes}
+    if tp == 1:
+        rep_m = 1
+    elif model_sum == "kv":
+        rep_m = tp // cfg.n_kv_heads
+    else:
+        shard = plan_serve_shard(cfg, sizes, n_slots=1, coord=coord0)
+        rep_m = 1 if _serve_leaf_slices(keys, (), shard, cfg) else tp
+    return TrainReduction(data_dim=ddim, model_sum=model_sum,
+                          replicas=rep_m * (1 if ddim is not None else dp))
+
+
+def train_state_shardings(cfg: ModelConfig, ocfg, mesh) -> Dict[str, Any]:
+    """The training layout of a whole train state ``{"params", "opt"}``
+    (``launch.steps.init_train_state(mesh=...)``'s), with the full
+    shapes, from a meta-tensor init (nothing allocated)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizer import init_opt_state
+
+    params = init_params(cfg, device="meta")
+    opt = init_opt_state(params, ocfg)
+    pspecs = param_specs(params, cfg, mesh, "train")
+    return {"params": shardings_for(pspecs, mesh, cfg, like=params),
+            "opt": shardings_for(opt_specs(opt, pspecs), mesh, cfg,
+                                 like=opt)}
+
+
+def shard_tree(tree, shardings):
+    """This rank's pieces of the full leaves of ``tree`` (dicts and
+    dataclasses) under ``shardings``: each leaf a contiguous copy."""
+    if isinstance(shardings, Sharding):
+        piece = shardings.cut(tree)
+        # a piece of its own (not a view keeping the full leaf alive)
+        return piece.clone() if piece is tree or piece._base is not None \
+            else piece
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    return type(tree)(**{f.name: shard_tree(getattr(tree, f.name),
+                                            getattr(shardings, f.name))
+                         for f in dataclasses.fields(tree)})

@@ -35,12 +35,37 @@ that group. ``route`` runs a thread's ``MeshStep`` calls on another
 whose warm runs must not interleave with the serving thread's
 collectives).
 
+Training (``launch.steps.make_train_step(grad_shardings=...)``) runs the
+same sites under a comm with ``train=True``, each collective an
+``autograd.Function`` (Megatron's ``f`` and ``g``) working on copies, never
+on a tensor autograd has saved:
+
+* ``reduce_partial`` (``g``): all-reduce forward, identity backward;
+* ``col_input`` (``f``, after every norm that feeds a column-parallel
+  projection): identity forward, all-reduce over ``model`` backward, so
+  the norm's gradient sees every rank's share;
+* ``embed_lookup``: the all-reduce as ``g``; the masked lookup's backward
+  writes this rank's rows only;
+* ``gather_vocab``: the backward keeps this rank's slice; ``norm_sum``:
+  all-reduce both ways;
+* ``train_aux_means``: the MoE load-balancing loss over a data split
+  batch (first-choice fractions averaged over ``data``) with its
+  gradient counted once over ``model``;
+* ``train_view``: the FSDP gather of a layer group's data-split pieces
+  over ``data`` (one all-gather a dtype), its backward a reduce-scatter
+  in the gradient dtype;
+* with ``sp`` (sequence parallelism) ``reduce_partial`` reduce-scatters
+  along the sequence, ``col_input`` all-gathers it (reduce-scatter
+  backward) and ``seq_scatter`` cuts the embedded sequence.
+
 Over gloo with CUDA tensors (ranks sharing one card) each collective stages
 through host memory.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import math
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -49,7 +74,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.sharding import (_ACTIVE_KEYS, ServeShard,
-                                           Serve2DLeaf, _at)
+                                           Serve2DLeaf, Sharding, _at)
 from repro_torch.parallel.sharding import _map_with_path as _walk
 
 _CTX = threading.local()
@@ -59,12 +84,19 @@ class ShardComm:
     """A rank's shard plan plus the process groups of its mesh axes."""
 
     def __init__(self, shard: ServeShard, model_group=None, data_group=None,
-                 stage: bool = False, serve2d: Optional["Serve2D"] = None):
+                 stage: bool = False, serve2d: Optional["Serve2D"] = None,
+                 train: bool = False, sp: bool = False,
+                 grad_dtype: torch.dtype = torch.float32):
         self.shard = shard
         self.model_group = model_group
         self.data_group = data_group
         self.stage = stage  # gloo over CUDA tensors: go through the host
         self.serve2d = serve2d  # serve_2d's held weights, else None
+        self.train = train  # collectives with a backward (training)
+        self.sp = sp and train and shard.tp > 1  # sequence parallelism
+        self.grad_dtype = grad_dtype
+        self.nccl = (model_group is not None or data_group is not None) \
+            and dist.get_backend() == "nccl"
 
     def over(self, model_group, data_group) -> "ShardComm":
         """The same shard over other process groups (``serve_2d``'s
@@ -110,12 +142,28 @@ def model_sharded() -> bool:
     return _model(current())
 
 
+# host seconds and calls of the collectives staged through host memory
+# (gloo over CUDA tensors): ``staged_seconds`` reads, ``reset_staged`` zeroes
+_STAGED = {"s": 0.0, "n": 0}
+
+
+def staged_seconds() -> Dict[str, float]:
+    return dict(_STAGED)
+
+
+def reset_staged() -> None:
+    _STAGED.update(s=0.0, n=0)
+
+
 def _all_reduce(t: torch.Tensor, group, stage: bool,
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     if stage and t.is_cuda:
+        t0 = time.perf_counter()
         h = t.cpu()
         dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
+        _STAGED["s"] += time.perf_counter() - t0
+        _STAGED["n"] += 1
     else:
         dist.all_reduce(t, op=op, group=group)
     return t
@@ -123,19 +171,195 @@ def _all_reduce(t: torch.Tensor, group, stage: bool,
 
 def _all_gather(t: torch.Tensor, group, n: int, stage: bool,
                 dim: int) -> torch.Tensor:
-    src = t.cpu() if stage and t.is_cuda else t.contiguous()
+    staged = stage and t.is_cuda
+    t0 = time.perf_counter()
+    src = t.cpu() if staged else t.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(t.device)
+    out = torch.cat(parts, dim=dim).to(t.device)
+    if staged:
+        _STAGED["s"] += time.perf_counter() - t0
+        _STAGED["n"] += 1
+    return out
+
+
+def _sum_f32(x: torch.Tensor, group, stage: bool) -> torch.Tensor:
+    """``x`` summed over ``group`` in f32 (on a copy), cast back once."""
+    y = x.float() if x.dtype != torch.float32 else x.clone()
+    return _all_reduce(y, group, stage).to(x.dtype)
+
+
+def _reduce_scatter(x: torch.Tensor, group, n: int, idx: int, stage: bool,
+                    nccl: bool, dim: int) -> torch.Tensor:
+    """Rank ``idx``'s 1/n slice along ``dim`` of ``x`` summed over
+    ``group`` (in ``x``'s dtype; gloo has no reduce-scatter of its own,
+    so there it is an all-reduce and a slice)."""
+    if nccl:
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim)
+    y = _all_reduce(x.clone(), group, stage)
+    k = x.shape[dim] // n
+    return y.narrow(dim, idx * k, k).contiguous()
+
+
+class _SumForward(torch.autograd.Function):
+    """``g``: the f32 sum over ``model`` forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        return _sum_f32(x, comm.model_group, comm.stage)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """``f``: identity forward, the f32 sum over ``model`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.comm.model_group, ctx.comm.stage), None
+
+
+class _SumBoth(torch.autograd.Function):
+    """The f32 sum over ``model`` both ways (``norm_sum``'s sum of
+    squares: every rank's normed channels read the total)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _sum_f32(x, comm.model_group, comm.stage)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.comm.model_group, ctx.comm.stage), None
+
+
+class _SeqGather(torch.autograd.Function):
+    """SP's ``f``: all-gather the sequence (dim 1) over ``model``; the
+    backward sums the ranks' partial gradients in f32 and keeps this
+    rank's sequence slice."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _all_gather(x, comm.model_group, comm.shard.tp, comm.stage,
+                           dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = ctx.comm
+        y = _reduce_scatter(g.float(), c.model_group, c.shard.tp,
+                            c.shard.model_rank, c.stage, c.nccl, dim=1)
+        return y.to(g.dtype), None
+
+
+class _SeqReduceScatter(torch.autograd.Function):
+    """SP's ``g``: the partial outputs summed in f32 over ``model``, this
+    rank's sequence slice kept; the backward all-gathers the sequence."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        y = _reduce_scatter(x.float(), comm.model_group, comm.shard.tp,
+                            comm.shard.model_rank, comm.stage, comm.nccl,
+                            dim=1)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        c = ctx.comm
+        return _all_gather(g, c.model_group, c.shard.tp, c.stage, dim=1), None
+
+
+class _SeqSlice(torch.autograd.Function):
+    """This rank's sequence slice of a replicated (B, S, d); the backward
+    all-gathers the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        k = x.shape[1] // comm.shard.tp
+        return x.narrow(1, comm.shard.model_rank * k, k).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        c = ctx.comm
+        return _all_gather(g, c.model_group, c.shard.tp, c.stage, dim=1), None
+
+
+class _VocabGather(torch.autograd.Function):
+    """Vocab-slice logits all-gathered over ``model``; the backward keeps
+    this rank's slice (every rank's loss reads the same full logits)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _all_gather(x, comm.model_group, comm.shard.tp, comm.stage,
+                           dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        v0, n = ctx.comm.shard.vocab
+        return g.narrow(-1, v0, n).contiguous(), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _train(comm: Optional[ShardComm]) -> bool:
+    return comm is not None and comm.train
 
 
 def reduce_partial(x: torch.Tensor) -> torch.Tensor:
-    """Sum a row-parallel projection's partial outputs over ``model``."""
+    """Sum a row-parallel projection's partial outputs over ``model``
+    (training with ``sp``: and keep this rank's sequence slice)."""
     comm = current()
     if not _model(comm):
         return x
-    y = x.float() if x.dtype != torch.float32 else x.clone()
-    return _all_reduce(y, comm.model_group, comm.stage).to(x.dtype)
+    if comm.train:
+        return (_SeqReduceScatter if comm.sp else _SumForward).apply(x, comm)
+    return _sum_f32(x, comm.model_group, comm.stage)
+
+
+def col_input(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel projection, after its norm: in
+    training Megatron's ``f`` (identity forward, the sum over ``model``
+    backward; with ``sp`` the sequence all-gathered); else ``x``."""
+    comm = current()
+    if not (_model(comm) and comm.train):
+        return x
+    return (_SeqGather if comm.sp else _SumBackward).apply(x, comm)
+
+
+def seq_scatter(h: torch.Tensor) -> torch.Tensor:
+    """Training with ``sp``: this rank's sequence slice of the embedded
+    (B, S, d) stream; else ``h``."""
+    comm = current()
+    if not (_model(comm) and comm.train and comm.sp):
+        return h
+    if h.shape[1] % comm.shard.tp:
+        raise ValueError(f"sequence parallelism: S = {h.shape[1]} does not "
+                         f"split over tp = {comm.shard.tp}")
+    return _SeqSlice.apply(h, comm)
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -148,6 +372,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     hit = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)].float()
     rows = torch.where(hit[..., None], rows, torch.zeros((), device=rows.device))
+    if comm.train:
+        return _SumForward.apply(rows, comm).to(table.dtype)
     return _all_reduce(rows, comm.model_group, comm.stage).to(table.dtype)
 
 
@@ -156,6 +382,8 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     comm = current()
     if not _model(comm):
         return logits
+    if comm.train:
+        return _VocabGather.apply(logits, comm)
     return _all_gather(logits, comm.model_group, comm.shard.tp, comm.stage,
                        dim=-1)
 
@@ -167,9 +395,32 @@ def norm_sum(sumsq: torch.Tensor, count: torch.Tensor):
     if not _model(comm):
         return sumsq, count
     count = torch.broadcast_to(count.float(), sumsq.shape)
-    both = _all_reduce(torch.cat([sumsq, count], dim=-1), comm.model_group,
-                       comm.stage)
+    both = torch.cat([sumsq, count], dim=-1)
+    both = (_SumBoth.apply(both, comm) if comm.train else
+            _all_reduce(both, comm.model_group, comm.stage))
     return both[..., :1], both[..., 1:]
+
+
+def train_aux_means(frac: torch.Tensor, pmean: torch.Tensor):
+    """The MoE load-balancing loss's per-expert first-choice fraction and
+    mean probability over this rank's tokens -> the terms whose
+    ``e * sum(frac * pmean)``, summed over the data ranks, is the global
+    batch's loss: ``frac`` averaged over ``data``, ``pmean`` divided by
+    dp. Every model rank scores every expert, so ``pmean``'s gradient is
+    counted once over ``model`` (scaled by 1 / tp; the partial gradients
+    are summed over ``model`` after the backward). Outside training:
+    unchanged."""
+    comm = current()
+    if not _train(comm):
+        return frac, pmean
+    sh = comm.shard
+    if sh.tp > 1:
+        pmean = _ScaleGrad.apply(pmean, 1.0 / sh.tp)
+    if sh.dp > 1:
+        frac = _all_reduce(frac.detach().clone(), comm.data_group,
+                           comm.stage) / sh.dp
+        pmean = pmean / sh.dp
+    return frac, pmean
 
 
 def expert_range(n_experts: int):
@@ -182,10 +433,39 @@ def expert_range(n_experts: int):
     return comm.shard.experts
 
 
+def _gather_sharded(piece: torch.Tensor, s: Sharding, mesh,
+                    stage: bool) -> torch.Tensor:
+    """The full leaf of shape ``s.shape`` from every rank's piece under
+    ``s`` (one all-gather over the world, each piece placed by its rank's
+    slices: the training layout's replicated KV heads and per-head slices
+    included)."""
+    if s.shape is None:
+        raise ValueError(f"{'/'.join(s.keys)}: gathering a training-layout "
+                         f"leaf needs its full shape "
+                         f"(sharding.train_state_shardings)")
+    world = dist.get_world_size()
+    parts = _all_gather(piece.unsqueeze(0), None, world, stage, dim=0)
+    full = torch.empty(s.shape, dtype=piece.dtype, device=piece.device)
+    grid = mesh.mesh
+    for r in range(world):
+        at = (grid == r).nonzero()
+        if not len(at):
+            continue
+        coord = dict(zip(mesh.mesh_dim_names, (int(i) for i in at[0])))
+        view = full
+        for dim, (start, size) in s.slices(s.shape, coord).items():
+            view = view.narrow(dim, start, size)
+        view.copy_(parts[r])
+    return full
+
+
 def gather_tree(tree, specs, mesh):
     """The full tensors of a sharded pytree: every leaf all-gathered over
     the mesh axes its spec splits it on (a tuple of axes innermost first),
-    the inverse of ``sharding.shard_params`` over the ranks of ``mesh``."""
+    the inverse of ``sharding.shard_params`` over the ranks of ``mesh``.
+    ``specs`` may hold ``sharding.Sharding`` leaves (with their full
+    shapes), and then a leaf is rebuilt from every rank's piece under its
+    layout; dataclasses (an ``OptState``) are walked like dicts."""
     stage = dist.get_backend() == "gloo"
 
     def leaf(t, spec):
@@ -199,8 +479,14 @@ def gather_tree(tree, specs, mesh):
         return t
 
     def walk(t, sp):
+        if isinstance(sp, Sharding):
+            return _gather_sharded(t, sp, mesh, stage)
         if isinstance(t, dict):
             return {k: walk(v, sp[k]) for k, v in t.items()}
+        if dataclasses.is_dataclass(t):
+            return type(t)(**{f.name: walk(getattr(t, f.name),
+                                           getattr(sp, f.name))
+                              for f in dataclasses.fields(t)})
         return leaf(t, sp)
 
     return walk(tree, specs)
@@ -364,6 +650,114 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# training: FSDP's gather of the data-split pieces
+# ---------------------------------------------------------------------------
+
+
+def _gather_data(comm: ShardComm, dims, pieces) -> List[torch.Tensor]:
+    """Each piece all-gathered over ``data`` along its dim: one all-gather
+    per dtype of the pieces flattened end to end."""
+    dp = comm.shard.dp
+    out: List[Optional[torch.Tensor]] = [None] * len(pieces)
+    by_dtype: Dict[Any, List[int]] = {}
+    for i, p in enumerate(pieces):
+        by_dtype.setdefault(p.dtype, []).append(i)
+    for idx in by_dtype.values():
+        send = torch.cat([pieces[i].reshape(-1) for i in idx])
+        recv = _all_gather(send, comm.data_group, dp, comm.stage,
+                           dim=0).view(dp, -1)
+        off = 0
+        for i in idx:
+            p, k = pieces[i], pieces[i].numel()
+            out[i] = torch.cat([recv[r, off:off + k].view(p.shape)
+                                for r in range(dp)], dim=dims[i])
+            off += k
+    return out
+
+
+class _DataGather(torch.autograd.Function):
+    """FSDP: pieces all-gathered over ``data`` forward; the backward
+    reduce-scatters their gradients over ``data`` in the comm's gradient
+    dtype (one collective, every piece's gradient cut into dp chunks and
+    laid out rank by rank)."""
+
+    @staticmethod
+    def forward(ctx, comm, dims, *pieces):
+        ctx.comm, ctx.dims = comm, dims
+        ctx.like = [(p.shape, p.device) for p in pieces]
+        return tuple(_gather_data(comm, dims, pieces))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        c, dims = ctx.comm, ctx.dims
+        dp, gdt = c.shard.dp, c.grad_dtype
+        chunks = []
+        for g, (shape, dev), d in zip(grads, ctx.like, dims):
+            if g is None:  # an output the loss does not reach
+                full = list(shape)
+                full[d] *= dp
+                g = torch.zeros(full, dtype=gdt, device=dev)
+            chunks.append([t.reshape(-1) for t in
+                           g.to(gdt).chunk(dp, dim=d)])
+        buf = torch.stack([torch.cat([ch[r] for ch in chunks])
+                           for r in range(dp)])
+        mine = _reduce_scatter(buf, c.data_group, dp, c.shard.data_rank,
+                               c.stage, c.nccl, dim=0).reshape(-1)
+        out, off = [], 0
+        for shape, _ in ctx.like:
+            k = math.prod(shape)
+            out.append(mine[off:off + k].view(shape))
+            off += k
+        return (None, None) + tuple(out)
+
+
+class TrainGather(GroupGather):
+    """A stacked training-layout parameter tree: ``group(g)`` all-gathers
+    group ``g``'s data-split pieces (``_DataGather``). Each leaf is
+    unbound once, so its groups' gradients stack in one backward node."""
+
+    def __init__(self, held, dims, comm: ShardComm):
+        self.held, self.prefix, self.comm = held, (), comm
+        self.paths = []
+        _walk(held, lambda p, _t: self.paths.append(p))
+        self.groups = {p: _at(held, p).unbind(0) for p in self.paths}
+        self.dims = {p: (None if _at(dims, p) is None else _at(dims, p) - 1)
+                     for p in self.paths}
+        self.n_groups = len(self.groups[self.paths[0]])
+
+    def group(self, g: int):
+        got = {p: self.groups[p][g] for p in self.paths}
+        split = [p for p in self.paths if self.dims[p] is not None]
+        if split:
+            outs = _DataGather.apply(self.comm, [self.dims[p] for p in split],
+                                     *[got[p] for p in split])
+            got.update(zip(split, outs))
+        return _walk(self.held, lambda p, _t: got[p])
+
+
+def train_view(held, comm: ShardComm, dims):
+    """The tree a training forward runs on: ``held`` (this rank's
+    training-layout pieces) with the leaves outside the layer stack
+    gathered over ``data`` at once and the stack a ``TrainGather``.
+    ``dims`` gives each leaf's data-split dim (None: not split). Without
+    a data split, ``held`` itself."""
+    if comm.shard.dp == 1:
+        return held
+    top = []
+    _walk(held, lambda p, _t: top.append(p) if p[0] != "stack"
+          and _at(dims, p) is not None else None)
+    got = {}
+    if top:
+        outs = _DataGather.apply(comm, [_at(dims, p) for p in top],
+                                 *[_at(held, p) for p in top])
+        got = dict(zip(top, outs))
+    out = _walk(held, lambda p, t: got.get(p, t) if p[0] != "stack" else t)
+    if "stack" in held:
+        out["stack"] = TrainGather(held["stack"], dims["stack"], comm)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -633,9 +633,13 @@ def _tree_to(tree, dev):
 
 
 def test_kernels_without_backward_refuse_autograd_on_card(cuda):
-    """The flash route of ``mha`` (``attn_impl="chunked"``) and the gated
-    projection raise under autograd on the card rather than drop the
-    gradients; under ``no_grad`` both run."""
+    """The flash kernel's launch and the gated projection raise under
+    autograd on the card rather than drop the gradients. ``mha`` under
+    ``attn_impl="chunked"`` chooses its route first: a pass that takes a
+    gradient runs the plain ``attention_chunked`` and launches no flash
+    kernel; under ``no_grad`` the flash kernel runs."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
     from repro_torch.kernels.morph_matmul import morph_matmul
     from repro_torch.models.model import init_params, loss_fn
     from repro_torch.optim import trainable
@@ -644,14 +648,51 @@ def test_kernels_without_backward_refuse_autograd_on_card(cuda):
     p = trainable(init_params(cfg, seed=2, device=cuda))
     batch = {"tokens": torch.arange(12, device=cuda)[None] % cfg.vocab_size,
              "targets": torch.arange(1, 13, device=cuda)[None] % cfg.vocab_size}
-    with pytest.raises(RuntimeError, match="no backward"):
-        loss_fn(p, batch, cfg)
+    FA.reset_launch_count()
+    loss, _ = loss_fn(p, batch, cfg)
+    loss.backward()
+    assert FA.launch_count() == 0
     with torch.no_grad():
         loss, _ = loss_fn(p, batch, cfg)
-    assert bool(torch.isfinite(loss))
+    assert bool(torch.isfinite(loss)) and FA.launch_count() == cfg.n_layers
+    q = torch.randn(1, 12, 4, 16, device=cuda, requires_grad=True)
+    kv = torch.randn(1, 12, 2, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.flash_attention_bshd(q, kv, kv)
     x = torch.randn(2, 3, 64, device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         morph_matmul(x, torch.randn(64, 32, device=cuda), active_n=16)
+
+
+def test_chunked_train_step_at_4096_routes_around_flash_attention(cuda):
+    """A full-width TinyLlama-1.1B train step cut to 2 layers, in f32, at
+    S = 4096 (B = 1) under ``attn_impl="chunked"``: it runs (the gradient
+    pass takes the plain ``attention_chunked``), launches no flash kernel,
+    and its loss equals the ``"einsum"`` route's within 1e-5 (f32
+    summation order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.optim import OptimizerConfig
+
+    base = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2,
+                               dtype="float32")
+    ocfg = OptimizerConfig(lr=1e-4)
+    dc = DataConfig(seed=0, global_batch=1, seq_len=4096)
+    losses = {}
+    for impl in ("chunked", "einsum"):
+        cfg = base.scaled(attn_impl=impl)
+        state = init_train_state(cfg, ocfg, seed=0, device=cuda)
+        step = make_train_step(cfg, ocfg, remat="full")
+        FA.reset_launch_count()
+        state, m = step(state, to_device(make_batch(cfg, dc, 0), cuda))
+        torch.cuda.synchronize()
+        assert FA.launch_count() == 0, impl
+        losses[impl] = float(m["loss"])
+        del state
+    assert np.isfinite(losses["chunked"])
+    np.testing.assert_allclose(losses["chunked"], losses["einsum"], rtol=1e-5)
 
 
 def test_mamba2_smoke_model_on_card_matches_cpu(cuda):

@@ -323,7 +323,9 @@ def test_to_microbatches_takes_strided_rows():
 
 
 def test_grad_shardings_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # grad_shardings must be the params' (mesh, spec) shardings
+    # (tests/test_torch_train_mesh.py drives the mesh step itself)
+    with pytest.raises(ValueError, match="mesh"):
         TST.make_train_step(smoke_config("mamba2-370m"), TO.OptimizerConfig(),
                             grad_shardings={})
 

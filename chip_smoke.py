@@ -1694,28 +1694,16 @@ def check_morph_matmul_ssm(torch, cfg, timer):
                  f"widths {{0.5, 1.0}})") for S in (1, 5))
 
 
-def scan_ops(s, h, p, n, tile):
-    """f32 operations of one batch row's scan carried every ``tile`` steps:
-    per tile of q steps and head, the lower triangle of C.B^T (q(q+1)n),
-    its decayed product with dt.x (q(q+1)p), the carried-state term and the
-    state update (2qnp each) and the state's decay (pn). ``tile`` = 1 is
-    the sequential recurrence, ~5pn per step and head."""
-    ops = 0
-    for c0 in range(0, s, tile):
-        q = min(tile, s - c0)
-        ops += h * (q * (q + 1) * (n + p) + 4 * q * n * p + p * n)
-    return ops
-
-
 def scan_bound(b, s, h, p, g, n):
-    """(ms, bound_by, bytes, ops, tile) of one scan at the card's peaks:
-    the least f32 work of the function over every tile length (the same
-    function at any tile up to rounding, so the cheapest counts) and each
-    input read once, y and the final state written once."""
-    tile = min(range(1, s + 1), key=lambda q: scan_ops(s, h, p, n, q))
-    ops = b * scan_ops(s, h, p, n, tile)
-    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * g * n
-                  + b * h * p * n)
+    """(ms, bound_by, bytes, ops, tile) of one scan at the card's peaks,
+    f32 x: ``ssd_scan.cost``, the least f32 work of the function over every
+    tile length (the same function at any tile up to rounding, so the
+    cheapest counts) and each input read once, y and the final state
+    written once."""
+    from repro_torch.kernels import ssd_scan as SSD
+
+    ops, nbytes = SSD.cost(b, s, h, p, g, n)
+    tile = SSD.least_ops(SSD.scan_ops, s, h, p, n)[1]
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
             nbytes, ops, tile)
@@ -1803,17 +1791,6 @@ def check_ssd_scan(torch, cfg, timer):
         res[tag] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound,
                         bound_by=by, per_launch=parts, warm_ms=t_warm)
     return res
-
-
-def attn_pairs(sq, sk, causal, window):
-    """Live (row, column) pairs of one head's attention: the products a
-    kernel that skips every masked column must do."""
-    n = 0
-    for i in range(sq):
-        hi = min(i + 1, sk) if causal else sk
-        lo = max(0, i - window + 1) if window > 0 else 0
-        n += max(0, hi - lo)
-    return n
 
 
 def dense_bound(nbytes, ops, peak):
@@ -1945,7 +1922,7 @@ def flash_attention_cases(torch, timer, cases):
         backend = sdpa_backend(timer.last)
         size = torch.finfo(dt).bits // 8
         nbytes = size * (2 * b * sq * h * d + 2 * b * sk * kv * d)
-        ops_n = 4 * d * attn_pairs(sq, sk, causal, window) * b * h
+        ops_n = 4 * d * FA.attn_pairs(sq, sk, causal, window) * b * h
         peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
         bound, by = dense_bound(nbytes, ops_n, peak)
         route = "tc (tensor cores)" if dt == torch.bfloat16 else "fma (f32)"
@@ -2157,13 +2134,19 @@ def step_bytes(engine) -> int:
     Self-attention K/V reads are left out: the step is timed on a fresh
     cache."""
     cfg = engine.cfg
-    dec = {k: v for k, v in engine.params.items()
+    return params_cache_bytes(cfg, engine.params,
+                              engine.groups[cfg.n_groups].cache)
+
+
+def params_cache_bytes(cfg, params, cache) -> int:
+    """``step_bytes`` of a decode step of ``cfg`` on ``params`` and a
+    decode cache."""
+    dec = {k: v for k, v in params.items()
            if k not in ("encoder", "frontend_proj")}
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(dec))
     if not cfg.tie_embeddings:
-        emb = engine.params["embed"]
+        emb = params["embed"]
         nbytes -= emb.numel() * emb.element_size()
-    cache = engine.groups[cfg.n_groups].cache
     return nbytes + sum((2 if k in ("conv_x", "conv_bc", "state") else 1)
                         * t.numel() * t.element_size()
                         for layer in cache["stack"].values()
@@ -3460,28 +3443,17 @@ GRAD_REL = 1e-3
 BASE_BATCHES = 4
 
 
-def scan_bwd_ops(s, h, p, n, tile):
-    """f32 operations of one batch row's backward scan carried every
-    ``tile`` steps, counted as ``scan_ops`` counts the forward's: per tile of
-    q steps and head, the lower triangles of C.B^T and dY.U^T (q(q+1)(n +
-    p)), the in-tile products into du, dB and dC (q(q+1)(p + 2n)), the four
-    products with a state (the carried gradient's term, G B, U G, dY h:
-    8qnp) and the carry (2pn)."""
-    ops = 0
-    for c0 in range(0, s, tile):
-        q = min(tile, s - c0)
-        ops += h * (q * (q + 1) * (3 * n + 2 * p) + 8 * q * n * p + 2 * p * n)
-    return ops
-
-
 def scan_bwd_bound(b, s, h, p, g, n, x_bytes):
     """(ms, bound_by, bytes, ops) of one backward scan at the card's peaks:
     the least f32 work over every tile length; x, dy, dt, A, B, C and the
-    final state's gradient read once, dx, ddt, dA, dB and dC written once."""
-    tile = min(range(1, s + 1), key=lambda q: scan_bwd_ops(s, h, p, n, q))
-    ops = b * scan_bwd_ops(s, h, p, n, tile)
-    nbytes = (3 * x_bytes * b * s * h * p
-              + 4 * (2 * b * s * h + 2 * h + 4 * b * s * g * n + b * h * p * n))
+    final state's gradient read once, dx, ddt, dA, dB and dC written once
+    (``ssd_scan.bwd_cost``)."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as SSD
+
+    ops, nbytes = SSD.bwd_cost(b, s, h, p, g, n, {4: torch.float32,
+                                                  2: torch.bfloat16}[x_bytes])
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
             nbytes, ops)
@@ -6251,6 +6223,166 @@ def check_ssd_train_shards(torch, mcfg, timer):
     return res
 
 
+# the cost phase: B, cache, prompt; the trace's argument + temp bytes held to
+# the train step's max_memory_allocated rise within this ratio band (PERF.md
+# section 6: the caching allocator rounds each block up and cuBLAS keeps its
+# workspaces there; the trace frees a tensor where eager does)
+COST_B, COST_CACHE, COST_PROMPT = 8, 512, 256
+COST_MEM_RATIO = (0.75, 1.5)
+
+
+def _counted_step(torch, fn):
+    """(out, kernel name -> launches, device ms) of one call of ``fn`` on
+    the card, every wrapper's count zeroed just before and read just
+    after, under the profiler (device ms: the sum of the call's kernels;
+    device activity alone: recording a train step's host ops as well costs
+    seconds of host time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = counters()
+    for _, reset in cs.values():
+        reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = sum(r.self_device_time_total for r in prof.key_averages()
+              if r.device_type == DeviceType.CUDA) / 1e3
+    return out, {k: get() for k, (get, _) in cs.items()}, dev
+
+
+def _hold_launches(what, traced, counted):
+    want = {k: v for k, v in counted.items() if v}
+    got = {k: v for k, v in traced.launches().items() if v}
+    if got != want:
+        fail(f"cost phase, {what}: traced launches {got} != the wrappers' "
+             f"counters {want}")
+    return got
+
+
+def cost_phase(torch, cfg, mcfg, card):
+    """The op-trace walker (``launch.op_analysis``) held to the card: at
+    the published width and full depth, B = 8, cache 512, bf16
+    activations, seeded weights. For each step the same step function is
+    traced on meta copies of its arguments (host only) and run once on the
+    card: every kernel's traced launches must equal its wrapper's counter
+    over the real step. TinyLlama's unfused and fused decode steps (the
+    serve controller's full-depth step): the traced bytes must be at least
+    ``step_bytes``; a Mamba2 train step (phase 4's B = 8, S = 256,
+    AdamW): B4 and its backward, and the trace's argument + temp bytes
+    beside the step's ``max_memory_allocated`` rise, within
+    COST_MEM_RATIO; on its parameters, Mamba2's decode step and 256-token
+    prompt pass. Prints each step's traced bytes, ``memory_s`` and
+    ``compute_s`` beside its device ms."""
+    from repro_torch.core import elastic
+    from repro_torch.core.morph import make_serve_controller
+    from repro_torch.core.neuroforge.hw import H100
+    from repro_torch.data import DataConfig, make_batch, to_device
+    from repro_torch.launch import op_analysis as OA
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.model import init_decode_cache, prefill
+    from repro_torch.optim import OptimizerConfig
+
+    res = {}
+
+    def report(what, traced, counted, dev_ms, floor=None):
+        launches = _hold_launches(what, traced, counted)
+        mem_s, comp_s = traced.bytes / H100.hbm_bw, traced.flops / \
+            H100.peak_flops
+        row = dict(launches=launches, bytes=traced.bytes,
+                   flops=traced.flops, memory_ms=mem_s * 1e3,
+                   compute_ms=comp_s * 1e3, device_ms=dev_ms,
+                   trace_ops=traced.n_ops)
+        extra = ""
+        if floor is not None:
+            if traced.bytes < floor:
+                fail(f"cost phase, {what}: traced bytes {traced.bytes:.4e} "
+                     f"below step_bytes {floor:.4e}")
+            row.update(step_bytes=floor, ratio=traced.bytes / floor)
+            extra = (f", step_bytes {floor / 1e9:.3f} GB (traced / "
+                     f"step_bytes {traced.bytes / floor:.3f})")
+        log(f"  {what}: launches {launches} traced = counted; traced "
+            f"{traced.bytes / 1e9:.3f} GB, {traced.flops / 1e9:.2f} GFLOP "
+            f"({traced.n_ops} aten ops){extra}; memory_s "
+            f"{mem_s * 1e3:.4f} ms, compute_s {comp_s * 1e3:.4f} ms at "
+            f"H100 peaks; device {dev_ms:.4f} ms ({card})")
+        res[what] = row
+
+    B = COST_B
+    # a Mamba2 train step first, on a clean allocator: its memory beside
+    # the trace's; its parameters then serve the Mamba2 decode step
+    ocfg = OptimizerConfig(lr=2e-3)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(mcfg, ocfg, seed=0, device="cuda")
+    batch = to_device(make_batch(mcfg, DataConfig(seed=0, global_batch=B,
+                                                  seq_len=COST_PROMPT), 0),
+                      "cuda")
+    step = make_train_step(mcfg, ocfg, remat="none")
+    traced = OA.trace(step, OA.meta_like(state), OA.meta_like(batch))
+    _, counted, dev = _counted_step(torch, lambda: step(state, batch))
+    rise = torch.cuda.max_memory_allocated() - base
+    want = traced.argument_bytes + traced.peak_temp_bytes
+    ratio = rise / want
+    report(f"mamba2 train step (B = {B}, S = {COST_PROMPT}, AdamW)", traced,
+           counted, dev)
+    arg_gib = traced.argument_bytes / 2**30
+    log(f"  mamba2 train step memory: trace argument {arg_gib:.3f} + temp "
+        f"{traced.peak_temp_bytes / 2**30:.3f} = "
+        f"{want / 2**30:.3f} GiB; the card's max_memory_allocated rise "
+        f"{rise / 2**30:.3f} GiB (ratio {ratio:.3f}, band "
+        f"{COST_MEM_RATIO}) ({card})")
+    res["mamba2 train memory"] = dict(argument_bytes=traced.argument_bytes,
+                                      temp_bytes=traced.peak_temp_bytes,
+                                      max_allocated_rise=rise, ratio=ratio)
+    if not COST_MEM_RATIO[0] <= ratio <= COST_MEM_RATIO[1]:
+        fail(f"cost phase: the train step's memory rise {rise} is "
+             f"{ratio:.3f}x the trace's argument + temp bytes {want}, "
+             f"outside {COST_MEM_RATIO}")
+    mparams = state["params"]
+    del state, batch, step
+    torch.cuda.empty_cache()
+    for arch, c in (("mamba2", mcfg), ("tinyllama", cfg)):
+        params = mparams if arch == "mamba2" else init_on_card(torch, c)
+        active = elastic.active_widths_batch(c, [1.0] * B, device="cuda")
+        tok = torch.ones((B, 1), dtype=torch.int64, device="cuda")
+        for fused in ((False, True) if arch == "tinyllama" else (False,)):
+            ctrl = make_serve_controller(params, c, fused=fused)
+            step = ctrl.step_for(ctrl.modes[-1])
+            cache = init_decode_cache(c, B, COST_CACHE, per_slot=True,
+                                      device="cuda")
+            floor = params_cache_bytes(c, params, cache)
+            what = f"{arch} {'fused' if fused else 'unfused'} decode step"
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                traced = OA.trace(step, OA.meta_like(params),
+                                  OA.meta_like(cache), OA.meta_like(tok),
+                                  OA.meta_like(active))
+                host = time.perf_counter() - t0
+                _, counted, dev = _counted_step(
+                    torch, lambda: step(params, cache, tok, active))
+            report(what, traced, counted, dev, floor)
+            res[what]["trace_host_s"] = host
+        if arch == "mamba2":
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            batch = {"tokens": torch.randint(0, c.vocab_size,
+                                             (B, COST_PROMPT), generator=gen,
+                                             device="cuda")}
+            with torch.no_grad():
+                traced = OA.trace(lambda p, b: prefill(p, b, c),
+                                  OA.meta_like(params), OA.meta_like(batch))
+                _, counted, dev = _counted_step(
+                    torch, lambda: prefill(params, batch, c))
+            report(f"mamba2 {COST_PROMPT}-token prompt pass", traced,
+                   counted, dev)
+        del params
+        mparams = None
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-e2e", action="store_true",
@@ -6436,6 +6568,10 @@ def main(argv=None) -> int:
               "ranks sharing the card over gloo")
         train_mesh_launches, train_mesh_res = train_mesh_phase(
             torch, launches["fused_chunked"]["flash_attention"])
+    phase("[phase 4] the op-trace cost walker held to the card: traced "
+          "launches vs the counters, bytes vs step_bytes, memory vs "
+          "max_memory_allocated")
+    cost_res = cost_phase(torch, cfg, mcfg, card)
 
     # every check above raises on failure, so reaching here means each
     # kernel built, launched and matched its plain version. ``launches`` is
@@ -6713,6 +6849,7 @@ def main(argv=None) -> int:
         log("  mesh: " + json.dumps(mesh_res))
     if train_mesh_res:
         log("  train mesh: " + json.dumps(train_mesh_res))
+    log("  cost phase: " + json.dumps(cost_res))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,6 +27,14 @@ Each wrapper counts its launches (``launch_count()`` and friends). A
 thread may count its own launches apart instead (``counted_apart``): the
 online autoscaler's background warm-up does, so the wrappers' counters
 hold the serving thread's launches alone.
+
+Each kernel module has a ``cost`` beside its plain version: the (FLOPs,
+bytes) of one launch from its shapes, dtypes, active widths and cache
+lengths, the work its bound is reckoned from. A wrapper given meta tensors
+inside an op trace (``launch.op_analysis.trace``) takes its meta route: it
+records one launch with that cost, counts it (in the trace's tally, not
+the wrapper's counters) and returns meta outputs of the kernel's shapes.
+Outside a trace a meta tensor raises; a CUDA tensor always launches.
 """
 import contextlib
 import threading
@@ -58,6 +66,30 @@ def counted_apart(tally: dict):
         yield tally
     finally:
         _APART.tally = prev
+
+
+def on_card(t) -> bool:
+    """True for a CUDA tensor, and for a meta tensor inside an op trace
+    (which stands for one): where the model code takes a kernel route."""
+    if t.device.type == "cuda":
+        return True
+    if t.is_meta:
+        from repro_torch.launch.op_analysis import tracing
+
+        return tracing()
+    return False
+
+
+def host_widths(a, full: int, batch: int) -> list:
+    """An active-width operand as ``batch`` ints (``full`` for None or a
+    meta tensor, whose values a trace cannot read)."""
+    if a is None or getattr(a, "is_meta", False):
+        return [full] * batch
+    if hasattr(a, "dim"):
+        a = a.tolist()
+    if isinstance(a, (list, tuple)):
+        return [int(v) for v in a]
+    return [int(a)] * batch
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

@@ -22,15 +22,19 @@ inputs go to the tensor-core kernel (route ``"tc"``: bf16 products, f32
 sums, p split into two bf16 halves so that P.V keeps an f32 p), f32 inputs
 to the f32 FMA kernel (route ``"fma"``). ``launch_count()`` counts the
 launches of both, from either entry point; ``route_counts()`` by route.
+``cost`` gives one launch's work.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build, launch_counter, refuse_grad
+from repro_torch.launch.op_analysis import kernel_launch
 
 NEG_INF = -1e30
 _LAUNCHES = {"n": 0, "tc": 0, "fma": 0}
@@ -107,6 +111,32 @@ def flash_attention_plain(q, k, v, *, group: int, causal: bool = True,
     return out.reshape(BH, Sq, hd).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Live (row, column) pairs of one head's attention: the products a
+    kernel that skips every masked column must do."""
+    n = 0
+    for i in range(sq):
+        hi = min(i + 1, sk) if causal else sk
+        lo = max(0, i - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def cost(q_shape, k_shape, dtype: torch.dtype, *, causal: bool,
+         window: int = 0) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one launch in the model layout (q (B, Sq, H,
+    hd), k and v (B, Sk, KV, hd)): q, k, v read once and the output
+    written once; 4 hd per live (row, column) pair and head (Q.K^T and
+    P.V)."""
+    b, sq, h, d = q_shape
+    sk, kv = k_shape[1], k_shape[2]
+    nbytes = dtype.itemsize * (2 * b * sq * h * d + 2 * b * sk * kv * d)
+    return (float(4 * d * attn_pairs(sq, sk, bool(causal), max(int(window),
+                                                               0)) * b * h),
+            float(nbytes))
+
+
 def _lib(route: str):
     fn = getattr(_build.load("flash_attention"), f"flash_attention_{route}_launch")
     if fn.argtypes is None:
@@ -124,6 +154,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16 goes to the tensor-core kernel, f32 to the FMA kernel. Writes
     ``out`` and returns it. Counted, in all and by route."""
     refuse_grad("flash_attention", q, k, v)
+    if q.is_meta:
+        kernel_launch("flash_attention", lambda: cost(
+            q.shape, k.shape, q.dtype, causal=causal, window=window))
+        c = launch_counter(_LAUNCHES, "flash_attention")
+        c["n"] += 1
+        c[_ROUTE.get(q.dtype, "tc")] += 1
+        return out
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")

@@ -25,7 +25,7 @@ route is chosen by the cache's dtype: bf16 and int8 caches go to the tensor
 cores (route ``"tc"``: bf16 products with f32 sums, f32 queries split into
 two bf16 halves, p into two), f32 caches to f32 FMAs (route ``"fma"``).
 ``launch_count()`` counts its launches, ``route_counts()`` by the route
-the kernel reports it launched.
+the kernel reports it launched. ``cost`` gives one launch's work.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import torch
 from repro_torch.kernels import _build, launch_counter, refuse_grad
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
+from repro_torch.launch.op_analysis import kernel_launch
 
 NEG_INF = -1e30
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,6 +118,23 @@ def flash_decode_plain(q, k, v, kv_len: KvLen, k_scale=None, v_scale=None,
     return out.reshape(BH, hd).to(q.dtype)
 
 
+def cost(q_shape, k_shape, q_dtype: torch.dtype, cache_dtype: torch.dtype,
+         kv_len=None, *, group: int = 1,
+         scale_dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """(FLOPs, bytes) of one launch: the live K and V rows (``kv_len``;
+    None or a meta tensor: all S) read once, with their scales for an int8
+    cache, q read once and the output written once; 4 hd per live row and
+    query head."""
+    bkv, s, d = k_shape
+    n = s if kv_len is None or getattr(kv_len, "is_meta", False) else \
+        min(int(kv_len), s)
+    quant = cache_dtype == torch.int8
+    nbytes = (n * bkv * d * 2 * cache_dtype.itemsize
+              + 2 * bkv * group * d * q_dtype.itemsize
+              + (2 * n * bkv * scale_dtype.itemsize if quant else 0))
+    return float(4 * d * n * bkv * group), float(nbytes)
+
+
 def _lib():
     lib = _build.load("flash_decode")
     fn, probe = lib.flash_decode_launch, lib.flash_decode_probe
@@ -146,6 +164,15 @@ def _launch(q, k, v, kv_len, k_scale, v_scale, group, probe=None):
     """Launch the kernel and return (out, route), or with ``probe`` one of
     ``_PROBES`` at the kernel's launch shape and return (out, None)."""
     refuse_grad("flash_decode", q, k, v, k_scale, v_scale)
+    if q.is_meta:
+        if probe is None:
+            kernel_launch("flash_decode", lambda: cost(
+                q.shape, k.shape, q.dtype, k.dtype, kv_len, group=group,
+                scale_dtype=(k_scale.dtype if k_scale is not None
+                             else torch.bfloat16)))
+        return torch.empty_like(q), (None if probe else
+                                     "fma" if k.dtype == torch.float32
+                                     else "tc")
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")

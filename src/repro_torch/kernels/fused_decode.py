@@ -42,7 +42,8 @@ launches of ``csrc/fused_verify.cu``, counted by ``verify_launch_count()``.
 Its attention launch runs on the same decode-attention core, each (slot,
 KV head)'s G*S query rows in one block (up to four m16 row tiles), counted
 per route by ``verify_route_counts()``; paged launches also by
-``paged_verify_launch_count()``.
+``paged_verify_launch_count()``. ``cost`` and ``verify_cost`` give one
+layer's work (its three launches), dense or paged, bf16 or int8 cache.
 """
 from __future__ import annotations
 
@@ -53,9 +54,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, launch_counter, refuse_grad
+from repro_torch.kernels import (_build, host_widths, launch_counter,
+                                 refuse_grad)
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import morph_matmul as _mm
+from repro_torch.launch.op_analysis import kernel_launch
 from repro_torch.models.layers import _cache_kpos
 from repro_torch.models.paged import cache_rows, paged_view
 
@@ -212,6 +215,45 @@ def fused_decode_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None,
     return out, cache
 
 
+def _layer_bytes(B, R, dm, H, KV, hd, lens, aq, akv, x_dtype, w_dtype,
+                 cache_dtype, pages, verify):
+    """Bytes of one fused layer over R query rows a slot: the live f32
+    weight blocks (QKV and ``wo``, the widest slot's widths) read once,
+    every slot's live cache rows (and an int8 cache's bf16 scales) read
+    once, x read and the output written once, the new K and V written once
+    (into the cache, or as the verify's candidates in x's dtype), and the
+    page table."""
+    quant = cache_dtype == torch.int8
+    row = hd * cache_dtype.itemsize + (2 if quant else 0)  # per KV head
+    return (dm * (max(aq) + 2 * max(akv)) * w_dtype.itemsize
+            + max(aq) * dm * w_dtype.itemsize
+            + sum(lens) * KV * row * 2
+            + 2 * B * R * dm * x_dtype.itemsize
+            + 2 * B * R * KV * (hd * x_dtype.itemsize if verify else row)
+            + (pages[0] * pages[1] * 4 if pages else 0))
+
+
+def cost(B: int, dm: int, H: int, KV: int, hd: int, lens=None, *,
+         S: int, active_q=None, active_kv=None,
+         x_dtype: torch.dtype = torch.bfloat16,
+         w_dtype: torch.dtype = torch.float32,
+         cache_dtype: torch.dtype = torch.bfloat16, pages=None
+         ) -> tuple:
+    """(FLOPs, bytes) of one ``fused_decode_step`` (its three launches):
+    ``lens`` the cache rows each slot reads (None: all ``S`` a slot
+    sees), ``active_*`` the width gates (None or meta: full), ``pages``
+    the page table's (B, P) for a paged launch. FLOPs: the gated QKV and
+    ``wo`` products and 4 hd per cache row and query head, in f32."""
+    lens = [S] * B if lens is None else [min(int(n), S) for n in lens]
+    aq = [min(a, H * hd) for a in host_widths(active_q, H * hd, B)]
+    akv = [min(a, KV * hd) for a in host_widths(active_kv, KV * hd, B)]
+    nbytes = _layer_bytes(B, 1, dm, H, KV, hd, lens, aq, akv, x_dtype,
+                          w_dtype, cache_dtype, pages, False)
+    ops = sum(2 * dm * (q + 2 * kv) + 2 * q * dm + 4 * n * H * hd
+              for q, kv, n in zip(aq, akv, lens))
+    return float(ops), float(nbytes)
+
+
 def _lib():
     lib = _build.load("fused_decode")
     qkv, attn = lib.fused_qkv_launch, lib.fused_attn_launch
@@ -286,6 +328,9 @@ def _fused_decode_cuda(params, x, cache, pos, cfg, a_q, a_kv, pages,
                        page_size, plan_len):
     refuse_grad("fused_decode", x,
                 *(params[k] for k in ("wq", "wk", "wv", "wo")))
+    if x.is_meta:
+        return _meta_layer(params, x, cache, cfg, a_q, a_kv, pages,
+                           page_size, False) + (_meta_route(cache),)
     dev = x.device
     B, _, dm = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -442,6 +487,55 @@ def verify_operands(S: int, node_depth, tree_bias, window: int, device):
     return ops
 
 
+def verify_cost(B: int, S: int, dm: int, H: int, KV: int, hd: int,
+                lens=None, *, Sc: int, active_q=None, active_kv=None,
+                x_dtype: torch.dtype = torch.bfloat16,
+                w_dtype: torch.dtype = torch.float32,
+                cache_dtype: torch.dtype = torch.bfloat16, pages=None
+                ) -> tuple:
+    """(FLOPs, bytes) of one ``fused_verify`` (its three launches) over S
+    positions a slot: ``lens`` the committed cache rows each slot reads
+    (None: all ``Sc``), the rest as ``cost``; the new K and V come out as
+    candidates in x's dtype. FLOPs: the gated QKV and ``wo`` products over
+    S rows and 4 per (query column, row, cache row or new position), in
+    f32."""
+    lens = [Sc] * B if lens is None else [min(int(n), Sc) for n in lens]
+    aq = [min(a, H * hd) for a in host_widths(active_q, H * hd, B)]
+    akv = [min(a, KV * hd) for a in host_widths(active_kv, KV * hd, B)]
+    nbytes = _layer_bytes(B, S, dm, H, KV, hd, lens, aq, akv, x_dtype,
+                          w_dtype, cache_dtype, pages, True)
+    ops = sum(S * (2 * dm * (q + 2 * kv) + 2 * q * dm) + 4 * q * S * (n + S)
+              for q, kv, n in zip(aq, akv, lens))
+    return float(ops), float(nbytes)
+
+
+def _meta_route(cache) -> str:
+    return "fma" if cache["k"].dtype == torch.float32 else "tc"
+
+
+def _meta_layer(params, x, cache, cfg, a_q, a_kv, pages, page_size,
+                verify):
+    """The meta route of ``fused_decode_step`` (x (B, 1, d)) and
+    ``fused_verify`` (x (B, S, d)) inside an op trace: one launch recorded
+    at the layer's cost over every cache row a slot sees, meta outputs."""
+    B, S, dm = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kc = cache["k"]
+    seen = kc.shape[1] if pages is None else pages.shape[1] * int(page_size)
+    kw = dict(active_q=a_q, active_kv=a_kv, x_dtype=x.dtype,
+              w_dtype=params["wq"].dtype, cache_dtype=kc.dtype,
+              pages=None if pages is None else tuple(pages.shape))
+    out = x.new_empty((B, S, params["wo"].shape[1]))
+    if not verify:
+        kernel_launch("fused_decode", lambda: cost(B, dm, H, KV, hd, S=seen,
+                                                   **kw))
+        return out, cache
+    kernel_launch("fused_verify", lambda: verify_cost(B, S, dm, H, KV, hd,
+                                                      Sc=seen, **kw))
+    return out, {"k": x.new_empty((B, S, KV, hd)),
+                 "v": x.new_empty((B, S, KV, hd))}
+
+
 def fused_verify_plain(params, x, cache, pos, cfg, a_q=None, a_kv=None,
                        node_depth=None, tree_bias=None, pages=None,
                        page_size=0):
@@ -561,6 +655,9 @@ def _fused_verify_cuda(params, x, cache, pos, cfg, a_q, a_kv, node_depth,
                        tree_bias, pages, page_size, plan_len):
     refuse_grad("fused_verify", x,
                 *(params[k] for k in ("wq", "wk", "wv", "wo")))
+    if x.is_meta:
+        return _meta_layer(params, x, cache, cfg, a_q, a_kv, pages,
+                           page_size, True) + (_meta_route(cache),)
     dev = x.device
     B, S, dm = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim

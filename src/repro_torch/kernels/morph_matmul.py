@@ -13,7 +13,7 @@ launches the hand-written kernel in ``csrc/morph_matmul.cu`` (see
 ``csrc/gemv.cuh`` for its design) or raises: with bf16 x the product runs
 on the tensor cores (bf16 operands, f32 sums, exactly the plain version's
 function), with f32 x in f32 FMAs. ``launch_count()`` counts the kernel
-launches made through ``morph_matmul``.
+launches made through ``morph_matmul``. ``cost`` gives one launch's work.
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import _build, launch_counter, refuse_grad
+from repro_torch.kernels import (_build, host_widths, launch_counter,
+                                 refuse_grad)
+from repro_torch.launch.op_analysis import kernel_launch
 
 ActiveDim = Union[int, torch.Tensor, None]
 
@@ -80,6 +82,22 @@ def morph_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                     torch.zeros((), device=x.device))
     y = y.to(x.dtype)
     return y if batched else y[0]
+
+
+def cost(x_shape, w_shape, x_dtype: torch.dtype, w_dtype: torch.dtype,
+         active_n=None, active_k=None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one launch: the live weight block (the widest
+    slot's rows and columns) read once in ``w_dtype``, x read once and the
+    output written once in ``x_dtype``; 2 x live rows x live columns per
+    output row. ``active_*`` as the wrapper takes them (None or meta: the
+    full width)."""
+    B, M, K = (1,) + tuple(x_shape) if len(x_shape) == 2 else tuple(x_shape)
+    N = w_shape[1]
+    an = [min(a, N) for a in host_widths(active_n, N, B)]
+    ak = [min(a, K) for a in host_widths(active_k, K, B)]
+    live_w = max(ak) * max(an)
+    nbytes = live_w * w_dtype.itemsize + B * M * (K + N) * x_dtype.itemsize
+    return float(M * sum(2 * k * n for k, n in zip(ak, an))), float(nbytes)
 
 
 def _lib():
@@ -180,6 +198,10 @@ def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
     themselves kernels of another name (the fused decode's output
     projection) use this directly; ``morph_matmul`` counts its own."""
     refuse_grad("morph_matmul", x, w)
+    if x.is_meta:
+        kernel_launch("morph_matmul", lambda: cost(
+            x.shape, w.shape, x.dtype, w.dtype, active_n, active_k))
+        return out
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got {dev}")

@@ -28,21 +28,25 @@ gradient of each tile's state (launch 1), its reverse carry over the tiles
 (launch 2), every input's gradient per tile (launch 3) and the sums over a
 group's heads (launch 4). ``ssd_scan_bwd_plain`` is its plain version; on
 the CPU the model differentiates ``ssd_chunked`` with autograd.
-``bwd_launch_count()`` counts the backward scans.
+``bwd_launch_count()`` counts the backward scans. ``cost`` and
+``bwd_cost`` give one scan's work, forward and backward.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build, launch_counter, refuse_grad
+from repro_torch.launch.op_analysis import kernel_launch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAUNCHES = {"n": 0, "bwd": 0}
 _MAX_STATE = 256  # kMaxN in csrc/ssd_scan.cu
+_TILE = 64  # kL in csrc/ssd_scan.cu and csrc/ssd_scan_bwd.cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -134,6 +138,70 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 128):
     return y[:, :, 0].to(x.dtype), fs[:, 0]
 
 
+def scan_ops(s: int, h: int, p: int, n: int, tile: int) -> int:
+    """f32 operations of one batch row's scan carried every ``tile``
+    steps: per tile of q steps and head, the lower triangle of C.B^T
+    (q(q+1)n), its decayed product with dt.x (q(q+1)p), the carried-state
+    term and the state update (2qnp each) and the state's decay (pn)."""
+    def one(q):
+        return q * (q + 1) * (n + p) + 4 * q * n * p + p * n
+
+    r = s % tile
+    return h * ((s // tile) * one(tile) + (one(r) if r else 0))
+
+
+def scan_bwd_ops(s: int, h: int, p: int, n: int, tile: int) -> int:
+    """f32 operations of one batch row's backward scan carried every
+    ``tile`` steps, counted as ``scan_ops`` counts the forward's: the lower
+    triangles of C.B^T and dY.U^T (q(q+1)(n + p)), the in-tile products
+    into du, dB and dC (q(q+1)(p + 2n)), the four products with a state
+    (8qnp) and the carry (2pn)."""
+    def one(q):
+        return q * (q + 1) * (3 * n + 2 * p) + 8 * q * n * p + 2 * p * n
+
+    r = s % tile
+    return h * ((s // tile) * one(tile) + (one(r) if r else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def least_ops(fn, s: int, h: int, p: int, n: int) -> Tuple[int, int]:
+    """(ops, tile): the least of ``fn``'s operations over every tile length
+    and its tile (the same function at any tile up to rounding, so the
+    cheapest counts)."""
+    return min((fn(s, h, p, n, q), q) for q in range(1, s + 1))
+
+
+def cost(b: int, s: int, h: int, p: int, g: int, n: int,
+         x_dtype: torch.dtype = torch.float32) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one scan in the model layout: the least f32
+    work of the function over every tile length; x, dt, A, B and C read
+    once, y and the final state written once."""
+    nbytes = (2 * x_dtype.itemsize * b * s * h * p
+              + 4 * (b * s * h + h + 2 * b * s * g * n + b * h * p * n))
+    return float(b * least_ops(scan_ops, s, h, p, n)[0]), float(nbytes)
+
+
+def bwd_cost(b: int, s: int, h: int, p: int, g: int, n: int,
+             x_dtype: torch.dtype = torch.float32) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one backward scan: the least f32 work over
+    every tile length; x, dy, dt, A, B, C and the final state's gradient
+    read once, dx, ddt, dA, dB and dC written once."""
+    nbytes = (3 * x_dtype.itemsize * b * s * h * p
+              + 4 * (2 * b * s * h + 2 * h + 4 * b * s * g * n
+                     + b * h * p * n))
+    return float(b * least_ops(scan_bwd_ops, s, h, p, n)[0]), float(nbytes)
+
+
+def _workspace(b: int, s: int, h: int, p: int, g: int, n: int,
+               bwd: bool) -> int:
+    """Floats of the kernels' workspaces (``ssd_scan_workspace`` and
+    ``ssd_scan_bwd_workspace`` in the CUDA sources), for a meta launch."""
+    t = (s + _TILE - 1) // _TILE
+    if bwd:
+        return b * h * t * p * n + 2 * b * s * h * n + b * h * t
+    return b * h * t * p * n + b * g * t * _TILE * _TILE + b * h * t
+
+
 def _lib():
     lib = _build.load("ssd_scan")
     fn = lib.ssd_scan_launch
@@ -193,6 +261,16 @@ def launch_bshn(x: torch.Tensor, dt: torch.Tensor, A_bh: torch.Tensor,
     refuse_grad("ssd_scan.launch_bshn (differentiate through "
                 "ops.ssd_scan_bshn, whose autograd Function runs the "
                 "backward kernel)", x, dt, A_bh, B, C)
+    if x.is_meta:
+        b, s, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        kernel_launch("ssd_scan", lambda: cost(b, s, h, p, g, n, x.dtype))
+        launch_counter(_LAUNCHES, "ssd_scan")["n"] += 1
+        y = torch.empty_like(x)
+        state = x.new_empty((b, h, p, n), dtype=torch.float32)
+        ws = x.new_empty((max(1, _workspace(b, s, h, p, g, n, False)),),
+                         dtype=torch.float32)
+        return (y, state, ws) if keep_workspace else (y, state)
     b, s, h, p, g, n = _check_operands(x, dt, A_bh, B, C)
     dev = x.device
     lib = _lib()
@@ -325,6 +403,16 @@ def launch_bwd(x, dt, A_bh, B, C, fws, dy, dstate):
     x's dtype, dstate (b, h, p, n) f32, all contiguous. Returns (dx in x's
     dtype, ddt, dA_bh, dB, dC) f32. Counted once in ``bwd_launch_count``."""
     b, s, h, p = x.shape
+    if x.is_meta:
+        g, n = B.shape[2], B.shape[3]
+        kernel_launch("ssd_scan_bwd", lambda: bwd_cost(b, s, h, p, g, n,
+                                                       x.dtype))
+        launch_counter(_LAUNCHES, "ssd_scan")["bwd"] += 1
+        x.new_empty((max(1, _workspace(b, s, h, p, g, n, True)),),
+                    dtype=torch.float32)
+        return (torch.empty_like(x), torch.empty_like(dt),
+                torch.empty_like(A_bh), torch.empty_like(B),
+                torch.empty_like(C))
     b, s, h, p, g, n = _check_operands(
         x, dt, A_bh, B, C,
         extra=(("dy", dy, (b, s, h, p), None),

@@ -1,28 +1,58 @@
-"""Host-only dry-run: every (arch x shape x mesh) cell reckoned on meta
-tensors.
+"""Host-only dry-run: every (arch x shape x mesh) cell reckoned and traced
+on meta tensors.
 
 Port of ``repro.launch.dryrun``, where it means something in PyTorch. The
 reference lowers and compiles each cell with XLA and reads the compiled
 program's memory and cost analyses. The port has no such compiler: it
 builds each cell's arguments as meta tensors (nothing allocated, no rank
-started, no card touched), with the mesh as an ``{axis: size}`` mapping,
-and reports for the rank at coordinate 0:
+started, no card touched), with the mesh as an ``{axis: size}`` mapping
+(a ``collectives.TraceMesh`` for the step), and reports for the rank at
+coordinate 0:
 
 * ``memory``: the argument bytes one rank holds under the port's layouts
   (``parallel.sharding``): params, optimizer state and batch for a train
   cell (the training layout), params and batch for prefill, params, cache
   and tokens for decode (the serving shard: ``plan_serve_shard`` under
   ``serve_tp``, ``param_specs(..., "serve_2d")``'s cut under
-  ``serve_2d``), and ``fits_80gb`` of those bytes against
+  ``serve_2d``); from the trace, ``temp_bytes`` (the peak of the live
+  storages the step makes), ``output_bytes`` (the new storages it
+  returns) and ``live_bytes_per_device`` (argument + temp + output), and
+  ``fits_80gb`` of the live bytes against
   ``core.neuroforge.hw.DEFAULT_HW.hbm_bytes`` (one H100's HBM);
-* ``roofline``: ``model_flops`` (6 N T for training, 2 N T otherwise, N
-  the active parameters) and ``ideal_s``, that work over the mesh's cards
-  at ``DEFAULT_HW.peak_flops`` (the H100's dense bf16 data-sheet peak);
-* ``status`` ``skip`` with ``cell_applicable``'s reason.
+* ``cost`` and ``collectives``: the rank's step as a rank runs it (a
+  train cell: ``make_train_step(grad_shardings=...)`` on ``train_view``'s
+  gathers, with SP where ``k.sp``, the remat and microbatches of the
+  knobs; prefill: ``make_prefill_step`` on the same gathers; decode:
+  ``make_decode_fn`` at full width under ``MeshStep`` with the serve
+  shard, or ``Serve2D``'s view under ``serve_2d``), traced once by
+  ``launch.op_analysis``: FLOPs and HBM bytes per rank (the eager port's
+  traffic: every op reads its operands and writes its result), the loop
+  trips, each hand kernel's launches, FLOPs and bytes, and the collectives'
+  ring-model wire bytes in the dtypes the port sends, on the routes of
+  NCCL (``BACKEND``: one rank a card);
+* ``roofline``: ``compute_s``, ``memory_s`` and ``collective_s`` of that
+  work at ``DEFAULT_HW``'s peak, HBM rate and NVLink rate, the
+  ``dominant`` term, ``step_s`` (the largest), ``model_flops`` (6 N T for
+  training, 2 N T otherwise, N the active parameters), ``ideal_s`` (that
+  work over the mesh's cards at the peak), ``traced_flops_global``,
+  ``useful_ratio`` and ``roofline_fraction`` (ideal over step);
+* ``status`` ``skip`` with ``cell_applicable``'s reason, or ``error`` with
+  the exception of a cell that cannot be reckoned or traced (one whose
+  step the port cannot run: heads that do not split over tp, ``serve_2d``
+  with fewer KV heads than tp; it keeps its argument bytes).
 
-Left out: the reference's ``cost``, ``collectives`` and its compute /
-memory / collective roofline terms and the temporary and output bytes of
-``memory_analysis``, which all come from XLA's compiled HLO.
+Not reckoned: the reference's ``xla_cost_analysis_*`` fields (XLA's own
+per-module counts, which have no counterpart without a compiler), and
+``alias_bytes`` (the port updates a train state in place, so its outputs
+are new storages only). A prefill cell runs without sequence
+parallelism (the port's SP is a training collective). The port's mesh
+steps run on a (data, model) mesh: on the pod mesh the trace folds the
+pod axis into ``data`` (``trace_mesh``), as those ranks would run it,
+while the argument bytes keep the reference's pod layout.
+
+``--save-trace DIR`` (the counterpart of ``--save-hlo``) writes each
+cell's op stream as gzipped JSON and names it in ``trace_file``;
+``launch.reanalyze`` re-runs the accounting over it.
 
 Usage (results cached in a JSON file keyed by ``cell_key``):
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -38,6 +68,7 @@ import json
 import math
 import os
 import time
+import traceback
 from typing import Any, Dict, Mapping, Optional
 
 import torch
@@ -48,11 +79,14 @@ from repro_torch.configs.base import ModelConfig, MorphMode, ShapeCell
 from repro_torch.core import elastic
 from repro_torch.core.neuroforge.hw import DEFAULT_HW
 from repro_torch.device import dtype_of
+from repro_torch.launch import op_analysis as OA
 from repro_torch.models.model import init_decode_cache, init_params
 from repro_torch.optim import OptimizerConfig, init_opt_state
 from repro_torch.parallel import sharding as SH
 
 RESULTS_DEFAULT = "build/dryrun.json"
+# the collectives' routes a trace records: one rank a card, over NCCL
+BACKEND = "nccl"
 META = torch.device("meta")
 
 
@@ -201,6 +235,75 @@ def _train_memory(cfg: ModelConfig, cell: ShapeCell, mesh, k: Knobs,
     return out
 
 
+def _train_pieces(cfg: ModelConfig, mesh, ocfg=None):
+    """The rank's training-layout pieces as meta tensors (params requiring
+    grad; with ``ocfg`` a train state ``{"params", "opt"}``), and the
+    params' ``grad_shardings``."""
+    from repro_torch.optim import trainable
+
+    params = init_params(cfg, device=META)
+    pspecs = SH.param_specs(params, cfg, mesh, "train")
+    pieces = trainable(SH.shard_tree(params, SH.shardings_for(pspecs, mesh,
+                                                              cfg)))
+    gsh = SH.shardings_for(pspecs, mesh)
+    if ocfg is None:
+        return pieces, gsh
+    return {"params": pieces, "opt": init_opt_state(pieces, ocfg)}, gsh
+
+
+def _sp_scope(mesh, on: bool):
+    import contextlib
+
+    return (SH.activation_sharding(mesh, SH.residual_specs(mesh, "train"))
+            if on else contextlib.nullcontext())
+
+
+def _trace_train(cfg: ModelConfig, cell: ShapeCell, mesh, k: Knobs, world
+                 ) -> OA.OpCost:
+    """One rank's train step (``make_train_step(grad_shardings=...)``)
+    traced on the global batch, which the step cuts to the rank's rows."""
+    from repro_torch.launch.steps import make_train_step
+
+    ocfg = OptimizerConfig(moment_dtype=k.moment_dtype or "float32")
+    state, gsh = _train_pieces(cfg, mesh, ocfg)
+    step = make_train_step(cfg, ocfg, microbatches=k.microbatches,
+                           remat=k.remat, grad_shardings=gsh,
+                           grad_dtype=k.grad_dtype)
+    batch = batch_struct(cfg, cell.global_batch, cell.seq_len)
+    with _sp_scope(mesh, k.sp):
+        return OA.trace(step, state, batch, world=world, backend=BACKEND)
+
+
+def _trace_prefill(cfg: ModelConfig, cell: ShapeCell, mesh, k: Knobs, world
+                   ) -> OA.OpCost:
+    """One rank's prompt pass (``make_prefill_step``) on its rows of the
+    batch, over ``train_view``'s FSDP gathers of the training layout and
+    the tensor-parallel collectives."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.parallel import tensor_parallel as TP
+
+    pieces, gsh = _train_pieces(cfg, mesh)
+    shard = SH.plan_serve_shard(cfg, mesh, n_slots=1)
+    sizes, coord = SH.axis_sizes(mesh), SH.mesh_coord(mesh)
+    dims = SH._map_specs(gsh, lambda p, sh: SH.train_reduction(
+        p, sh.spec, cfg, mesh).data_dim)
+    groups = mesh.mesh_dim_names
+    step = make_prefill_step(shard.cfg)
+    batch = batch_struct(cfg, cell.global_batch, cell.seq_len)
+    bspecs = SH.batch_specs(batch, mesh, "train")
+    batch = {n: SH.take(v, SH.spec_slices(v.shape, bspecs[n], sizes, coord))
+             for n, v in batch.items() if n != "targets"}
+
+    def run(params, batch):
+        comm = TP.ShardComm(
+            shard, mesh.get_group("model") if "model" in groups else None,
+            mesh.get_group("data") if "data" in groups else None)
+        with torch.no_grad(), TP.shard_context(comm):
+            return step(TP.train_view(params, comm, dims), batch)
+
+    return OA.trace(run, pieces, batch, world=world, backend=BACKEND)
+
+
 def _decode_memory(cfg_full: ModelConfig, cfg_exec: ModelConfig,
                    cell: ShapeCell, mesh, k: Knobs, mode, coord
                    ) -> Dict[str, int]:
@@ -223,14 +326,106 @@ def _decode_memory(cfg_full: ModelConfig, cfg_exec: ModelConfig,
             "tokens_bytes": tok_rows * 4}
 
 
+def _decode_args(cfg_full: ModelConfig, cfg_exec: ModelConfig,
+                 cell: ShapeCell, mesh, k: Knobs, mode):
+    """The rank's held params, its cache, its shard and the ``serve_2d``
+    plan's recipes (None under ``serve_tp``), as meta tensors."""
+    B = cell.global_batch
+    params_cfg = cfg_full if mode is not None else cfg_exec
+    params = init_params(params_cfg, device=META)
+    shard = SH.plan_serve_shard(cfg_exec, mesh, n_slots=B)
+    recipes = None
+    if k.policy == "serve_2d":
+        specs, recipes = SH.serve_2d_plan(params, shard, params_cfg, mesh)
+        held = SH.shard_params(params, specs, mesh)
+    else:
+        held = SH.shard_serve_params(params, SH.plan_serve_shard(
+            params_cfg, mesh, n_slots=B), params_cfg)
+    cache = init_decode_cache(shard.cfg, shard.slots[1], cell.seq_len,
+                              device=META)
+    return held, cache, shard, recipes
+
+
+def _trace_decode(cfg_full: ModelConfig, cfg_exec: ModelConfig,
+                  cell: ShapeCell, mesh, k: Knobs, mode, world
+                  ) -> OA.OpCost:
+    """One rank's decode step (``make_decode_fn``; at the full mode with
+    every slot's width operand at 1.0, as the engines serve) under
+    ``MeshStep``: the tokens cut to the rank's slots, the step on the shard,
+    its logits gathered over ``data``; under ``serve_2d`` on ``Serve2D``'s
+    view of the held params."""
+    from repro_torch.launch.steps import make_decode_fn
+    from repro_torch.parallel import tensor_parallel as TP
+
+    held, cache, shard, recipes = _decode_args(cfg_full, cfg_exec, cell,
+                                               mesh, k, mode)
+    groups = mesh.mesh_dim_names
+    B = cell.global_batch
+    tokens = torch.empty((B, 1), dtype=torch.int32, device=META)
+    if mode is None:
+        fn = make_decode_fn(shard.cfg)
+        active = elastic.active_widths_batch(cfg_exec, [1.0] * B,
+                                             device=META)
+        args = (held, cache, tokens, active)
+    else:
+        fn = make_decode_fn(shard.cfg, mode)
+        args = (held, cache, tokens)
+
+    def run(*args):
+        comm = TP.ShardComm(
+            shard, mesh.get_group("model") if "model" in groups else None,
+            mesh.get_group("data") if "data" in groups else None)
+        if recipes is not None:
+            comm.serve2d = TP.Serve2D(recipes, comm.data_group, shard.dp,
+                                      False)
+        return TP.MeshStep(fn, comm)(*args)
+
+    with torch.no_grad():
+        return OA.trace(run, *args, world=world, backend=BACKEND)
+
+
 # ---------------------------------------------------------------------------
 # cell runner
 # ---------------------------------------------------------------------------
 
 
+def apply_cost(rec: Dict[str, Any], cost: OA.OpCost, chips: int,
+               hw=DEFAULT_HW) -> None:
+    """Write an ``OpCost``'s ``cost``, ``collectives`` and roofline terms
+    into a cell's record (``rec["roofline"]["model_flops"]`` set), as the
+    reference's dry-run and reanalyze do."""
+    rec["cost"] = {"flops_per_device": cost.flops,
+                   "bytes_per_device": cost.bytes,
+                   "loop_trips": list(cost.loop_trips),
+                   "per_kernel": {n: dict(v)
+                                  for n, v in cost.per_kernel.items()}}
+    rec["collectives"] = {"wire_bytes_per_chip": cost.coll_wire_bytes,
+                          "result_bytes": cost.coll_result_bytes,
+                          "per_op_bytes": dict(cost.per_op_bytes),
+                          "per_op_count": dict(cost.per_op_count)}
+    compute_s = cost.flops / hw.peak_flops
+    memory_s = cost.bytes / hw.hbm_bw
+    coll_s = cost.coll_wire_bytes / hw.ici_bw
+    r = rec["roofline"]
+    model_flops = r["model_flops"]
+    traced_global = cost.flops * chips
+    step = max(compute_s, memory_s, coll_s)
+    ideal = model_flops / (chips * hw.peak_flops)
+    r.update(compute_s=compute_s, memory_s=memory_s, collective_s=coll_s,
+             dominant=max(("compute", compute_s), ("memory", memory_s),
+                          ("collective", coll_s), key=lambda kv: kv[1])[0],
+             traced_flops_global=traced_global,
+             useful_ratio=model_flops / traced_global if traced_global
+             else 0.0,
+             ideal_s=ideal, step_s=step,
+             roofline_fraction=ideal / step if step > 0 else 0.0,
+             hw=hw.name)
+
+
 def run_cell(arch: str, shape: str, multi_pod: bool, knobs: Knobs,
              mesh: Optional[Mapping[str, int]] = None,
-             debug_mesh: bool = False) -> Dict[str, Any]:
+             debug_mesh: bool = False,
+             trace_dir: Optional[str] = None) -> Dict[str, Any]:
     cell = SHAPE_BY_NAME[shape]
     cfg = resolve_cfg(arch, knobs)
     ok, why = cell_applicable(cfg, cell)
@@ -265,17 +460,54 @@ def run_cell(arch: str, shape: str, multi_pod: bool, knobs: Knobs,
         return rec
     rec["time_reckon_s"] = round(time.time() - t0, 3)
     mem["argument_bytes"] = sum(mem.values())
-    mem["fits_80gb"] = bool(mem["argument_bytes"] <= DEFAULT_HW.hbm_bytes)
-    rec["memory"] = mem
+    rec["memory"] = mem  # kept by a cell whose step cannot be traced
+    from repro_torch.models.layers import set_bf16_grad_matmul
+    from repro_torch.parallel.collectives import TraceMesh
+
+    # the port's mesh steps run on (data, model): a pod axis folds into
+    # data (its ranks and the data axis's form one data-parallel group)
+    folded = {"data": math.prod(sizes[a] for a in SH.data_axes(sizes))}
+    if "model" in sizes:
+        folded["model"] = sizes["model"]
+    tmesh = TraceMesh(folded)
+    rec["trace_mesh"] = folded
+    t0 = time.time()
+    set_bf16_grad_matmul(k.bf16_grad_matmul)
+    try:
+        if cell.kind == "train":
+            cost = _trace_train(cfg_exec, cell, tmesh, k, chips)
+        elif cell.kind == "prefill":
+            cost = _trace_prefill(cfg_exec, cell, tmesh, k, chips)
+        else:
+            cost = _trace_decode(cfg, cfg_exec, cell, tmesh, k, mode, chips)
+    except Exception as e:  # noqa: BLE001 — record and continue the sweep
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   trace=traceback.format_exc()[-2000:])
+        return rec
+    finally:
+        set_bf16_grad_matmul(False)
+    rec["time_trace_s"] = round(time.time() - t0, 3)
+    rec["backend"] = BACKEND
+    mem.update(temp_bytes=cost.peak_temp_bytes, output_bytes=cost.output_bytes)
+    mem["live_bytes_per_device"] = (mem["argument_bytes"] + mem["temp_bytes"]
+                                    + mem["output_bytes"])
+    mem["fits_80gb"] = bool(mem["live_bytes_per_device"]
+                            <= DEFAULT_HW.hbm_bytes)
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        fn = f"{arch}__{shape}__{mesh_name}__{knobs.key()}.trace.json.gz"
+        OA.save_events(os.path.join(trace_dir, fn), cost,
+                       {"arch": arch, "shape": shape, "mesh": mesh_name,
+                        "world": chips, "backend": BACKEND})
+        rec["trace_file"] = fn
     tokens = cell.global_batch * (cell.seq_len if cell.kind != "decode"
                                   else 1)
     n_active = cfg_exec.n_active_params()
     if mode is not None:
         n_active = int(n_active * mode.depth / cfg_exec.n_groups)
     model_flops = (6.0 if cell.kind == "train" else 2.0) * n_active * tokens
-    rec["roofline"] = {"model_flops": model_flops,
-                       "ideal_s": model_flops / (chips * DEFAULT_HW.peak_flops),
-                       "hw": DEFAULT_HW.name}
+    rec["roofline"] = {"model_flops": model_flops}
+    apply_cost(rec, cost, chips)
     rec["status"] = "ok"
     return rec
 
@@ -329,6 +561,8 @@ def main(argv=None):
     ap.add_argument("--no-sp", action="store_true")
     ap.add_argument("--debug-mesh", action="store_true",
                     help="the 8-rank debug mesh: (2, 4) or (2, 2, 2)")
+    ap.add_argument("--save-trace", default="",
+                    help="write each cell's op stream (gzipped JSON) here")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -365,7 +599,8 @@ def main(argv=None):
                     continue
                 print(f"[run] {arch} x {shape} x {mesh_name} ...", flush=True)
                 rec = run_cell(arch, shape, multi, knobs,
-                               debug_mesh=args.debug_mesh)
+                               debug_mesh=args.debug_mesh,
+                               trace_dir=args.save_trace or None)
                 rec["tag"] = args.tag
                 results[key] = rec
                 save_results(args.out, results)
@@ -376,9 +611,15 @@ def main(argv=None):
                 if st == "ok":
                     m, r = rec["memory"], rec["roofline"]
                     print(f"  ok: args={m['argument_bytes'] / 1e9:.3f}GB "
+                          f"live={m['live_bytes_per_device'] / 1e9:.3f}GB "
                           f"per rank fits_80gb={m['fits_80gb']} "
-                          f"model_flops={r['model_flops']:.3e} "
-                          f"ideal={r['ideal_s'] * 1e3:.2f}ms", flush=True)
+                          f"dom={r['dominant']} compute="
+                          f"{r['compute_s'] * 1e3:.2f}ms memory="
+                          f"{r['memory_s'] * 1e3:.2f}ms coll="
+                          f"{r['collective_s'] * 1e3:.2f}ms "
+                          f"ideal={r['ideal_s'] * 1e3:.2f}ms frac="
+                          f"{r['roofline_fraction']:.4f} (trace "
+                          f"{rec['time_trace_s']:.1f} s)", flush=True)
                 elif st == "skip":
                     print(f"  skip: {rec['reason']}")
                 else:

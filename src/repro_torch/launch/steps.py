@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig, MorphMode
 from repro_torch.core import elastic
 from repro_torch.data.pipeline import to_device
 from repro_torch.device import dtype_of
+from repro_torch.launch.op_analysis import loop_range
 from repro_torch.models.model import decode_step as _decode_step
 from repro_torch.models.model import init_params, loss_fn, prefill
 from repro_torch.optim import (OptimizerConfig, apply_updates, grads_of,
@@ -90,7 +91,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
                              params)
             l_sum = torch.zeros((), dtype=torch.float32,
                                 device=params["embed"].device)
-            for i in range(microbatches):
+            for i in loop_range(microbatches):
                 loss, grads = mb_grads(params, {k: v[i] for k, v in mbs.items()})
                 tree_map(lambda a, g: a.add_(g.float()), g_sum, grads)
                 l_sum += loss
@@ -106,8 +107,7 @@ def make_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, *,
 
 def _mesh_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, microbatches,
                      remat, sched, grad_shardings, gdt) -> Callable:
-    import torch.distributed as dist
-
+    from repro_torch.parallel import collectives as C
     from repro_torch.parallel import sharding as SH
     from repro_torch.parallel import tensor_parallel as TP
 
@@ -158,7 +158,7 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, microbatches,
 
     def setup(params, batch):
         dev = params["embed"].device
-        stage = dist.get_backend() == "gloo" and dev.type == "cuda"
+        stage = C.backend() == "gloo" and dev.type == "cuda"
         sp = tp > 1 and SH.sequence_parallel()
         if sp not in plans:
             plans[sp] = step_plan(sp)
@@ -208,7 +208,7 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, microbatches,
             g_sum = tree_map(lambda a: torch.zeros_like(a, dtype=torch.float32),
                              params)
             l_sum = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(microbatches):
+            for i in loop_range(microbatches):
                 loss, grads = mb_grads({k: v[i] for k, v in mbs.items()})
                 tree_map(lambda a, g: a.add_(g.float()), g_sum, grads)
                 l_sum += loss
@@ -217,7 +217,7 @@ def _mesh_train_step(cfg: ModelConfig, ocfg: OptimizerConfig, microbatches,
             loss = l_sum / microbatches
         params, opt, metrics = apply_updates(
             params, grads, opt, ocfg, sched(opt.step),
-            replicas=replicas if dist.get_world_size() > 1 else None)
+            replicas=replicas if C.world_size() > 1 else None)
         return {"params": params, "opt": opt}, {"loss": loss, **metrics}
 
     train_step.grads = grads
@@ -238,10 +238,13 @@ def make_prefill_step(cfg: ModelConfig, *, remat: str = "none") -> Callable:
 
 
 def make_decode_fn(cfg: ModelConfig, mode: Optional[MorphMode] = None) -> Callable:
-    """serve_step: one token for every sequence in the batch."""
+    """serve_step: one token for every sequence in the batch. At the full
+    mode it takes the serving engines' per-slot width operand too
+    (``active``, ``elastic.active_widths_batch``), which routes each
+    projection through the ``morph_matmul`` kernel."""
     if mode is None or (mode.width == 1.0 and mode.depth == cfg.n_groups):
-        def serve_step(params, cache, tokens):
-            return _decode_step(params, cache, tokens, cfg)
+        def serve_step(params, cache, tokens, active=None):
+            return _decode_step(params, cache, tokens, cfg, active=active)
     else:
         def serve_step(params, cache, tokens):
             return elastic.morph_decode_step(params, cache, tokens, cfg, mode)

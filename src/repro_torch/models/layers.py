@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import dtype_of
+from repro_torch.kernels import on_card
 
 NEG_INF = -1e9
 
@@ -345,7 +346,7 @@ def mha(params, x, cfg: ModelConfig, positions, *, kv_x=None,
     # chosen here, before any launch.
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
-    if impl == "chunked" and q.device.type == "cuda" and not grad:
+    if impl == "chunked" and on_card(q) and not grad:
         # The flash kernel masks by index, not by ``positions``. That is the
         # same mask in two cases: a sequence over its own keys (the prompt
         # pass numbers its tokens 0..S-1, ``model._embed_inputs``), and an
@@ -537,7 +538,7 @@ def _cross_decode(params, x, cache, pos, cfg: ModelConfig, active):
     q = morph_proj(x, params["wq"], active_n=a_q)  # (B, 1, H * hd)
     k, v = cache["k"], cache["v"]
     Se = k.shape[2]
-    if x.device.type == "cuda":
+    if on_card(x):
         if cfg.sliding_window:
             raise ValueError("the flash_decode kernel masks by kv_len; a "
                              "windowed cross-attention has no kernel route")

@@ -74,18 +74,18 @@ def global_norm(tree, replicas=None, group=None) -> torch.Tensor:
     if replicas is None:
         return torch.sqrt(sum(torch.sum(torch.square(a.float()))
                               for a in _leaves(tree)))
-    import torch.distributed as dist
+    from repro_torch.parallel import collectives as C
 
     reps = dict(leaves_with_path(replicas))
     total = sum(torch.sum(torch.square(a.float())) / reps[p] if reps[p] > 1
                 else torch.sum(torch.square(a.float()))
                 for p, a in leaves_with_path(tree))
-    if dist.get_backend(group) == "gloo" and total.is_cuda:
+    if C.backend(group) == "gloo" and total.is_cuda:
         host = total.cpu()
-        dist.all_reduce(host, group=group)
+        C.all_reduce(host, group=group)
         total = host.to(total.device)
     else:
-        dist.all_reduce(total, group=group)
+        C.all_reduce(total, group=group)
     return torch.sqrt(total)
 
 

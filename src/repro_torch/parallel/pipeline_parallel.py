@@ -18,7 +18,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.distributed as dist
+
+from repro_torch.parallel import collectives as C
 
 
 def bubble_fraction(n_micro: int, n_stages: int) -> float:
@@ -36,8 +37,8 @@ def pipeline_apply(stage_params, x: torch.Tensor, fn: Callable, mesh, *,
     microbatches; ``fn`` keeps each microbatch's shape. Returns the output
     after every stage has processed every microbatch, on every rank."""
     group = mesh.get_group(axis)
-    n_stages = dist.get_world_size(group)
-    s = dist.get_group_rank(group, dist.get_rank())
+    n_stages = C.world_size(group)
+    s = C.group_rank(group)
     B = x.shape[0]
     if B % n_micro:
         raise ValueError(f"batch {B} does not split into {n_micro} "
@@ -45,10 +46,10 @@ def pipeline_apply(stage_params, x: torch.Tensor, fn: Callable, mesh, *,
     xs = x.reshape((n_micro, B // n_micro) + tuple(x.shape[1:]))
     params_me = (stage_params[0] if isinstance(stage_params, torch.Tensor)
                  else {k: v[0] for k, v in stage_params.items()})
-    stage = dist.get_backend(group) == "gloo" and x.is_cuda
+    stage = C.backend(group) == "gloo" and x.is_cuda
 
     def peer(i):
-        return dist.get_global_rank(group, i)
+        return C.global_rank(group, i)
 
     outputs = torch.zeros_like(xs)
     for t in range(n_micro + n_stages - 1):
@@ -59,14 +60,14 @@ def pipeline_apply(stage_params, x: torch.Tensor, fn: Callable, mesh, *,
             h = xs[m]
         else:
             h = torch.empty_like(xs[m], device="cpu" if stage else x.device)
-            dist.recv(h, src=peer(s - 1), group=group)
+            C.recv(h, src=peer(s - 1), group=group)
             h = h.to(x.device)
         h = fn(params_me, h)
         if s < n_stages - 1:
-            dist.send(h.cpu() if stage else h.contiguous(), dst=peer(s + 1),
-                      group=group)
+            C.send(h.cpu() if stage else h.contiguous(), dst=peer(s + 1),
+                   group=group)
         else:
             outputs[m] = h
     out = outputs.cpu() if stage else outputs
-    dist.broadcast(out, src=peer(n_stages - 1), group=group)
+    C.broadcast(out, src=peer(n_stages - 1), group=group)
     return out.to(x.device).reshape(x.shape)

@@ -73,6 +73,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel import collectives as C
 from repro_torch.parallel.sharding import (_ACTIVE_KEYS, ServeShard,
                                            Serve2DLeaf, Sharding, _at)
 from repro_torch.parallel.sharding import _map_with_path as _walk
@@ -96,7 +97,7 @@ class ShardComm:
         self.sp = sp and train and shard.tp > 1  # sequence parallelism
         self.grad_dtype = grad_dtype
         self.nccl = (model_group is not None or data_group is not None) \
-            and dist.get_backend() == "nccl"
+            and C.backend() == "nccl"
 
     def over(self, model_group, data_group) -> "ShardComm":
         """The same shard over other process groups (``serve_2d``'s
@@ -160,12 +161,12 @@ def _all_reduce(t: torch.Tensor, group, stage: bool,
     if stage and t.is_cuda:
         t0 = time.perf_counter()
         h = t.cpu()
-        dist.all_reduce(h, op=op, group=group)
+        C.all_reduce(h, op=op, group=group)
         t.copy_(h)
         _STAGED["s"] += time.perf_counter() - t0
         _STAGED["n"] += 1
     else:
-        dist.all_reduce(t, op=op, group=group)
+        C.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -175,7 +176,7 @@ def _all_gather(t: torch.Tensor, group, n: int, stage: bool,
     t0 = time.perf_counter()
     src = t.cpu() if staged else t.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=group)
+    C.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim).to(t.device)
     if staged:
         _STAGED["s"] += time.perf_counter() - t0
@@ -197,7 +198,7 @@ def _reduce_scatter(x: torch.Tensor, group, n: int, idx: int, stage: bool,
     if nccl:
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-        dist.reduce_scatter_tensor(out, src, group=group)
+        C.reduce_scatter_tensor(out, src, group=group)
         return out.movedim(0, dim)
     y = _all_reduce(x.clone(), group, stage)
     k = x.shape[dim] // n
@@ -443,7 +444,7 @@ def _gather_sharded(piece: torch.Tensor, s: Sharding, mesh,
         raise ValueError(f"{'/'.join(s.keys)}: gathering a training-layout "
                          f"leaf needs its full shape "
                          f"(sharding.train_state_shardings)")
-    world = dist.get_world_size()
+    world = C.world_size()
     parts = _all_gather(piece.unsqueeze(0), None, world, stage, dim=0)
     full = torch.empty(s.shape, dtype=piece.dtype, device=piece.device)
     grid = mesh.mesh
@@ -466,7 +467,7 @@ def gather_tree(tree, specs, mesh):
     ``specs`` may hold ``sharding.Sharding`` leaves (with their full
     shapes), and then a leaf is rebuilt from every rank's piece under its
     layout; dataclasses (an ``OptState``) are walked like dicts."""
-    stage = dist.get_backend() == "gloo"
+    stage = C.backend() == "gloo"
 
     def leaf(t, spec):
         for dim, ax in enumerate(spec):
@@ -545,12 +546,12 @@ class _GatherSet:
                 hsend = self._buf(("hsend", dt), (n,), x0, host=True)
                 hrecv = self._buf(("hrecv", dt), (own.dp, n), x0, host=True)
                 hsend.copy_(send)
-                dist.all_gather(list(hrecv.unbind(0)), hsend,
-                                group=own.data_group)
+                C.all_gather(list(hrecv.unbind(0)), hsend,
+                             group=own.data_group)
                 recv.copy_(hrecv, non_blocking=True)
             else:
-                dist.all_gather(list(recv.unbind(0)), send,
-                                group=own.data_group)
+                C.all_gather(list(recv.unbind(0)), send,
+                             group=own.data_group)
             off = 0
             for p in paths:
                 piece, rec = pieces[p], own.recipes[p]

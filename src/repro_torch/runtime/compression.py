@@ -69,12 +69,14 @@ def compressed_psum(grads, error_buf, group=None):
     is unbiased."""
     import torch.distributed as dist
 
-    n = dist.get_world_size(group)
-    stage = dist.get_backend(group) == "gloo"
+    from repro_torch.parallel import collectives as C
+
+    n = C.world_size(group)
+    stage = C.backend(group) == "gloo"
 
     def reduce(t, op):
         h = t.cpu() if stage and t.is_cuda else t
-        dist.all_reduce(h, op=op, group=group)
+        C.all_reduce(h, op=op, group=group)
         return h.to(t.device)
 
     def one(g, e):

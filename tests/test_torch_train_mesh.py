@@ -32,8 +32,11 @@ the CPU.
   decode_32k on the (2, 4) debug mesh), the one documented departure
   (``ROADMAP.md`` C: the SSM per-head vectors ``w_dt``, ``A_log``, ``D``,
   ``dt_bias`` held as the rank's slice over ``model``, which the
-  reference replicates) counted leaf by leaf; ``model_flops``; the skip
-  reasons; the CLI writing its JSON.
+  reference replicates) counted leaf by leaf; ``model_flops``; the cost,
+  collectives and roofline terms of the op-trace walker, consistent; the
+  skip reasons; the CLI writing its JSON.
+* Rank 0's real collectives over one step (``tinyllama`` and
+  ``mamba2_mb2_sp``) against the walker's gloo trace of that step.
 """
 import functools
 import json
@@ -287,6 +290,40 @@ def test_mesh_step_matches_jax_single_device_step(mesh_run, case):
         assert (err <= tol).all(), (name, path, float(err.max()))
 
 
+@pytest.mark.parametrize("name", R.COUNTED)
+def test_traced_collectives_are_the_ranks_real_ones(mesh_run, name):
+    """Rank 0's real ``torch.distributed`` calls over one step against the
+    op-trace walker's ``backend="gloo"`` trace of the same step (rank 0's
+    coordinate, microbatches traced once and multiplied), costed by the
+    reference's ring model."""
+    from repro.launch.hlo_analysis import _wire_bytes
+    from repro_torch.launch import op_analysis as OA
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.parallel.collectives import TraceMesh
+
+    _, arch, (dp, tp), mb, gdt, sp = next(c for c in R.CASES
+                                          if c[0] == name)
+    calls = mesh_run[name]["dist_calls"]
+    count, nbytes = {}, {}
+    for op, rb, g in calls:
+        count[op] = count.get(op, 0) + 1
+        nbytes[op] = nbytes.get(op, 0.0) + _wire_bytes(op, rb, g)
+    cfg, ocfg = smoke_config(arch), TO.OptimizerConfig(lr=R.LR)
+    mesh = TraceMesh({"data": dp, "model": tp})
+    state, gsh = DRY._train_pieces(cfg, mesh, ocfg)
+    step = make_train_step(cfg, ocfg, microbatches=mb, remat="none",
+                           grad_shardings=gsh, grad_dtype=gdt)
+    batch = {k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype,
+                            device="meta") for k, v in _batch(arch).items()}
+    with R._sp(mesh, sp):
+        cost = OA.trace(step, state, batch, world=dp * tp, backend="gloo")
+    assert cost.loop_trips == ([mb] if mb > 1 else [])
+    assert count and dict(cost.per_op_count) == count
+    assert set(cost.per_op_bytes) == set(nbytes)
+    for op, b in nbytes.items():
+        np.testing.assert_allclose(cost.per_op_bytes[op], b, rtol=1e-12)
+
+
 def test_state_saved_at_2x2_restores_at_4x1(mesh_run):
     r = mesh_run["restart"]
     assert r["restored_equals_cut"] and r["meta_step"] == 2
@@ -376,8 +413,11 @@ def test_dryrun_argument_bytes_match_the_reference_specs(arch, shape):
         assert mem["tokens_bytes"] == cell.global_batch // sizes["data"] * 4
     assert mem["argument_bytes"] == sum(
         v for k, v in mem.items() if k.endswith("_bytes")
-        and k != "argument_bytes")
-    assert mem["fits_80gb"] == (mem["argument_bytes"] <= 80e9)
+        and k not in ("argument_bytes", "temp_bytes", "output_bytes",
+                      "live_bytes_per_device"))
+    assert mem["live_bytes_per_device"] == (
+        mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"])
+    assert mem["fits_80gb"] == (mem["live_bytes_per_device"] <= 80e9)
 
 
 def test_dryrun_model_flops_and_skips():
@@ -392,7 +432,24 @@ def test_dryrun_model_flops_and_skips():
         "tinyllama-1.1b").n_active_params() * cell.global_batch * cell.seq_len
     np.testing.assert_allclose(rec["roofline"]["ideal_s"],
                                flops / (8 * 989e12), rtol=1e-12)
-    assert "cost" not in rec and "collectives" not in rec
+    assert rec["cost"]["flops_per_device"] > 0
+    assert rec["cost"]["loop_trips"] == [rec["resolved_knobs"][
+        "microbatches"]]
+    col = rec["collectives"]
+    assert col["wire_bytes_per_chip"] == pytest.approx(
+        sum(col["per_op_bytes"].values()))
+    r = rec["roofline"]
+    np.testing.assert_allclose(r["compute_s"],
+                               rec["cost"]["flops_per_device"] / 989e12)
+    np.testing.assert_allclose(r["memory_s"],
+                               rec["cost"]["bytes_per_device"] / 3.35e12)
+    np.testing.assert_allclose(r["collective_s"],
+                               col["wire_bytes_per_chip"] / 450e9)
+    assert r["step_s"] == max(r["compute_s"], r["memory_s"],
+                              r["collective_s"])
+    assert r["dominant"] in ("compute", "memory", "collective")
+    np.testing.assert_allclose(r["roofline_fraction"],
+                               r["ideal_s"] / r["step_s"])
     from repro.configs import cell_applicable as jax_applicable
     skip = DRY.run_cell("tinyllama-1.1b", "long_500k", False, knobs,
                         debug_mesh=True)

@@ -7,8 +7,10 @@ reads ``DIR/inputs.pt`` (every case's converted parameters and its batch),
 starts 4 ranks rendezvousing through a fresh ``DIR/train_mesh.store`` and
 has rank 0 write ``DIR/train_mesh.pt``: for each case of ``CASES`` the
 loss, the gradients before the optimizer and the parameters after one
-step, all gathered to full tensors; and a state saved at (2, 2) and
-restored at (4, 1). Nothing here imports JAX.
+step, all gathered to full tensors; for the cases of ``COUNTED`` every
+``torch.distributed`` collective rank 0 made in that step, as (op, result
+bytes, group size); and a state saved at (2, 2) and restored at (4, 1).
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -30,6 +32,38 @@ CASES = (
     ("whisper_sp", "whisper-base", (2, 2), 1, "float32", True),
     ("internvl", "internvl2-2b", (2, 2), 1, "float32", False),
 )
+# the cases whose collectives rank 0 records (held to the op-trace walker)
+COUNTED = ("tinyllama", "mamba2_mb2_sp")
+_DIST_CALLS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "broadcast": "broadcast", "send": "send", "recv": "recv"}
+
+
+@contextlib.contextmanager
+def _counting(calls):
+    """Record each ``torch.distributed`` collective made inside as (op,
+    result bytes, group size): an all-gather's result is every part."""
+    import torch.distributed as dist
+
+    orig = {n: getattr(dist, n) for n in _DIST_CALLS}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            group = kwargs.get("group")
+            ts = args[0] if name == "all_gather" else [args[0]]
+            calls.append((_DIST_CALLS[name],
+                          sum(t.numel() * t.element_size() for t in ts),
+                          dist.get_world_size(group)))
+            return orig[name](*args, **kwargs)
+        return call
+
+    for n in orig:
+        setattr(dist, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in orig.items():
+            setattr(dist, n, f)
 
 
 def _mesh(dp, tp):
@@ -69,10 +103,14 @@ def _case(inp, name, arch, shape, mb, gdt, sp):
                               lr_schedule=warmup_cosine(1.0, 2, 10))
     shards = SH.train_state_shardings(cfg, ocfg, mesh)
     batch = inp["batch"][arch]
+    calls = []
     with _sp(mesh, sp):
         gloss, grads = step.grads(state["params"], batch)
-        state, m = step(state, batch)
-    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+        with (_counting(calls) if name in COUNTED
+              else contextlib.nullcontext()):
+            state, m = step(state, batch)
+    return {"dist_calls": calls, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
             "lr": float(m["lr"]), "grads_loss": float(gloss),
             "grads": TP.gather_tree(grads, shards["params"], mesh),
             "params": TP.gather_tree(
